@@ -1,0 +1,208 @@
+"""UNet for binary segmentation, as PyTorch modules.
+
+Counterpart of ``distributedpytorch_tpu/models/unet.py``: a 4-down/4-up
+UNet with channel widths 3→32→64→128→256, a 256→512 mid block, a
+symmetric decoder with skip concatenation, a 1×1 segmentation head and a
+float32 sigmoid. 7,760,097 parameters at the reference widths.
+
+* The public boundary keeps the JAX layout: ``forward`` takes
+  ``(B, H, W, C)`` and returns ``(B, H, W, n_classes)``. Inside, the
+  permuted input is an NCHW tensor in ``channels_last`` memory, which is
+  the layout cuDNN's tensor-core convolutions prefer.
+* Attribute names make ``state_dict()`` keys the reference's own
+  (``encoder.conv{i}.conv_block.{0,2}``, ``mid.conv_block.{0,2}``,
+  ``decoder.deconv{i}``, ``decoder.conv{i}.conv_block.{0,2}``,
+  ``segmap``), so a reference ``.pth`` loads with ``load_state_dict``.
+* Parameters are float32; convolutions compute in ``dtype`` (bf16 by
+  default) with the weights cast at the call, as flax does for
+  ``nn.Conv(dtype=...)``. Convs, max-pool and the transposed conv go to
+  cuDNN through ``torch.nn.functional``.
+* The space-to-depth execution mode of the JAX package is a TPU layout
+  rewrite of the same function; the port runs the pixel path only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
+
+# Channel plan of the reference model (the mid block doubles the last).
+ENCODER_WIDTHS = (32, 64, 128, 256)
+
+
+def center_crop(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+    """Center crop of an NCHW tensor to ``(H, W) = target_hw`` (a slice)."""
+    h, w = x.shape[2], x.shape[3]
+    th, tw = target_hw
+    dh, dw = (h - th) // 2, (w - tw) // 2
+    return x[:, :, dh : dh + th, dw : dw + tw]
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled so the variance is ``1 / fan_in``."""
+    # 0.8796… is the std of a unit normal truncated to [-2, 2]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose float32 weights are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose float32 weights are cast to the input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class ConvBlock(nn.Module):
+    """[Conv3×3(pad=1) → ReLU] × 2; parameters at ``conv_block.{0,2}``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv_block = nn.Sequential(
+            Conv2d(in_features, features, 3, padding=1),
+            nn.ReLU(),
+            Conv2d(features, features, 3, padding=1),
+            nn.ReLU(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_block(x)
+
+
+class Encoder(nn.Module):
+    """Conv blocks with a 2×2 max-pool after each; returns the pooled
+    bottleneck input and the skips, shallow first."""
+
+    def __init__(self, widths: Sequence[int] = ENCODER_WIDTHS):
+        super().__init__()
+        self.n_levels = len(widths)
+        in_feats = 3  # RGB
+        for i, w in enumerate(widths):
+            self.add_module(f"conv{i + 1}", ConvBlock(in_feats, w))
+            in_feats = w
+
+    def level(self, x: torch.Tensor, i: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Encoder level ``i``: conv block + pool → (pooled, skip)."""
+        skip = getattr(self, f"conv{i + 1}")(x)
+        return F.max_pool2d(skip, 2, 2), skip
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        skips: List[torch.Tensor] = []
+        for i in range(self.n_levels):
+            x, skip = self.level(x, i)
+            skips.append(skip)
+        return x, tuple(skips)
+
+
+class Decoder(nn.Module):
+    """Per level: ConvTranspose(k=2, s=2) → center-crop skip → concat
+    ``[skip, up]`` → conv block. ``widths`` run deep to shallow; the
+    input is the mid block's ``2 * widths[0]`` channels."""
+
+    def __init__(self, widths: Sequence[int] = tuple(reversed(ENCODER_WIDTHS))):
+        super().__init__()
+        self.n_levels = len(widths)
+        logical_in = 2 * widths[0]
+        for i, w in enumerate(widths):
+            self.add_module(f"deconv{i + 1}",
+                            ConvTranspose2d(logical_in, w, 2, stride=2))
+            self.add_module(f"conv{i + 1}", ConvBlock(2 * w, w))
+            logical_in = w
+
+    def level(self, x: torch.Tensor, skip: torch.Tensor, i: int
+              ) -> torch.Tensor:
+        x = getattr(self, f"deconv{i + 1}")(x)
+        skip = center_crop(skip, (x.shape[2], x.shape[3]))
+        x = torch.cat([skip, x], dim=1)
+        return getattr(self, f"conv{i + 1}")(x)
+
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
+                ) -> torch.Tensor:
+        # skips arrive encoder-ordered (shallow→deep); consume deepest first
+        for i in range(self.n_levels):
+            x = self.level(x, skips[len(skips) - 1 - i], i)
+        return x
+
+
+class UNet(nn.Module):
+    """Encoder → mid ConvBlock → Decoder → 1×1 head → float32 sigmoid.
+
+    Input ``(B, H, W, 3)`` float, output ``(B, H, W, n_classes)``
+    float32 probabilities. ``generator`` seeds the flax-style init
+    (lecun-normal kernels, zero biases)."""
+
+    def __init__(
+        self,
+        n_classes: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+        widths: Sequence[int] = ENCODER_WIDTHS,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.widths = tuple(widths)
+        self.encoder = Encoder(self.widths)
+        self.mid = ConvBlock(self.widths[-1], 2 * self.widths[-1])
+        self.decoder = Decoder(tuple(reversed(self.widths)))
+        self.segmap = Conv2d(self.widths[0], n_classes, 1)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        for module in self.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+                kh, kw = module.kernel_size
+                # flax counts fan-in over (kh, kw, in_features) for both
+                # conv kinds; torch stores ConvTranspose as (I, O, kh, kw)
+                in_feats = (module.in_channels
+                            if isinstance(module, nn.ConvTranspose2d)
+                            else module.weight.shape[1])
+                lecun_normal_(module.weight, kh * kw * in_feats, generator)
+                nn.init.zeros_(module.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, skips = self.encode_mid(x)
+        return self.decode_head(x, skips)
+
+    def encode_mid(self, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Stage 0 of the 2-stage cut: NHWC input → encoder + mid block."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x, skips = self.encoder(x)
+        return self.mid(x), skips
+
+    def decode_head(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
+                    ) -> torch.Tensor:
+        """Stage 1: decoder + 1×1 head + sigmoid in ``LOSS_DTYPE`` (bf16
+        resolution near 0/1 would poison a log-based loss), NHWC out."""
+        x = self.segmap(self.decoder(x, skips))
+        return torch.sigmoid(x.to(LOSS_DTYPE)).permute(0, 2, 3, 1)
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

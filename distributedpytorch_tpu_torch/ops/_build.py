@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface, for Hopper (``sm_90a``). No PyTorch
+header is included, so a build takes seconds, not minutes. Libraries land
+in ``_build/`` inside the package (listed in ``.gitignore``), named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads what an earlier process built.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+#: Every kernel source of the port, one shared library each.
+SOURCES = ("serve_mask",)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$PATH`` first, then ``$CUDA_HOME/bin``
+    (default ``/usr/local/cuda``). Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin — the port's CUDA "
+        "kernels build from csrc/ at first use and need the CUDA toolkit"
+    )
+
+
+def source_path(name: str) -> Path:
+    return CSRC_DIR / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library goes: keyed by the source text and flags."""
+    digest = hashlib.sha256(source_path(name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Build every library of ``names`` not built yet, one ``nvcc`` per
+    source, all started together; returns ``{name: library path}``.
+    Each output is written under a temporary name and renamed into
+    place, so a concurrent reader never loads half a file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.is_file():
+            continue
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            nvcc_command(name, tmp),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{source_path(name)}:\n{out}{err}")
+            continue
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _loaded[name] = lib
+        return lib
