@@ -1,6 +1,7 @@
-"""``python -m distributedpytorch_tpu_torch serve ...`` → the serving tier
-on the card (serve/cli.py). Training, the default of the JAX package's
-entry point, is not ported yet."""
+"""``python -m distributedpytorch_tpu_torch [-t singleGPU] ...`` trains on
+the card (cli.py), as the JAX package's entry point does;
+``python -m distributedpytorch_tpu_torch serve ...`` serves
+(serve/cli.py)."""
 
 import sys
 
@@ -11,10 +12,9 @@ def main(argv=None) -> int:
         from distributedpytorch_tpu_torch.serve.cli import main as serve_main
 
         return serve_main(argv[1:])
-    raise SystemExit(
-        "training is not ported yet — the PyTorch port serves only: "
-        "python -m distributedpytorch_tpu_torch serve -c <checkpoint.pth>"
-    )
+    from distributedpytorch_tpu_torch.cli import main as train_main
+
+    return train_main(argv)
 
 
 if __name__ == "__main__":

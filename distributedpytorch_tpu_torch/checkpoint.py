@@ -1,19 +1,24 @@
-"""Checkpoint resolution and reference-format ``.pth`` weights.
+"""Checkpoint resolution, reference-format ``.pth`` weights and the
+trainer's native checkpoint.
 
-Counterpart of the ``.pth`` half of ``distributedpytorch_tpu/checkpoint.py``.
-The port's ``UNet.state_dict()`` keys are the reference's tensor names, so
-a reference ``.pth`` loads with plain ``load_state_dict``.
+Counterpart of ``distributedpytorch_tpu/checkpoint.py`` (the ``.pth``
+interop and the single-device subset of native save/resume). The port's
+``UNet.state_dict()`` keys are the reference's tensor names, so a
+reference ``.pth`` loads with plain ``load_state_dict``.
 ``params_from_jax`` carries weights across from the JAX package as numpy
 (tests and parity tools); it keeps its own copy of the layout rules.
 
-A native ``.ckpt`` is flax msgpack, which the port does not read yet: a
-resolved ``.ckpt`` raises and names the export that gives a ``.pth``.
+The port's native checkpoint, ``<dir>/<method>.pt``, is one ``torch.save``
+file: the model's state dict under reference names, the optimizer, the
+plateau scheduler, step, epoch, the loss records and a manifest. A JAX
+``.ckpt`` is flax msgpack, which the port does not read yet: a resolved
+``.ckpt`` raises and names the export that gives a ``.pth``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,21 +32,31 @@ _BLOCK_MAPS: Tuple[Tuple[Tuple[str, ...], str], ...] = tuple(
 )
 
 
-def resolve_checkpoint(name: str, checkpoint_dir: str = "./checkpoints") -> str:
+#: The native checkpoint's extension (``torch.save``), and the formats the
+#: trainer's ``-c`` resolves, in order.
+NATIVE_EXT = ".pt"
+TRAIN_EXTS = (NATIVE_EXT, ".pth")
+#: The native checkpoint's layout version, in its manifest.
+NATIVE_FORMAT = "distributedpytorch_tpu_torch/native/1"
+
+
+def resolve_checkpoint(name: str, checkpoint_dir: str = "./checkpoints",
+                       exts: Sequence[str] = (".ckpt", ".pth")) -> str:
     """A checkpoint reference → an existing file path.
 
     Accepts an explicit path, a bare method name (``DP`` →
-    ``<dir>/DP.ckpt``, falling back to ``<dir>/DP.pth``), or an
-    extension-suffixed name, which tries only that format. Raises
+    ``<dir>/DP<ext>`` for each of ``exts`` in turn: ``.ckpt`` then
+    ``.pth`` for serving, ``.pt`` then ``.pth`` for the trainer), or a
+    name with one of ``exts``, which tries only that format. Raises
     FileNotFoundError naming the primary candidate."""
     if os.path.isfile(name):  # a same-named DIRECTORY must not shadow
         return name
     base, explicit_ext = name, None
-    for ext in (".ckpt", ".pth"):
+    for ext in exts:
         if base.endswith(ext):
             base, explicit_ext = base[: -len(ext)], ext
             break
-    exts = (explicit_ext,) if explicit_ext else (".ckpt", ".pth")
+    exts = (explicit_ext,) if explicit_ext else tuple(exts)
     for ext in exts:
         cand = os.path.join(checkpoint_dir, f"{base}{ext}")
         if os.path.isfile(cand):
@@ -134,3 +149,42 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
             np.array(arr, dtype=np.float32, order="C")
         )
     return out
+
+
+# -- native save/resume --------------------------------------------------------
+
+
+def save_native(path: str, model: torch.nn.Module,
+                optimizer: torch.optim.Optimizer, scheduler_state: dict,
+                step: int, epoch: int, records_state: Optional[dict],
+                manifest: Mapping[str, Any]) -> None:
+    """Write the trainer's full state to ``path`` atomically (a temporary
+    file renamed into place): a crash mid-write leaves the previous file
+    whole."""
+    payload = {
+        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer": optimizer.state_dict(),
+        "scheduler": dict(scheduler_state),
+        "step": int(step),
+        "epoch": int(epoch),
+        "records": records_state,
+        "manifest": {"format": NATIVE_FORMAT, **manifest},
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_native(path: str) -> Dict[str, Any]:
+    """A native checkpoint's payload, tensors on the CPU. Raises
+    ValueError for a file that is not one."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    fmt = (payload.get("manifest") or {}).get("format") \
+        if isinstance(payload, dict) else None
+    if fmt != NATIVE_FORMAT:
+        raise ValueError(
+            f"{path} is not a native checkpoint of the port (format "
+            f"{fmt!r}, expected {NATIVE_FORMAT!r})"
+        )
+    return payload

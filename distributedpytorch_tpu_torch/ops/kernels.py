@@ -22,7 +22,11 @@ from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
 
 #: Kernel launches by kernel name since the last reset. Only launches of
 #: the CUDA kernel count — a CPU tensor's plain-version call does not.
-LAUNCHES: Dict[str, int] = {"serve_mask": 0}
+LAUNCHES: Dict[str, int] = {
+    "serve_mask": 0,
+    "loss_stats": 0,      # ops/loss_kernels.eval_stats (K1)
+    "loss_stats_bwd": 0,  # ops/loss_kernels.stats_bwd (K1-bwd)
+}
 
 
 def reset_launches() -> None:
@@ -37,20 +41,27 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """Which hand-written kernels the serve path engages.
+    """Which hand-written kernels the trainer and the serve path engage.
 
-    ``torch`` is the counterpart of the JAX package's ``xla``: the engine
-    returns float32 probabilities and thresholds them on the host.
-    ``cuda`` is the counterpart of ``pallas``: the serve forward ends in
-    the serve-mask kernel and returns uint8 masks."""
+    ``torch`` is the counterpart of the JAX package's ``xla``: plain
+    PyTorch everywhere; the serve engine returns float32 probabilities
+    and thresholds them on the host. ``cuda`` is the counterpart of
+    ``pallas``: the training loss runs through the statistics kernel and
+    its backward (``ops/fused_loss.py``), the eval step through the
+    statistics kernel (``ops/loss_kernels.eval_metrics``), and the serve
+    forward ends in the serve-mask kernel and returns uint8 masks."""
 
     name: str
     serve_mask: bool
+    train_loss_fused: bool
+    eval_stats_fused: bool
 
 
 KERNEL_POLICIES: Dict[str, KernelPolicy] = {
-    "torch": KernelPolicy("torch", serve_mask=False),
-    "cuda": KernelPolicy("cuda", serve_mask=True),
+    "torch": KernelPolicy("torch", serve_mask=False, train_loss_fused=False,
+                          eval_stats_fused=False),
+    "cuda": KernelPolicy("cuda", serve_mask=True, train_loss_fused=True,
+                         eval_stats_fused=True),
 }
 
 

@@ -1,9 +1,12 @@
-"""Bounded prefetch for the serve path's placement worker.
+"""Bounded prefetch for the placement workers of the serve path and the
+trainer.
 
-Counterpart of ``bounded_prefetch`` / ``pipelined_placement`` in
-``distributedpytorch_tpu/utils/prefetch.py``: flushed request buckets are
-the work items, and ``place_fn`` stacks, pads and copies each bucket to
-its claimed replica's card ``depth`` buckets ahead of the dispatch loop.
+Counterpart of ``bounded_prefetch`` / ``pipelined_placement`` /
+``stacked_work`` in ``distributedpytorch_tpu/utils/prefetch.py``. For the
+server the work items are flushed request buckets, which ``place_fn``
+stacks, pads and copies to the claimed replica's card; for the trainer
+they are an epoch's batches (``stacked_work``), which it copies to the
+card ``depth`` items ahead of the step loop.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ R = TypeVar("R")
 
 #: Work-item kind of a plain per-dispatch payload.
 SINGLE = "single"
+#: Work-item kind of K loader batches that one accumulated step consumes.
+STACK = "stack"
 
 _DONE = object()
 
@@ -82,3 +87,31 @@ def pipelined_placement(
     if depth <= 0:
         return ((item, place(item)) for item in work)
     return bounded_prefetch(work, place, depth=depth, name=name)
+
+
+def stacked_work(batches: Iterable[dict], stack_size: int, batch_size: int
+                 ) -> Iterator[Tuple[str, object]]:
+    """Group an epoch's batch stream into work items: ``(STACK, [K
+    batches])`` for K full batches in a row, ``(SINGLE, batch)``
+    otherwise. A ragged batch flushes the partial group (each buffered
+    batch as a single, then the ragged one), and the epoch's trailing
+    partial group drains the same way. ``stack_size <= 1`` gives all
+    singles."""
+    if stack_size <= 1:
+        for b in batches:
+            yield (SINGLE, b)
+        return
+    buffer: list = []
+    for b in batches:
+        if b["image"].shape[0] == batch_size:
+            buffer.append(b)
+            if len(buffer) == stack_size:
+                yield (STACK, buffer)
+                buffer = []
+        else:
+            for q in buffer:
+                yield (SINGLE, q)
+            buffer = []
+            yield (SINGLE, b)
+    for q in buffer:
+        yield (SINGLE, q)

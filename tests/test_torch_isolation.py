@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of it loads
-neither jax nor the JAX package, and its entry points refuse to fall
-back to the CPU on a machine without a card unless asked."""
+neither jax nor the JAX package, and its entry points (the serve engine,
+the trainer and the training CLI) refuse to fall back to the CPU on a
+machine without a card unless asked."""
 
 import json
 import os
@@ -28,15 +29,25 @@ if not torch.cuda.is_available():
     from distributedpytorch_tpu_torch.serve.engine import ServeEngine
     from distributedpytorch_tpu_torch.utils.device import resolve_device
     from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+    from distributedpytorch_tpu_torch import cli
     for name, call in (
         ("resolve_device", lambda: resolve_device()),
         ("ServeEngine", lambda: ServeEngine(UNet(widths=(8,)), (16, 16))),
+        ("Trainer", lambda: Trainer(TrainConfig(
+            synthetic_samples=4, image_size=(16, 16), model_widths=(8,)))),
     ):
         try:
             call()
             refusals[name] = None
         except RuntimeError as exc:
             refusals[name] = str(exc)
+    try:
+        cli.main(["--synthetic", "4", "--image-size", "16", "16"])
+        refusals["train_cli"] = None
+    except SystemExit as exc:
+        refusals["train_cli"] = str(exc.code)
     refusals["cpu_ok"] = str(resolve_device("cpu"))
 print(json.dumps({"modules": modules, "leaked": leaked,
                   "pil": "PIL" in sys.modules, "refusals": refusals}))
@@ -55,10 +66,17 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
     assert not report["pil"]  # PIL loads only where an image decodes
     assert "distributedpytorch_tpu_torch.serve.server" in report["modules"]
     assert "distributedpytorch_tpu_torch.ops._build" in report["modules"]
+    for trainer_module in ("cli", "train.loop", "train.steps",
+                           "ops.loss_kernels", "ops.fused_loss", "evaluate",
+                           "utils.metrics", "data.loader"):
+        assert (f"distributedpytorch_tpu_torch.{trainer_module}"
+                in report["modules"])
     refusals = report["refusals"]
     if refusals:  # a machine without a card
         assert "device='cpu'" in refusals["resolve_device"]
         assert "device='cpu'" in refusals["ServeEngine"]
+        assert "device='cpu'" in refusals["Trainer"]
+        assert "--device cpu" in refusals["train_cli"]
         assert refusals["cpu_ok"] == "cpu"
 
 

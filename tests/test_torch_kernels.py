@@ -71,8 +71,10 @@ def test_non_float32_input_promotes_on_cpu():
 def test_kernel_policy_resolution():
     assert get_kernel_policy(None, torch.device("cpu")).name == "torch"
     assert get_kernel_policy(None, torch.device("cuda")).name == "cuda"
-    assert get_kernel_policy("cuda").serve_mask
-    assert not get_kernel_policy("torch").serve_mask
+    cuda, plain = get_kernel_policy("cuda"), get_kernel_policy("torch")
+    assert cuda.serve_mask and cuda.train_loss_fused and cuda.eval_stats_fused
+    assert not (plain.serve_mask or plain.train_loss_fused
+                or plain.eval_stats_fused)
     policy = get_kernel_policy("torch")
     assert get_kernel_policy(policy) is policy
     with pytest.raises(ValueError, match="unknown kernel policy"):
@@ -91,9 +93,13 @@ def test_nvcc_command_targets_hopper(monkeypatch):
 
 
 def test_every_source_exists_and_names_its_tpu_kernel():
+    import re
+
+    assert set(_build.SOURCES) == {"serve_mask", "loss_stats"}
     for name in _build.SOURCES:
         text = _build.source_path(name).read_text()
-        assert "distributedpytorch_tpu/ops/kernels.py" in text
+        # the JAX kernel it replaces, by file and line
+        assert re.search(r"distributedpytorch_tpu/ops/\w+\.py:\d+", text)
         assert 'extern "C"' in text
 
 
