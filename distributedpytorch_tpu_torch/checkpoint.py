@@ -6,7 +6,8 @@ interop and the single-device subset of native save/resume). The port's
 ``UNet.state_dict()`` keys are the reference's tensor names, so a
 reference ``.pth`` loads with plain ``load_state_dict``.
 ``params_from_jax`` carries weights across from the JAX package as numpy
-(tests and parity tools); it keeps its own copy of the layout rules.
+(tests and parity tools), the UNet's params or milesial's ``(params,
+batch_stats)``; it keeps its own copy of the layout and name rules.
 
 The port's native checkpoint, ``<dir>/<method>.pt``, is one ``torch.save``
 file: the model's state dict under reference names, the optimizer, the
@@ -134,20 +135,71 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
-def params_from_jax(params) -> Dict[str, torch.Tensor]:
-    """JAX UNet params as numpy — the nested mapping ``jax.device_get``
-    gives, or a flat one keyed by path tuples — → the port's ``UNet``
-    state dict."""
+def _milesial_maps(n_levels: int):
+    """(JAX params path → upstream milesial name, JAX batch_stats path →
+    name) for a milesial model with ``n_levels`` widths. Upstream's
+    DoubleConv is Sequential(Conv, BN, ReLU, Conv, BN, ReLU), hence the
+    stems ``double_conv.{0,1,3,4}``; Down wraps it as ``maxpool_conv.1``,
+    Up holds ``up`` and ``conv``, OutConv holds ``conv``."""
+    pmap: Dict[Tuple[str, ...], str] = {}
+    smap: Dict[Tuple[str, ...], str] = {}
+
+    def double_conv(prefix: Tuple[str, ...], stem: str) -> None:
+        for conv, bn, c_idx, b_idx in (("conv1", "bn1", 0, 1),
+                                       ("conv2", "bn2", 3, 4)):
+            pmap[prefix + (conv, "kernel")] = f"{stem}.{c_idx}.weight"
+            pmap[prefix + (bn, "scale")] = f"{stem}.{b_idx}.weight"
+            pmap[prefix + (bn, "bias")] = f"{stem}.{b_idx}.bias"
+            smap[prefix + (bn, "mean")] = f"{stem}.{b_idx}.running_mean"
+            smap[prefix + (bn, "var")] = f"{stem}.{b_idx}.running_var"
+
+    double_conv(("inc",), "inc.double_conv")
+    for i in range(1, n_levels):
+        double_conv((f"down{i}", "conv"),
+                    f"down{i}.maxpool_conv.1.double_conv")
+    for i in range(1, n_levels):
+        pmap[(f"up{i}", "up", "kernel")] = f"up{i}.up.weight"
+        pmap[(f"up{i}", "up", "bias")] = f"up{i}.up.bias"
+        double_conv((f"up{i}", "conv"), f"up{i}.conv.double_conv")
+    pmap[("outc", "kernel")] = "outc.conv.weight"
+    pmap[("outc", "bias")] = "outc.conv.bias"
+    return pmap, smap
+
+
+def _tensor(arr) -> torch.Tensor:
+    # np.array copies: a device_get result may be read-only
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def params_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
+    """JAX weights as numpy — the nested mapping ``jax.device_get`` gives,
+    or a flat one keyed by path tuples — → the port's state dict: UNet
+    params → ``UNet`` names; milesial params and ``batch_stats`` →
+    upstream milesial names, the running statistics included and
+    ``num_batches_tracked`` 0, as the JAX package's
+    ``export_milesial_state_dict`` writes them."""
     flat = _flatten(params)
-    names = _name_map()
     out: Dict[str, torch.Tensor] = {}
+    if not any(path[0] == "inc" for path in flat):
+        names = _name_map()
+        for path, arr in flat.items():
+            if path[-1] == "kernel":
+                arr = _kernel_to_torch(arr, "upconv" in path[-2])
+            out[names[path]] = _tensor(arr)
+        return out
+    if batch_stats is None:
+        raise ValueError("milesial params need their batch_stats")
+    levels = 1 + len({path[0] for path in flat if path[0].startswith("down")})
+    pmap, smap = _milesial_maps(levels)
     for path, arr in flat.items():
         if path[-1] == "kernel":
-            arr = _kernel_to_torch(arr, "upconv" in path[-2])
-        # np.array copies: a device_get result may be read-only
-        out[names[path]] = torch.from_numpy(
-            np.array(arr, dtype=np.float32, order="C")
-        )
+            arr = _kernel_to_torch(arr, path[-2] == "up")
+        out[pmap[path]] = _tensor(arr)
+    for path, arr in _flatten(batch_stats).items():
+        name = smap[path]
+        out[name] = _tensor(arr)
+        out[name.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(
+            0, dtype=torch.long)
     return out
 
 

@@ -3,8 +3,9 @@ distributedpytorch_tpu_torch [-t singleGPU] ...``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` for the flags the port
 implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
-``--data-dir --synthetic --image-size --model-widths --dtype --kernels
---device --grad-accum --num-workers --prefetch-batches --checkpoint-dir``.
+``--data-dir --synthetic --image-size --model --model-widths --wgrad-taps
+--dtype --kernels --device --grad-accum --num-workers --prefetch-batches
+--checkpoint-dir``.
 ``--s2d-levels`` is accepted and has no effect (the port runs the pixel
 path). A flag the port does not implement is not defined, so argparse
 rejects it. The run writes ``./logs/<method>.log`` (message-only),
@@ -14,6 +15,8 @@ rejects it. The run writes ``./logs/<method>.log`` (message-only),
 
 It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t singleGPU --synthetic 40
+    DPT_WGRAD_BACKEND=pallas python -m distributedpytorch_tpu_torch \
+        --model milesial --wgrad-taps --kernels cuda --synthetic 40
     python -m distributedpytorch_tpu_torch --synthetic 16 \\
         --image-size 48 32 --model-widths 8 16 -e 1 -b 2 --device cpu
 """
@@ -59,8 +62,19 @@ def get_args(argv=None):
     parser.add_argument("--image-size", type=int, nargs=2,
                         default=(960, 640), metavar=("W", "H"),
                         help="Resize target (W H)")
+    parser.add_argument("--model", dest="model_arch", type=str,
+                        default="unet", choices=["unet", "milesial"],
+                        help="Model family: unet = the reference course "
+                             "model (7.76M params), milesial = "
+                             "milesial/Pytorch-UNet (31M params, BatchNorm)")
     parser.add_argument("--model-widths", type=int, nargs="+", default=None,
-                        help="Encoder channel widths (default 32 64 128 256)")
+                        help="Channel widths (default: unet 32 64 128 256, "
+                             "milesial 64 128 256 512 1024)")
+    parser.add_argument("--wgrad-taps", action="store_true",
+                        help="3x3 conv weight gradients as nine tap "
+                             "contractions; with DPT_WGRAD_BACKEND=pallas "
+                             "and --kernels cuda the convs with both "
+                             "channel counts >= 128 take the 9-tap kernel")
     parser.add_argument("--dtype", type=str, default="bf16",
                         choices=["f32", "bf16"],
                         help="Precision policy: bf16 conv compute with f32 "
@@ -71,9 +85,10 @@ def get_args(argv=None):
     parser.add_argument("--kernels", type=str, default=None,
                         choices=["torch", "cuda"],
                         help="Kernel policy: cuda trains and evaluates "
-                             "through the loss-statistics kernels; torch "
-                             "runs plain PyTorch. Default: cuda on a card, "
-                             "torch on the CPU")
+                             "through the loss-statistics kernels and runs "
+                             "milesial's BatchNorm + ReLU through the "
+                             "epilogue kernels; torch runs plain PyTorch. "
+                             "Default: cuda on a card, torch on the CPU")
     parser.add_argument("--device", type=str, default=None,
                         choices=["cuda", "cpu"],
                         help="cuda (default; raises without a card) or cpu")
@@ -107,7 +122,9 @@ def to_config(args):
         num_workers=args.num_workers,
         prefetch_batches=args.prefetch_batches,
         grad_accum=args.grad_accum,
+        model_arch=args.model_arch,
         model_widths=tuple(args.model_widths) if args.model_widths else None,
+        wgrad_taps=args.wgrad_taps,
         s2d_levels=args.s2d_levels,
         dtype=args.dtype,
         kernels=args.kernels,

@@ -60,10 +60,15 @@ class TrainConfig:
     grad_accum: int = 1
 
     # -- model --------------------------------------------------------------
-    # "unet" = the reference course model (7,760,097 params)
+    # "unet" = the reference course model (7,760,097 params); "milesial" =
+    # milesial/Pytorch-UNet with BatchNorm (31,037,633 params at one class)
     model_arch: str = "unet"
     # None = the architecture's documented channel plan
     model_widths: Optional[Tuple[int, ...]] = None
+    # every 3x3 conv's weight gradient as nine tap contractions
+    # (ops/conv_backward.py); DPT_WGRAD_BACKEND=pallas lets the kernel
+    # policy's K5 take the convs with both channel counts >= 128
+    wgrad_taps: bool = False
     # accepted for checkpoint/CLI parity; the port always runs the pixel
     # path (space-to-depth is a TPU layout rewrite of the same function)
     s2d_levels: int = -1
@@ -72,9 +77,10 @@ class TrainConfig:
     # precision policy (ops/precision.py): "bf16" or "f32" compute
     dtype: str = "bf16"
     # kernel policy (ops/kernels.py): "cuda" trains through the loss
-    # statistics kernel and its backward and evaluates through the
-    # statistics kernel; "torch" runs plain PyTorch. None = "cuda" on a
-    # CUDA device, "torch" on the CPU.
+    # statistics kernel and its backward, evaluates through the statistics
+    # kernel, runs milesial's BatchNorm + ReLU through the epilogue kernels
+    # and lets the taps conv use the 9-tap kernel; "torch" runs plain
+    # PyTorch. None = "cuda" on a CUDA device, "torch" on the CPU.
     kernels: Optional[str] = None
     # "cuda" or "cpu"; None = "cuda", which raises without a card
     device: Optional[str] = None

@@ -19,6 +19,9 @@ float32 sigmoid. 7,760,097 parameters at the reference widths.
   cuDNN through ``torch.nn.functional``.
 * The space-to-depth execution mode of the JAX package is a TPU layout
   rewrite of the same function; the port runs the pixel path only.
+* ``wgrad_taps`` routes each 3×3 conv through ``TapsConv2d``, whose weight
+  gradient runs as nine tap contractions (``ops/conv_backward.py``), as
+  the JAX package's ``_TapsPixelConv`` does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from distributedpytorch_tpu_torch.ops.conv_backward import conv3x3_same_taps
 from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
 
 # Channel plan of the reference model (the mid block doubles the last).
@@ -55,6 +59,23 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                               generator=generator)
 
 
+def init_convs_(model: nn.Module,
+                generator: Optional[torch.Generator]) -> None:
+    """flax's init of every conv in ``model``: lecun-normal kernels, zero
+    biases, drawn in module order from ``generator``."""
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+            kh, kw = module.kernel_size
+            # flax counts fan-in over (kh, kw, in_features) for both conv
+            # kinds; torch stores ConvTranspose as (I, O, kh, kw)
+            in_feats = (module.in_channels
+                        if isinstance(module, nn.ConvTranspose2d)
+                        else module.weight.shape[1])
+            lecun_normal_(module.weight, kh * kw * in_feats, generator)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 weights are cast to the input's dtype."""
 
@@ -62,6 +83,34 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class TapsConv2d(Conv2d):
+    """A 3×3, padding-1 ``Conv2d`` with the same parameters whose weight
+    gradient runs through the 9-tap backward (``conv3x3_same_taps``); the
+    forward is the same convolution. ``wgrad_cuda`` is the kernel policy's
+    leave for K5 there."""
+
+    def __init__(self, *args, wgrad_cuda: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.kernel_size != (3, 3) or self.padding != (1, 1):
+            raise ValueError("TapsConv2d is a 3x3 conv with padding 1")
+        self.wgrad_cuda = wgrad_cuda
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv3x3_same_taps(x, self.weight.to(x.dtype), self.wgrad_cuda)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+def conv3x3(in_features: int, features: int, bias: bool = True,
+            wgrad_taps: bool = False, wgrad_cuda: bool = False) -> Conv2d:
+    """A 3×3, padding-1 conv: ``TapsConv2d`` under ``wgrad_taps``."""
+    if wgrad_taps:
+        return TapsConv2d(in_features, features, 3, padding=1, bias=bias,
+                          wgrad_cuda=wgrad_cuda)
+    return Conv2d(in_features, features, 3, padding=1, bias=bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -79,12 +128,12 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class ConvBlock(nn.Module):
     """[Conv3×3(pad=1) → ReLU] × 2; parameters at ``conv_block.{0,2}``."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, **taps):
         super().__init__()
         self.conv_block = nn.Sequential(
-            Conv2d(in_features, features, 3, padding=1),
+            conv3x3(in_features, features, **taps),
             nn.ReLU(),
-            Conv2d(features, features, 3, padding=1),
+            conv3x3(features, features, **taps),
             nn.ReLU(),
         )
 
@@ -96,12 +145,12 @@ class Encoder(nn.Module):
     """Conv blocks with a 2×2 max-pool after each; returns the pooled
     bottleneck input and the skips, shallow first."""
 
-    def __init__(self, widths: Sequence[int] = ENCODER_WIDTHS):
+    def __init__(self, widths: Sequence[int] = ENCODER_WIDTHS, **taps):
         super().__init__()
         self.n_levels = len(widths)
         in_feats = 3  # RGB
         for i, w in enumerate(widths):
-            self.add_module(f"conv{i + 1}", ConvBlock(in_feats, w))
+            self.add_module(f"conv{i + 1}", ConvBlock(in_feats, w, **taps))
             in_feats = w
 
     def level(self, x: torch.Tensor, i: int
@@ -124,14 +173,15 @@ class Decoder(nn.Module):
     ``[skip, up]`` → conv block. ``widths`` run deep to shallow; the
     input is the mid block's ``2 * widths[0]`` channels."""
 
-    def __init__(self, widths: Sequence[int] = tuple(reversed(ENCODER_WIDTHS))):
+    def __init__(self, widths: Sequence[int] = tuple(reversed(ENCODER_WIDTHS)),
+                 **taps):
         super().__init__()
         self.n_levels = len(widths)
         logical_in = 2 * widths[0]
         for i, w in enumerate(widths):
             self.add_module(f"deconv{i + 1}",
                             ConvTranspose2d(logical_in, w, 2, stride=2))
-            self.add_module(f"conv{i + 1}", ConvBlock(2 * w, w))
+            self.add_module(f"conv{i + 1}", ConvBlock(2 * w, w, **taps))
             logical_in = w
 
     def level(self, x: torch.Tensor, skip: torch.Tensor, i: int
@@ -154,7 +204,8 @@ class UNet(nn.Module):
 
     Input ``(B, H, W, 3)`` float, output ``(B, H, W, n_classes)``
     float32 probabilities. ``generator`` seeds the flax-style init
-    (lecun-normal kernels, zero biases)."""
+    (lecun-normal kernels, zero biases). ``wgrad_taps`` builds every 3×3
+    conv as a ``TapsConv2d``, with ``wgrad_cuda`` its leave for K5."""
 
     def __init__(
         self,
@@ -162,28 +213,22 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         widths: Sequence[int] = ENCODER_WIDTHS,
         generator: Optional[torch.Generator] = None,
+        wgrad_taps: bool = False,
+        wgrad_cuda: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
         self.widths = tuple(widths)
-        self.encoder = Encoder(self.widths)
-        self.mid = ConvBlock(self.widths[-1], 2 * self.widths[-1])
-        self.decoder = Decoder(tuple(reversed(self.widths)))
+        taps = dict(wgrad_taps=wgrad_taps, wgrad_cuda=wgrad_cuda)
+        self.encoder = Encoder(self.widths, **taps)
+        self.mid = ConvBlock(self.widths[-1], 2 * self.widths[-1], **taps)
+        self.decoder = Decoder(tuple(reversed(self.widths)), **taps)
         self.segmap = Conv2d(self.widths[0], n_classes, 1)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
-        for module in self.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                kh, kw = module.kernel_size
-                # flax counts fan-in over (kh, kw, in_features) for both
-                # conv kinds; torch stores ConvTranspose as (I, O, kh, kw)
-                in_feats = (module.in_channels
-                            if isinstance(module, nn.ConvTranspose2d)
-                            else module.weight.shape[1])
-                lecun_normal_(module.weight, kh * kw * in_feats, generator)
-                nn.init.zeros_(module.bias)
+        init_convs_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, skips = self.encode_mid(x)

@@ -27,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 #: Every kernel source of the port, one shared library each.
-SOURCES = ("serve_mask", "loss_stats")
+SOURCES = ("serve_mask", "loss_stats", "bn_act", "wgrad_9tap")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -18,7 +18,11 @@ from typing import Dict, Optional
 
 import torch
 
-from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
+from distributedpytorch_tpu_torch.ops.precision import (
+    LOSS_DTYPE,
+    NORM_DTYPE,
+    WGRAD_DTYPE,
+)
 
 #: Kernel launches by kernel name since the last reset. Only launches of
 #: the CUDA kernel count — a CPU tensor's plain-version call does not.
@@ -26,6 +30,9 @@ LAUNCHES: Dict[str, int] = {
     "serve_mask": 0,
     "loss_stats": 0,      # ops/loss_kernels.eval_stats (K1)
     "loss_stats_bwd": 0,  # ops/loss_kernels.stats_bwd (K1-bwd)
+    "bn_act": 0,          # bn_act (K2)
+    "bn_act_bwd": 0,      # bn_act_bwd (K3)
+    "wgrad_9tap": 0,      # ops/wgrad_kernels.wgrad_9tap (K5)
 }
 
 
@@ -48,20 +55,27 @@ class KernelPolicy:
     and thresholds them on the host. ``cuda`` is the counterpart of
     ``pallas``: the training loss runs through the statistics kernel and
     its backward (``ops/fused_loss.py``), the eval step through the
-    statistics kernel (``ops/loss_kernels.eval_metrics``), and the serve
-    forward ends in the serve-mask kernel and returns uint8 masks."""
+    statistics kernel (``ops/loss_kernels.eval_metrics``), the serve
+    forward ends in the serve-mask kernel and returns uint8 masks,
+    milesial's BatchNorm + ReLU runs through the epilogue kernels
+    (``fused_bn_act``), and the taps conv's weight gradient may take the
+    9-tap kernel (``ops/conv_backward.py``)."""
 
     name: str
     serve_mask: bool
     train_loss_fused: bool
     eval_stats_fused: bool
+    conv_epilogue: bool  # fused_bn_act in milesial's DoubleConv
+    wgrad_cuda: bool     # ops/wgrad_kernels.py allowed on the taps path
 
 
 KERNEL_POLICIES: Dict[str, KernelPolicy] = {
     "torch": KernelPolicy("torch", serve_mask=False, train_loss_fused=False,
-                          eval_stats_fused=False),
+                          eval_stats_fused=False, conv_epilogue=False,
+                          wgrad_cuda=False),
     "cuda": KernelPolicy("cuda", serve_mask=True, train_loss_fused=True,
-                         eval_stats_fused=True),
+                         eval_stats_fused=True, conv_epilogue=True,
+                         wgrad_cuda=True),
 }
 
 
@@ -81,6 +95,22 @@ def get_kernel_policy(name=None, device: Optional[torch.device] = None
             f"unknown kernel policy {name!r} (expected one of "
             f"{sorted(KERNEL_POLICIES)})"
         ) from None
+
+
+def config_kernel_policy(config) -> KernelPolicy:
+    """The policy a config resolves to: its ``kernels`` field, with
+    ``None`` resolved against its ``device`` (``None`` meaning the card)."""
+    device = getattr(config, "device", None) or "cuda"
+    return get_kernel_policy(getattr(config, "kernels", None),
+                             torch.device(device))
+
+
+def conv_epilogue_engaged(config) -> bool:
+    """Whether the model factory builds milesial's DoubleConv with the
+    fused BatchNorm + ReLU epilogue. The JAX package also requires a
+    device-local forward; the port trains single-device only, so the
+    policy alone decides."""
+    return config_kernel_policy(config).conv_epilogue
 
 
 # ---------------------------------------------------------------------------
@@ -154,3 +184,217 @@ def sigmoid_threshold_mask(
         raise RuntimeError(f"serve mask kernel launch failed: CUDA error {err}")
     LAUNCHES["serve_mask"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# milesial's DoubleConv epilogue: BatchNorm-normalize + ReLU (K2, K3)
+# ---------------------------------------------------------------------------
+#
+# With the affine folded, a = rsqrt(var + eps)·scale and b = bias − mean·a,
+# the epilogue is y = relu(x·a + b): one multiply-add and a max per element
+# (K2, csrc/bn_act.cu). Its backward needs dz = g·[z > 0] elementwise and
+# two channel sums, s1 = Σdz and s2 = Σdz·(x − mean), which one pass gives
+# together with dx = dz·a (K3); the closed forms
+#
+#     dbias = s1     dscale = inv·s2     dmean = −a·s1
+#     dvar  = −½·scale·inv³·s2
+#
+# are (C,)-sized torch ops. The batch statistics themselves stay torch ops
+# on x, so autograd carries dmean and dvar back to x, as XLA does for the
+# JAX kernel.
+#
+# Activations are NCHW tensors in channels_last memory: physically
+# (B·H·W, C) rows, the view both kernels read.
+
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.view(1, -1, 1, 1)
+
+
+def fold_bn(mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
+            bias: torch.Tensor, epsilon: float = 1e-5):
+    """``(inv, a, b)`` in ``NORM_DTYPE``: ``inv = rsqrt(var + eps)``,
+    ``a = inv·scale`` and ``b = bias − mean·a``."""
+    inv = torch.rsqrt(var.to(NORM_DTYPE) + epsilon)
+    a = inv * scale.to(NORM_DTYPE)
+    b = bias.to(NORM_DTYPE) - mean.to(NORM_DTYPE) * a
+    return inv, a, b
+
+
+def bn_act_reference(x: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """The plain version of K2: ``relu(x·a + b)`` in float32 for an NCHW
+    ``x`` and (C,) ``a``, ``b``, rounded after the product and after the
+    sum as the kernel rounds."""
+    z = x.to(NORM_DTYPE) * _per_channel(a) + _per_channel(b)
+    return torch.where(z > 0, z, 0.0)
+
+
+def bn_act_bwd_reference(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, mean: torch.Tensor):
+    """The plain version of K3: ``(dx, sums)`` with ``dz = g·[x·a + b > 0]``,
+    ``dx = dz·a`` in ``x``'s dtype and ``sums`` the (2, C) float32 rows
+    ``Σdz`` and ``Σdz·(x − mean)`` over batch and space."""
+    xf = x.to(NORM_DTYPE)
+    z = xf * _per_channel(a) + _per_channel(b)
+    dz = torch.where(z > 0, g.to(WGRAD_DTYPE), 0.0)
+    dx = (dz * _per_channel(a)).to(x.dtype)
+    s1 = dz.sum(dim=(0, 2, 3))
+    s2 = (dz * (xf - _per_channel(mean))).sum(dim=(0, 2, 3))
+    return dx, torch.stack([s1, s2])
+
+
+def fused_bn_act_reference(x: torch.Tensor, mean: torch.Tensor,
+                           var: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor,
+                           epsilon: float = 1e-5) -> torch.Tensor:
+    """The plain version of :func:`fused_bn_act`, differentiable by
+    autograd: ``relu(x·a + b)`` with the folded affine."""
+    _inv, a, b = fold_bn(mean, var, scale, bias, epsilon)
+    return bn_act_reference(x, a, b)
+
+
+def _bn_act_lib():
+    """``(fwd, bwd, bwd_blocks)`` of ``csrc/bn_act.cu``."""
+    from distributedpytorch_tpu_torch.ops import _build
+
+    lib = _build.load("bn_act")
+    fwd, bwd, blocks = lib.dpt_bn_act, lib.dpt_bn_act_bwd, \
+        lib.dpt_bn_act_bwd_blocks
+    if fwd.argtypes is None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fwd.argtypes = [ptr, i32, ptr, i64, i32, ptr, ptr]
+        fwd.restype = i32
+        bwd.argtypes = [ptr, i32, ptr, ptr, i64, i32, ptr, ptr, ptr, ptr]
+        bwd.restype = i32
+        blocks.argtypes = [i64, i32]
+        blocks.restype = i32
+    return fwd, bwd, blocks
+
+
+def _channels_last(x: torch.Tensor, what: str) -> torch.Tensor:
+    """``x`` as NCHW in channels_last memory — an explicit copy where its
+    layout differs — checked for what the kernels read."""
+    if x.dim() != 4:
+        raise ValueError(f"{what}: expected an NCHW tensor, got {x.dim()}-D")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        x = x.contiguous(memory_format=torch.channels_last)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: input must be 16-byte aligned")
+    return x
+
+
+def _channel_rows(what: str, like: torch.Tensor, *vecs: torch.Tensor
+                  ) -> torch.Tensor:
+    """The (C,) float32 channel operands packed into one row-major tensor
+    on ``like``'s device."""
+    c = like.shape[1]
+    for v in vecs:
+        if v.shape != (c,):
+            raise ValueError(f"{what}: channel operand of shape "
+                             f"{tuple(v.shape)}, expected ({c},)")
+    return torch.cat([v.to(device=like.device, dtype=NORM_DTYPE)
+                      for v in vecs]).contiguous()
+
+
+def _check_kernel_input(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: expected bfloat16 or float32, got "
+                         f"{x.dtype}")
+
+
+def bn_act(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+           ) -> torch.Tensor:
+    """K2: ``relu(x·a + b)`` as float32, ``x``'s NCHW shape in
+    channels_last memory. ``x`` is bfloat16 or float32, ``a`` and ``b``
+    (C,). On the card it launches ``csrc/bn_act.cu`` on the current stream
+    and equals the plain version bit for bit; on the CPU it is the plain
+    version."""
+    if x.device.type == "cpu":
+        return bn_act_reference(x, a, b)
+    _check_kernel_input(x, "bn_act")
+    x = _channels_last(x, "bn_act")
+    ab = _channel_rows("bn_act", x, a, b)
+    y = torch.empty(x.shape, dtype=NORM_DTYPE, device=x.device,
+                    memory_format=torch.channels_last)
+    rows, c = x.numel() // x.shape[1], x.shape[1]
+    fwd, _, _ = _bn_act_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), ab.data_ptr(),
+                  rows, c, y.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bn_act kernel launch failed: CUDA error {err}")
+    LAUNCHES["bn_act"] += 1
+    return y
+
+
+def bn_act_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, mean: torch.Tensor):
+    """K3: ``bn_act_bwd_reference``'s ``(dx, sums)`` in one pass over
+    ``x`` and ``g`` plus a pass over per-block partials. ``dx`` equals the
+    plain version bit for bit; the channel sums are added in a fixed order
+    (bitwise repeatable), another order than ``torch.sum``'s."""
+    if x.device.type == "cpu":
+        return bn_act_bwd_reference(x, g, a, b, mean)
+    _check_kernel_input(x, "bn_act_bwd")
+    if g.shape != x.shape:
+        raise ValueError(f"bn_act_bwd: cotangent of shape {tuple(g.shape)} "
+                         f"for x of shape {tuple(x.shape)}")
+    x = _channels_last(x, "bn_act_bwd x")
+    g = _channels_last(g.to(WGRAD_DTYPE), "bn_act_bwd g")
+    abm = _channel_rows("bn_act_bwd", x, a, b, mean)
+    rows, c = x.numel() // x.shape[1], x.shape[1]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                     memory_format=torch.channels_last)
+    sums = torch.zeros(2, c, dtype=WGRAD_DTYPE, device=x.device)
+    if rows == 0:
+        return dx, sums
+    _, bwd, blocks = _bn_act_lib()
+    partial = torch.empty(int(blocks(rows, c)) * 2 * c, dtype=WGRAD_DTYPE,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(),
+                  abm.data_ptr(), rows, c, dx.data_ptr(), partial.data_ptr(),
+                  sums.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"bn_act backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["bn_act_bwd"] += 1
+    return dx, sums
+
+
+class FusedBNAct(torch.autograd.Function):
+    """``relu((x − mean)·rsqrt(var + eps)·scale + bias)`` with the folded
+    affine: forward K2, backward K3 and the closed forms. Counterpart of
+    the JAX package's ``jax.custom_vjp`` around ``fused_bn_act``."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, epsilon):
+        inv, a, b = fold_bn(mean, var, scale, bias, epsilon)
+        ctx.save_for_backward(x, mean, inv, scale, a, b)
+        return bn_act(x, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, inv, scale, a, b = ctx.saved_tensors
+        dx, sums = bn_act_bwd(x, g, a, b, mean.to(NORM_DTYPE))
+        s1, s2 = sums[0], sums[1]
+        dmean = -a * s1
+        dvar = -0.5 * scale.to(NORM_DTYPE) * inv ** 3 * s2
+        return dx, dmean, dvar, inv * s2, s1, None
+
+
+def fused_bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                 scale: torch.Tensor, bias: torch.Tensor,
+                 epsilon: float = 1e-5) -> torch.Tensor:
+    """BatchNorm-normalize + ReLU of an NCHW ``x`` (bfloat16 or float32)
+    with (C,) channel operands, returned in ``NORM_DTYPE`` (float32) like
+    the plain BatchNorm it replaces; callers cast back to the compute
+    dtype. Differentiable in all five operands. The folded affine
+    associates ``x·(inv·scale)`` where the plain module computes
+    ``((x − mean)·inv)·scale``: equal to float rounding, not bitwise."""
+    return FusedBNAct.apply(x, mean, var, scale, bias, float(epsilon))

@@ -52,8 +52,7 @@ def get_args(argv=None):
                         metavar=("W", "H"))
     parser.add_argument("--model", dest="model_arch", type=str,
                         default="unet", choices=["unet", "milesial"],
-                        help="Model family the checkpoint was trained with "
-                             "(milesial is not ported yet)")
+                        help="Model family the checkpoint was trained with")
     parser.add_argument("--model-widths", type=int, nargs="+", default=None)
     parser.add_argument("--s2d-levels", type=int, default=-1,
                         help="Accepted for parity; the port always runs the "

@@ -142,6 +142,10 @@ class ServeEngine:
     def _build_replica(self, index: int, device: torch.device,
                        model: torch.nn.Module) -> Replica:
         model = copy.deepcopy(model).to(device).eval()
+        if hasattr(model, "set_conv_epilogue"):
+            # milesial: the bucket forward's BatchNorm + ReLU takes the
+            # epilogue kernel exactly when the engine's policy says so
+            model.set_conv_epilogue(self.kernel_policy.conv_epilogue)
         fwd = make_forward(
             model,
             mask_threshold=self.threshold if self.mask_on_device else None,

@@ -9,8 +9,13 @@ Counterpart of the single-device, ``nonfinite_policy="abort"`` subset of
 * per epoch: eval → val row → ``scheduler.step(val_loss)`` → the new lr
   on the optimizer; a native checkpoint every ``checkpoint_every_epochs``;
 * at the end: the final checkpoint, the loss tables and
-  ``<checkpoint_dir>/<method>.pth`` in reference format, which the serve
-  CLI loads as it is.
+  ``<checkpoint_dir>/<method>.pth`` in reference format (upstream
+  milesial names for ``--model milesial``), which the serve CLI loads as
+  it is.
+
+A stateful model's running statistics (milesial's BatchNorm) are buffers
+of its state dict, so the native checkpoint saves and restores them; the
+steps switch the model between train and eval mode.
 
 Host and card overlap: batches decode on the loader's threads, and a
 placement worker copies them from pinned memory to the card on a copy
@@ -202,6 +207,7 @@ class Trainer:
     def _manifest(self) -> dict:
         return {
             "dtype": self.config.dtype,
+            "model_arch": self.config.model_arch,
             "kernels": self.kernels.name,
             "train_method": self.config.train_method,
             "device": (torch.cuda.get_device_name(self.device)
@@ -219,6 +225,11 @@ class Trainer:
             return
         payload = load_native(path)
         saved = payload["manifest"]
+        arch = saved.get("model_arch", "unet")
+        if arch != self.config.model_arch:
+            raise ValueError(
+                f"{path} holds a {arch!r} model; this run builds "
+                f"{self.config.model_arch!r} (--model)")
         if saved.get("dtype") != self.config.dtype:
             # parameters are float32 under both policies: nothing converts
             logger.warning("resuming a %s checkpoint under --dtype %s",

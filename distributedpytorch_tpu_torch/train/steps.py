@@ -12,7 +12,11 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
 * under a kernel policy with ``train_loss_fused`` the loss runs through
   the statistics kernel and its backward (``ops/fused_loss.py``), and
   with ``eval_stats_fused`` the eval step's loss and Dice come from one
-  statistics-kernel pass.
+  statistics-kernel pass;
+* the train step runs the model in train mode and the eval step in eval
+  mode, so a stateful model (milesial's BatchNorm) trains on batch
+  statistics, moving its running averages, and evaluates with the
+  running averages, as the JAX package's stateful steps do.
 
 A step takes a batch already on the model's device and returns the loss
 as a 0-d tensor there: nothing in a step waits for the card.
@@ -46,6 +50,12 @@ def prep_mask(mask: torch.Tensor) -> torch.Tensor:
     return mask.unsqueeze(-1).to(LOSS_DTYPE)
 
 
+def is_stateful_model(model: torch.nn.Module) -> bool:
+    """Models with running statistics (milesial's BatchNorm) declare
+    ``is_stateful = True``."""
+    return bool(getattr(model, "is_stateful", False))
+
+
 def make_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -58,6 +68,7 @@ def make_train_step(
     loss_impl = fused_bce_dice_loss if train_loss_fused else bce_dice_loss
 
     def train_step(batch: Batch) -> torch.Tensor:
+        model.train()
         optimizer.zero_grad(set_to_none=True)
         preds = model(batch["image"])
         loss = loss_impl(preds, prep_mask(batch["mask"]))
@@ -90,13 +101,21 @@ def make_accum_train_step(
     Under ``train_loss_fused`` the statistics come from
     ``BCEDiceStatsFused``, so pass 2 drives the backward kernel with a
     cotangent that no single chunk produced. The faithful scale is the
-    effective batch, ``batch_size × chunks``."""
+    effective batch, ``batch_size × chunks``. Stateful models (BatchNorm)
+    are refused, as in the JAX package."""
+    if is_stateful_model(model):
+        raise ValueError(
+            "gradient accumulation supports stateless models only "
+            "(BatchNorm statistics are not chunk-decomposable); use a "
+            "data-parallel strategy for large effective batches"
+        )
     grad_scale = (float(batch_size * chunks) if faithful_loss_scaling
                   else 1.0)
     stats_fn = BCEDiceStatsFused.apply if train_loss_fused else bce_dice_stats
     params = [p for p in model.parameters() if p.requires_grad]
 
     def chunk_stats(chunk: Batch) -> torch.Tensor:
+        model.train()
         return stats_fn(model(chunk["image"]), prep_mask(chunk["mask"]))
 
     def accum_step(stack: List[Batch]) -> torch.Tensor:
@@ -133,6 +152,7 @@ def make_eval_step(model: torch.nn.Module, eval_stats_fused: bool = False
 
     @torch.no_grad()
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
         preds = model(batch["image"])
         target = prep_mask(batch["mask"])
         if eval_stats_fused:

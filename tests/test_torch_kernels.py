@@ -95,7 +95,8 @@ def test_nvcc_command_targets_hopper(monkeypatch):
 def test_every_source_exists_and_names_its_tpu_kernel():
     import re
 
-    assert set(_build.SOURCES) == {"serve_mask", "loss_stats"}
+    assert set(_build.SOURCES) == {"serve_mask", "loss_stats", "bn_act",
+                                   "wgrad_9tap"}
     for name in _build.SOURCES:
         text = _build.source_path(name).read_text()
         # the JAX kernel it replaces, by file and line

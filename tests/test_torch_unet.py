@@ -140,9 +140,9 @@ def test_create_model_resolves_s2d_to_pixel_path(caplog):
     assert "pixel path" in caplog.text
 
 
-def test_milesial_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_model(TrainConfig(model_arch="milesial"))
+def test_unknown_model_arch_is_refused():
+    with pytest.raises(ValueError, match="unknown model_arch"):
+        create_model(TrainConfig(model_arch="resnet"))
 
 
 def test_center_crop_is_a_centered_slice():
