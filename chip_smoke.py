@@ -119,6 +119,16 @@ WGRAD_RTOL = 1e-4
 # K5 against cuDNN's weight gradient, which rounds its result to bf16
 # (2^-9 relative) and sums in its own order
 WGRAD_LIB_RTOL = 1e-2
+# milesial's convs that engage K5 (both sides >= 128 channels), batch 4 at
+# 960 x 640: (H, W, Cin, Cout) and how many of the 13 per step have it
+MILESIAL_K5_SHAPES = (
+    ((320, 480, 128, 128), 2), ((320, 480, 256, 128), 1),
+    ((160, 240, 128, 256), 1), ((160, 240, 256, 256), 2),
+    ((160, 240, 512, 256), 1),
+    ((80, 120, 256, 512), 1), ((80, 120, 512, 512), 2),
+    ((80, 120, 1024, 512), 1),
+    ((40, 60, 512, 1024), 1), ((40, 60, 1024, 1024), 1),
+)
 
 
 def emit(obj) -> None:
@@ -506,22 +516,61 @@ def phase_bn_act_kernels() -> dict:
     return result
 
 
+def _sass_of(lib_path, words) -> dict:
+    """Which of ``words`` the SASS of a built library holds, and each
+    kernel's registers, stack, shared and local memory, by ``cuobjdump``
+    (next to ``nvcc``)."""
+    import shutil
+
+    from distributedpytorch_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+
+    sass = dump("--dump-sass")
+    usage, name = {}, None
+    for line in dump("--dump-resource-usage").splitlines():
+        line = " ".join(line.split())
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif "REG:" in line and name is not None:
+            usage[name] = line
+            name = None
+    return {"has": {word: word in sass for word in words},
+            "resource_usage": usage}
+
+
 def phase_wgrad() -> dict:
     """K5 against its plain version and cuDNN's weight gradient
-    (``torch.nn.grad.conv2d_weight``) at milesial's two engaged extremes,
-    128 -> 128 on 4 x 320 x 480 and 1024 -> 1024 on 4 x 40 x 60, at
-    128 -> 128 on 4 x 160 x 240, and at a ragged 144 -> 128 on 2 x 9 x 37
-    (bf16), plus a small float32 case; two calls bitwise equal; K5, the
-    plain version and cuDNN timed at the first three."""
+    (``torch.nn.grad.conv2d_weight``) at each of milesial's ten engaged
+    conv shapes (batch 4 at 960 x 640), at 128 -> 128 on 4 x 160 x 240, at
+    a ragged 144 -> 128 on 2 x 9 x 37 (bf16) and a small float32 case; two
+    calls bitwise equal. K5 and cuDNN timed at the eleven bf16 shapes and
+    summed over one milesial step's 13 engaged convs beside their bound;
+    the plain version timed at three. The built library's SASS must hold
+    Hopper's wgmma (HGMMA) and TMA loads (UTMALDG)."""
     import torch
 
+    from distributedpytorch_tpu_torch.ops import _build
     from distributedpytorch_tpu_torch.ops import wgrad_kernels as wk
 
+    sass = _sass_of(_build.library_path("wgrad_9tap"), ("HGMMA", "UTMALDG"))
+    check(all(sass["has"].values()),
+          f"wgrad_9tap SASS lacks wgmma or TMA: {sass['has']}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    timed = ((TRAIN_BATCH, 320, 480, 128, 128),
-             (TRAIN_BATCH, 40, 60, 1024, 1024),
-             (TRAIN_BATCH, 160, 240, 128, 128))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the first is the kernels line's shape; the plain version is timed at
+    # the first three
+    timed = tuple((TRAIN_BATCH,) + shape for shape in (
+        (320, 480, 128, 128), (40, 60, 1024, 1024), (160, 240, 128, 128),
+        *(s for s, _n in MILESIAL_K5_SHAPES
+          if s not in ((320, 480, 128, 128), (40, 60, 1024, 1024)))))
     checked = timed + ((2, 9, 37, 144, 128), (1, 6, 35, 24, 40))
     cases = []
     worst = worst_lib = 0.0
@@ -558,15 +607,17 @@ def phase_wgrad() -> dict:
         check(lib_err <= WGRAD_LIB_RTOL,
               f"wgrad_9tap off cuDNN by {lib_err} of the largest at "
               f"{cases[-1]['shape']}")
+        del x, dy, got, again, want, lib
     timings = []
-    for b, h, w, cin, cout in timed:
+    for i, (b, h, w, cin, cout) in enumerate(timed):
         sets = [inputs(b, h, w, cin, cout, torch.bfloat16) for _ in range(2)]
         nxt = _rotating(sets)
         nxt_lib = _rotating([(x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2))
                              for x, dy in sets])
         ms = cuda_ms(lambda: wk.wgrad_9tap(*nxt()), 10, hold=True)
-        plain_ms = cuda_ms(lambda: wk.wgrad_9tap_reference(*nxt()), 5,
-                           hold=True)
+        plain_ms = (cuda_ms(lambda: wk.wgrad_9tap_reference(*nxt()), 5,
+                            hold=True) if i < 3 else None)
+
         def cudnn(pair, cin=cin, cout=cout):
             return torch.nn.grad.conv2d_weight(
                 pair[0], (cout, cin, 3, 3), pair[1], padding=1)
@@ -576,6 +627,7 @@ def phase_wgrad() -> dict:
         flops = 2 * 9 * pixels * cin * cout
         nbytes = pixels * (cin + cout) * 2 + 9 * cin * cout * 4
         bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S)
+        plan = wk.wgrad_plan(b, h, w, cin, cout, True, sms)
         timings.append({
             "shape": [b, h, w, cin, cout], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
@@ -583,7 +635,18 @@ def phase_wgrad() -> dict:
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          > flops / BF16_OPS_PER_S else "operations"),
             "tflops": flops / (ms * 1e-3) / 1e12,
+            "splits": plan.splits, "blocks": plan.blocks,
         })
+        del sets, nxt, nxt_lib
+    # one milesial step: each engaged shape as many times as its convs
+    by_shape = {tuple(t["shape"][1:]): t for t in timings}
+    step = {"k5_ms": 0.0, "cudnn_ms": 0.0, "bound_ms": 0.0, "convs": 0}
+    for shape, n in MILESIAL_K5_SHAPES:
+        t = by_shape[shape]
+        step["k5_ms"] += n * t["ms"]
+        step["cudnn_ms"] += n * t["library_ms"]
+        step["bound_ms"] += n * t["bound_ms"]
+        step["convs"] += n
     # the einsum backend (the plain version) where the milesial path keeps
     # it: the five convs with a side under 128 channels
     einsum_ms = {}
@@ -595,9 +658,10 @@ def phase_wgrad() -> dict:
         einsum_ms[f"{cin}x{cout}_{b}x{h}x{w}"] = cuda_ms(
             lambda: wk.wgrad_9tap_reference(x, dy), 3, warmup=1)
         del x, dy
-    result = {"phase": "wgrad", "cases": cases, "max_err_rel_to_max": worst,
+    result = {"phase": "wgrad", "sass": sass, "cases": cases,
+              "max_err_rel_to_max": worst,
               "cudnn_max_err_rel_to_max": worst_lib, "timings": timings,
-              "einsum_backend_ms": einsum_ms}
+              "milesial_step": step, "einsum_backend_ms": einsum_ms}
     emit(result)
     return result
 

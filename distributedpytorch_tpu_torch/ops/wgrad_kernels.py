@@ -16,6 +16,7 @@ decides where it engages.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -48,19 +49,105 @@ def wgrad_9tap_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, cin, cout)
 
 
+#: Streaming multiprocessors of an H100 SXM; the wrapper passes the card's
+#: own count.
+H100_SMS = 132
+#: The most float32 partial memory a call may take for its split sums.
+MAX_PARTIAL_BYTES = 64 << 20
+# The kernels' geometry (``csrc/wgrad_9tap.cu``, which refuses any other):
+# (pixels of one row segment, ci tile, co tile). The bf16 kernel runs one
+# block per SM (200 KiB of shared memory each); the f32 kernel aims at four
+# blocks per SM.
+_BF16_GEOMETRY = (64, 64, 128)
+_F32_GEOMETRY = (32, 16, 16)
+_F32_BLOCKS_PER_SM = 4
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """How one K5 call cuts its work: the sum over B·H·W runs over
+    ``n_segs`` row segments of ``seg`` pixels (``segs_w`` per image row,
+    the last one ragged), split into ``splits`` contiguous ranges; each
+    range is ``tiles`` blocks (three kernel rows × ci tiles × co tiles)."""
+
+    h: int
+    cin: int
+    cout: int
+    seg: int
+    tile_ci: int
+    tile_co: int
+    segs_w: int
+    n_segs: int
+    tiles: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def partial_bytes(self) -> int:
+        """Float32 partials the call allocates (none with one split)."""
+        if self.splits == 1:
+            return 0
+        return self.splits * 9 * self.cin * self.cout * 4
+
+    def seg_range(self, split: int) -> tuple:
+        """Segments ``[begin, end)`` of ``split``, as the kernel cuts them."""
+        return (self.n_segs * split // self.splits,
+                self.n_segs * (split + 1) // self.splits)
+
+    def segment(self, seg: int) -> tuple:
+        """``(b, y, x0)`` of segment ``seg``: pixels x0 .. x0 + seg − 1 of
+        row y of image b, as the kernel maps it."""
+        b, rem = divmod(seg, self.h * self.segs_w)
+        y, xs = divmod(rem, self.segs_w)
+        return b, y, xs * self.seg
+
+
+def _wave_fill(blocks: int, per_wave: int) -> float:
+    return blocks / (-(-blocks // per_wave) * per_wave)
+
+
+def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int, bf16: bool,
+               sms: int = H100_SMS) -> WgradPlan:
+    """The launch plan of K5 for x (b, h, w, cin) and dy (b, h, w, cout).
+
+    The split count is bounded by the segments (each range holds at least
+    one) and by ``MAX_PARTIAL_BYTES`` of partials. bf16: among those, the
+    one whose blocks fill the last wave of ``sms`` blocks best, the
+    smallest on a tie — so the tiles × splits blocks come out in whole
+    waves wherever a split count allows it. f32: enough blocks for four
+    per SM, as the CUDA-core kernel has always taken."""
+    seg, tile_ci, tile_co = _BF16_GEOMETRY if bf16 else _F32_GEOMETRY
+    segs_w = -(-w // seg)
+    n_segs = b * h * segs_w
+    tiles = 3 * -(-cin // tile_ci) * -(-cout // tile_co)
+    by_memory = MAX_PARTIAL_BYTES // (9 * cin * cout * 4) if cin * cout else 1
+    most = max(1, min(n_segs, by_memory))
+    if not tiles:  # no channels: the kernel writes nothing but zeros
+        splits = 1
+    elif bf16:
+        splits = max(range(1, most + 1),
+                     key=lambda s: (_wave_fill(tiles * s, sms), -s))
+    else:
+        target = sms * _F32_BLOCKS_PER_SM
+        splits = max(1, min(-(-target // tiles), most))
+    return WgradPlan(h=h, cin=cin, cout=cout, seg=seg, tile_ci=tile_ci,
+                     tile_co=tile_co, segs_w=segs_w, n_segs=n_segs,
+                     tiles=tiles, splits=splits)
+
+
 def _library():
-    """``(splits fn, wgrad fn)`` of ``csrc/wgrad_9tap.cu``."""
+    """The wgrad entry point of ``csrc/wgrad_9tap.cu``."""
     from distributedpytorch_tpu_torch.ops import _build
 
-    lib = _build.load("wgrad_9tap")
-    splits, fn = lib.dpt_wgrad_9tap_splits, lib.dpt_wgrad_9tap
+    fn = _build.load("wgrad_9tap").dpt_wgrad_9tap
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        splits.argtypes = [i32] * 6
-        splits.restype = i32
-        fn.argtypes = [ptr, ptr] + [i32] * 7 + [ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr] + [i32] * 10 + [ptr, ptr, ptr]
         fn.restype = i32
-    return splits, fn
+    return fn
 
 
 def _check(t: torch.Tensor, what: str, like: torch.Tensor) -> None:
@@ -80,9 +167,9 @@ def wgrad_9tap(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     NHWC order. On the card this launches K5 on the current stream
     (bfloat16 on the tensor cores with float32 sums; float32 on the CUDA
     cores), the sum over B·H·W split across blocks and the partials added
-    in a fixed order, so two calls agree bit for bit. With bfloat16, Cin
-    and Cout must be multiples of 16. On the CPU it is the plain
-    version."""
+    in a fixed order (``wgrad_plan``), so two calls agree bit for bit.
+    With bfloat16, Cin and Cout must be multiples of 16. On the CPU it is
+    the plain version."""
     if x.device.type == "cpu":
         return wgrad_9tap_reference(x, dy)
     if x.device.type != "cuda":
@@ -101,17 +188,20 @@ def wgrad_9tap(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if bf16 and (cin % 16 or cout % 16):
         raise ValueError(f"wgrad_9tap: bfloat16 needs Cin and Cout in "
                          f"multiples of 16, got {cin} and {cout}")
-    splits_fn, fn = _library()
-    splits = int(splits_fn(b, h, w, cin, cout, int(bf16)))
+    fn = _library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = wgrad_plan(b, h, w, cin, cout, bf16, sms)
     out = torch.empty(3, 3, cin, cout, dtype=WGRAD_DTYPE, device=x.device)
-    partial = (torch.empty(splits, 3, 3, cin, cout, dtype=WGRAD_DTYPE,
-                           device=x.device) if splits > 1 else None)
+    partial = (torch.empty(plan.splits, 3, 3, cin, cout, dtype=WGRAD_DTYPE,
+                           device=x.device) if plan.splits > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), int(bf16), b, h, w, cin, cout,
-                 splits, None if partial is None else partial.data_ptr(),
+                 plan.seg, plan.tile_ci, plan.tile_co, plan.splits,
+                 None if partial is None else partial.data_ptr(),
                  out.data_ptr(), stream)
     if err != 0:
+        # a negative code is the driver's CUresult of the tensor-map encode
         raise RuntimeError(f"wgrad_9tap kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["wgrad_9tap"] += 1

@@ -282,12 +282,21 @@ def test_bn_act_takes_other_layouts_by_an_explicit_copy(cuda_device):
     (4, 40, 60, 128, 128, torch.bfloat16),
     (2, 9, 37, 144, 128, torch.bfloat16),   # ragged plane and a partial tile
     (1, 6, 35, 24, 40, torch.float32),
+    (2, 7, 70, 128, 256, torch.bfloat16),   # W not a multiple of 64 pixels
+    (3, 1, 64, 128, 128, torch.bfloat16),   # H = 1: both kernel-row pads
+    (2, 5, 20, 128, 128, torch.bfloat16),   # narrower than one segment
+    (2, 8, 16, 1024, 128, torch.bfloat16),  # asymmetric, many ci tiles
+    (1, 6, 33, 128, 144, torch.bfloat16),   # a partial co tile
+    (1, 6, 35, 16, 32, torch.bfloat16),     # channels under one TMA box
 ])
 def test_wgrad_kernel_matches_plain_version_and_cudnn(cuda_device, b, h, w,
                                                       cin, cout, dtype):
     """K5 within 1e-4 of the plain version's largest (float32 sums of
     exact products in other orders), within 1e-2 of cuDNN's (which rounds
-    its result to the input dtype), and bitwise repeatable."""
+    its result to the input dtype), and bitwise repeatable. The bf16
+    cases cover the edges of its tiles: the pixel segment, the padding
+    rows and columns that the TMA fills with zeros, and partial channel
+    tiles."""
     from distributedpytorch_tpu_torch.ops import wgrad_kernels as wk
 
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -313,6 +322,25 @@ def test_wgrad_kernel_matches_plain_version_and_cudnn(cuda_device, b, h, w,
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert float((got - lib).abs().max()) <= 1e-2 * scale
+
+
+def test_wgrad_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from distributedpytorch_tpu_torch.ops import wgrad_kernels as wk
+
+    x = torch.zeros((1, 4, 8, 128), dtype=torch.bfloat16, device=cuda_device)
+    dy = torch.zeros((1, 4, 8, 128), dtype=torch.bfloat16, device=cuda_device)
+    before = kernels.LAUNCHES["wgrad_9tap"]
+    with pytest.raises(ValueError, match="multiples of 16"):
+        wk.wgrad_9tap(x[..., :120].contiguous(), dy)
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        wk.wgrad_9tap(flat[1:].view(x.shape), dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wgrad_9tap(x.transpose(1, 2), dy.transpose(1, 2))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        wk.wgrad_9tap(x.half(), dy.half())
+    assert kernels.LAUNCHES["wgrad_9tap"] == before
 
 
 def _milesial_step(cuda_device, policy, batch, init, base):
