@@ -290,11 +290,31 @@ def _loss_inputs(shape, gen, dev):
     return p, t
 
 
+def _device_kernels(fn) -> list:
+    """Names of the kernels one call of ``fn`` runs on the card, by the
+    profiler's device activity (after a warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [evt.name for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_loss_kernels() -> dict:
     """K1 and K1-bwd against their plain versions at the train/eval shape
-    and one ragged size, then timed at the train/eval shape."""
+    and one ragged size, then timed at the train/eval shape (K1 also at
+    the ragged size, beside the launch floor); one K1 call must run
+    exactly one kernel on the card. Reports both kernels' registers and
+    local memory by ``cuobjdump``."""
     import torch
 
+    from distributedpytorch_tpu_torch.ops import _build
     from distributedpytorch_tpu_torch.ops import loss_kernels as lk
 
     dev = torch.device("cuda", 0)
@@ -364,6 +384,18 @@ def phase_loss_kernels() -> dict:
     bwd_ms = cuda_ms(lambda: lk.stats_bwd(*nxt(), ct), 100, hold=True)
     bwd_plain_ms = cuda_ms(lambda: lk.stats_bwd_reference(*nxt(), ct), 30,
                            hold=True)
+    # the launch floor: an empty kernel, timed the same way
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), 100, hold=True)
+    ragged = _loss_inputs((3, 17, 29, 1), gen, dev)
+    ragged_ms = cuda_ms(lambda: lk.eval_stats(*ragged), 100, hold=True)
+    sms, per_sm = lk.card_geometry(dev)
+    plan = lk.loss_stats_plan(inputs[0][0].numel(), sms, per_sm)
+    device_kernels = _device_kernels(lambda: lk.eval_stats(*nxt()))
+    check(len(device_kernels) == 1 and "stats_kernel" in device_kernels[0],
+          f"loss stats: one call ran {device_kernels} on the card, expected "
+          f"one stats_kernel")
+    # registers and local memory (spills) of K1 and K1-bwd
+    usage = _sass_of(_build.library_path("loss_stats"), ())["resource_usage"]
     n = inputs[0][0].numel()
     # each input read once, each output written once
     stats_bytes = 8 * n + 6 * 4
@@ -379,6 +411,12 @@ def phase_loss_kernels() -> dict:
         "timed_shape": list(shape),
         "stats_ms": stats_ms, "stats_plain_ms": stats_plain_ms,
         "stats_bytes": stats_bytes, "stats_bound_ms": stats_bound_s * 1e3,
+        "stats_share_of_bound": stats_bound_s * 1e3 / stats_ms,
+        "stats_plan": {"blocks": plan.blocks, "chunk": plan.chunk,
+                       "sms": sms, "blocks_per_sm": per_sm},
+        "stats_device_kernels_per_call": device_kernels,
+        "stats_ragged_shape": [3, 17, 29, 1], "stats_ragged_ms": ragged_ms,
+        "launch_floor_ms": floor_ms, "resource_usage": usage,
         "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
         "bwd_bytes": bwd_bytes, "bwd_bound_ms": bwd_bound_s * 1e3,
     }

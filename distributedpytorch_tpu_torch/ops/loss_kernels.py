@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,6 +36,16 @@ DICE_EPS = 1e-7
 
 _lib_lock = threading.Lock()
 _lib: Dict[str, object] = {}
+# device index -> (SMs, K1's resident blocks per SM)
+_geometry: Dict[int, Tuple[int, int]] = {}
+# (device index, stream) -> K1's workspace: ticket counter and partials
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+# K1's block geometry (``csrc/loss_stats.cu``: kStatsThreads, kUnroll):
+# threads per block, and float4 loads of each input one thread has in
+# flight before it computes
+THREADS = 256
+UNROLL = 2
 
 
 # ---------------------------------------------------------------------------
@@ -88,27 +99,98 @@ def stats_bwd_reference(o: torch.Tensor, t: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class LossStatsPlan:
+    """How one K1 call over ``n`` elements cuts them: ``blocks`` blocks,
+    each one contiguous run of ``chunk`` elements (a multiple of 4, so
+    float4-aligned) of the first ``4 (n // 4)``; the last block's run is
+    short, and that block also takes the ``n mod 4`` tail."""
+
+    n: int
+    blocks: int
+    chunk: int
+
+    def block_range(self, block: int) -> Tuple[int, int]:
+        """Elements ``[begin, end)`` that ``block`` streams as float4s."""
+        body = self.n - self.n % 4
+        begin = min(block * self.chunk, body)
+        return begin, min(begin + self.chunk, body)
+
+    @property
+    def tail(self) -> Tuple[int, int]:
+        """Elements ``[begin, end)`` the last block adds one per thread."""
+        return self.n - self.n % 4, self.n
+
+
+def loss_stats_plan(n: int, sms: int, blocks_per_sm: int) -> LossStatsPlan:
+    """K1's launch plan: at most one whole wave of ``sms x blocks_per_sm``
+    resident blocks, each streaming an equal float4-aligned chunk (the
+    last one shorter) of at least one float4 per thread, so a small input
+    takes few blocks. With fewer than four elements, one block takes the
+    tail alone. ``csrc/loss_stats.cu`` refuses any other plan."""
+    n4 = n // 4
+    chunk4 = max(THREADS, -(-n4 // (sms * blocks_per_sm)))
+    blocks = max(1, -(-n4 // chunk4))
+    return LossStatsPlan(n=n, blocks=blocks, chunk=4 * chunk4)
+
+
 def _library():
-    """``(stats fn, bwd fn, scratch words)`` of ``csrc/loss_stats.cu``."""
+    """The entry points of ``csrc/loss_stats.cu``: ``{stats, bwd,
+    blocks_per_sm, workspace_words}``."""
     with _lib_lock:
         if not _lib:
             from distributedpytorch_tpu_torch.ops import _build
 
             lib = _build.load("loss_stats")
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
             stats = lib.dpt_loss_stats
-            stats.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p]
-            stats.restype = ctypes.c_int
+            stats.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr]
+            stats.restype = i32
             bwd = lib.dpt_loss_stats_bwd
-            bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            bwd.restype = ctypes.c_int
-            words = lib.dpt_loss_stats_scratch_words
-            words.argtypes = []
-            words.restype = ctypes.c_int
-            _lib.update(stats=stats, bwd=bwd, words=int(words()))
-        return _lib["stats"], _lib["bwd"], _lib["words"]
+            bwd.argtypes = [ptr, ptr, ptr, i32, ptr, ptr]
+            bwd.restype = i32
+            per_sm = lib.dpt_loss_stats_blocks_per_sm
+            per_sm.argtypes = []
+            per_sm.restype = i32
+            words = lib.dpt_loss_stats_workspace_words
+            words.argtypes = [i32]
+            words.restype = i32
+            _lib.update(stats=stats, bwd=bwd, blocks_per_sm=per_sm,
+                        workspace_words=words)
+        return _lib
+
+
+def card_geometry(device: torch.device) -> Tuple[int, int]:
+    """``(SMs, K1's resident blocks per SM)`` of ``device``, read once."""
+    index = device.index
+    with _lib_lock:
+        found = _geometry.get(index)
+    if found is None:
+        lib = _library()
+        with torch.cuda.device(index):
+            per_sm = int(lib["blocks_per_sm"]())
+        if per_sm < 1:
+            raise RuntimeError("loss stats kernel: the occupancy query failed")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        found = (sms, per_sm)
+        with _lib_lock:
+            _geometry[index] = found
+    return found
+
+
+def _workspace(device: torch.device, stream: int, most: int) -> torch.Tensor:
+    """K1's workspace for ``stream`` on ``device``: made and zeroed once,
+    left zeroed by every call. One per stream, so calls on two streams
+    never share a ticket counter."""
+    key = (device.index, stream)
+    with _lib_lock:
+        ws = _workspaces.get(key)
+    if ws is None:
+        words = int(_library()["workspace_words"](most))
+        ws = torch.zeros(words, dtype=torch.int32, device=device)
+        with _lib_lock:
+            ws = _workspaces.setdefault(key, ws)
+    return ws
 
 
 def _check_operand(x: torch.Tensor, what: str, like: torch.Tensor) -> None:
@@ -139,19 +221,29 @@ def _check_pair(p: torch.Tensor, t: torch.Tensor, name: str) -> int:
 def eval_stats(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """The six K1 sums of ``p`` against ``t`` (any shapes with equal
     element counts) as a float32 ``(6,)`` tensor on their device. On the
-    card: one pass over both inputs plus a one-block pass over the
-    per-block partials, on the current stream, with no host sync; the
-    sums are bitwise repeatable and the count and hard sums exact."""
+    card: one launch on the current stream (``loss_stats_plan``; the last
+    block to finish adds the partials), with no host sync; the sums are
+    bitwise repeatable and the count and hard sums exact."""
     if p.device.type == "cpu":
         return eval_stats_reference(p, t)
     n = _check_pair(p, t, "loss stats")
-    stats_fn, _, words = _library()
+    sms, per_sm = card_geometry(p.device)
+    return _launch_stats(p, t, loss_stats_plan(n, sms, per_sm))
+
+
+def _launch_stats(p: torch.Tensor, t: torch.Tensor,
+                  plan: LossStatsPlan) -> torch.Tensor:
+    """K1 on checked operands under ``plan``, which the entry point checks
+    against its own."""
+    lib = _library()
+    sms, per_sm = card_geometry(p.device)
     out = torch.empty(6, dtype=LOSS_DTYPE, device=p.device)
-    scratch = torch.empty(words, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = stats_fn(p.data_ptr(), t.data_ptr(), n, scratch.data_ptr(),
-                       out.data_ptr(), stream)
+        ws = _workspace(p.device, stream, sms * per_sm)
+        err = lib["stats"](p.data_ptr(), t.data_ptr(), plan.n, plan.blocks,
+                           plan.chunk, ws.data_ptr(), ws.numel(),
+                           out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"loss stats kernel launch failed: CUDA error {err}")
     LAUNCHES["loss_stats"] += 1
@@ -170,7 +262,7 @@ def stats_bwd(o: torch.Tensor, t: torch.Tensor,
     if ct.numel() != 4:
         raise ValueError(f"loss stats backward: ct has {ct.numel()} "
                          f"elements, expected 4")
-    _, bwd_fn, _ = _library()
+    bwd_fn = _library()["bwd"]
     grad = torch.empty(o.shape, dtype=LOSS_DTYPE, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream

@@ -117,6 +117,110 @@ def test_loss_stats_kernel_matches_plain_version(cuda_device, shape):
     assert torch.equal(got, again)  # no atomics: bitwise repeatable
 
 
+def _assert_stats_match(got, want):
+    """Soft sums within rel 1e-5 (float32 sums in other orders), the count
+    and hard sums exact."""
+    torch.testing.assert_close(got[[0, 2, 3]], want[[0, 2, 3]], rtol=1e-5,
+                               atol=0)
+    assert torch.equal(got[[1, 4, 5]], want[[1, 4, 5]])
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1025, 2**20 + 3,
+                               4 * 640 * 960])
+def test_loss_stats_kernel_at_the_plan_edge_sizes(cuda_device, n):
+    """Inputs under 4 elements (the tail alone), under one block's chunk,
+    a ragged tail past whole waves, and the train shape; three calls on
+    one input are bitwise equal."""
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    if n == 0:
+        p = t = torch.empty(0, device=cuda_device)
+    else:
+        p, t = _loss_inputs((n,), cuda_device, seed=n % 5)
+    got = [lk.eval_stats(p, t) for _ in range(3)]
+    want = lk.eval_stats_reference(p, t)
+    torch.cuda.synchronize()
+    _assert_stats_match(got[0], want)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+
+
+def test_loss_stats_ten_calls_in_a_row_on_different_inputs(cuda_device):
+    """Each call leaves the ticket counter at 0 for the next one."""
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    cases = [_loss_inputs((4, 160, 240, 1), cuda_device, seed=s)
+             for s in range(10)]
+    got = [lk.eval_stats(p, t) for p, t in cases]
+    torch.cuda.synchronize()
+    for out, (p, t) in zip(got, cases):
+        _assert_stats_match(out, lk.eval_stats_reference(p, t))
+
+
+def test_loss_stats_on_two_streams_at_once(cuda_device):
+    """Calls enqueued on two streams in turn (each stream has its own
+    workspace, so they never share a counter) equal serial calls bit for
+    bit."""
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    cases = [_loss_inputs((4, 320, 480, 1), cuda_device, seed=s)
+             for s in (7, 8)]
+    serial = [lk.eval_stats(p, t) for p, t in cases]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    got = [[], []]
+    for _ in range(8):
+        for i, (s, (p, t)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[i].append(lk.eval_stats(p, t))
+    torch.cuda.synchronize()
+    for outs, want in zip(got, serial):
+        assert all(torch.equal(out, want) for out in outs)
+
+
+def test_loss_stats_replays_in_a_cuda_graph(cuda_device):
+    """A captured call replays on new data in its static inputs; the
+    counter is back at 0 after every replay."""
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    cases = [_loss_inputs((2, 64, 96, 1), cuda_device, seed=s)
+             for s in range(4)]
+    p, t = (x.clone() for x in cases[0])
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        lk.eval_stats(p, t)  # warm up off the default stream
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lk.eval_stats(p, t)
+    for case in cases[1:] + cases[:1]:
+        p.copy_(case[0])
+        t.copy_(case[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = lk.eval_stats_reference(*case)
+        _assert_stats_match(out, want)
+        assert torch.equal(out, lk.eval_stats(*case))
+
+
+def test_loss_stats_entry_point_refuses_a_foreign_plan(cuda_device):
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    p, t = _loss_inputs((4, 64, 96, 1), cuda_device)
+    n = p.numel()
+    plan = lk.loss_stats_plan(n, *lk.card_geometry(p.device))
+    before = kernels.LAUNCHES["loss_stats"]
+    for foreign in (lk.LossStatsPlan(n, plan.blocks + 1, plan.chunk),
+                    lk.LossStatsPlan(n, plan.blocks, plan.chunk + 4),
+                    lk.LossStatsPlan(n, 1, 4 * n)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            lk._launch_stats(p, t, foreign)
+    assert kernels.LAUNCHES["loss_stats"] == before
+    _assert_stats_match(lk._launch_stats(p, t, plan),
+                        lk.eval_stats_reference(p, t))
+
+
 @pytest.mark.parametrize("shape", [(4, 640, 960, 1), (3, 17, 29, 1), (5,)])
 def test_loss_stats_backward_kernel_matches_plain_version(cuda_device, shape):
     from distributedpytorch_tpu_torch.ops import loss_kernels as lk
