@@ -20,13 +20,27 @@ milesial UNet (31M parameters, BatchNorm) through the same CLI with
 ``DPT_WGRAD_BACKEND=pallas`` (``--synthetic 20 -b 4 -e 1``), which runs
 the BatchNorm + ReLU epilogue kernels and the 9-tap weight-gradient
 kernel, serves its weights, and holds one milesial step under kernels
-cuda against kernels torch. Each path's kernel launches are counted from
-zero over its run. It fails (non-zero exit, no result line)
-without a card, outside a checkout, or when any phase disagrees.
+cuda against kernels torch. ``-t DDP`` runs three ways: the UNet run and
+the milesial run again at world 1 under NCCL through the same CLI
+functions with torchrun's env set (``train_ddp``, ``train_milesial_ddp``;
+the UNet once more as a real ``torchrun --standalone --nproc_per_node 1``
+subprocess), and two ranks of the full-width UNet on the one card, two
+processes this script spawns (``--ddp-rank R 2 gloo DIR``) over a gloo
+group (``train_ddp_gloo2``), held against one world-1 step on the
+concatenated batch. Each path's kernel launches are counted from zero
+over its run. It fails (non-zero exit, no result line) without a card,
+outside a checkout, or when any phase disagrees.
+
+    python3 chip_smoke.py --cards 4
+
+runs, after the build, only ``-t DDP`` across four cards under NCCL, one
+process per card (``ddp_cards``): the same checks as the two gloo ranks,
+the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
+launch of the training CLI.
 
 Each phase prints one JSON line. Before the last line come the
-``{"kernels": [...]}`` summary and the card's name and power limit as
-``nvidia-smi`` reports them; the last line is
+``{"kernels": [...]}`` summary (not with ``--cards``) and the card's
+name and power limit as ``nvidia-smi`` reports them; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -840,12 +854,44 @@ def phase_profile(engine) -> dict:
     return result
 
 
+def _host_enqueue_ms(fn) -> float:
+    """Host milliseconds to return from one call of ``fn`` on an idle
+    card (what the host spends enqueueing it), then the card drained."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def _top_host_ops(fn, runs: int, width: int = 60) -> list:
+    """``[[name, host ms per run, calls per run], ...]`` of the PyTorch
+    operators ``fn`` calls, by their own host time over ``runs`` calls,
+    largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((evt.self_cpu_time_total / runs / 1e3, evt.key,
+                    evt.count / runs) for evt in prof.key_averages()),
+                  reverse=True)
+    return [[name[:width], ms, calls] for ms, name, calls in rows]
+
+
 def _top_kernels(fn, runs: int, width: int = 80, by_op: bool = False
                  ) -> list:
     """``[[name, device ms per run], ...]`` of the kernels ``fn`` launches,
     largest first, by the profiler's device clock over ``runs`` calls;
     with ``by_op``, of the PyTorch operators that launched them (each
-    operator's own kernels, its children's excluded)."""
+    operator's own kernels, its children's excluded). A range that a
+    ``record_function`` marks on the device (DDP's forward) is not a
+    kernel and is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -854,11 +900,14 @@ def _top_kernels(fn, runs: int, width: int = 80, by_op: bool = False
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    want = (torch.autograd.DeviceType.CPU if by_op
-            else torch.autograd.DeviceType.CUDA)
+    cpu = torch.autograd.DeviceType.CPU
+    want = cpu if by_op else torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+    host_names = {evt.key for evt in averages if evt.device_type == cpu}
     rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != want:
+    for evt in averages:
+        if evt.device_type != want or (not by_op
+                                       and evt.key in host_names):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -955,6 +1004,7 @@ def phase_train(tmp: str) -> dict:
     batch = trainer.place_batch(trainer.train_loader.load_slice(
         trainer.train_loader.batch_slices(0)[0]))
     step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+    host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
     top = _top_kernels(lambda: trainer.train_step(batch), 3)
     out = {
         "phase": "train", "params": n_params, "steps": steps,
@@ -963,6 +1013,7 @@ def phase_train(tmp: str) -> dict:
         "val_loss": result["val_loss"], "val_dice": result["val_dice"],
         "run_imgs_per_s": result["images_per_second"],
         "step_ms": step_ms, "step_imgs_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "host_enqueue_ms": host_ms,
         "peak_mem_bytes": peak_bytes, "artifacts": artifacts,
         "device_ms_per_step": sum(ms for _, ms in top),
         "top_kernels_ms": top[:10],
@@ -1077,6 +1128,9 @@ def phase_train_milesial(tmp: str) -> dict:
         peak_bytes = torch.cuda.max_memory_allocated()
         moved = sum(not torch.equal(before[n], b)
                     for n, b in model.named_buffers() if n in before)
+        # the running statistics the run left, before timing moves them
+        final_stats = {n: b.clone() for n, b in model.named_buffers()
+                       if n in before}
         artifacts = sorted(
             os.path.relpath(os.path.join(d, f), run)
             for d, _, files in os.walk(run) for f in files
@@ -1092,6 +1146,7 @@ def phase_train_milesial(tmp: str) -> dict:
         batch = trainer.place_batch(trainer.train_loader.load_slice(
             trainer.train_loader.batch_slices(0)[0]))
         step_ms = cuda_ms(lambda: trainer.train_step(batch), 5, warmup=2)
+        host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
         top = _top_kernels(lambda: trainer.train_step(batch), 2, width=200)
         top_ops = _top_kernels(lambda: trainer.train_step(batch), 2,
                                by_op=True)
@@ -1143,6 +1198,7 @@ def phase_train_milesial(tmp: str) -> dict:
         "train_s": train_s, "losses": losses,
         "val_loss": result["val_loss"], "val_dice": result["val_dice"],
         "step_ms": step_ms, "step_imgs_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "host_enqueue_ms": host_ms,
         "peak_mem_bytes": peak_bytes, "artifacts": artifacts,
         "device_ms_per_step": sum(ms for _, ms in top),
         "bn_act_kernels_ms_per_step": share("bn_act"),
@@ -1152,7 +1208,7 @@ def phase_train_milesial(tmp: str) -> dict:
         "device": torch.cuda.get_device_name(0),
     }
     emit(out)
-    return out
+    return dict(out, running_stats=final_stats)
 
 
 class _PlainVersions:
@@ -1313,6 +1369,555 @@ def phase_train_milesial_parity() -> dict:
     return out
 
 
+# -t DDP ---------------------------------------------------------------------
+
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+# train_ddp against train: the first step's loss is bitwise equal (the
+# same weights, batch and kernels; the world-1 all-reduces are copies);
+# later steps within this, since cuDNN's weight-gradient sums need not be
+# run-to-run identical and Adam carries a difference on
+DDP_LOSS_RTOL = 1e-3
+# train_ddp_gloo2 and --cards: per-rank batch and steps of the full-width
+# float32 UNet on every rank
+RANK_BATCH = 2
+RANK_STEPS = 4
+# their first step against one world-1 step on the concatenated batch:
+# the loss (float32 sums in other orders) and each weight gradient
+# relative to its tensor's largest (cuDNN sums a batch of 2 and the whole
+# batch in other orders)
+RANKS_LOSS_RTOL = 1e-5
+RANKS_GRAD_RTOL = 1e-3
+# train_milesial_ddp's running statistics against train_milesial's, the
+# same batches at world 1, relative to each tensor's largest
+DDP_STATS_RTOL = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ddp_world_one(run: str, argv, measure):
+    """Train ``argv`` (``-t DDP``) at world 1 through the training CLI's
+    own functions, as ``torchrun --nproc_per_node 1`` launches it: with
+    torchrun's env set, ``cli.start_runtime`` joins an NCCL group, the
+    kernel launches are counted over ``trainer.train()``, then
+    ``measure(trainer)`` runs while the group is up. Returns the trainer,
+    its result, the launches, the running statistics the run left, the
+    files it wrote and what ``measure`` returned."""
+    import torch
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.dist import runtime
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    os.makedirs(run)
+    saved_env = {k: os.environ.get(k) for k in TORCHRUN_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    args = cli.get_args(argv)
+    cwd = os.getcwd()
+    os.chdir(run)
+    handlers = []
+    try:
+        info = cli.start_runtime(args)
+        check(info.num_processes == 1
+              and torch.distributed.get_backend() == "nccl",
+              f"-t DDP joined {torch.distributed.get_backend()} at world "
+              f"{info.num_processes}")
+        handlers = cli.configure_logging(cli.to_config(args),
+                                         to_stderr=info.is_main)
+        trainer = cli.build_trainer(args, info)
+        check(trainer.kernels.name == "cuda", "policy is not cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        stats = {n: b.clone() for n, b in trainer.model.named_buffers()
+                 if "running" in n}
+        artifacts = sorted(
+            os.path.relpath(os.path.join(d, f), run)
+            for d, _, files in os.walk(run) for f in files
+        )
+        measured = measure(trainer)
+    finally:
+        runtime.shutdown()
+        root = logging.getLogger()
+        for handler in handlers:
+            root.removeHandler(handler)
+            handler.close()
+        os.chdir(cwd)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    for need in ("logs/DDP.log", "checkpoints/DDP.pt", "checkpoints/DDP.pth",
+                 "loss/DDP/train_loss.pkl", "loss/DDP/val_loss.pkl",
+                 "loss/DDP/val_dice.pkl"):
+        check(need in artifacts, f"missing artifact {need}: {artifacts}")
+    return trainer, result, launches, stats, artifacts, measured
+
+
+def _step_ms(iters: int, warmup: int):
+    """``measure`` for ``_ddp_world_one``: the steady step on a placed
+    batch by CUDA events, the host's time to enqueue one step, and the
+    step's device time and kernels by the profiler's clock."""
+
+    def measure(trainer):
+        batch = trainer.place_batch(trainer.train_loader.load_slice(
+            trainer.train_loader.batch_slices(0)[0]))
+        step_ms = cuda_ms(lambda: trainer.train_step(batch), iters,
+                          warmup=warmup)
+        host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
+        top = _top_kernels(lambda: trainer.train_step(batch), 2)
+        host_top = _top_host_ops(lambda: trainer.train_step(batch), 2)
+        return {"step_ms": step_ms, "host_enqueue_ms": host_ms,
+                "device_ms_per_step": sum(ms for _, ms in top),
+                "top_kernels_ms": top[:10], "top_host_ops_ms": host_top[:12]}
+
+    return measure
+
+
+def phase_train_ddp(tmp: str, train: dict) -> dict:
+    """``-t DDP`` of the full-width UNet at world 1 under NCCL with the
+    data and seed of ``train`` (bf16, kernels cuda, 16 steps, 4 eval
+    batches): K1 per shard in every step and eval batch, K1-bwd per step,
+    the first loss bitwise equal to ``train``'s, the step by CUDA events
+    beside ``train``'s (what the all-reduces cost at world 1). Then a
+    shorter run as a real ``torchrun --standalone --nproc_per_node 1``
+    subprocess, which must exit 0 with the DDP artifacts."""
+    import numpy as np
+    import torch
+
+    w, h = IMAGE_WH
+    argv = ["-t", "DDP", "--synthetic", str(TRAIN_SAMPLES),
+            "-v", "20", "-b", str(TRAIN_BATCH), "-e", str(TRAIN_EPOCHS),
+            "--image-size", str(w), str(h), "--dtype", "bf16",
+            "--kernels", "cuda"]
+    trainer, result, launches, _, artifacts, timing = _ddp_world_one(
+        os.path.join(tmp, "train_ddp"), argv, _step_ms(10, 3))
+    steps = result["steps"]
+    eval_batches = TRAIN_EPOCHS * len(trainer.val_loader)
+    losses = [float(x) for x in trainer.records.losses]
+    check(steps == train["steps"] and len(losses) == steps,
+          f"{steps} DDP steps against {train['steps']}")
+    check(all(np.isfinite(losses)), f"non-finite DDP loss: {losses}")
+    check(launches["loss_stats"] == steps + eval_batches,
+          f"DDP: loss stats kernel launched {launches['loss_stats']} times "
+          f"for {steps} steps and {eval_batches} eval batches")
+    check(launches["loss_stats_bwd"] == steps,
+          f"DDP: loss stats backward launched {launches['loss_stats_bwd']} "
+          f"times for {steps} steps")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+
+    # the same path as a user launches it
+    sub = os.path.join(tmp, "train_ddp_torchrun")
+    os.makedirs(sub)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for key in TORCHRUN_ENV:
+        env.pop(key, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "distributedpytorch_tpu_torch",
+           "-t", "DDP", "--synthetic", "8", "-v", "50",
+           "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w), str(h),
+           "--kernels", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=sub, env=env, capture_output=True,
+                          text=True, timeout=300)
+    torchrun_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"torchrun -t DDP exited {proc.returncode}: {proc.stderr[-3000:]}")
+    wrote = sorted(os.path.relpath(os.path.join(d, f), sub)
+                   for d, _, files in os.walk(sub) for f in files)
+    check(wrote == ["checkpoints/DDP.pt", "checkpoints/DDP.pth",
+                    "logs/DDP.log", "loss/DDP/train_loss.pkl",
+                    "loss/DDP/val_dice.pkl", "loss/DDP/val_loss.pkl"],
+          f"torchrun -t DDP wrote {wrote}")
+    out = {
+        "phase": "train_ddp", "world": 1, "backend": "nccl",
+        "steps": steps, "eval_batches": eval_batches, "launches": launches,
+        "losses": losses, "first_loss_bitwise_equal":
+            losses[0] == train["losses"][0],
+        "loss_max_rel_err_vs_train": max(rel),
+        "val_loss": result["val_loss"], "val_dice": result["val_dice"],
+        **timing, "train_step_ms": train["step_ms"],
+        "train_device_ms_per_step": train["device_ms_per_step"],
+        "step_ms_over_train": timing["step_ms"] / train["step_ms"],
+        "artifacts": artifacts, "torchrun_s": torchrun_s,
+        "torchrun_wrote": wrote,
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(out)
+    check(out["first_loss_bitwise_equal"],
+          f"DDP first loss {losses[0]} against train's {train['losses'][0]}")
+    check(max(rel) <= DDP_LOSS_RTOL,
+          f"DDP losses off train's by rel {max(rel)}")
+    return out
+
+
+class _FirstGrads:
+    """An optimizer that keeps the gradients of its first step (as Adam
+    receives them), then steps ``inner``."""
+
+    def __init__(self, inner, named):
+        self.inner = inner
+        self.named = named
+        self.grads = None
+
+    def zero_grad(self, set_to_none=True):
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        if self.grads is None:
+            self.grads = {n: p.grad.detach().float().cpu()
+                          for n, p in self.named}
+        self.inner.step()
+
+
+def _ddp_batches(world: int, per_rank: int, steps: int):
+    """``steps`` global batches of ``world x per_rank`` synthetic items,
+    on the host; rank r takes rows ``[r·per_rank, (r+1)·per_rank)``."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data.dataset import (
+        SyntheticSegmentationDataset,
+    )
+
+    n = world * per_rank
+    data = SyntheticSegmentationDataset(steps * n, IMAGE_WH, seed=SEED)
+    items = [data[i] for i in range(steps * n)]
+    return [{k: np.stack([it[k] for it in items[s * n:(s + 1) * n]])
+             for k in ("image", "mask")} for s in range(steps)]
+
+
+def _ddp_model_step(rank: int, world: int, device: str, dtype: str,
+                    per_rank: int):
+    """The full-width UNet through the DDP strategy on ``device`` (kernels
+    cuda, seed SEED): ``(model, step, first_grads, batches)`` with the
+    rank's rows of global batches."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(train_method="DDP", device=device, dtype=dtype,
+                      kernels="cuda", batch_size=per_rank)
+    strategy = build_strategy(cfg)
+    check(strategy.world == world and strategy.rank == rank
+          and str(strategy.device) == device,
+          f"rank {rank}: {strategy.info}")
+    model = create_model(cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(strategy.device)
+    opt = _FirstGrads(make_optimizer(
+        model.parameters(), strategy.lr_for(cfg.learning_rate),
+        cfg.weight_decay), list(model.named_parameters()))
+    step = make_train_step(strategy.wrap_model(model), opt, per_rank,
+                           loss_impl=strategy.train_loss(True))
+    rows = slice(rank * per_rank, (rank + 1) * per_rank)
+
+    def place(batch):
+        return {k: torch.from_numpy(v[rows]).to(strategy.device)
+                for k, v in batch.items()}
+
+    return model, step, opt, place
+
+
+def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of a multi-process DDP phase (``chip_smoke.py --ddp-rank R
+    WORLD BACKEND DIR``): joins a ``backend`` group over a file store in
+    ``DIR``, on cuda:0 under gloo (``train_ddp_gloo2``: every rank on the
+    one card) and on cuda:R under nccl (``--cards``). Trains the
+    full-width float32 UNet under kernels cuda through the DDP strategy
+    for RANK_STEPS steps on its RANK_BATCH rows of each global batch and
+    writes its losses, its first step's gradients, its final weights and
+    its launches to ``DIR/result_R.pt``; under nccl it also times the
+    bf16 step at TRAIN_BATCH per rank by CUDA events."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    torch.cuda.set_device(torch.device(device))
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        model, step, opt, place = _ddp_model_step(rank, world, device, "f32",
+                                                  RANK_BATCH)
+        kernels.reset_launches()
+        losses = [float(step(place(batch))) for batch in
+                  _ddp_batches(world, RANK_BATCH, RANK_STEPS)]
+        result = {"losses": losses, "grads": opt.grads,
+                  "launches": dict(kernels.LAUNCHES),
+                  "state": {k: v.cpu() for k, v in
+                            model.state_dict().items()}}
+        del model, step, opt
+        if backend == "nccl":
+            _, step, _, place = _ddp_model_step(rank, world, device, "bf16",
+                                                TRAIN_BATCH)
+            batch = place(_ddp_batches(world, TRAIN_BATCH, 1)[0])
+            result["bf16_step_ms"] = cuda_ms(lambda: step(batch), 10,
+                                             warmup=3)
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_ddp_ranks(job: str, world: int, backend: str):
+    """``world`` processes of ``ddp_rank``, started together; their
+    results by rank and the wall seconds they took."""
+    import torch
+
+    os.makedirs(job)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for key in TORCHRUN_ENV:
+        env.pop(key, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ddp-rank", str(rank), str(world), backend,
+                               job], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    wall_s = time.perf_counter() - t0
+    for rank, proc in enumerate(procs):
+        check(proc.returncode == 0,
+              f"{backend} rank {rank} of {world} exited {proc.returncode}: "
+              f"{logs[rank][-3000:]}")
+    return [torch.load(os.path.join(job, f"result_{rank}.pt"),
+                       weights_only=True) for rank in range(world)], wall_s
+
+
+def _check_ranks_against_one_step(ranks, world: int) -> dict:
+    """The ranks' weights and losses bitwise equal, K1 and K1-bwd launched
+    once per step on each, and step 1's loss and gradients against one
+    world-1 step of the same weights on the concatenated batch (with the
+    per-process faithful scale) on cuda:0."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    same_weights = all(torch.equal(v, r["state"][k]) for r in ranks[1:]
+                       for k, v in ranks[0]["state"].items())
+    dev = torch.device("cuda", 0)
+    cfg = TrainConfig(dtype="f32", kernels="cuda", device="cuda")
+    model = create_model(cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in _ddp_batches(world, RANK_BATCH, 1)[0].items()}
+    loss = float(make_train_step(model, opt, RANK_BATCH,
+                                 train_loss_fused=True)(batch))
+    rel_loss = abs(ranks[0]["losses"][0] - loss) / abs(loss)
+    worst = max(
+        float((ranks[0]["grads"][n] - p.grad.float().cpu()).abs().max()
+              / p.grad.abs().max())
+        for n, p in model.named_parameters())
+    out = {
+        "losses": [r["losses"] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+        "weights_bitwise_equal": same_weights,
+        "step1_loss_world1": loss, "step1_loss_rel_err": rel_loss,
+        "step1_grad_max_err_rel_to_tensor_max": worst,
+    }
+    return out
+
+
+def _assert_ranks(out: dict, what: str) -> None:
+    check(out["weights_bitwise_equal"], f"{what}: the ranks' weights differ")
+    check(all(l == out["losses"][0] for l in out["losses"]),
+          f"{what}: the ranks' losses differ")
+    for counts in out["launches"]:
+        check(counts["loss_stats"] == RANK_STEPS
+              and counts["loss_stats_bwd"] == RANK_STEPS,
+              f"{what}: a rank launched {counts}")
+    check(out["step1_loss_rel_err"] <= RANKS_LOSS_RTOL,
+          f"{what}: step 1 loss off the world-1 step by rel "
+          f"{out['step1_loss_rel_err']}")
+    check(out["step1_grad_max_err_rel_to_tensor_max"] <= RANKS_GRAD_RTOL,
+          f"{what}: step 1 grads off the world-1 step by "
+          f"{out['step1_grad_max_err_rel_to_tensor_max']} of a tensor's "
+          f"largest")
+
+
+def phase_train_ddp_gloo2(tmp: str) -> dict:
+    """Two ranks of the DDP path on the one card (``ddp_rank``, two
+    processes this script spawns, both on cuda:0, a gloo group): the only
+    run of the default check where K1 and K1-bwd work across ranks. Their
+    weights must be bitwise equal at the end, and the first step's loss
+    and gradients equal one world-1 step on the concatenated batch within
+    RANKS_LOSS_RTOL and RANKS_GRAD_RTOL. A correctness phase, not a speed
+    reading."""
+    import torch
+
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "train_ddp_gloo2"), 2,
+                                   "gloo")
+    out = {"phase": "train_ddp_gloo2", "world": 2, "backend": "gloo",
+           "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
+           **_check_ranks_against_one_step(ranks, 2)}
+    emit(out)
+    _assert_ranks(out, "gloo ranks")
+    return out
+
+
+def phase_ddp_cards(tmp: str, world: int) -> dict:
+    """``-t DDP`` across ``world`` cards under NCCL, one process per card
+    (``chip_smoke.py --cards N``): ``ddp_rank`` on every card, checked as
+    ``train_ddp_gloo2`` is; the bf16 step at TRAIN_BATCH per card by CUDA
+    events at world 1 and at ``world`` (weak scaling: the same work per
+    card, plus the all-reduces); then ``torchrun --standalone
+    --nproc_per_node N`` of the training CLI, which must exit 0 with the
+    DDP artifacts."""
+    import torch
+
+    one, _ = _run_ddp_ranks(os.path.join(tmp, "cards_world1"), 1, "nccl")
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, f"cards_{world}"),
+                                   world, "nccl")
+    checked = _check_ranks_against_one_step(ranks, world)
+    step_ms = [r["bf16_step_ms"] for r in ranks]
+
+    sub = os.path.join(tmp, "cards_torchrun")
+    os.makedirs(sub)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for key in TORCHRUN_ENV:
+        env.pop(key, None)
+    w, h = IMAGE_WH
+    samples = 20 * world  # 20 % val: 4·world val samples, one batch each
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), "-m",
+           "distributedpytorch_tpu_torch", "-t", "DDP",
+           "--synthetic", str(samples), "-v", "20",
+           "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w), str(h),
+           "--kernels", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=sub, env=env, capture_output=True,
+                          text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    wrote = sorted(os.path.relpath(os.path.join(d, f), sub)
+                   for d, _, files in os.walk(sub) for f in files)
+    log = ""
+    if "logs/DDP.log" in wrote:
+        with open(os.path.join(sub, "logs", "DDP.log")) as f:
+            log = f.read()
+    out = {
+        "phase": "ddp_cards", "world": world, "backend": "nccl",
+        "device": torch.cuda.get_device_name(0),
+        "devices": [torch.cuda.get_device_name(i) for i in range(world)],
+        "wall_s": wall_s, **checked,
+        "bf16_step_ms_world1": one[0]["bf16_step_ms"],
+        "bf16_step_ms_by_rank": step_ms,
+        "weak_scaling_efficiency": one[0]["bf16_step_ms"] / max(step_ms),
+        "torchrun_rc": proc.returncode, "torchrun_s": torchrun_s,
+        "torchrun_wrote": wrote,
+        "torchrun_ranks_logged": sum(f"(rank {r} of {world})" in log
+                                     for r in range(world)),
+    }
+    emit(out)
+    _assert_ranks(out, f"{world} cards")
+    check(proc.returncode == 0,
+          f"torchrun -t DDP on {world} cards exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    check(wrote == ["checkpoints/DDP.pt", "checkpoints/DDP.pth",
+                    "logs/DDP.log", "loss/DDP/train_loss.pkl",
+                    "loss/DDP/val_dice.pkl", "loss/DDP/val_loss.pkl"],
+          f"torchrun -t DDP on {world} cards wrote {wrote}")
+    check(out["torchrun_ranks_logged"] == world,
+          f"{out['torchrun_ranks_logged']} of {world} ranks logged")
+    return out
+
+
+def phase_train_milesial_ddp(tmp: str, milesial: dict) -> dict:
+    """``-t DDP`` of the full-width milesial at world 1 under NCCL with
+    ``train_milesial``'s flags and data (``--wgrad-taps --kernels cuda``,
+    DPT_WGRAD_BACKEND=pallas, 4 steps and 1 eval batch, so the running
+    statistics can be held against that run's): every BatchNorm on
+    global statistics, K2, K3 and K5 launched exactly as on one device,
+    the running statistics within DDP_STATS_RTOL of ``train_milesial``'s."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+
+    w, h = IMAGE_WH
+    argv = ["-t", "DDP", "--model", "milesial", "--wgrad-taps",
+            "--kernels", "cuda", "--dtype", "bf16",
+            "--synthetic", str(MILESIAL_SAMPLES), "-v", "20",
+            "-b", str(TRAIN_BATCH), "-e", "1",
+            "--image-size", str(w), str(h)]
+    saved_backend = os.environ.get("DPT_WGRAD_BACKEND")
+    os.environ["DPT_WGRAD_BACKEND"] = "pallas"
+    try:
+        trainer, result, launches, stats, artifacts, timing = (
+            _ddp_world_one(os.path.join(tmp, "train_milesial_ddp"), argv,
+                           _step_ms(5, 2)))
+    finally:
+        if saved_backend is None:
+            os.environ.pop("DPT_WGRAD_BACKEND", None)
+        else:
+            os.environ["DPT_WGRAD_BACKEND"] = saved_backend
+    bns = [m for m in trainer.model.modules() if isinstance(m, BatchNormAct)]
+    check(len(bns) == 18 and all(m.epilogue and m.global_stats
+                                 for m in bns),
+          "not every BatchNorm runs the epilogue on global statistics")
+    steps = result["steps"]
+    eval_batches = len(trainer.val_loader)
+    check(steps == milesial["steps"] and eval_batches == 1,
+          f"{steps} steps, {eval_batches} eval batches")
+    losses = [float(x) for x in trainer.records.losses]
+    check(all(np.isfinite(losses)), f"non-finite milesial DDP loss {losses}")
+    want = {
+        "bn_act": 18 * (steps + eval_batches),
+        "bn_act_bwd": 18 * steps,
+        "wgrad_9tap": 13 * steps,
+        "loss_stats": steps + eval_batches,
+        "loss_stats_bwd": steps,
+    }
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"milesial DDP: {name} launched {launches[name]} times, "
+              f"expected {count}")
+    ref = milesial["running_stats"]
+    stats_err = max(float((stats[n] - t).abs().max() / t.abs().max())
+                    for n, t in ref.items())
+    out = {
+        "phase": "train_milesial_ddp", "world": 1, "backend": "nccl",
+        "steps": steps, "eval_batches": eval_batches, "launches": launches,
+        "losses": losses, "singleGPU_losses": milesial["losses"],
+        "val_loss": result["val_loss"], "val_dice": result["val_dice"],
+        "running_stats_max_err_rel_to_tensor_max": stats_err,
+        **timing, "train_milesial_step_ms": milesial["step_ms"],
+        "train_milesial_device_ms_per_step": milesial["device_ms_per_step"],
+        "artifacts": artifacts, "device": torch.cuda.get_device_name(0),
+    }
+    emit(out)
+    check(stats_err <= DDP_STATS_RTOL,
+          f"milesial DDP running statistics off singleGPU's by {stats_err}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -1342,13 +1947,43 @@ def phase_bounds() -> dict:
     return out
 
 
-def main() -> int:
+def _finish(device: dict) -> None:
+    """The card's name and power limit, then the result line."""
+    import torch
+
+    print(device["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
+def main_cards(world: int) -> int:
+    """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
+    across N cards (``phase_ddp_cards``) and no other phase."""
+    import torch
+
+    check(torch.cuda.device_count() >= world,
+          f"--cards {world} on {torch.cuda.device_count()} cards")
+    device = phase_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ddp_cards(tmp, world)
+    _finish(device)
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this check runs on the card",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--ddp-rank"]:  # one rank of a multi-process phase
+        return ddp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--cards"]:
+        return main_cards(int(argv[1]))
     device = phase_device()
     kernel = phase_kernel()
     loss = phase_loss_kernels()
@@ -1358,7 +1993,10 @@ def main() -> int:
         serve = phase_serve(tmp)
         phase_profile(serve["engine"])
         train = phase_train(tmp)
+        train_ddp = phase_train_ddp(tmp, train)
         milesial = phase_train_milesial(tmp)
+        milesial_ddp = phase_train_milesial_ddp(tmp, milesial)
+        phase_train_ddp_gloo2(tmp)
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()
@@ -1371,6 +2009,8 @@ def main() -> int:
             "source": source + "serve_mask.cu",
             "replaces": "distributedpytorch_tpu/ops/kernels.py:519",
             "launches": serve["result"]["launches"]["serve_mask"],
+            # not on the training paths
+            "ddp_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
             "plain_ms": kernel["plain_ms"],
@@ -1385,6 +2025,8 @@ def main() -> int:
             "source": source + "loss_stats.cu",
             "replaces": "distributedpytorch_tpu/ops/pallas_kernels.py:55",
             "launches": train["launches"]["loss_stats"],
+            # per shard in the UNet -t DDP run (train_ddp)
+            "ddp_launches": train_ddp["launches"]["loss_stats"],
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
             "plain_ms": loss["stats_plain_ms"],
@@ -1399,6 +2041,7 @@ def main() -> int:
             "source": source + "loss_stats.cu",
             "replaces": "distributedpytorch_tpu/ops/fused_loss.py:67",
             "launches": train["launches"]["loss_stats_bwd"],
+            "ddp_launches": train_ddp["launches"]["loss_stats_bwd"],
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
             "plain_ms": loss["bwd_plain_ms"],
@@ -1413,6 +2056,8 @@ def main() -> int:
             "source": source + "bn_act.cu",
             "replaces": "distributedpytorch_tpu/ops/kernels.py:324",
             "launches": milesial["launches"]["bn_act"],
+            # in the milesial -t DDP run (train_milesial_ddp)
+            "ddp_launches": milesial_ddp["launches"]["bn_act"],
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],
@@ -1429,6 +2074,7 @@ def main() -> int:
             "source": source + "bn_act.cu",
             "replaces": "distributedpytorch_tpu/ops/kernels.py:333",
             "launches": milesial["launches"]["bn_act_bwd"],
+            "ddp_launches": milesial_ddp["launches"]["bn_act_bwd"],
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
             "plain_ms": bn["f32"]["bwd_plain_ms"],
@@ -1443,6 +2089,7 @@ def main() -> int:
             "source": source + "wgrad_9tap.cu",
             "replaces": "distributedpytorch_tpu/ops/wgrad_pallas.py:72",
             "launches": milesial["launches"]["wgrad_9tap"],
+            "ddp_launches": milesial_ddp["launches"]["wgrad_9tap"],
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],
             "plain_ms": k5["plain_ms"],
@@ -1452,14 +2099,9 @@ def main() -> int:
             "library_ms": k5["library_ms"],
         },
     ]})
-    print(device["nvidia_smi"], flush=True)
-    emit({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }})
+    _finish(device)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,7 +2,7 @@
 trainer's native checkpoint.
 
 Counterpart of ``distributedpytorch_tpu/checkpoint.py`` (the ``.pth``
-interop and the single-device subset of native save/resume). The port's
+interop and the replicated-state subset of native save/resume). The port's
 ``UNet.state_dict()`` keys are the reference's tensor names, so a
 reference ``.pth`` loads with plain ``load_state_dict``.
 ``params_from_jax`` carries weights across from the JAX package as numpy
@@ -11,7 +11,11 @@ batch_stats)``; it keeps its own copy of the layout and name rules.
 
 The port's native checkpoint, ``<dir>/<method>.pt``, is one ``torch.save``
 file: the model's state dict under reference names, the optimizer, the
-plateau scheduler, step, epoch, the loss records and a manifest. A JAX
+plateau scheduler, step, epoch, the loss records and a manifest, which
+records the saving run's strategy and world size, as the JAX
+package's does (checkpoint.py:122).
+The state is replicated over DDP's ranks, so the main process writes it
+and a run at any world size restores it. A JAX
 ``.ckpt`` is flax msgpack, which the port does not read yet: a resolved
 ``.ckpt`` raises and names the export that gives a ``.pth``.
 """

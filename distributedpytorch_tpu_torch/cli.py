@@ -1,5 +1,5 @@
 """Train the UNet on images and target masks — ``python -m
-distributedpytorch_tpu_torch [-t singleGPU] ...``.
+distributedpytorch_tpu_torch [-t singleGPU|DDP] ...``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` for the flags the port
 implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
@@ -13,8 +13,15 @@ rejects it. The run writes ``./logs/<method>.log`` (message-only),
 ``-c <method>``) and ``<checkpoint-dir>/<method>.pth`` (serve with
 ``python -m distributedpytorch_tpu_torch serve -c <method>``).
 
+``-t DDP`` runs one process per card under torchrun (NCCL; gloo with
+``--device cpu``), ``-b`` per process; without a launcher it runs as one
+process. Every rank appends to the log file; only rank 0 mirrors it to
+stderr and writes the checkpoints, loss tables and ``.pth``.
+
 It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t singleGPU --synthetic 40
+    torchrun --standalone --nproc_per_node 4 \
+        -m distributedpytorch_tpu_torch -t DDP --synthetic 40
     DPT_WGRAD_BACKEND=pallas python -m distributedpytorch_tpu_torch \
         --model milesial --wgrad-taps --kernels cuda --synthetic 40
     python -m distributedpytorch_tpu_torch --synthetic 16 \\
@@ -37,7 +44,7 @@ def get_args(argv=None):
     )
     parser.add_argument("--train-method", "-t", type=str, default="singleGPU",
                         help="Training method; the port runs singleGPU "
-                             "(DP, DDP, MP: ROADMAP.md)")
+                             "and DDP (DP, MP: ROADMAP.md)")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
                         help="Percentage of data used as validation")
@@ -48,7 +55,7 @@ def get_args(argv=None):
     parser.add_argument("--learning-rate", "--lr", type=float, default=1e-4,
                         dest="lr", help="Learning rate")
     parser.add_argument("--batch-size", "-b", type=int, default=4,
-                        help="Batch size")
+                        help="Batch size (per process under DDP)")
     parser.add_argument("--checkpoint", "-c", type=str, default=None,
                         help="Resume from a native checkpoint (<name>.pt), "
                              "or load weights from a reference .pth")
@@ -135,24 +142,41 @@ def to_config(args):
     )
 
 
-def build_trainer(args):
-    """args → a :class:`Trainer` ready to ``train()``."""
+def start_runtime(args):
+    """This process's place in the run, before anything else (reference
+    train.py:58): ``-t DDP`` joins the process group from torchrun's env
+    (world 1 without one); every other method is one process."""
+    from distributedpytorch_tpu_torch.dist import runtime
+    from distributedpytorch_tpu_torch.utils.device import resolve_device
+
+    if args.train_method == "DDP":
+        return runtime.initialize_from_env(args.device)
+    return runtime.RuntimeInfo(0, 1, device=resolve_device(args.device))
+
+
+def build_trainer(args, info=None):
+    """args → a :class:`Trainer` ready to ``train()``; ``info`` is
+    ``start_runtime``'s."""
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.loop import Trainer
 
-    return Trainer(to_config(args))
+    config = to_config(args)
+    return Trainer(config, strategy=build_strategy(config, info))
 
 
-def configure_logging(config) -> List[logging.Handler]:
+def configure_logging(config, to_stderr: bool = True
+                      ) -> List[logging.Handler]:
     """The reference's logfile, ``<log_dir>/<method>.log`` appended
-    message-only, plus stderr; returns the handlers it added to the root
-    logger."""
+    message-only, plus stderr when ``to_stderr`` (rank 0 under DDP);
+    returns the handlers it added to the root logger."""
     os.makedirs(config.log_dir, exist_ok=True)
     handlers: List[logging.Handler] = [
         logging.FileHandler(
             os.path.join(config.log_dir, f"{config.train_method}.log"),
             mode="a"),
-        logging.StreamHandler(sys.stderr),
     ]
+    if to_stderr:
+        handlers.append(logging.StreamHandler(sys.stderr))
     root = logging.getLogger()
     for handler in handlers:
         handler.setFormatter(logging.Formatter("%(message)s"))
@@ -162,21 +186,24 @@ def configure_logging(config) -> List[logging.Handler]:
 
 
 def main(argv=None) -> int:
-    from distributedpytorch_tpu_torch.train.loop import (
-        PORTED_METHODS,
+    from distributedpytorch_tpu_torch.dist.runtime import shutdown
+    from distributedpytorch_tpu_torch.parallel.strategy import (
+        STRATEGIES,
         unported_method_message,
     )
-    from distributedpytorch_tpu_torch.utils.device import resolve_device
 
     args = get_args(argv)
-    if args.train_method not in PORTED_METHODS:
+    if args.train_method not in STRATEGIES:
         raise SystemExit(unported_method_message(args.train_method))
     try:
-        resolve_device(args.device)
+        info = start_runtime(args)
     except RuntimeError as exc:
         raise SystemExit(str(exc)) from None
-    configure_logging(to_config(args))
-    logging.info("UNet for Carvana Image Masking (Segmentation)")
-    result = build_trainer(args).train()
-    logging.info("Done: %s", result)
+    try:
+        configure_logging(to_config(args), to_stderr=info.is_main)
+        logging.info("UNet for Carvana Image Masking (Segmentation)")
+        result = build_trainer(args, info).train()
+        logging.info("Done: %s", result)
+    finally:
+        shutdown()
     return 0

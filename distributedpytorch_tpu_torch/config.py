@@ -1,8 +1,8 @@
 """Run configuration of the port.
 
 Counterpart of ``distributedpytorch_tpu/config.py``: ``TrainConfig`` with
-the single-device trainer's fields and ``ServeConfig`` with the serving
-slice's, under the JAX package's names and defaults.
+the ``-t singleGPU`` / ``-t DDP`` trainer's fields and ``ServeConfig``
+with the serving slice's, under the JAX package's names and defaults.
 """
 
 from __future__ import annotations
@@ -13,12 +13,13 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The single-device trainer's knobs: what ``python -m
+    """The trainer's knobs: what ``python -m
     distributedpytorch_tpu_torch`` parses into. Names and defaults are the
     JAX package's (reference train.py:18-24 for the optimization ones)."""
 
     # -- strategy -----------------------------------------------------------
-    # only "singleGPU" is ported; DP/DDP/MP and the mesh specs are not yet
+    # "singleGPU" or "DDP" (parallel/strategy.py); DP, MP and the mesh
+    # specs are not ported yet
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------
@@ -31,6 +32,9 @@ class TrainConfig:
     # the reference's `(batch_size * loss).backward()` while recording the
     # unscaled loss
     faithful_loss_scaling: bool = True
+    # reference quirk 2: DDP multiplies the lr by the world size
+    # (train_utils.py:199)
+    ddp_lr_world_size_scaling: bool = True
     # ReduceLROnPlateau(mode='min') on the val loss
     plateau_patience: int = 2
     plateau_factor: float = 0.1

@@ -1,0 +1,75 @@
+"""The collectives of data-parallel training, over the default group.
+
+* ``all_reduce_sum`` — a sum over ranks that autograd sees. It carries
+  the loss statistics (``ops/fused_loss.make_sharded_loss``) and
+  milesial's BatchNorm moments (``models/milesial.BatchNormAct``).
+* ``all_gather_rows`` — every rank's rows, rank by rank (the sharded
+  eval's per-batch metrics, ``evaluate.evaluate_sharded``).
+* ``sum_over_ranks_`` — tensors summed over ranks in place, outside
+  autograd (gradient accumulation's statistics and gradients,
+  ``train/steps.make_accum_train_step``).
+
+**How the gradient comes out right.** Every rank computes the same
+global loss from the summed statistics, so every rank back-propagates
+the same cotangent into ``all_reduce_sum``. Its backward sums the
+cotangent over ranks, as the adjoint of a sum whose output each rank
+holds a copy of: each rank's cotangent is then ``world ×`` the true
+``∂L/∂(its statistics)``, and everything upstream, the weight gradients
+included, is ``world ×`` the rank's true contribution. BatchNorm's
+all-reduce keeps that factor: the cotangents it sums over ranks are
+already scaled. ``torch.nn.parallel.DistributedDataParallel`` then
+averages the gradients over the ranks: ``(1/world) Σ_r world·g_r =
+Σ_r g_r``, the gradient of the global loss. An all-reduce whose backward
+were the identity would, with that averaging, give ``1/world`` of it
+(``tests/test_torch_ddp.py`` holds every gradient of one step, before
+Adam, against the JAX DDP's).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: the sum of ``x`` over ranks. Backward: the sum of the
+    cotangent over ranks."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor) -> torch.Tensor:
+        out = ct.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``Σ_ranks x``, differentiable as the module docstring says."""
+    return _AllReduceSum.apply(x)
+
+
+def all_gather_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``(world, *rows.shape)``: each rank's ``rows`` (equal shapes on
+    every rank), in rank order, on every rank."""
+    parts = [torch.empty_like(rows) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, rows.contiguous())
+    return torch.stack(parts)
+
+
+def sum_over_ranks_(tensors: List[torch.Tensor]) -> None:
+    """Each of ``tensors`` replaced by its sum over ranks, through one
+    all-reduce of their concatenation; autograd does not see it."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    offset = 0
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()

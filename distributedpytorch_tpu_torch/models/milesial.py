@@ -28,8 +28,11 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from distributedpytorch_tpu_torch.dist.collectives import all_reduce_sum
 
 from distributedpytorch_tpu_torch.models.unet import (
     Conv2d,
@@ -57,6 +60,14 @@ class BatchNormAct(nn.Module):
       variance ``max(0, E[x²] − E[x]²)``, and the running averages move by
       ``0.9·old + 0.1·batch``. ``F.batch_norm`` would store the unbiased
       variance (×n/(n−1)) instead, so it is not used;
+    * with ``global_stats`` (set by the DDP strategy) ``E[x]`` and
+      ``E[x²]`` are averaged over the ranks through an all-reduce that
+      autograd sees before ``var`` is formed: the moments of the global
+      batch, as GSPMD computes them for the JAX DDP, valid because every
+      rank holds an equal batch (the train loader drops the ragged one).
+      The running averages then move identically on every rank.
+      ``torch.nn.SyncBatchNorm`` is not used: it too stores the unbiased
+      variance;
     * eval: the running averages normalize;
     * normalize as flax does, ``(x − mean)·(inv·scale) + bias`` with
       ``inv = rsqrt(var + eps)``, or, with ``epilogue``, through
@@ -69,6 +80,7 @@ class BatchNormAct(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
         self.epilogue = epilogue
+        self.global_stats = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -78,9 +90,13 @@ class BatchNormAct(nn.Module):
 
     def batch_stats(self, xf: torch.Tensor):
         """The batch's float32 ``(mean, var)`` over (B, H, W) of the
-        float32 ``xf``, and the running averages moved by them."""
+        float32 ``xf`` (over the ranks' global batch with
+        ``global_stats``), and the running averages moved by them."""
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = xf.square().mean(dim=(0, 2, 3))
+        if self.global_stats:
+            moments = all_reduce_sum(torch.stack([mean, mean2]))
+            mean, mean2 = moments / dist.get_world_size()
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         with torch.no_grad():
             m = self.momentum

@@ -6,21 +6,28 @@ The four sufficient statistics come from the statistics kernel in one
 pass; their gradient with respect to each output element is closed-form,
 and the backward kernel computes it in one elementwise pass. What lies
 downstream of the four sums (``loss_from_stats``, gradient accumulation's
-global cotangent) is ordinary autograd.
+global cotangent, DDP's sum over ranks) is ordinary autograd.
 
-The per-shard form for data-parallel training
-(``make_sharded_fused_loss``) comes with the DDP slice.
+``make_sharded_loss`` is the data-parallel form, the counterpart of
+``make_sharded_fused_loss`` (fused_loss.py:91-117): the statistics of
+each rank's shard, summed over ranks, then ``loss_from_stats``.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
+from distributedpytorch_tpu_torch.dist.collectives import all_reduce_sum
 from distributedpytorch_tpu_torch.ops.loss_kernels import (
     bce_dice_stats_kernel,
     stats_bwd,
 )
-from distributedpytorch_tpu_torch.ops.losses import loss_from_stats
+from distributedpytorch_tpu_torch.ops.losses import (
+    bce_dice_stats,
+    loss_from_stats,
+)
 
 
 class BCEDiceStatsFused(torch.autograd.Function):
@@ -45,3 +52,21 @@ def fused_bce_dice_loss(outputs: torch.Tensor,
                         targets: torch.Tensor) -> torch.Tensor:
     """BCE − log(soft Dice) through the fused statistics."""
     return loss_from_stats(BCEDiceStatsFused.apply(outputs, targets))
+
+
+def make_sharded_loss(fused: bool) -> Callable:
+    """``loss(outputs, targets)`` of a data-parallel rank: one loss over
+    the global batch, the same on every rank. The shard's four statistics
+    come from ``BCEDiceStatsFused`` when ``fused`` (K1 forward and K1-bwd
+    backward on the card, per shard) and from the plain
+    ``bce_dice_stats`` otherwise; ``all_reduce_sum`` adds them over the
+    ranks before ``loss_from_stats``, since log-Dice does not add up over
+    shards. Its backward sums the cotangent over ranks, so each rank's
+    gradient comes out ``world ×`` its share, which DDP's averaging
+    undoes (``dist/collectives.py``)."""
+    stats_fn = BCEDiceStatsFused.apply if fused else bce_dice_stats
+
+    def loss(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return loss_from_stats(all_reduce_sum(stats_fn(outputs, targets)))
+
+    return loss

@@ -1,7 +1,9 @@
-"""The single-device trainer: epoch loop, eval, scheduler, checkpoints.
+"""The trainer: epoch loop, eval, scheduler, checkpoints.
 
-Counterpart of the single-device, ``nonfinite_policy="abort"`` subset of
-``distributedpytorch_tpu/train/loop.py`` (``Trainer``, ``fit``):
+Counterpart of the ``-t singleGPU`` / ``-t DDP``, ``nonfinite_policy=
+"abort"`` subset of ``distributedpytorch_tpu/train/loop.py`` (``Trainer``,
+``fit``). A strategy (``parallel/strategy.py``) says what differs under
+DDP:
 
 * per step: forward, backward and Adam with the batch-size loss-scaling
   quirk; the unscaled loss is recorded and stays on the card until its
@@ -11,7 +13,16 @@ Counterpart of the single-device, ``nonfinite_policy="abort"`` subset of
 * at the end: the final checkpoint, the loss tables and
   ``<checkpoint_dir>/<method>.pth`` in reference format (upstream
   milesial names for ``--model milesial``), which the serve CLI loads as
-  it is.
+  it is;
+* under DDP: each rank trains on its shard of every epoch
+  (``ShardSpec(rank, world)``, the ragged batch dropped) with the lr
+  times the world size, every step's loss is the global batch's and the
+  same on every rank, the val batches are split over the ranks and every
+  rank reads all their metrics, so the plateau scheduler moves in
+  lockstep (loop.py:223-230, :1183-1202), and rank 0 alone writes the
+  checkpoint, the loss tables and the ``.pth`` (loop.py:500, :541,
+  :1226, :1293). Every rank restores from the same file, at any world
+  size: the parameters are replicated.
 
 A stateful model's running statistics (milesial's BatchNorm) are buffers
 of its state dict, so the native checkpoint saves and restores them; the
@@ -58,7 +69,7 @@ from distributedpytorch_tpu_torch.data.dataset import (
     build_dataset,
 )
 from distributedpytorch_tpu_torch.data.loader import DataLoader, seeded_split
-from distributedpytorch_tpu_torch.evaluate import evaluate
+from distributedpytorch_tpu_torch.evaluate import evaluate_sharded
 from distributedpytorch_tpu_torch.models import create_model
 from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
 from distributedpytorch_tpu_torch.ops.optim import (
@@ -67,12 +78,15 @@ from distributedpytorch_tpu_torch.ops.optim import (
     set_learning_rate,
 )
 from distributedpytorch_tpu_torch.ops.schedule import ReduceLROnPlateau
+from distributedpytorch_tpu_torch.parallel.strategy import (
+    Strategy,
+    build_strategy,
+)
 from distributedpytorch_tpu_torch.train.steps import (
     make_accum_train_step,
     make_eval_step,
     make_train_step,
 )
-from distributedpytorch_tpu_torch.utils.device import resolve_device
 from distributedpytorch_tpu_torch.utils.metrics import LossRecords
 from distributedpytorch_tpu_torch.utils.prefetch import (
     SINGLE,
@@ -82,20 +96,9 @@ from distributedpytorch_tpu_torch.utils.prefetch import (
 
 logger = logging.getLogger(__name__)
 
-#: The training methods this port runs.
-PORTED_METHODS = ("singleGPU",)
-
 
 class NonFiniteLossError(RuntimeError):
     """A train loss read back NaN or infinite."""
-
-
-def unported_method_message(method: str) -> str:
-    return (
-        f"-t {method} is not ported yet: the PyTorch port trains "
-        f"single-device only (-t singleGPU); DP, DDP, MP and the mesh specs "
-        f"are still to port (ROADMAP.md, Queue A)"
-    )
 
 
 @dataclasses.dataclass
@@ -112,14 +115,16 @@ class Trainer:
 
     ``initial_state`` is a model state dict to start from in place of the
     seeded init (tests start from JAX weights through
-    ``checkpoint.params_from_jax``)."""
+    ``checkpoint.params_from_jax``); ``strategy`` one already built (by
+    default ``build_strategy(config)``, which joins the process group
+    under DDP)."""
 
     def __init__(self, config: TrainConfig, dataset=None,
-                 initial_state: Optional[Dict[str, torch.Tensor]] = None):
-        if config.train_method not in PORTED_METHODS:
-            raise ValueError(unported_method_message(config.train_method))
+                 initial_state: Optional[Dict[str, torch.Tensor]] = None,
+                 strategy: Optional[Strategy] = None):
         self.config = config
-        self.device = resolve_device(config.device)
+        self.strategy = strategy or build_strategy(config)
+        self.device = self.strategy.device
         self.kernels = get_kernel_policy(config.kernels, self.device)
         self.dataset = dataset if dataset is not None else self._build_dataset()
         # one decoded-sample cache for the train and val loaders
@@ -131,10 +136,10 @@ class Trainer:
         if initial_state is not None:
             model.load_state_dict(initial_state)
         self.model = model.to(self.device)
-        self.optimizer = make_optimizer(self.model.parameters(),
-                                        config.learning_rate,
+        lr0 = self.strategy.lr_for(config.learning_rate)
+        self.optimizer = make_optimizer(self.model.parameters(), lr0,
                                         config.weight_decay)
-        self.scheduler = ReduceLROnPlateau(lr=config.learning_rate,
+        self.scheduler = ReduceLROnPlateau(lr=lr0,
                                            patience=config.plateau_patience,
                                            factor=config.plateau_factor)
         self.records = LossRecords(config.train_method, config.loss_dir,
@@ -148,7 +153,7 @@ class Trainer:
 
         train_idx, val_idx = seeded_split(len(self.dataset),
                                           config.val_fraction, seed=0)
-        if len(val_idx) < config.batch_size:
+        if len(val_idx) < config.batch_size and self.strategy.is_main:
             logger.warning(
                 "validation split has %d samples < batch size %d — every "
                 "val batch is dropped and val loss/Dice will be NaN; raise "
@@ -157,7 +162,8 @@ class Trainer:
             )
         self.train_loader = DataLoader(
             self.dataset, indices=train_idx, batch_size=config.batch_size,
-            shuffle=True, drop_last=False, seed=config.seed,
+            shuffle=True, drop_last=self.strategy.drop_last_train,
+            seed=config.seed, shard=self.strategy.data_shard(),
             num_workers=config.num_workers, cache=cache,
         )
         self.val_loader = DataLoader(
@@ -166,15 +172,21 @@ class Trainer:
             cache=cache,
         )
         self.grad_accum = max(1, int(config.grad_accum))
+        # the module the train step drives: DDP-wrapped under DDP, whose
+        # backward all-reduces the gradients; self.model stays the bare
+        # model, which evaluates, saves and serves
+        self.train_model = self.strategy.wrap_model(self.model)
         self.train_step = make_train_step(
-            self.model, self.optimizer, config.batch_size,
-            config.faithful_loss_scaling, self.kernels.train_loss_fused,
+            self.train_model, self.optimizer, config.batch_size,
+            config.faithful_loss_scaling,
+            loss_impl=self.strategy.train_loss(self.kernels.train_loss_fused),
         )
         self.accum_step = (
             make_accum_train_step(
                 self.model, self.optimizer, config.batch_size,
                 self.grad_accum, config.faithful_loss_scaling,
                 self.kernels.train_loss_fused,
+                sum_over_ranks=self.strategy.sum_over_ranks,
             ) if self.grad_accum > 1 else None
         )
         self.eval_step = make_eval_step(self.model,
@@ -210,6 +222,7 @@ class Trainer:
             "model_arch": self.config.model_arch,
             "kernels": self.kernels.name,
             "train_method": self.config.train_method,
+            **self.strategy.topology(),
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
         }
@@ -244,6 +257,11 @@ class Trainer:
             self.records.load_state_dict(payload["records"])
         logger.info("Resumed from %s at epoch %d (step %d)", path,
                     self.start_epoch, self.step)
+        saved_world = saved.get("world", 1)
+        if saved_world != self.strategy.world:
+            logger.info("checkpoint written at world %d, resumed at world "
+                        "%d: the parameters are replicated, nothing "
+                        "reshards", saved_world, self.strategy.world)
 
     # -- placement --------------------------------------------------------------
     def _place(self, batch) -> Placed:
@@ -288,10 +306,14 @@ class Trainer:
 
     # -- checkpoints ---------------------------------------------------------------
     def save(self, epoch: int) -> None:
-        """The native checkpoint at the end of ``epoch`` (once per epoch)."""
+        """The native checkpoint at the end of ``epoch`` (once per epoch),
+        written by the main process; the decision depends on the epoch
+        alone, so every rank reaches it in lockstep."""
         if epoch == self._last_saved_epoch:
             return
         self._last_saved_epoch = epoch
+        if not self.strategy.is_main:
+            return
         save_native(self.checkpoint_path, self.model, self.optimizer,
                     self.scheduler.state_dict(), self.step, epoch,
                     self.records.state_dict(), self._manifest())
@@ -314,21 +336,27 @@ class Trainer:
                     loss = self.accum_step([self._claim(p) for p in placed])
                     n_imgs = sum(b["image"].shape[0] for b in payload)
                 self.step += 1
-                self.records.record_train(self.step, loss, n_imgs)
+                # the images of the global batch, as the JAX loop counts
+                self.records.record_train(self.step, loss,
+                                          n_imgs * self.strategy.world)
 
     def train(self) -> dict:
         cfg = self.config
         logger.info(
-            "Training %s on %s: %d epochs, batch %d, lr %.2e, %d train "
-            "batches, kernels %s, dtype %s", cfg.train_method, self.device,
-            cfg.epochs, cfg.batch_size, get_learning_rate(self.optimizer),
-            len(self.train_loader), self.kernels.name, cfg.dtype,
+            "Training %s on %s (rank %d of %d): %d epochs, batch %d per "
+            "process (%d global), lr %.2e, %d train batches, kernels %s, "
+            "dtype %s", cfg.train_method, self.device, self.strategy.rank,
+            self.strategy.world, cfg.epochs, cfg.batch_size,
+            self.strategy.global_batch_size,
+            get_learning_rate(self.optimizer), len(self.train_loader),
+            self.kernels.name, cfg.dtype,
         )
         val_loss = val_dice = float("nan")
         for epoch in range(self.start_epoch, cfg.epochs):
             self._train_epoch(epoch)
-            val_loss, val_dice = evaluate(self.eval_step, self.val_loader,
-                                          self.place_batch)
+            val_loss, val_dice = evaluate_sharded(
+                self.eval_step, self.val_loader, self.place_batch,
+                self.strategy.eval_shard())
             self.records.record_val(self.step, val_loss, val_dice)
             new_lr = self.scheduler.step(val_loss)
             if not np.isclose(new_lr, get_learning_rate(self.optimizer),
@@ -344,8 +372,9 @@ class Trainer:
                     (epoch + 1) % cfg.checkpoint_every_epochs == 0):
                 self.save(epoch + 1)
         self.save(cfg.epochs)
-        self.records.save()
-        save_pth(self.model.state_dict(), self.weights_path)
+        if self.strategy.is_main:
+            self.records.save()
+            save_pth(self.model.state_dict(), self.weights_path)
         return {
             "val_loss": val_loss,
             "val_dice": val_dice,

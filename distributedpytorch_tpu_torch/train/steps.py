@@ -1,4 +1,4 @@
-"""The train and eval steps of the single-device trainer.
+"""The train and eval steps of the trainer.
 
 Counterpart of ``distributedpytorch_tpu/train/steps.py``
 (``make_train_step``, ``make_accum_train_step``, ``make_eval_step``):
@@ -16,7 +16,10 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
 * the train step runs the model in train mode and the eval step in eval
   mode, so a stateful model (milesial's BatchNorm) trains on batch
   statistics, moving its running averages, and evaluates with the
-  running averages, as the JAX package's stateful steps do.
+  running averages, as the JAX package's stateful steps do;
+* under ``-t DDP`` the strategy supplies the loss, one loss over the
+  global batch, and the DDP-wrapped model; gradient accumulation sums
+  its statistics and gradients over the ranks (strategy.py:296-314).
 
 A step takes a batch already on the model's device and returns the loss
 as a 0-d tensor there: nothing in a step waits for the card.
@@ -24,7 +27,7 @@ as a 0-d tensor there: nothing in a step waits for the card.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -62,10 +65,19 @@ def make_train_step(
     batch_size: int,
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
+    loss_impl: Optional[Callable] = None,
 ) -> Callable[[Batch], torch.Tensor]:
-    """``step(batch) -> unscaled loss``: forward, loss, backward, Adam."""
+    """``step(batch) -> unscaled loss``: forward, loss, backward, Adam.
+
+    ``loss_impl(preds, target)`` is the strategy's loss (``None``: the
+    single-device loss, fused under ``train_loss_fused``). Under DDP it
+    is one loss over the global batch, the same on every rank, and
+    ``model`` is the DDP-wrapped module, whose backward all-reduces the
+    gradients; the faithful scale stays the per-process ``batch_size``
+    (strategy.py:303-314)."""
     grad_scale = float(batch_size) if faithful_loss_scaling else 1.0
-    loss_impl = fused_bce_dice_loss if train_loss_fused else bce_dice_loss
+    if loss_impl is None:
+        loss_impl = fused_bce_dice_loss if train_loss_fused else bce_dice_loss
 
     def train_step(batch: Batch) -> torch.Tensor:
         model.train()
@@ -86,6 +98,7 @@ def make_accum_train_step(
     chunks: int,
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
+    sum_over_ranks: Optional[Callable[[List[torch.Tensor]], None]] = None,
 ) -> Callable[[List[Batch]], torch.Tensor]:
     """One optimizer step over ``chunks`` batches with one batch's
     activations alive at a time, exact for the log-Dice loss, which does
@@ -102,7 +115,13 @@ def make_accum_train_step(
     ``BCEDiceStatsFused``, so pass 2 drives the backward kernel with a
     cotangent that no single chunk produced. The faithful scale is the
     effective batch, ``batch_size × chunks``. Stateful models (BatchNorm)
-    are refused, as in the JAX package."""
+    are refused, as in the JAX package.
+
+    Under DDP ``sum_over_ranks`` (the strategy's, in place) adds the
+    statistics of pass 1 over the ranks, so ``ct`` is the global batch's,
+    and after pass 2 the gradients, which then are the global loss's;
+    ``model`` is the bare model and the faithful scale stays per process.
+    """
     if is_stateful_model(model):
         raise ValueError(
             "gradient accumulation supports stateless models only "
@@ -129,16 +148,19 @@ def make_accum_train_step(
                                 device=stack[0]["image"].device)
             for chunk in stack:
                 stats = stats + chunk_stats(chunk)
+            if sum_over_ranks is not None:
+                sum_over_ranks([stats])
         stats.requires_grad_(True)
         loss = loss_from_stats(stats)
         (ct,) = torch.autograd.grad(loss, stats)
         optimizer.zero_grad(set_to_none=True)
         for chunk in stack:
             chunk_stats(chunk).backward(ct)
+        grads = [p.grad for p in params if p.grad is not None]
+        if sum_over_ranks is not None:
+            sum_over_ranks(grads)
         if grad_scale != 1.0:
-            torch._foreach_mul_(
-                [p.grad for p in params if p.grad is not None], grad_scale
-            )
+            torch._foreach_mul_(grads, grad_scale)
         optimizer.step()
         return loss.detach()
 

@@ -1,8 +1,8 @@
 """The port on the card: the serve-mask kernel, the loss statistics
 kernels, the BatchNorm epilogue kernels and the 9-tap weight-gradient
 kernel against their plain versions, the wrappers' refusals, a small
-engine's streams and masks, and UNet and milesial train steps under both
-kernel policies. Every
+engine's streams and masks, UNet and milesial train steps under both
+kernel policies, and the DDP loss and step at world 1 under NCCL. Every
 test carries the ``cuda`` marker and skips without a card; this file
 imports nothing of JAX, so the card's machine runs it as it is:
 
@@ -326,6 +326,99 @@ def test_train_step_cuda_policy_equals_torch_policy(cuda_device):
         torch.backends.cudnn.allow_tf32 = tf32
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
     for g, h in zip(grads[True], grads[False]):
+        torch.testing.assert_close(g, h, rtol=1e-4,
+                                   atol=1e-4 * float(h.abs().max()))
+
+
+# -- -t DDP at world 1 under NCCL ---------------------------------------------
+
+
+@pytest.fixture
+def nccl_world_one(cuda_device, monkeypatch):
+    """A one-rank NCCL group on the card, as ``-t DDP`` makes without a
+    launcher; destroyed after the test."""
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    info = runtime.initialize_from_env("cuda")
+    assert torch.distributed.get_backend() == "nccl"
+    try:
+        yield info
+    finally:
+        runtime.shutdown()
+
+
+def test_sharded_loss_on_the_card_equals_the_plain_one(nccl_world_one):
+    """The DDP loss under kernels cuda: K1 on the shard, the statistics'
+    all-reduce, K1-bwd driven by the summed cotangent; at world 1 it is
+    the plain loss of the batch, with the tolerances of the fused loss's
+    own test above."""
+    from distributedpytorch_tpu_torch.ops.fused_loss import make_sharded_loss
+    from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
+
+    p, t = _loss_inputs((2, 64, 96, 1), nccl_world_one.device, seed=4)
+    t[t == 255] = 0.0
+    p[(p > 0) & (p < 1.1754944e-38)] = 0.0  # see the fused loss's test
+    kernels.reset_launches()
+    pk = p.clone().requires_grad_(True)
+    loss = make_sharded_loss(True)(pk, t)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["loss_stats"] == 1
+    assert kernels.LAUNCHES["loss_stats_bwd"] == 1
+    pp = p.clone().requires_grad_(True)
+    want = bce_dice_loss(pp, t)
+    want.backward()
+    torch.testing.assert_close(loss.detach(), want.detach(), rtol=2e-5,
+                               atol=0)
+    torch.testing.assert_close(pk.grad, pp.grad, rtol=1e-5, atol=1e-7)
+
+
+def test_ddp_step_at_world_one_equals_a_single_gpu_step(nccl_world_one):
+    """One float32 step of a small UNet under kernels cuda: through the
+    DDP strategy (the wrapped model, the sharded loss, the gradient
+    all-reduce) and through ``-t singleGPU``, from the same weights and
+    batch. At world 1 every collective is the identity, so the loss and
+    the gradients agree within what two cuDNN runs may differ by: rel
+    1e-5 and 1e-4 of each tensor's largest."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(1)
+    batch = {
+        "image": torch.from_numpy(rng.random((2, 64, 96, 3), np.float32)),
+        "mask": torch.from_numpy((rng.random((2, 64, 96)) > 0.6)
+                                 .astype(np.int32)),
+    }
+    batch = {k: v.to(nccl_world_one.device) for k, v in batch.items()}
+    init = UNet(dtype=torch.float32, widths=(8, 16),
+                generator=torch.Generator().manual_seed(0)).state_dict()
+    grads, losses = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for method in ("singleGPU", "DDP"):
+            strategy = build_strategy(TrainConfig(train_method=method,
+                                                  device="cuda"),
+                                      nccl_world_one)
+            model = UNet(dtype=torch.float32, widths=(8, 16))
+            model.load_state_dict(init)
+            model.to(strategy.device)
+            opt = torch.optim.SGD(model.parameters(), lr=0.0)
+            kernels.reset_launches()
+            step = make_train_step(strategy.wrap_model(model), opt, 2,
+                                   loss_impl=strategy.train_loss(True))
+            losses[method] = float(step(batch))
+            assert kernels.LAUNCHES["loss_stats"] == 1
+            assert kernels.LAUNCHES["loss_stats_bwd"] == 1
+            grads[method] = [p.grad.clone() for p in model.parameters()]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(losses["DDP"], losses["singleGPU"], rtol=1e-5)
+    for g, h in zip(grads["DDP"], grads["singleGPU"]):
         torch.testing.assert_close(g, h, rtol=1e-4,
                                    atol=1e-4 * float(h.abs().max()))
 

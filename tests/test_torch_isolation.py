@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of it loads
-neither jax nor the JAX package, and its entry points (the serve engine,
-the trainer and the training CLI) refuse to fall back to the CPU on a
-machine without a card unless asked."""
+neither jax nor the JAX package, a DDP rank it spawns loads neither, and
+its entry points (the serve engine, the trainer and the training CLI)
+refuse to fall back to the CPU on a machine without a card unless
+asked."""
 
 import json
 import os
@@ -69,7 +70,9 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
     for trainer_module in ("cli", "train.loop", "train.steps",
                            "ops.loss_kernels", "ops.fused_loss", "evaluate",
                            "utils.metrics", "data.loader", "models.milesial",
-                           "ops.conv_backward", "ops.wgrad_kernels"):
+                           "ops.conv_backward", "ops.wgrad_kernels",
+                           "dist", "dist.runtime", "dist.collectives",
+                           "parallel", "parallel.strategy"):
         assert (f"distributedpytorch_tpu_torch.{trainer_module}"
                 in report["modules"])
     refusals = report["refusals"]
@@ -103,3 +106,29 @@ def test_no_source_of_the_port_imports_jax():
                     if pattern.match(line):
                         offenders.append(f"{path}:{lineno}: {line.strip()}")
     assert offenders == []
+
+
+def test_a_ddp_worker_never_loads_jax(tmp_path):
+    """Two gloo ranks of ``tests/torch_ddp_worker.py`` run a train step of
+    the port's DDP path and list the jax-family modules they loaded."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_ddp_worker import launch
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.random((4, 16, 16, 3), np.float32),
+             "mask": (rng.random((4, 16, 16)) > 0.5).astype(np.int32)}
+    config = dict(model_arch="milesial", model_widths=(4, 8), dtype="f32",
+                  kernels="cuda", batch_size=2)
+    from distributedpytorch_tpu_torch.models.milesial import MilesialUNet
+
+    initial = MilesialUNet(widths=(4, 8), dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0)
+                           ).state_dict()
+    jobs = {"step": {"kind": "steps", "fused": True, "config": config,
+                     "initial": initial, "batches": [batch]}}
+    for result in launch(tmp_path, jobs):
+        assert result["leaked"] == []
+        assert np.isfinite(float(result["step"]["losses"][0]))

@@ -370,7 +370,7 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 def test_cli_refuses_what_it_does_not_run(capsys):
     with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
-        cli.main(["-t", "DDP"])
+        cli.main(["-t", "DP"])
     with pytest.raises(SystemExit):
         cli.get_args(["--remat"])  # not implemented: not defined
     with pytest.raises(SystemExit):

@@ -1,0 +1,194 @@
+"""One rank of the port's data-parallel tests (``tests/test_torch_ddp.py``,
+``tests/test_torch_isolation.py``), and ``launch``, which runs them.
+
+    python tests/torch_ddp_worker.py JOB_DIR RANK WORLD
+
+Imports torch and the port only, never jax. Joins a gloo group over a
+file store in ``JOB_DIR`` (so parallel test runs share no port), reads
+the scenarios of ``JOB_DIR/job.pt`` and runs each on the CPU, then writes
+``JOB_DIR/result_<RANK>.pt``: a result per scenario, plus the jax-family
+modules this process loaded. Scenarios:
+
+* ``loss``: the sharded training loss (``ops/fused_loss.make_sharded_loss``)
+  of this rank's rows of a global batch, and its gradient;
+* ``steps``: train steps of a DDP-wrapped model from given weights; the
+  gradients of the first step as the optimizer receives them (before
+  Adam), each step's loss, the final state dict;
+* ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
+  and the gradients the optimizer receives;
+* ``trainer``: ``Trainer`` under ``-t DDP`` for its epochs; the losses,
+  the val metrics, the lr, the final state dict and what each rank wrote
+  into a directory of its own.
+"""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+# the bound on one multi-process run of a test
+LAUNCH_TIMEOUT_S = 120
+
+
+def launch(job_dir, jobs, world=2, timeout=LAUNCH_TIMEOUT_S):
+    """Run ``jobs`` (scenario name → spec) on ``world`` ranks of this
+    script; their results, by rank. A rank that fails or outlives
+    ``timeout`` fails the caller."""
+    os.makedirs(job_dir, exist_ok=True)
+    torch.save(jobs, os.path.join(job_dir, "job.pt"))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(job_dir), str(rank),
+         str(world)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0].decode())
+    finally:
+        for proc in procs:
+            proc.kill()
+    for rank, proc in enumerate(procs):
+        assert proc.returncode == 0, f"rank {rank}:\n{logs[rank][-4000:]}"
+    return [torch.load(os.path.join(job_dir, f"result_{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def _rows(array, rank, world):
+    """This rank's equal share of the leading axis, as a tensor."""
+    per = array.shape[0] // world
+    return torch.from_numpy(array[rank * per:(rank + 1) * per].copy())
+
+
+def run_loss(job, rank, world):
+    from distributedpytorch_tpu_torch.ops.fused_loss import make_sharded_loss
+
+    preds = _rows(job["preds"], rank, world).requires_grad_(True)
+    loss = make_sharded_loss(job["fused"])(preds, _rows(job["target"], rank,
+                                                       world))
+    loss.backward()
+    return {"loss": loss.detach(), "grad": preds.grad}
+
+
+class _Capture:
+    """An optimizer that keeps the gradients of its first step, then steps
+    ``inner``."""
+
+    def __init__(self, inner, named):
+        self.inner = inner
+        self.named = named
+        self.grads = None
+
+    def zero_grad(self, set_to_none=True):
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        if self.grads is None:
+            self.grads = {n: p.grad.clone() for n, p in self.named}
+        self.inner.step()
+
+
+def run_steps(job, rank, world):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(train_method="DDP", device="cpu", **job["config"])
+    strategy = build_strategy(cfg)
+    model = create_model(cfg)
+    model.load_state_dict(job["initial"])
+    wrapped = strategy.wrap_model(model)
+    optimizer = _Capture(
+        make_optimizer(model.parameters(),
+                       strategy.lr_for(cfg.learning_rate),
+                       cfg.weight_decay),
+        list(model.named_parameters()))
+    step = make_train_step(
+        wrapped, optimizer, cfg.batch_size, cfg.faithful_loss_scaling,
+        loss_impl=strategy.train_loss(job["fused"]))
+    losses = []
+    for batch in job["batches"]:
+        losses.append(step({k: _rows(v, rank, world)
+                            for k, v in batch.items()}))
+    return {"losses": torch.stack(losses), "grads": optimizer.grads,
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+
+
+def run_accum(job, rank, world):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+    from distributedpytorch_tpu_torch.train.steps import (
+        make_accum_train_step,
+    )
+
+    cfg = TrainConfig(train_method="DDP", device="cpu", **job["config"])
+    strategy = build_strategy(cfg)
+    model = create_model(cfg)
+    model.load_state_dict(job["initial"])
+    optimizer = _Capture(torch.optim.SGD(model.parameters(), lr=0.0),
+                         list(model.named_parameters()))
+    step = make_accum_train_step(
+        model, optimizer, cfg.batch_size, cfg.grad_accum,
+        cfg.faithful_loss_scaling, job["fused"],
+        sum_over_ranks=strategy.sum_over_ranks)
+    loss = step([{k: _rows(v, rank, world) for k, v in chunk.items()}
+                 for chunk in job["chunks"]])
+    return {"loss": loss, "grads": optimizer.grads}
+
+
+def run_trainer(job, rank, world):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.ops.optim import get_learning_rate
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    out = os.path.join(job["dir"], f"rank{rank}")
+    cfg = TrainConfig(
+        train_method="DDP", device="cpu",
+        checkpoint_dir=os.path.join(out, "checkpoints"),
+        log_dir=os.path.join(out, "logs"),
+        loss_dir=os.path.join(out, "loss"), **job["config"])
+    trainer = Trainer(cfg, initial_state=job["initial"])
+    result = trainer.train()
+    return {
+        "losses": [float(x) for x in trainer.records.losses],
+        "result": result,
+        "lr": get_learning_rate(trainer.optimizer),
+        "state": {k: v.clone() for k, v in trainer.model.state_dict().items()},
+        "wrote": sorted(os.path.relpath(os.path.join(d, f), out)
+                        for d, _, files in os.walk(out) for f in files),
+    }
+
+
+SCENARIOS = {"loss": run_loss, "steps": run_steps, "accum": run_accum,
+             "trainer": run_trainer}
+
+
+def main():
+    job_dir, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(job_dir, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        jobs = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+        results = {name: SCENARIOS[job["kind"]](job, rank, world)
+                   for name, job in jobs.items()}
+    finally:
+        torch.distributed.destroy_process_group()
+    results["leaked"] = sorted(
+        name for name in sys.modules
+        if name in ("jax", "flax", "distributedpytorch_tpu")
+        or name.startswith(("jax.", "jaxlib", "flax.",
+                            "distributedpytorch_tpu.")))
+    torch.save(results, os.path.join(job_dir, f"result_{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main()
