@@ -27,16 +27,26 @@ the UNet once more as a real ``torchrun --standalone --nproc_per_node 1``
 subprocess), and two ranks of the full-width UNet on the one card, two
 processes this script spawns (``--ddp-rank R 2 gloo DIR``) over a gloo
 group (``train_ddp_gloo2``), held against one world-1 step on the
-concatenated batch. Each path's kernel launches are counted from zero
-over its run. It fails (non-zero exit, no result line) without a card,
+concatenated batch. ``-t MP`` runs the UNet with both pipeline stages on
+the one card under gpipe and then 1f1b through the same CLI functions
+(``train_mp``: K1 and K1-bwd per microbatch, peak memory at M = 2 and
+M = 8, its ``.pth`` served), milesial likewise for two steps of each
+schedule (``train_milesial_mp``: K2, K3 and K5 inside the stages at
+launch counts derived from the schedule, and in float32 against their
+plain versions in place), and ``-t DP`` trains both models on the card
+(``train_dp``). Each path's kernel launches are counted from zero over
+its run. It fails (non-zero exit, no result line) without a card,
 outside a checkout, or when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
 
-runs, after the build, only ``-t DDP`` across four cards under NCCL, one
+runs, after the build, ``-t DDP`` across four cards under NCCL, one
 process per card (``ddp_cards``): the same checks as the two gloo ranks,
 the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
-launch of the training CLI.
+launch of the training CLI; then ``-t MP`` across 2 and 4 cards, its step
+and measured bubble under both schedules at M = 2 and 8 (``mp_cards``),
+and ``-t DP`` across the four cards against a one-card step
+(``dp_cards``).
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary (not with ``--cards``) and the card's
@@ -1918,6 +1928,765 @@ def phase_train_milesial_ddp(tmp: str, milesial: dict) -> dict:
     return out
 
 
+# -t MP and -t DP -----------------------------------------------------------
+
+# the pipeline of the reference's layout: 2 stages, 2 microbatches
+MP_STAGES = 2
+MP_MICROBATCHES = 2
+# train_mp's first loss against train's singleGPU step on the same batch,
+# relative: float32 sums of the same bf16 predictions, cuDNN at batch 2
+# and at batch 4
+MP_LOSS_RTOL = 1e-5
+# its first step's weight gradients against the singleGPU step's, and
+# 1f1b's against gpipe's, relative to each tensor's largest (as
+# STEP_GRAD_RTOL), in float32: in bf16 each microbatch's weight gradient
+# comes out of cuDNN rounded to bf16 before the float32 sum over
+# microbatches, where the singleGPU step rounds the whole batch's once
+# (6.6e-3 of a tensor's largest in the first run of this phase on an H100)
+MP_GRAD_RTOL = 1e-3
+# the peak-memory comparison: batch 8, so that M = 8 is a microbatch of 1
+MP_MEMORY_BATCH = 8
+
+
+def _with_wgrad_backend(fn):
+    """``fn()`` under DPT_WGRAD_BACKEND=pallas, the variable restored."""
+    saved = os.environ.get("DPT_WGRAD_BACKEND")
+    os.environ["DPT_WGRAD_BACKEND"] = "pallas"
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop("DPT_WGRAD_BACKEND", None)
+        else:
+            os.environ["DPT_WGRAD_BACKEND"] = saved
+
+
+def _cli_trainer(run: str, argv, devices=None):
+    """The trainer the training CLI builds from ``argv`` with its logging,
+    in ``run`` (made here) as the working directory; ``devices`` as
+    ``cli.build_trainer`` takes them. Returns ``(trainer, close)``:
+    ``close()`` restores the directory and the logging."""
+    from distributedpytorch_tpu_torch import cli
+
+    os.makedirs(run)
+    args = cli.get_args(argv)
+    cwd = os.getcwd()
+    os.chdir(run)
+    handlers = cli.configure_logging(cli.to_config(args))
+
+    def close():
+        root = logging.getLogger()
+        for handler in handlers:
+            root.removeHandler(handler)
+            handler.close()
+        os.chdir(cwd)
+
+    try:
+        return cli.build_trainer(args, devices=devices), close
+    except BaseException:
+        close()
+        raise
+
+
+def _files(run: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), run)
+                  for d, _, files in os.walk(run) for f in files)
+
+
+def _first_batch(trainer):
+    """The first train batch of epoch 0, placed on the trainer's device."""
+    return trainer.place_batch(trainer.train_loader.load_slice(
+        trainer.train_loader.batch_slices(0)[0]))
+
+
+def _synthetic_batch(n: int, device) -> dict:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data.dataset import (
+        SyntheticSegmentationDataset,
+    )
+
+    data = SyntheticSegmentationDataset(n, IMAGE_WH, seed=SEED)
+    items = [data[i] for i in range(n)]
+    return {k: torch.from_numpy(np.stack([it[k] for it in items])).to(device)
+            for k in ("image", "mask")}
+
+
+def _mp_model_step(arch: str, devices, schedule: str, microbatches: int,
+                   dtype: str, init=None, lr: float = 0.0, plain=False,
+                   batch_size: int = TRAIN_BATCH, **cfg_kw):
+    """``(model, step, strategy)``: the MP strategy's train step over
+    ``devices`` for the full-width ``arch`` under kernels cuda (SGD at
+    ``lr``, 0 by default: the step leaves the weights and keeps the
+    gradients), from ``init`` or the seed's weights."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="MP", model_arch=arch, dtype=dtype,
+                      kernels="cuda", device="cuda", batch_size=batch_size,
+                      num_stages=len(devices),
+                      num_microbatches=microbatches,
+                      pipeline_schedule=schedule, **cfg_kw)
+    strategy = build_strategy(cfg, devices=devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    if init is not None:
+        model.load_state_dict(init)
+    model = strategy.place_model(model)
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, step, strategy
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+
+def _max_err_rel(a: dict, b: dict) -> float:
+    """The largest error of ``a`` against ``b`` relative to each tensor's
+    largest element."""
+    return max(float((a[n].to(t.device) - t).abs().max() / t.abs().max())
+               for n, t in b.items())
+
+
+def _peak_step_bytes(step, batch) -> dict:
+    """The step's peak device memory, after a first step made Adam's (or
+    SGD's) state: the peak over the whole allocation and the part above
+    what was allocated before the step."""
+    import torch
+
+    step(batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_bytes": peak, "step_bytes": peak - base}
+
+
+def phase_train_mp(tmp: str, train: dict) -> dict:
+    """``-t MP`` of the full-width UNet through the training CLI's own
+    functions, ``--stages 2 --microbatches 2 --synthetic 40 -v 20 -b 4 -e
+    2 --dtype bf16 --kernels cuda`` with both stages on cuda:0, once under
+    gpipe and once under 1f1b (train's data and seed: 16 steps, 4 eval
+    batches). K1 launches M times per step under gpipe and 2M under 1f1b
+    (phase A, then the last stage's recomputation), K1-bwd M times, K1
+    once per eval batch; the first loss within MP_LOSS_RTOL of train's.
+    Then the steady step by CUDA events, the host's time per step and the
+    card's busy time per step; one step of each schedule from the seed's
+    weights against the singleGPU step on the same batch, in bf16 and in
+    float32 (the loss within MP_LOSS_RTOL in both, the float32 gradients
+    within MP_GRAD_RTOL); the peak memory of both schedules at M = 2 and
+    M = 8 on a batch of 8; and the MP .pth served (K4)."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.serve.engine import (
+        engine_from_checkpoint,
+    )
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda", 0)
+    w, h = IMAGE_WH
+    mb = MP_MICROBATCHES
+    out = {"phase": "train_mp", "stages": MP_STAGES, "microbatches": mb,
+           "devices": ["cuda:0"] * MP_STAGES,
+           "device": torch.cuda.get_device_name(0)}
+    for schedule, k1_per_mb in (("gpipe", 1), ("1f1b", 2)):
+        run = os.path.join(tmp, f"train_mp_{schedule}")
+        ckpt_dir = os.path.join(run, "checkpoints")
+        argv = ["-t", "MP", "--stages", str(MP_STAGES), "--microbatches",
+                str(mb), "--pipeline-schedule", schedule,
+                "--synthetic", str(TRAIN_SAMPLES), "-v", "20",
+                "-b", str(TRAIN_BATCH), "-e", str(TRAIN_EPOCHS),
+                "--image-size", str(w), str(h), "--dtype", "bf16",
+                "--kernels", "cuda", "--checkpoint-dir", ckpt_dir]
+        trainer, close = _cli_trainer(run, argv, [dev] * MP_STAGES)
+        try:
+            check(trainer.kernels.name == "cuda", "policy is not cuda")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            close()
+        steps = result["steps"]
+        eval_batches = TRAIN_EPOCHS * len(trainer.val_loader)
+        losses = [float(x) for x in trainer.records.losses]
+        check(steps == train["steps"] and len(losses) == steps
+              and all(np.isfinite(losses)),
+              f"MP {schedule}: {steps} steps, losses {losses}")
+        want = {"loss_stats": steps * mb * k1_per_mb + eval_batches,
+                "loss_stats_bwd": steps * mb}
+        for name, count in want.items():
+            check(launches[name] == count,
+                  f"MP {schedule}: {name} launched {launches[name]} times, "
+                  f"expected {count}")
+        for need in ("logs/MP.log", "checkpoints/MP.pt", "checkpoints/MP.pth",
+                     "loss/MP/train_loss.pkl"):
+            check(need in _files(run), f"MP {schedule}: missing {need}")
+        first_rel = abs(losses[0] - train["losses"][0]) / train["losses"][0]
+        check(first_rel <= MP_LOSS_RTOL,
+              f"MP {schedule}: first loss {losses[0]} against train's "
+              f"{train['losses'][0]}")
+        batch = _first_batch(trainer)
+        step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+        host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
+        top = _top_kernels(lambda: trainer.train_step(batch), 2)
+        device_ms = sum(ms for _, ms in top)
+        out[schedule] = {
+            "steps": steps, "eval_batches": eval_batches,
+            "launches": launches, "losses": losses,
+            "first_loss_rel_err_vs_train": first_rel,
+            "val_loss": result["val_loss"], "val_dice": result["val_dice"],
+            "train_s": train_s, "step_ms": step_ms,
+            "host_enqueue_ms": host_ms, "device_ms_per_step": device_ms,
+            "idle_share": 1.0 - device_ms / step_ms,
+            "top_kernels_ms": top[:8],
+        }
+        if schedule == "gpipe":
+            kernels.reset_launches()
+            engine = engine_from_checkpoint(
+                "MP", checkpoint_dir=ckpt_dir, image_size=IMAGE_WH,
+                dtype="bf16", bucket_sizes=(1,), kernels="cuda",
+                device="cuda")
+            masks = engine.infer(np.zeros((1, h, w, 3), np.float32))
+            check(masks.shape == (1, h, w) and masks.dtype == np.uint8
+                  and kernels.LAUNCHES["serve_mask"] == 1,
+                  f"serving MP.pth: {masks.shape} {masks.dtype} "
+                  f"{kernels.LAUNCHES}")
+            out["served_mp_pth"] = True
+        del trainer
+    out["train_step_ms"] = train["step_ms"]
+    out["train_device_ms_per_step"] = train["device_ms_per_step"]
+
+    # one step of each schedule against the singleGPU step, same weights
+    # and batch: bf16 (reported) and float32 (held)
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+    init = UNet(generator=torch.Generator().manual_seed(SEED)).state_dict()
+    parity = {}
+    for dtype, torch_dtype in (("bf16", torch.bfloat16),
+                               ("f32", torch.float32)):
+        ref = UNet(dtype=torch_dtype)
+        ref.load_state_dict(init)
+        ref.to(dev)
+        ref_loss = float(make_train_step(
+            ref, torch.optim.SGD(ref.parameters(), lr=0.0), TRAIN_BATCH,
+            train_loss_fused=True)(batch))
+        ref_grads = _grads(ref)
+        del ref
+        row = {"loss_singleGPU": ref_loss}
+        grads = {}
+        for schedule in ("gpipe", "1f1b"):
+            model, step, _ = _mp_model_step("unet", [dev] * MP_STAGES,
+                                            schedule, mb, dtype, init=init)
+            loss = float(step(batch))
+            grads[schedule] = _grads(model)
+            row[schedule] = {
+                "loss": loss,
+                "loss_rel_err": abs(loss - ref_loss) / ref_loss,
+                "grad_max_err_rel_to_tensor_max": _max_err_rel(
+                    grads[schedule], ref_grads)}
+            del model, step
+        row["1f1b_vs_gpipe_grad_max_err_rel_to_tensor_max"] = _max_err_rel(
+            grads["1f1b"], grads["gpipe"])
+        parity[dtype] = row
+        del grads, ref_grads
+    out["step_parity"] = parity
+
+    # peak memory of each schedule at M = 2 and M = 8 (batch 8)
+    big = _synthetic_batch(MP_MEMORY_BATCH, dev)
+    memory = {}
+    for schedule in ("gpipe", "1f1b"):
+        for m in (2, 8):
+            torch.cuda.synchronize()
+            model, step, _ = _mp_model_step(
+                "unet", [dev] * MP_STAGES, schedule, m, "bf16", init=init,
+                batch_size=MP_MEMORY_BATCH)
+            memory[f"{schedule}_M{m}"] = _peak_step_bytes(step, big)
+            del model, step
+            torch.cuda.empty_cache()
+    out["memory_batch"] = MP_MEMORY_BATCH
+    out["memory"] = memory
+    emit(out)
+    for dtype, row in parity.items():
+        for schedule in ("gpipe", "1f1b"):
+            check(row[schedule]["loss_rel_err"] <= MP_LOSS_RTOL,
+                  f"MP {schedule} {dtype} step loss off singleGPU's: {row}")
+    f32 = parity["f32"]
+    for schedule in ("gpipe", "1f1b"):
+        check(f32[schedule]["grad_max_err_rel_to_tensor_max"]
+              <= MP_GRAD_RTOL,
+              f"MP {schedule} f32 step grads off singleGPU's: {f32}")
+    check(f32["1f1b_vs_gpipe_grad_max_err_rel_to_tensor_max"]
+          <= MP_GRAD_RTOL, f"1f1b grads off gpipe's: {f32}")
+    check(memory["1f1b_M8"]["peak_bytes"] < memory["gpipe_M8"]["peak_bytes"],
+          f"1f1b's peak memory at M = 8 is not below gpipe's: {memory}")
+    return out
+
+
+def _stage_batchnorms(strategy) -> list:
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+
+    return [sum(isinstance(m, BatchNormAct) for m in stage.modules())
+            for stage in strategy.stages]
+
+
+def phase_train_milesial_mp(tmp: str) -> dict:
+    """``-t MP`` of the full-width milesial through the training CLI's own
+    functions, ``--model milesial --wgrad-taps --kernels cuda --dtype bf16
+    -b 4 --microbatches 2`` under DPT_WGRAD_BACKEND=pallas, both stages on
+    cuda:0: two train steps and one eval batch under gpipe, then under
+    1f1b, each from the seed's weights. Per step K3 launches 18·M times
+    and K5 13·M; K2 18·M under gpipe, and under 1f1b 18·M in phase A, one
+    per BatchNorm of the stages before the last per microbatch in phase
+    B's forward ticks and 18·M in its recomputations; the eval batch,
+    microbatched too, 18·M more. The running statistics after step 1 are bitwise equal between
+    the schedules (the same forwards in the same order). Then one float32
+    step of each schedule with the kernels against the same step with
+    every kernel swapped for its plain version on the card, and the
+    steady step of each schedule timed."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    w, h = IMAGE_WH
+    mb = MP_MICROBATCHES
+    steps = 2
+    out = {"phase": "train_milesial_mp", "stages": MP_STAGES,
+           "microbatches": mb, "steps": steps,
+           "device": torch.cuda.get_device_name(0)}
+    stats_after_1 = {}
+
+    def drive(schedule):
+        argv = ["-t", "MP", "--model", "milesial", "--wgrad-taps",
+                "--kernels", "cuda", "--dtype", "bf16", "--synthetic", "8",
+                "-v", "50", "-b", str(TRAIN_BATCH), "--microbatches",
+                str(mb), "--pipeline-schedule", schedule,
+                "--image-size", str(w), str(h)]
+        trainer, close = _cli_trainer(
+            os.path.join(tmp, f"train_milesial_mp_{schedule}"), argv,
+            [dev] * MP_STAGES)
+        try:
+            bns = [m for m in trainer.model.modules()
+                   if isinstance(m, BatchNormAct)]
+            check(len(bns) == 18 and all(m.epilogue for m in bns),
+                  "the BatchNorm epilogue is not engaged on all 18")
+            batch = _first_batch(trainer)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            losses = []
+            for i in range(steps):
+                losses.append(float(trainer.train_step(batch)))
+                if i == 0:
+                    stats_after_1[schedule] = {
+                        n: b.clone() for n, b in
+                        trainer.model.named_buffers() if "running" in n}
+            eval_metrics = trainer.eval_step(batch)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            step_ms = cuda_ms(lambda: trainer.train_step(batch), 3, warmup=1)
+            host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
+            per_stage = _stage_batchnorms(trainer.strategy)
+        finally:
+            close()
+        check(all(np.isfinite(losses))
+              and np.isfinite(float(eval_metrics["loss"])),
+              f"milesial MP {schedule}: losses {losses}")
+        k2 = 18 * mb if schedule == "gpipe" else mb * (36 + sum(
+            per_stage[:-1]))
+        want = {"bn_act": steps * k2 + 18 * mb,
+                "bn_act_bwd": steps * 18 * mb,
+                "wgrad_9tap": steps * 13 * mb,
+                "loss_stats": steps * mb * (1 if schedule == "gpipe" else 2)
+                + 1,
+                "loss_stats_bwd": steps * mb}
+        for name, count in want.items():
+            check(launches[name] == count,
+                  f"milesial MP {schedule}: {name} launched "
+                  f"{launches[name]} times, expected {count}")
+        out[schedule] = {"launches": launches, "losses": losses,
+                         "batchnorms_per_stage": per_stage,
+                         "eval_loss": float(eval_metrics["loss"]),
+                         "step_ms": step_ms, "host_enqueue_ms": host_ms}
+
+    _with_wgrad_backend(lambda: [drive(s) for s in ("gpipe", "1f1b")])
+    same = all(torch.equal(stats_after_1["gpipe"][n], t)
+               for n, t in stats_after_1["1f1b"].items())
+    out["running_stats_after_step1_bitwise_equal"] = same
+
+    # float32: the kernels against their plain versions, in place
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+
+    def in_place():
+        for schedule in ("gpipe", "1f1b"):
+            runs = {}
+            for plain in (False, True):
+                model, step, _ = _mp_model_step(
+                    "milesial", [dev] * MP_STAGES, schedule, mb, "f32",
+                    wgrad_taps=True)
+                kernels.reset_launches()
+                if plain:
+                    with _PlainVersions():
+                        loss = float(step(batch))
+                else:
+                    loss = float(step(batch))
+                runs[plain] = {
+                    "loss": loss, "launches": dict(kernels.LAUNCHES),
+                    "grads": _grads(model),
+                    "stats": {n: b.clone() for n, b in model.named_buffers()
+                              if "running" in n}}
+                del model, step
+            check(not any(runs[True]["launches"].values()),
+                  f"plain versions launched {runs[True]['launches']}")
+            a, b = runs[False], runs[True]
+            rel_l2 = {n: float((a["grads"][n] - g).norm() / g.norm())
+                      for n, g in b["grads"].items()}
+            diff = torch.cat([(a["grads"][n] - g).flatten()
+                              for n, g in b["grads"].items()])
+            whole = torch.cat([g.flatten() for g in b["grads"].values()])
+            out[f"f32_{schedule}_kernels_vs_plain_versions"] = {
+                "launches": a["launches"],
+                "loss_rel_err": abs(a["loss"] - b["loss"]) / b["loss"],
+                "grad_global_rel_l2": float(diff.norm() / whole.norm()),
+                "grad_max_rel_l2": max(rel_l2.values()),
+                "grad_worst_tensor": max(rel_l2, key=rel_l2.get),
+                "running_stats_bitwise_equal": all(
+                    torch.equal(a["stats"][n], t)
+                    for n, t in b["stats"].items()),
+            }
+
+    _with_wgrad_backend(in_place)
+    emit(out)
+    check(same, "milesial MP running statistics after step 1 differ "
+                "between gpipe and 1f1b")
+    for schedule in ("gpipe", "1f1b"):
+        got = out[f"f32_{schedule}_kernels_vs_plain_versions"]
+        check(got["running_stats_bitwise_equal"]
+              and got["loss_rel_err"] <= IN_PLACE_LOSS_RTOL
+              and got["grad_global_rel_l2"] <= IN_PLACE_GRAD_GLOBAL_REL_L2
+              and got["grad_max_rel_l2"] <= IN_PLACE_GRAD_REL_L2,
+              f"milesial MP {schedule} f32, kernels vs plain versions: "
+              f"{got}")
+    return out
+
+
+def phase_train_dp(tmp: str, train: dict) -> dict:
+    """``-t DP`` on the one card through the training CLI's own functions
+    with train's flags, data and seed: the strategy takes every visible
+    card, one here, and the replica is the model itself. Every loss is
+    bitwise equal to train's (40 samples at -v 20 -b 4 leave no ragged
+    batch for DP's drop_last), K1 launches once per step and eval batch,
+    K1-bwd once per step. Then two steps of the full-width milesial under
+    DP with ``--wgrad-taps`` (DPT_WGRAD_BACKEND=pallas): K2, K3 and K5
+    launch 18, 18 and 13 times per step in the replica."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    w, h = IMAGE_WH
+    argv = ["-t", "DP", "--synthetic", str(TRAIN_SAMPLES), "-v", "20",
+            "-b", str(TRAIN_BATCH), "-e", str(TRAIN_EPOCHS),
+            "--image-size", str(w), str(h), "--dtype", "bf16",
+            "--kernels", "cuda"]
+    run = os.path.join(tmp, "train_dp")
+    trainer, close = _cli_trainer(run, argv)
+    try:
+        devices = [str(d) for d in trainer.strategy.devices]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        batch = _first_batch(trainer)
+        step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+        host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
+    finally:
+        close()
+    steps = result["steps"]
+    eval_batches = TRAIN_EPOCHS * len(trainer.val_loader)
+    losses = [float(x) for x in trainer.records.losses]
+    check(devices == [f"cuda:{i}" for i in range(torch.cuda.device_count())],
+          f"DP devices {devices}")
+    for name, count in (("loss_stats", steps + eval_batches),
+                        ("loss_stats_bwd", steps)):
+        check(launches[name] == count,
+              f"DP: {name} launched {launches[name]} times, expected "
+              f"{count}")
+    check("checkpoints/DP.pth" in _files(run), f"DP wrote {_files(run)}")
+    del trainer
+
+    def milesial():
+        argv = ["-t", "DP", "--model", "milesial", "--wgrad-taps",
+                "--kernels", "cuda", "--dtype", "bf16", "--synthetic", "8",
+                "-v", "50", "-b", str(TRAIN_BATCH),
+                "--image-size", str(w), str(h)]
+        trainer, close = _cli_trainer(os.path.join(tmp, "train_milesial_dp"),
+                                      argv)
+        try:
+            batch = _first_batch(trainer)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            m_losses = [float(trainer.train_step(batch)) for _ in range(2)]
+            torch.cuda.synchronize()
+            return m_losses, dict(kernels.LAUNCHES)
+        finally:
+            close()
+
+    m_losses, m_launches = _with_wgrad_backend(milesial)
+    out = {
+        "phase": "train_dp", "devices": devices, "steps": steps,
+        "eval_batches": eval_batches, "launches": launches,
+        "losses": losses,
+        "losses_bitwise_equal_to_train": losses == train["losses"],
+        "val_loss": result["val_loss"], "val_dice": result["val_dice"],
+        "step_ms": step_ms, "host_enqueue_ms": host_ms,
+        "train_step_ms": train["step_ms"],
+        "milesial_losses": m_losses, "milesial_launches": m_launches,
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(out)
+    check(out["losses_bitwise_equal_to_train"],
+          f"DP losses {losses} against train's {train['losses']}")
+    check(all(np.isfinite(m_losses)), f"milesial DP losses {m_losses}")
+    for name, count in (("bn_act", 18 * 2), ("bn_act_bwd", 18 * 2),
+                        ("wgrad_9tap", 13 * 2)):
+        check(m_launches[name] == count,
+              f"milesial DP: {name} launched {m_launches[name]} times, "
+              f"expected {count}")
+    return out
+
+
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _busy_ms_by_device(fn, runs: int) -> dict:
+    """``{device index: ms}``: the union of the kernel intervals each card
+    ran during ``runs`` calls of ``fn``, per call, by the profiler's
+    clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        _sync_all()
+    spans = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.setdefault(evt.device_index, []).append(
+            (evt.time_range.start, evt.time_range.end))
+    busy = {}
+    for index, intervals in spans.items():
+        intervals.sort()
+        total, end = 0.0, float("-inf")
+        for a, b in intervals:
+            if b <= end:
+                continue
+            total += b - max(a, end)
+            end = b
+        busy[index] = total / runs / 1e3
+    return busy
+
+
+def _wall_ms(fn, iters: int, warmup: int) -> float:
+    """Host milliseconds per call of ``fn`` with every card drained
+    before and after: the step's wall time across cards."""
+    for _ in range(warmup):
+        fn()
+    _sync_all()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync_all()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_mp_cards(world: int) -> dict:
+    """``-t MP`` of the full-width bf16 UNet across cards (``--cards``): at
+    S = 2 on cuda:0/cuda:1, the reference's layout, and at S = 4 on four
+    cards, under gpipe and 1f1b at M = 2 and M = 8 (batch 8). For each:
+    the step's wall time, every stage card's busy time by the profiler
+    and the bubble it leaves, 1 − mean busy / step, beside gpipe's
+    (S − 1)/(M + S − 1); and the same pipeline with every stage on
+    cuda:0, whose first loss the cards' must equal within MP_LOSS_RTOL."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models.unet import UNet
+
+    batch = _synthetic_batch(MP_MEMORY_BATCH, torch.device("cuda", 0))
+    init = UNet(generator=torch.Generator().manual_seed(SEED)).state_dict()
+    out = {"phase": "mp_cards", "batch": MP_MEMORY_BATCH,
+           "devices": [torch.cuda.get_device_name(i) for i in range(world)]}
+    for stages in (s for s in (2, 4) if s <= world):
+        for schedule in ("gpipe", "1f1b"):
+            for m in (2, 8):
+                row = {}
+                for layout, devices in (
+                        ("cards", [torch.device("cuda", i)
+                                   for i in range(stages)]),
+                        ("one_card", [torch.device("cuda", 0)] * stages)):
+                    model, step, _ = _mp_model_step(
+                        "unet", devices, schedule, m, "bf16", init=init,
+                        batch_size=MP_MEMORY_BATCH)
+                    first = float(step(batch))
+                    step_ms = _wall_ms(lambda: step(batch), 5, warmup=2)
+                    busy = _busy_ms_by_device(lambda: step(batch), 2)
+                    row[layout] = {"first_loss": first, "step_ms": step_ms,
+                                   "busy_ms_by_card": busy}
+                    if layout == "cards":
+                        row["bubble_measured"] = 1.0 - sum(
+                            busy.get(i, 0.0) for i in range(stages)
+                        ) / stages / step_ms
+                    del model, step
+                    torch.cuda.empty_cache()
+                row["bubble_gpipe_formula"] = (stages - 1) / (m + stages - 1)
+                row["cards_speedup_over_one_card"] = (
+                    row["one_card"]["step_ms"] / row["cards"]["step_ms"])
+                row["first_loss_rel_err"] = abs(
+                    row["cards"]["first_loss"] - row["one_card"]["first_loss"]
+                ) / row["one_card"]["first_loss"]
+                out[f"S{stages}_{schedule}_M{m}"] = row
+    emit(out)
+    for key, row in out.items():
+        if key.startswith("S"):
+            check(row["first_loss_rel_err"] <= MP_LOSS_RTOL,
+                  f"MP {key}: cards' loss off the one-card pipeline's: "
+                  f"{row['first_loss_rel_err']}")
+    return out
+
+
+# -t DP across cards: the one-card reference step holds the whole batch
+# in float32, so milesial's batch is 8 (2 per card), the UNet's 16
+DP_CARDS_BATCH = {"unet": 16, "milesial": 8}
+DP_CARDS_LOSS_RTOL = 1e-5
+# the UNet's gradients relative to each tensor's largest (cuDNN sums a
+# batch of 4 per card and of 16 on one card in other orders)
+DP_CARDS_GRAD_RTOL = 1e-3
+# milesial's by each tensor's relative L2 error, MILESIAL_PARITY's float32
+# bound: the bias of an upconv in front of a conv and a BatchNorm is left
+# by the BatchNorm's shift invariance with its border terms only, and a
+# gradient that nearly cancels carries the other summation order as a
+# larger error of its largest element (1.24e-2 of it in the first run of
+# this phase, on four H100s)
+DP_CARDS_MILESIAL_GRAD_REL_L2 = MILESIAL_PARITY["f32"]["grad_rel_l2"]
+DP_CARDS_STATS_RTOL = 1e-4
+
+
+def phase_dp_cards(world: int) -> dict:
+    """``-t DP`` over ``world`` cards in one process: the full-width UNet
+    at batch 16 and milesial at batch 8, float32, kernels cuda, one step
+    from the seed's weights against a one-card step on the same batch:
+    the loss within DP_CARDS_LOSS_RTOL, the UNet's gradients within
+    DP_CARDS_GRAD_RTOL of each tensor's largest, milesial's within
+    DP_CARDS_MILESIAL_GRAD_REL_L2 relative L2 and its running statistics
+    within DP_CARDS_STATS_RTOL. Then the bf16 UNet step at batch 16 over
+    the cards and on one card, by wall time, with each card's busy time
+    and the host's operators: the per-step cost of replicating the
+    weights and gathering the predictions against the split compute."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    dev0 = torch.device("cuda", 0)
+    cards = [torch.device("cuda", i) for i in range(world)]
+    out = {"phase": "dp_cards", "world": world,
+           "devices": [torch.cuda.get_device_name(i) for i in range(world)]}
+
+    def dp_step(arch, devices, dtype, batch_size, lr=0.0):
+        cfg = TrainConfig(train_method="DP", model_arch=arch, dtype=dtype,
+                          kernels="cuda", device="cuda",
+                          batch_size=batch_size)
+        strategy = build_strategy(cfg, devices=devices)
+        model = create_model(cfg, generator=torch.Generator().manual_seed(
+            SEED))
+        model = strategy.place_model(model)
+        opt = torch.optim.SGD(model.parameters(), lr=lr)
+        return model, strategy.build_train_step(model, opt,
+                                                get_kernel_policy("cuda"))
+
+    for arch, b in DP_CARDS_BATCH.items():
+        batch = _synthetic_batch(b, dev0)
+        runs = {}
+        for layout, devices in (("cards", cards), ("one_card", [dev0])):
+            model, step = dp_step(arch, devices, "f32", b)
+            runs[layout] = {
+                "loss": float(step(batch)), "grads": _grads(model),
+                "stats": {n: t.clone() for n, t in model.named_buffers()
+                          if "running" in n}}
+            del model, step
+            torch.cuda.empty_cache()
+        a, ref = runs["cards"], runs["one_card"]
+        rel_l2 = {n: float((a["grads"][n] - g).norm() / g.norm())
+                  for n, g in ref["grads"].items()}
+        worst = max(rel_l2, key=rel_l2.get)
+        row = {"batch": b,
+               "loss_cards": a["loss"], "loss_one_card": ref["loss"],
+               "loss_rel_err": abs(a["loss"] - ref["loss"]) / ref["loss"],
+               "grad_max_err_rel_to_tensor_max": _max_err_rel(a["grads"],
+                                                              ref["grads"]),
+               "grad_max_rel_l2": rel_l2[worst], "grad_worst_tensor": worst,
+               "grad_median_rel_l2": sorted(rel_l2.values())[
+                   len(rel_l2) // 2]}
+        if ref["stats"]:
+            row["running_stats_max_err_rel_to_tensor_max"] = _max_err_rel(
+                a["stats"], ref["stats"])
+        out[arch] = row
+        del runs, a, ref
+    batch = _synthetic_batch(DP_CARDS_BATCH["unet"], dev0)
+    for layout, devices in (("cards", cards), ("one_card", [dev0])):
+        _, step = dp_step("unet", devices, "bf16", DP_CARDS_BATCH["unet"],
+                          lr=1e-4)
+        out[f"bf16_unet_step_ms_{layout}"] = _wall_ms(lambda: step(batch), 5,
+                                                      warmup=2)
+        out[f"bf16_unet_busy_ms_by_card_{layout}"] = _busy_ms_by_device(
+            lambda: step(batch), 2)
+        if layout == "cards":
+            out["bf16_unet_top_host_ops_cards"] = _top_host_ops(
+                lambda: step(batch), 2)[:12]
+        del step
+    out["bf16_unet_speedup"] = (out["bf16_unet_step_ms_one_card"]
+                                / out["bf16_unet_step_ms_cards"])
+    emit(out)
+    for arch in DP_CARDS_BATCH:
+        row = out[arch]
+        check(row["loss_rel_err"] <= DP_CARDS_LOSS_RTOL,
+              f"DP {arch} across cards: loss {row}")
+        if arch == "milesial":
+            check(row["grad_max_rel_l2"] <= DP_CARDS_MILESIAL_GRAD_REL_L2,
+                  f"DP {arch} across cards: grads {row}")
+        else:
+            check(row["grad_max_err_rel_to_tensor_max"]
+                  <= DP_CARDS_GRAD_RTOL, f"DP {arch} across cards: {row}")
+        check(row.get("running_stats_max_err_rel_to_tensor_max", 0.0)
+              <= DP_CARDS_STATS_RTOL,
+              f"DP {arch} across cards: running statistics {row}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -1961,7 +2730,9 @@ def _finish(device: dict) -> None:
 
 def main_cards(world: int) -> int:
     """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
-    across N cards (``phase_ddp_cards``) and no other phase."""
+    across N cards (``phase_ddp_cards``), ``-t MP`` across 2 and 4 of them
+    (``phase_mp_cards``) and ``-t DP`` across all N (``phase_dp_cards``),
+    and no other phase."""
     import torch
 
     check(torch.cuda.device_count() >= world,
@@ -1969,6 +2740,8 @@ def main_cards(world: int) -> int:
     device = phase_device()
     with tempfile.TemporaryDirectory() as tmp:
         phase_ddp_cards(tmp, world)
+    phase_mp_cards(world)
+    phase_dp_cards(world)
     _finish(device)
     return 0
 
@@ -1997,11 +2770,17 @@ def main(argv) -> int:
         milesial = phase_train_milesial(tmp)
         milesial_ddp = phase_train_milesial_ddp(tmp, milesial)
         phase_train_ddp_gloo2(tmp)
+        train_mp = phase_train_mp(tmp, train)
+        milesial_mp = phase_train_milesial_mp(tmp)
+        train_dp = phase_train_dp(tmp, train)
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()
     k5 = wgrad["timings"][0]  # 128 -> 128 on 4 x 320 x 480
     source = "distributedpytorch_tpu_torch/csrc/"
+
+    def by_schedule(run, name):
+        return {s: run[s]["launches"][name] for s in ("gpipe", "1f1b")}
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -2011,6 +2790,8 @@ def main(argv) -> int:
             "launches": serve["result"]["launches"]["serve_mask"],
             # not on the training paths
             "ddp_launches": None,
+            "mp_launches": None,
+            "dp_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
             "plain_ms": kernel["plain_ms"],
@@ -2027,6 +2808,10 @@ def main(argv) -> int:
             "launches": train["launches"]["loss_stats"],
             # per shard in the UNet -t DDP run (train_ddp)
             "ddp_launches": train_ddp["launches"]["loss_stats"],
+            # per microbatch in the UNet -t MP runs (train_mp), on the
+            # output card in its -t DP run (train_dp)
+            "mp_launches": by_schedule(train_mp, "loss_stats"),
+            "dp_launches": train_dp["launches"]["loss_stats"],
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
             "plain_ms": loss["stats_plain_ms"],
@@ -2042,6 +2827,8 @@ def main(argv) -> int:
             "replaces": "distributedpytorch_tpu/ops/fused_loss.py:67",
             "launches": train["launches"]["loss_stats_bwd"],
             "ddp_launches": train_ddp["launches"]["loss_stats_bwd"],
+            "mp_launches": by_schedule(train_mp, "loss_stats_bwd"),
+            "dp_launches": train_dp["launches"]["loss_stats_bwd"],
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
             "plain_ms": loss["bwd_plain_ms"],
@@ -2058,6 +2845,9 @@ def main(argv) -> int:
             "launches": milesial["launches"]["bn_act"],
             # in the milesial -t DDP run (train_milesial_ddp)
             "ddp_launches": milesial_ddp["launches"]["bn_act"],
+            # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
+            "mp_launches": by_schedule(milesial_mp, "bn_act"),
+            "dp_launches": train_dp["milesial_launches"]["bn_act"],
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],
@@ -2075,6 +2865,9 @@ def main(argv) -> int:
             "replaces": "distributedpytorch_tpu/ops/kernels.py:333",
             "launches": milesial["launches"]["bn_act_bwd"],
             "ddp_launches": milesial_ddp["launches"]["bn_act_bwd"],
+            # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
+            "mp_launches": by_schedule(milesial_mp, "bn_act_bwd"),
+            "dp_launches": train_dp["milesial_launches"]["bn_act_bwd"],
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
             "plain_ms": bn["f32"]["bwd_plain_ms"],
@@ -2090,6 +2883,9 @@ def main(argv) -> int:
             "replaces": "distributedpytorch_tpu/ops/wgrad_pallas.py:72",
             "launches": milesial["launches"]["wgrad_9tap"],
             "ddp_launches": milesial_ddp["launches"]["wgrad_9tap"],
+            # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
+            "mp_launches": by_schedule(milesial_mp, "wgrad_9tap"),
+            "dp_launches": train_dp["milesial_launches"]["wgrad_9tap"],
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],
             "plain_ms": k5["plain_ms"],

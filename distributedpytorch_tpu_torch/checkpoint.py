@@ -15,7 +15,13 @@ plateau scheduler, step, epoch, the loss records and a manifest, which
 records the saving run's strategy and world size, as the JAX
 package's does (checkpoint.py:122).
 The state is replicated over DDP's ranks, so the main process writes it
-and a run at any world size restores it. A JAX
+and a run at any world size restores it. Under ``-t MP`` each stage's
+layers live on its own device and ``state_dict()`` gathers them under
+the singleGPU keys (``.cpu()`` per tensor here), and under ``-t DP`` the
+model itself sits on the first device: a checkpoint of any method loads
+under any other, at any stage count, with nothing to reshard
+(``load_state_dict`` copies each tensor to its parameter's device, and
+the optimizer's state follows its parameter's). A JAX
 ``.ckpt`` is flax msgpack, which the port does not read yet: a resolved
 ``.ckpt`` raises and names the export that gives a ``.pth``.
 """

@@ -1,9 +1,10 @@
 """Train the UNet on images and target masks — ``python -m
-distributedpytorch_tpu_torch [-t singleGPU|DDP] ...``.
+distributedpytorch_tpu_torch [-t singleGPU|DP|DDP|MP] ...``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` for the flags the port
 implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
-``--data-dir --synthetic --image-size --model --model-widths --wgrad-taps
+``--data-dir --synthetic --image-size --microbatches --stages
+--pipeline-cuts --pipeline-schedule --model --model-widths --wgrad-taps
 --dtype --kernels --device --grad-accum --num-workers --prefetch-batches
 --checkpoint-dir``.
 ``--s2d-levels`` is accepted and has no effect (the port runs the pixel
@@ -16,10 +17,16 @@ rejects it. The run writes ``./logs/<method>.log`` (message-only),
 ``-t DDP`` runs one process per card under torchrun (NCCL; gloo with
 ``--device cpu``), ``-b`` per process; without a launcher it runs as one
 process. Every rank appends to the log file; only rank 0 mirrors it to
-stderr and writes the checkpoints, loss tables and ``.pth``.
+stderr and writes the checkpoints, loss tables and ``.pth``. ``-t DP``
+splits the global batch ``-b`` over every visible card in one process;
+``-t MP`` pipelines it over the first ``--stages`` cards in
+``--microbatches`` microbatches (``--pipeline-schedule gpipe|1f1b``). With
+``--device cpu`` both run on the CPU, every stage there.
 
 It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t singleGPU --synthetic 40
+    python -m distributedpytorch_tpu_torch -t MP --stages 2 \\
+        --microbatches 2 --pipeline-schedule 1f1b --synthetic 40
     torchrun --standalone --nproc_per_node 4 \
         -m distributedpytorch_tpu_torch -t DDP --synthetic 40
     DPT_WGRAD_BACKEND=pallas python -m distributedpytorch_tpu_torch \
@@ -43,8 +50,8 @@ def get_args(argv=None):
         description="Train UNet on images and target masks",
     )
     parser.add_argument("--train-method", "-t", type=str, default="singleGPU",
-                        help="Training method; the port runs singleGPU "
-                             "and DDP (DP, MP: ROADMAP.md)")
+                        help="Training method: singleGPU, DP, DDP or MP "
+                             "(DDP_MP and mesh specs: ROADMAP.md)")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
                         help="Percentage of data used as validation")
@@ -55,7 +62,8 @@ def get_args(argv=None):
     parser.add_argument("--learning-rate", "--lr", type=float, default=1e-4,
                         dest="lr", help="Learning rate")
     parser.add_argument("--batch-size", "-b", type=int, default=4,
-                        help="Batch size (per process under DDP)")
+                        help="Batch size (per process under DDP, global "
+                             "under DP and MP)")
     parser.add_argument("--checkpoint", "-c", type=str, default=None,
                         help="Resume from a native checkpoint (<name>.pt), "
                              "or load weights from a reference .pth")
@@ -69,6 +77,24 @@ def get_args(argv=None):
     parser.add_argument("--image-size", type=int, nargs=2,
                         default=(960, 640), metavar=("W", "H"),
                         help="Resize target (W H)")
+    parser.add_argument("--microbatches", type=int, default=2,
+                        help="Pipeline microbatches (MP); reference "
+                             "hardcodes 2")
+    parser.add_argument("--stages", type=int, default=2,
+                        help="Pipeline stages (MP); 2 = the reference's "
+                             "encoder|decoder cut; bubble is "
+                             "(S-1)/(M+S-1), so raise --microbatches with S")
+    parser.add_argument("--pipeline-cuts", type=int, nargs="+", default=None,
+                        help="Explicit stage boundaries as model-segment "
+                             "indices (L encoder levels, mid, L decoder "
+                             "levels+head); default: faithful 2-stage cut, "
+                             "even split otherwise")
+    parser.add_argument("--pipeline-schedule", type=str, default="gpipe",
+                        choices=["gpipe", "1f1b"],
+                        help="MP schedule: gpipe (fill-drain; activation "
+                             "memory grows with --microbatches) or 1f1b "
+                             "(PipeDream-flush; in-flight memory bounded by "
+                             "--stages, grad-equivalent)")
     parser.add_argument("--model", dest="model_arch", type=str,
                         default="unet", choices=["unet", "milesial"],
                         help="Model family: unet = the reference course "
@@ -129,6 +155,11 @@ def to_config(args):
         num_workers=args.num_workers,
         prefetch_batches=args.prefetch_batches,
         grad_accum=args.grad_accum,
+        num_microbatches=args.microbatches,
+        num_stages=args.stages,
+        pipeline_cuts=(tuple(args.pipeline_cuts) if args.pipeline_cuts
+                       else None),
+        pipeline_schedule=args.pipeline_schedule,
         model_arch=args.model_arch,
         model_widths=tuple(args.model_widths) if args.model_widths else None,
         wgrad_taps=args.wgrad_taps,
@@ -145,7 +176,8 @@ def to_config(args):
 def start_runtime(args):
     """This process's place in the run, before anything else (reference
     train.py:58): ``-t DDP`` joins the process group from torchrun's env
-    (world 1 without one); every other method is one process."""
+    (world 1 without one); every other method is one process (DP and MP
+    over the devices their strategy lists)."""
     from distributedpytorch_tpu_torch.dist import runtime
     from distributedpytorch_tpu_torch.utils.device import resolve_device
 
@@ -154,14 +186,15 @@ def start_runtime(args):
     return runtime.RuntimeInfo(0, 1, device=resolve_device(args.device))
 
 
-def build_trainer(args, info=None):
+def build_trainer(args, info=None, devices=None):
     """args → a :class:`Trainer` ready to ``train()``; ``info`` is
-    ``start_runtime``'s."""
+    ``start_runtime``'s, ``devices`` the device list of ``-t DP``/``MP``
+    (default: the visible cards)."""
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.loop import Trainer
 
     config = to_config(args)
-    return Trainer(config, strategy=build_strategy(config, info))
+    return Trainer(config, strategy=build_strategy(config, info, devices))
 
 
 def configure_logging(config, to_stderr: bool = True

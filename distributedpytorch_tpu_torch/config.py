@@ -18,8 +18,8 @@ class TrainConfig:
     JAX package's (reference train.py:18-24 for the optimization ones)."""
 
     # -- strategy -----------------------------------------------------------
-    # "singleGPU" or "DDP" (parallel/strategy.py); DP, MP and the mesh
-    # specs are not ported yet
+    # "singleGPU", "DP", "DDP" or "MP" (parallel/strategy.py); DDP_MP and
+    # the mesh specs are not ported yet
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------
@@ -51,6 +51,23 @@ class TrainConfig:
     # loaders; 0 disables
     host_cache_mb: int = 1024
     synthetic_samples: int = 0  # >0: an in-memory procedural dataset
+
+    # -- pipeline (MP) ------------------------------------------------------
+    num_microbatches: int = 2  # reference hardcodes 2 (unet_model.py:25)
+    # Stages of the pipeline. 2 = the reference's encoder|decoder cut
+    # (unet_model.py:16-20); any S up to the model's 2L+1 segments works —
+    # the bubble is (S−1)/(M+S−1), so raise num_microbatches with S.
+    num_stages: int = 2
+    # Where stages begin, as model-segment indices (see UNet.apply_segment:
+    # L encoder levels, mid, L decoder levels+head). None = the faithful
+    # 2-stage cut for S=2, an even split otherwise.
+    pipeline_cuts: Optional[Tuple[int, ...]] = None
+    # Pipeline schedule (parallel/pipeline.py): "gpipe" (fill-drain;
+    # every microbatch's stage activations stay alive until the backward,
+    # so peak memory grows with num_microbatches) or "1f1b"
+    # (PipeDream-flush: at most ~S−s input carries held at stage s,
+    # whatever M is; one extra forward per microbatch)
+    pipeline_schedule: str = "gpipe"
 
     # -- artifacts (reference layout) ---------------------------------------
     checkpoint_dir: str = "./checkpoints"

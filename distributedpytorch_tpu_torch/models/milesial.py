@@ -25,7 +25,8 @@ transposed-conv upsampling, widths 64 → 1024; 31,037,698 parameters at
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,6 +69,12 @@ class BatchNormAct(nn.Module):
       The running averages then move identically on every rank.
       ``torch.nn.SyncBatchNorm`` is not used: it too stores the unbiased
       variance;
+    * with ``replicas`` (set by the DP strategy for the forward of one
+      step, ``parallel/replicas.py``) the replicas' threads meet here and
+      every replica normalizes with the moments of the whole batch;
+    * ``update_running_stats`` False (``frozen_running_stats``) leaves the
+      running averages where they are: 1f1b's phase B re-runs forwards
+      whose statistics phase A already recorded;
     * eval: the running averages normalize;
     * normalize as flax does, ``(x − mean)·(inv·scale) + bias`` with
       ``inv = rsqrt(var + eps)``, or, with ``epilogue``, through
@@ -81,6 +88,8 @@ class BatchNormAct(nn.Module):
         self.epsilon = epsilon
         self.epilogue = epilogue
         self.global_stats = False
+        self.replicas = None
+        self.update_running_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -97,12 +106,17 @@ class BatchNormAct(nn.Module):
         if self.global_stats:
             moments = all_reduce_sum(torch.stack([mean, mean2]))
             mean, mean2 = moments / dist.get_world_size()
+        if self.replicas is not None:
+            mean, mean2 = self.replicas.mean(torch.stack([mean, mean2]))
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-            self.num_batches_tracked += 1
+        if self.update_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+                self.num_batches_tracked += 1
         return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -129,6 +143,22 @@ class BatchNormAct(nn.Module):
             y = F.relu((src.to(NORM_DTYPE) - per_channel(mean))
                        * per_channel(mul) + per_channel(self.bias))
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module) -> Iterator[None]:
+    """Within the block no ``BatchNormAct`` of ``model`` moves its running
+    averages; training-mode forwards still normalize with the batch's
+    moments."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
+    saved = [m.update_running_stats for m in bns]
+    for m in bns:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, saved):
+            m.update_running_stats = flag
 
 
 class DoubleConv(nn.Module):
@@ -247,16 +277,46 @@ class MilesialUNet(nn.Module):
                 module.epilogue = engaged
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skips: Tuple[torch.Tensor, ...] = ()
+        for seg in range(self.num_segments):
+            x, skips = self.apply_segment(x, skips, seg)
+        return x
+
+    # -- pipeline segments (parallel/pipeline.py) ---------------------------
+    # inc, L Down levels, then L Up levels with the 1×1 outc head folded
+    # into the last: 2L+1 segments under the UNet's carry convention
+    # (models/unet.py), inc's output being its own skip and the deepest
+    # Down the bottleneck, which pushes none.
+    @property
+    def num_segments(self) -> int:
+        return 2 * (len(self.widths) - 1) + 1
+
+    def apply_segment(self, x: torch.Tensor, skips: Tuple[torch.Tensor, ...],
+                      seg: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Segment ``seg`` on the carry ``(x, skips)``: NHWC in at segment
+        0, NHWC float32 out of the last."""
         levels = len(self.widths) - 1
-        x = self.inc(x.permute(0, 3, 1, 2).to(self.dtype))
-        skips = [x]
-        for i in range(1, levels + 1):
-            x = getattr(self, f"down{i}")(x)
-            if i < levels:  # the deepest Down is the bottleneck
-                skips.append(x)
-        for i in range(1, levels + 1):
-            x = getattr(self, f"up{i}")(x, skips.pop())
-        x = self.outc(x).to(LOSS_DTYPE)
-        if self.n_classes == 1:
-            x = torch.sigmoid(x)
-        return x.permute(0, 2, 3, 1)
+        skips = tuple(skips)
+        if seg == 0:
+            x = self.inc(x.permute(0, 3, 1, 2).to(self.dtype))
+            return x, skips + (x,)
+        if seg <= levels:
+            x = getattr(self, f"down{seg}")(x)
+            return x, (skips + (x,) if seg < levels else skips)
+        x = getattr(self, f"up{seg - levels}")(x, skips[-1])
+        if seg == 2 * levels:
+            x = self.outc(x).to(LOSS_DTYPE)
+            if self.n_classes == 1:
+                x = torch.sigmoid(x)
+            x = x.permute(0, 2, 3, 1)
+        return x, skips[:-1]
+
+    def segment_modules(self, seg: int) -> List[nn.Module]:
+        """The layers segment ``seg`` runs (a pipeline stage holds them)."""
+        levels = len(self.widths) - 1
+        if seg == 0:
+            return [self.inc]
+        if seg <= levels:
+            return [getattr(self, f"down{seg}")]
+        up = [getattr(self, f"up{seg - levels}")]
+        return up + ([self.outc] if seg == 2 * levels else [])

@@ -142,12 +142,11 @@ class ConvBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Conv blocks with a 2×2 max-pool after each; returns the pooled
-    bottleneck input and the skips, shallow first."""
+    """Conv blocks with a 2×2 max-pool after each, run level by level
+    (``level``) by ``UNet.apply_segment``."""
 
     def __init__(self, widths: Sequence[int] = ENCODER_WIDTHS, **taps):
         super().__init__()
-        self.n_levels = len(widths)
         in_feats = 3  # RGB
         for i, w in enumerate(widths):
             self.add_module(f"conv{i + 1}", ConvBlock(in_feats, w, **taps))
@@ -159,24 +158,15 @@ class Encoder(nn.Module):
         skip = getattr(self, f"conv{i + 1}")(x)
         return F.max_pool2d(skip, 2, 2), skip
 
-    def forward(self, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        skips: List[torch.Tensor] = []
-        for i in range(self.n_levels):
-            x, skip = self.level(x, i)
-            skips.append(skip)
-        return x, tuple(skips)
-
 
 class Decoder(nn.Module):
-    """Per level: ConvTranspose(k=2, s=2) → center-crop skip → concat
-    ``[skip, up]`` → conv block. ``widths`` run deep to shallow; the
-    input is the mid block's ``2 * widths[0]`` channels."""
+    """Per level (``level``): ConvTranspose(k=2, s=2) → center-crop skip →
+    concat ``[skip, up]`` → conv block. ``widths`` run deep to shallow;
+    the input is the mid block's ``2 * widths[0]`` channels."""
 
     def __init__(self, widths: Sequence[int] = tuple(reversed(ENCODER_WIDTHS)),
                  **taps):
         super().__init__()
-        self.n_levels = len(widths)
         logical_in = 2 * widths[0]
         for i, w in enumerate(widths):
             self.add_module(f"deconv{i + 1}",
@@ -190,13 +180,6 @@ class Decoder(nn.Module):
         skip = center_crop(skip, (x.shape[2], x.shape[3]))
         x = torch.cat([skip, x], dim=1)
         return getattr(self, f"conv{i + 1}")(x)
-
-    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
-                ) -> torch.Tensor:
-        # skips arrive encoder-ordered (shallow→deep); consume deepest first
-        for i in range(self.n_levels):
-            x = self.level(x, skips[len(skips) - 1 - i], i)
-        return x
 
 
 class UNet(nn.Module):
@@ -231,21 +214,55 @@ class UNet(nn.Module):
         init_convs_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, skips = self.encode_mid(x)
-        return self.decode_head(x, skips)
+        skips: Tuple[torch.Tensor, ...] = ()
+        for seg in range(self.num_segments):
+            x, skips = self.apply_segment(x, skips, seg)
+        return x
 
-    def encode_mid(self, x: torch.Tensor
-                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """Stage 0 of the 2-stage cut: NHWC input → encoder + mid block."""
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
-        x, skips = self.encoder(x)
-        return self.mid(x), skips
+    # -- pipeline segments (parallel/pipeline.py) ---------------------------
+    # The model's linear block order: L encoder levels, the mid block, then
+    # L decoder levels with the 1×1 head folded into the last. A pipeline
+    # stage is any contiguous run of these 2L+1 segments; the reference's
+    # 2-stage cut (unet_model.py:16-20) is the boundary after segment L.
+    @property
+    def num_segments(self) -> int:
+        return 2 * len(self.widths) + 1
 
-    def decode_head(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
-                    ) -> torch.Tensor:
-        """Stage 1: decoder + 1×1 head + sigmoid in ``LOSS_DTYPE`` (bf16
-        resolution near 0/1 would poison a log-based loss), NHWC out."""
-        x = self.segmap(self.decoder(x, skips))
+    def apply_segment(self, x: torch.Tensor, skips: Tuple[torch.Tensor, ...],
+                      seg: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Segment ``seg`` of the linear block order on the carry
+        ``(x, skips)``: encoder segments push their skip, decoder segments
+        pop the deepest. Segment 0 takes the NHWC input; the last returns
+        the NHWC float32 probabilities."""
+        n_levels = len(self.widths)
+        if seg == 0:
+            x = x.permute(0, 3, 1, 2).to(self.dtype)
+        if seg < n_levels:
+            x, skip = self.encoder.level(x, seg)
+            return x, tuple(skips) + (skip,)
+        if seg == n_levels:
+            return self.mid(x), tuple(skips)
+        x = self.decoder.level(x, skips[-1], seg - n_levels - 1)
+        if seg == 2 * n_levels:
+            x = self._head(x)
+        return x, tuple(skips)[:-1]
+
+    def segment_modules(self, seg: int) -> List[nn.Module]:
+        """The layers segment ``seg`` runs (a pipeline stage holds them)."""
+        n_levels = len(self.widths)
+        if seg < n_levels:
+            return [getattr(self.encoder, f"conv{seg + 1}")]
+        if seg == n_levels:
+            return [self.mid]
+        i = seg - n_levels
+        layers = [getattr(self.decoder, f"deconv{i}"),
+                  getattr(self.decoder, f"conv{i}")]
+        return layers + ([self.segmap] if seg == 2 * n_levels else [])
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """1×1 head + sigmoid in ``LOSS_DTYPE`` (bf16 resolution near 0/1
+        would poison a log-based loss), NHWC out."""
+        x = self.segmap(x)
         return torch.sigmoid(x.to(LOSS_DTYPE)).permute(0, 2, 3, 1)
 
 

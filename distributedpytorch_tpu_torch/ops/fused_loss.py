@@ -11,6 +11,13 @@ global cotangent, DDP's sum over ranks) is ordinary autograd.
 ``make_sharded_loss`` is the data-parallel form, the counterpart of
 ``make_sharded_fused_loss`` (fused_loss.py:91-117): the statistics of
 each rank's shard, summed over ranks, then ``loss_from_stats``.
+
+``stats_function`` and ``loss_and_cotangent`` serve the paths that sum
+the statistics of several slices of the batch before one loss: gradient
+accumulation's chunks and the pipeline's microbatches. Where a slice's
+backward runs apart from the loss (accumulation's second pass, 1f1b's
+backward ticks) it is fed the global loss's cotangent with respect to the
+four sums.
 """
 
 from __future__ import annotations
@@ -54,6 +61,25 @@ def fused_bce_dice_loss(outputs: torch.Tensor,
     return loss_from_stats(BCEDiceStatsFused.apply(outputs, targets))
 
 
+def stats_function(fused: bool) -> Callable:
+    """``stats(outputs, targets)``, the four sums of one slice of the
+    batch: ``BCEDiceStatsFused`` when ``fused`` (K1 forward, K1-bwd
+    backward on the card), else the plain ``bce_dice_stats``."""
+    return BCEDiceStatsFused.apply if fused else bce_dice_stats
+
+
+def loss_and_cotangent(stats: torch.Tensor, scale: float = 1.0):
+    """``(loss, ct)`` of summed statistics: the loss of the whole batch
+    (detached) and ``ct = ∇(scale · loss_from_stats)`` at ``stats``, the
+    4-vector every slice's backward is fed."""
+    stats = stats.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = loss_from_stats(stats)
+        (ct,) = torch.autograd.grad(loss * scale if scale != 1.0 else loss,
+                                    stats)
+    return loss.detach(), ct
+
+
 def make_sharded_loss(fused: bool) -> Callable:
     """``loss(outputs, targets)`` of a data-parallel rank: one loss over
     the global batch, the same on every rank. The shard's four statistics
@@ -64,7 +90,7 @@ def make_sharded_loss(fused: bool) -> Callable:
     shards. Its backward sums the cotangent over ranks, so each rank's
     gradient comes out ``world ×`` its share, which DDP's averaging
     undoes (``dist/collectives.py``)."""
-    stats_fn = BCEDiceStatsFused.apply if fused else bce_dice_stats
+    stats_fn = stats_function(fused)
 
     def loss(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         return loss_from_stats(all_reduce_sum(stats_fn(outputs, targets)))

@@ -1,16 +1,21 @@
-"""Strategies: what differs between ``-t singleGPU`` and ``-t DDP``.
+"""Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``
+and ``MP``.
 
-Counterpart of ``Strategy``, ``SingleDevice``, ``MultiProcessMixin``
-(strategy.py:558-693), ``DistributedDataParallel`` (:696-716) and
+Counterpart of ``Strategy``, ``SingleDevice``, ``DataParallel``
+(strategy.py:542-555), ``MultiProcessMixin`` (:558-693),
+``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736) and
 ``build_strategy`` (:1046) of ``distributedpytorch_tpu/parallel/strategy.py``.
-A strategy answers: which device a process computes on, which samples it
-loads, the global batch, the lr, which process writes, how the model is
-wrapped and how the training loss is formed.
+A strategy answers: which devices a process computes on, which samples it
+loads, the global batch, the lr, which process writes, where the model's
+layers live, and the train and eval steps.
 
-Each process of the port drives one device, so the JAX mixin's row-based
-replica assignment (``_compute_batch_replica_shard``, for meshes whose
-data rows span processes) collapses to ``ShardSpec(rank, world)``. DP, MP
-and the mesh specs are not ported (ROADMAP.md, Queue A).
+Each process of the port drives one device under DDP, so the JAX mixin's
+row-based replica assignment (``_compute_batch_replica_shard``, for meshes
+whose data rows span processes) collapses to ``ShardSpec(rank, world)``.
+DP and MP are one process over a list of devices (``devices``, which may
+repeat one: the CPU tests run ``[cpu, cpu]``, a one-card check
+``[cuda:0, cuda:0]``). DDP_MP and the mesh specs are not ported
+(ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -18,12 +23,17 @@ the all-reduce of the loss statistics, K1 in eval, and milesial's K2, K3
 and K5 fed the global BatchNorm statistics. The JAX DDP keeps eval
 metrics and milesial's BatchNorm on XLA instead (strategy.py:472-493,
 kernels.py:258-278), because ``pallas_call`` has no GSPMD partition
-rule; the two compute the same function.
+rule; the two compute the same function. The port's DP and MP run the
+kernels the same way: under MP K1 and K1-bwd per microbatch on the last
+stage and K2, K3, K5 inside the stages, as the JAX MP does; under DP each
+replica's forward is local to its device (the JAX DP keeps XLA BatchNorm
+and XLA eval metrics there).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import logging
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -35,7 +45,48 @@ from distributedpytorch_tpu_torch.ops.fused_loss import (
     make_sharded_loss,
 )
 from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
+from distributedpytorch_tpu_torch.parallel.pipeline import (
+    PIPELINE_SCHEDULES,
+    build_stages,
+    make_pipeline_eval_step,
+    make_pipeline_train_step,
+)
+from distributedpytorch_tpu_torch.parallel.replicas import Replicated
+from distributedpytorch_tpu_torch.train.steps import (
+    make_accum_train_step,
+    make_eval_step,
+    make_train_step,
+)
 from distributedpytorch_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def local_devices(device) -> List[torch.device]:
+    """The devices one process may use: every visible card for ``cuda``
+    (or the one named, ``cuda:N``), the one CPU for ``cpu``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _shrunk_data_degree(name: str, batch_size: int, n_devices: int) -> int:
+    """Largest data degree <= n_devices dividing the batch, warning when
+    devices are left idle (JAX strategy.py:89-108)."""
+    n = n_devices
+    while batch_size % n:
+        n -= 1
+    if n != n_devices:
+        logger.warning(
+            "%s: batch size %d does not divide the %d available devices "
+            "— data mesh shrunk to %d device(s); %d idle. torch "
+            "DataParallel would scatter unevenly instead; here the "
+            "batch must divide the mesh. Use a batch size divisible by "
+            "the device count to engage every device.",
+            name, batch_size, n_devices, n, n_devices - n,
+        )
+    return n
 
 
 class Strategy:
@@ -43,10 +94,12 @@ class Strategy:
 
     name = "base"
 
-    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None):
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self.config = config
         self.info = info or runtime.RuntimeInfo(
-            0, 1, device=resolve_device(config.device))
+            0, 1, device=(torch.device(devices[0]) if devices
+                          else resolve_device(config.device)))
 
     @property
     def device(self) -> torch.device:
@@ -100,12 +153,79 @@ class Strategy:
     #: gradient accumulation's in-place sum over ranks (None: one rank)
     sum_over_ranks: Optional[Callable] = None
 
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The model with its layers on their devices."""
+        return model.to(self.device)
+
+    def build_train_step(self, model, optimizer, kernels) -> Callable:
+        """``step(batch) -> loss`` of one optimizer step (train/steps.py);
+        the faithful scale is the per-process ``batch_size``
+        (strategy.py:303-314)."""
+        return make_train_step(
+            self.wrap_model(model), optimizer, self.config.batch_size,
+            self.config.faithful_loss_scaling,
+            loss_impl=self.train_loss(kernels.train_loss_fused))
+
+    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
+        """One optimizer step over ``config.grad_accum`` batches."""
+        return make_accum_train_step(
+            model, optimizer, self.config.batch_size, self.config.grad_accum,
+            self.config.faithful_loss_scaling, kernels.train_loss_fused,
+            sum_over_ranks=self.sum_over_ranks)
+
+    def build_eval_step(self, model, kernels) -> Callable:
+        """``step(batch) -> {'loss', 'dice'}`` on this process's device."""
+        return make_eval_step(model, kernels.eval_stats_fused)
+
 
 class SingleDevice(Strategy):
     """Reference ``-t singleGPU``: the whole model and batch on one
     device."""
 
     name = "singleGPU"
+
+
+class DataParallel(Strategy):
+    """Reference ``-t DP`` (``torch.nn.DataParallel``, train_utils.py:98):
+    one process, the batch split over the local devices
+    (``parallel/replicas.py``). ``config.batch_size`` is the global batch,
+    the lr is not scaled, the train loader drops the ragged batch, and
+    the device count shrinks until it divides the batch, with the JAX
+    package's warning (``_shrunk_data_degree``). The loss is one loss over
+    the global batch on the first device (K1 and K1-bwd there under
+    ``--kernels cuda``); each replica's forward runs its own epilogue
+    kernels, and milesial's BatchNorm normalizes with the moments of the
+    whole batch, as GSPMD computes them for the JAX DP."""
+
+    name = "DP"
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        devs = ([torch.device(d) for d in devices] if devices is not None
+                else local_devices(config.device))
+        n = _shrunk_data_degree(self.name, config.batch_size, len(devs))
+        self.devices = devs[:n]
+        # one process: its device is the first of the list
+        super().__init__(config, None, self.devices)
+
+    @property
+    def drop_last_train(self) -> bool:
+        return True
+
+    def topology(self) -> dict:
+        return {"strategy": self.name, "world": self.world,
+                "devices": len(self.devices)}
+
+    def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        return Replicated(model, self.devices)
+
+    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
+        return super().build_accum_train_step(self.wrap_model(model),
+                                              optimizer, kernels)
+
+    def build_eval_step(self, model, kernels) -> Callable:
+        return make_eval_step(self.wrap_model(model),
+                              kernels.eval_stats_fused)
 
 
 class MultiProcessMixin:
@@ -145,9 +265,10 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
 
     name = "DDP"
 
-    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None):
-        super().__init__(config,
-                         info or runtime.initialize_from_env(config.device))
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        super().__init__(config, info or runtime.initialize_from_env(
+            devices[0] if devices else config.device))
 
     @property
     def drop_last_train(self) -> bool:
@@ -173,23 +294,91 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
     sum_over_ranks = staticmethod(sum_over_ranks_)
 
 
-STRATEGIES = {cls.name: cls for cls in (SingleDevice,
-                                        DistributedDataParallel)}
+class Pipeline(Strategy):
+    """Reference ``-t MP`` (unet_model.py:14-53): an S-stage microbatched
+    pipeline in one process (``parallel/pipeline.py``). Stage s runs on
+    ``devices[s]``, by default the first S visible cards, and holds its
+    segments' layers there; ``--pipeline-schedule`` picks ``gpipe`` or
+    ``1f1b``. On the CPU every stage runs on the CPU. ``config.batch_size``
+    is the whole batch, split into ``num_microbatches``; the lr is not
+    scaled; the faithful scale uses the whole batch."""
+
+    name = "MP"
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        if config.pipeline_schedule not in PIPELINE_SCHEDULES:
+            raise ValueError(
+                f"pipeline_schedule must be one of {PIPELINE_SCHEDULES}, "
+                f"got {config.pipeline_schedule!r}"
+            )
+        stages = config.num_stages
+        if devices is not None:
+            devs = [torch.device(d) for d in devices]
+        else:
+            devs = local_devices(config.device)
+            if devs[0].type == "cpu":
+                devs = devs * stages
+        if len(devs) < stages:
+            raise ValueError(
+                f"Requires at least {stages} devices, got {len(devs)}")
+        self.devices = devs[:stages]
+        self.stages = None
+        # one process: its device is the first of the list
+        super().__init__(config, None, self.devices)
+
+    def topology(self) -> dict:
+        cfg = self.config
+        return {"strategy": self.name, "world": self.world,
+                "stages": cfg.num_stages,
+                "microbatches": cfg.num_microbatches,
+                "schedule": cfg.pipeline_schedule}
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        """Each stage's layers on its device."""
+        model.to(self.devices[0])
+        self.stages = build_stages(model, self.devices,
+                                   self.config.pipeline_cuts)
+        return model
+
+    def build_train_step(self, model, optimizer, kernels) -> Callable:
+        cfg = self.config
+        return make_pipeline_train_step(
+            model, self.stages, optimizer, cfg.batch_size,
+            cfg.num_microbatches, cfg.pipeline_schedule,
+            cfg.faithful_loss_scaling, kernels.train_loss_fused)
+
+    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
+        raise ValueError(
+            "pipeline strategies already microbatch inside the "
+            "schedule — raise --microbatches instead of --grad-accum"
+        )
+
+    def build_eval_step(self, model, kernels) -> Callable:
+        return make_pipeline_eval_step(model, self.stages,
+                                       self.config.num_microbatches,
+                                       kernels.eval_stats_fused)
 
 
-def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None
+STRATEGIES = {cls.name: cls for cls in (SingleDevice, DataParallel,
+                                        DistributedDataParallel, Pipeline)}
+
+
+def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
+                   devices: Optional[Sequence[torch.device]] = None
                    ) -> Strategy:
-    """``config.train_method`` → its strategy. DP, MP and the mesh specs
-    raise with the ROADMAP pointer."""
+    """``config.train_method`` → its strategy, on ``devices`` where one is
+    given (DP and MP; every method takes its first as its device).
+    DDP_MP and the mesh specs raise with the ROADMAP pointer."""
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
         raise ValueError(unported_method_message(config.train_method))
-    return cls(config, info)
+    return cls(config, info, devices)
 
 
 def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{' and '.join(sorted(STRATEGIES))}; DP, MP and the mesh specs "
+        f"{', '.join(sorted(STRATEGIES))}; DDP_MP and the mesh specs "
         f"are still to port (ROADMAP.md, Queue A)"
     )

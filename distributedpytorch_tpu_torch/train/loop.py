@@ -1,9 +1,9 @@
 """The trainer: epoch loop, eval, scheduler, checkpoints.
 
-Counterpart of the ``-t singleGPU`` / ``-t DDP``, ``nonfinite_policy=
-"abort"`` subset of ``distributedpytorch_tpu/train/loop.py`` (``Trainer``,
-``fit``). A strategy (``parallel/strategy.py``) says what differs under
-DDP:
+Counterpart of the ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP``,
+``nonfinite_policy="abort"`` subset of ``distributedpytorch_tpu/train/
+loop.py`` (``Trainer``, ``fit``). A strategy (``parallel/strategy.py``)
+says what differs between them, and builds the train and eval steps:
 
 * per step: forward, backward and Adam with the batch-size loss-scaling
   quirk; the unscaled loss is recorded and stays on the card until its
@@ -22,7 +22,11 @@ DDP:
   lockstep (loop.py:223-230, :1183-1202), and rank 0 alone writes the
   checkpoint, the loss tables and the ``.pth`` (loop.py:500, :541,
   :1226, :1293). Every rank restores from the same file, at any world
-  size: the parameters are replicated.
+  size: the parameters are replicated;
+* under DP and MP: one process; the model's layers sit on the strategy's
+  devices (every stage's on its card under MP), its state dict gathers
+  them under the singleGPU keys, so a checkpoint of any method resumes
+  under any other and at any stage count.
 
 A stateful model's running statistics (milesial's BatchNorm) are buffers
 of its state dict, so the native checkpoint saves and restores them; the
@@ -48,7 +52,7 @@ import contextlib
 import dataclasses
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,11 +86,6 @@ from distributedpytorch_tpu_torch.parallel.strategy import (
     Strategy,
     build_strategy,
 )
-from distributedpytorch_tpu_torch.train.steps import (
-    make_accum_train_step,
-    make_eval_step,
-    make_train_step,
-)
 from distributedpytorch_tpu_torch.utils.metrics import LossRecords
 from distributedpytorch_tpu_torch.utils.prefetch import (
     SINGLE,
@@ -116,14 +115,16 @@ class Trainer:
     ``initial_state`` is a model state dict to start from in place of the
     seeded init (tests start from JAX weights through
     ``checkpoint.params_from_jax``); ``strategy`` one already built (by
-    default ``build_strategy(config)``, which joins the process group
-    under DDP)."""
+    default ``build_strategy(config, devices=devices)``, which joins the
+    process group under DDP; ``devices`` is the device list of DP and MP,
+    which may repeat a device)."""
 
     def __init__(self, config: TrainConfig, dataset=None,
                  initial_state: Optional[Dict[str, torch.Tensor]] = None,
-                 strategy: Optional[Strategy] = None):
+                 strategy: Optional[Strategy] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self.config = config
-        self.strategy = strategy or build_strategy(config)
+        self.strategy = strategy or build_strategy(config, devices=devices)
         self.device = self.strategy.device
         self.kernels = get_kernel_policy(config.kernels, self.device)
         self.dataset = dataset if dataset is not None else self._build_dataset()
@@ -135,7 +136,7 @@ class Trainer:
             config, generator=torch.Generator().manual_seed(config.seed))
         if initial_state is not None:
             model.load_state_dict(initial_state)
-        self.model = model.to(self.device)
+        self.model = self.strategy.place_model(model)
         lr0 = self.strategy.lr_for(config.learning_rate)
         self.optimizer = make_optimizer(self.model.parameters(), lr0,
                                         config.weight_decay)
@@ -172,25 +173,18 @@ class Trainer:
             cache=cache,
         )
         self.grad_accum = max(1, int(config.grad_accum))
-        # the module the train step drives: DDP-wrapped under DDP, whose
-        # backward all-reduces the gradients; self.model stays the bare
-        # model, which evaluates, saves and serves
-        self.train_model = self.strategy.wrap_model(self.model)
-        self.train_step = make_train_step(
-            self.train_model, self.optimizer, config.batch_size,
-            config.faithful_loss_scaling,
-            loss_impl=self.strategy.train_loss(self.kernels.train_loss_fused),
-        )
+        # the strategy's steps: the DDP-wrapped model's under DDP, the
+        # replicas' under DP, the schedule's under MP; self.model stays
+        # the bare model, which saves and serves
+        self.train_step = self.strategy.build_train_step(
+            self.model, self.optimizer, self.kernels)
         self.accum_step = (
-            make_accum_train_step(
-                self.model, self.optimizer, config.batch_size,
-                self.grad_accum, config.faithful_loss_scaling,
-                self.kernels.train_loss_fused,
-                sum_over_ranks=self.strategy.sum_over_ranks,
-            ) if self.grad_accum > 1 else None
+            self.strategy.build_accum_train_step(
+                self.model, self.optimizer, self.kernels)
+            if self.grad_accum > 1 else None
         )
-        self.eval_step = make_eval_step(self.model,
-                                        self.kernels.eval_stats_fused)
+        self.eval_step = self.strategy.build_eval_step(self.model,
+                                                       self.kernels)
         self.copy_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
 
@@ -262,6 +256,11 @@ class Trainer:
             logger.info("checkpoint written at world %d, resumed at world "
                         "%d: the parameters are replicated, nothing "
                         "reshards", saved_world, self.strategy.world)
+        if saved.get("strategy") != self.strategy.name:
+            logger.info("checkpoint written under -t %s, resumed under -t "
+                        "%s: the parameters are whole under every method, "
+                        "nothing reshards", saved.get("strategy"),
+                        self.strategy.name)
 
     # -- placement --------------------------------------------------------------
     def _place(self, batch) -> Placed:

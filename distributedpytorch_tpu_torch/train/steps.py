@@ -32,15 +32,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from distributedpytorch_tpu_torch.ops.fused_loss import (
-    BCEDiceStatsFused,
     fused_bce_dice_loss,
+    loss_and_cotangent,
+    stats_function,
 )
 from distributedpytorch_tpu_torch.ops.loss_kernels import eval_metrics
 from distributedpytorch_tpu_torch.ops.losses import (
     bce_dice_loss,
-    bce_dice_stats,
     dice_coefficient,
-    loss_from_stats,
 )
 from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
 
@@ -130,7 +129,7 @@ def make_accum_train_step(
         )
     grad_scale = (float(batch_size * chunks) if faithful_loss_scaling
                   else 1.0)
-    stats_fn = BCEDiceStatsFused.apply if train_loss_fused else bce_dice_stats
+    stats_fn = stats_function(train_loss_fused)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def chunk_stats(chunk: Batch) -> torch.Tensor:
@@ -150,9 +149,7 @@ def make_accum_train_step(
                 stats = stats + chunk_stats(chunk)
             if sum_over_ranks is not None:
                 sum_over_ranks([stats])
-        stats.requires_grad_(True)
-        loss = loss_from_stats(stats)
-        (ct,) = torch.autograd.grad(loss, stats)
+        loss, ct = loss_and_cotangent(stats)
         optimizer.zero_grad(set_to_none=True)
         for chunk in stack:
             chunk_stats(chunk).backward(ct)
@@ -162,24 +159,31 @@ def make_accum_train_step(
         if grad_scale != 1.0:
             torch._foreach_mul_(grads, grad_scale)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return accum_step
 
 
+def batch_metrics(preds: torch.Tensor, target: torch.Tensor,
+                  eval_stats_fused: bool = False) -> Dict[str, torch.Tensor]:
+    """``{'loss', 'dice'}`` of one eval batch as 0-d tensors on its
+    device: the BCE − log(soft Dice) and the hard Dice at 0.5, from one
+    statistics-kernel pass when ``eval_stats_fused``."""
+    if eval_stats_fused:
+        return eval_metrics(preds, target)
+    return {"loss": bce_dice_loss(preds, target),
+            "dice": dice_coefficient(preds, target)}
+
+
 def make_eval_step(model: torch.nn.Module, eval_stats_fused: bool = False
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """``step(batch) -> {'loss', 'dice'}`` as 0-d tensors on the device:
-    the per-batch BCE − log(soft Dice) and the hard Dice at 0.5."""
+    """``step(batch) -> batch_metrics`` of the model in eval mode."""
 
     @torch.no_grad()
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         preds = model(batch["image"])
-        target = prep_mask(batch["mask"])
-        if eval_stats_fused:
-            return eval_metrics(preds, target)
-        return {"loss": bce_dice_loss(preds, target),
-                "dice": dice_coefficient(preds, target)}
+        return batch_metrics(preds, prep_mask(batch["mask"]),
+                             eval_stats_fused)
 
     return eval_step

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing every module of it loads
-neither jax nor the JAX package, a DDP rank it spawns loads neither, and
+neither jax nor the JAX package, a DDP rank it spawns loads neither, nor
+does a ``-t MP`` or ``-t DP`` run of the training CLI, and
 its entry points (the serve engine, the trainer and the training CLI)
 refuse to fall back to the CPU on a machine without a card unless
 asked."""
@@ -72,7 +73,8 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
                            "utils.metrics", "data.loader", "models.milesial",
                            "ops.conv_backward", "ops.wgrad_kernels",
                            "dist", "dist.runtime", "dist.collectives",
-                           "parallel", "parallel.strategy"):
+                           "parallel", "parallel.strategy",
+                           "parallel.pipeline", "parallel.replicas"):
         assert (f"distributedpytorch_tpu_torch.{trainer_module}"
                 in report["modules"])
     refusals = report["refusals"]
@@ -132,3 +134,28 @@ def test_a_ddp_worker_never_loads_jax(tmp_path):
     for result in launch(tmp_path, jobs):
         assert result["leaked"] == []
         assert np.isfinite(float(result["step"]["losses"][0]))
+
+
+def test_mp_and_dp_runs_never_load_jax(tmp_path):
+    """``-t MP`` (1f1b) and ``-t DP`` through the training CLI with
+    ``--device cpu``, in a process of their own: both train, write their
+    weights, and load no module of the jax family."""
+    common = ["--synthetic", "16", "--image-size", "24", "16",
+              "--model-widths", "8", "16", "-b", "4", "-v", "25", "-e", "1",
+              "--device", "cpu", "--num-workers", "0"]
+    probe = (
+        "import sys\n"
+        "from distributedpytorch_tpu_torch import cli\n"
+        f"cli.main({['-t', 'MP', '--pipeline-schedule', '1f1b', *common]!r})\n"
+        f"cli.main({['-t', 'DP', '--model', 'milesial', *common]!r})\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu')]\n"
+        "print('LEAKED', leaked)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout
+    for method in ("MP", "DP"):
+        assert (tmp_path / "checkpoints" / f"{method}.pth").exists()

@@ -366,9 +366,10 @@ def test_cli_config_mapping_and_server_build(checkpoint):
 
 def test_training_entry_point_is_not_ported():
     """Training is the default entry point now; the methods beyond
-    singleGPU and DDP are what is not ported, and the exit says where to
-    look."""
+    singleGPU, DP, DDP and MP (DDP_MP and the mesh specs) are what is not
+    ported, and the exit says where to look."""
     from distributedpytorch_tpu_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="not ported.*ROADMAP"):
-        main(["-t", "DP"])
+    for method in ("DDP_MP", "2x1x2"):
+        with pytest.raises(SystemExit, match="not ported.*ROADMAP"):
+            main(["-t", method])

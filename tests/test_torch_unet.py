@@ -57,12 +57,22 @@ def test_forward_matches_jax(widths, hw, batch):
 
 
 def test_stage_split_equals_full_forward():
+    """The reference's 2-stage cut, encoder + mid | decoder + head, as
+    runs of segments: the carry after segment L feeds the decoder
+    segments, and the two halves equal the full forward bit for bit."""
     _jax_model, _params, model = _pair((8, 16), (32, 48))
     x = torch.from_numpy(np.random.default_rng(2).random((1, 32, 48, 3),
                                                          np.float32))
+    levels = len(model.widths)
     with torch.no_grad():
-        mid, skips = model.encode_mid(x)
-        assert torch.equal(model.decode_head(mid, skips), model(x))
+        carry = (x, ())
+        for seg in range(levels + 1):  # encoder + mid
+            carry = model.apply_segment(*carry, seg)
+        mid, skips = carry
+        assert len(skips) == levels
+        for seg in range(levels + 1, model.num_segments):  # decoder + head
+            mid, skips = model.apply_segment(mid, skips, seg)
+        assert skips == () and torch.equal(mid, model(x))
 
 
 def test_unflipped_transpose_kernel_breaks_parity():
