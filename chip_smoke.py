@@ -33,9 +33,14 @@ the one card under gpipe and then 1f1b through the same CLI functions
 M = 8, its ``.pth`` served), milesial likewise for two steps of each
 schedule (``train_milesial_mp``: K2, K3 and K5 inside the stages at
 launch counts derived from the schedule, and in float32 against their
-plain versions in place), and ``-t DP`` trains both models on the card
-(``train_dp``). Each path's kernel launches are counted from zero over
-its run. It fails (non-zero exit, no result line) without a card,
+plain versions in place), ``-t DP`` trains both models on the card
+(``train_dp``), and ``-t DDP_MP`` runs as two ranks on the one card, two
+processes this script spawns (``--ddp-mp-rank R 2 gloo DIR``) over a gloo
+group, each with both of its stages on cuda:0: the bf16 UNet under gpipe
+and 1f1b and milesial with ``--wgrad-taps`` under both, held against one
+``-t MP`` step on their joint batch and against kernels torch
+(``train_ddp_mp_gloo2``). Each path's kernel launches are counted from
+zero over its run. It fails (non-zero exit, no result line) without a card,
 outside a checkout, or when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
@@ -43,10 +48,13 @@ outside a checkout, or when any phase disagrees.
 runs, after the build, ``-t DDP`` across four cards under NCCL, one
 process per card (``ddp_cards``): the same checks as the two gloo ranks,
 the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
-launch of the training CLI; then ``-t MP`` across 2 and 4 cards, its step
-and measured bubble under both schedules at M = 2 and 8 (``mp_cards``),
-and ``-t DP`` across the four cards against a one-card step
-(``dp_cards``).
+launch of the training CLI; ``-t DDP_MP`` as two NCCL ranks of two cards
+each, checked as the gloo ranks are, their step, busy cards and bubble
+beside the one-card pipeline, and a ``torchrun --nproc_per_node 2``
+launch of the training CLI (``ddp_mp_cards``); then ``-t MP`` across 2
+and 4 cards, its step and measured bubble under both schedules at M = 2
+and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
+one-card step (``dp_cards``).
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary (not with ``--cards``) and the card's
@@ -1686,9 +1694,11 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
     return 0
 
 
-def _run_ddp_ranks(job: str, world: int, backend: str):
-    """``world`` processes of ``ddp_rank``, started together; their
-    results by rank and the wall seconds they took."""
+def _run_ddp_ranks(job: str, world: int, backend: str,
+                   flag: str = "--ddp-rank"):
+    """``world`` processes of ``ddp_rank`` (``ddp_mp_rank`` with
+    ``--ddp-mp-rank``), started together; their results by rank and the
+    wall seconds they took."""
     import torch
 
     os.makedirs(job)
@@ -1698,7 +1708,7 @@ def _run_ddp_ranks(job: str, world: int, backend: str):
         env.pop(key, None)
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--ddp-rank", str(rank), str(world), backend,
+                               flag, str(rank), str(world), backend,
                                job], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for rank in range(world)]
@@ -2471,17 +2481,20 @@ def phase_train_dp(tmp: str, train: dict) -> dict:
     return out
 
 
-def _sync_all() -> None:
+def _sync_all(devices=None) -> None:
+    """Wait for ``devices`` (default: every visible card)."""
     import torch
 
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
+    if devices is None:
+        devices = range(torch.cuda.device_count())
+    for dev in devices:
+        torch.cuda.synchronize(dev)
 
 
-def _busy_ms_by_device(fn, runs: int) -> dict:
+def _busy_ms_by_device(fn, runs: int, devices=None) -> dict:
     """``{device index: ms}``: the union of the kernel intervals each card
     ran during ``runs`` calls of ``fn``, per call, by the profiler's
-    clock."""
+    clock; ``devices`` are waited for as ``_sync_all`` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2489,7 +2502,7 @@ def _busy_ms_by_device(fn, runs: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
-        _sync_all()
+        _sync_all(devices)
     spans = {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -2509,16 +2522,17 @@ def _busy_ms_by_device(fn, runs: int) -> dict:
     return busy
 
 
-def _wall_ms(fn, iters: int, warmup: int) -> float:
-    """Host milliseconds per call of ``fn`` with every card drained
-    before and after: the step's wall time across cards."""
+def _wall_ms(fn, iters: int, warmup: int, devices=None) -> float:
+    """Host milliseconds per call of ``fn`` with every card (or each of
+    ``devices``) drained before and after: the step's wall time across
+    cards."""
     for _ in range(warmup):
         fn()
-    _sync_all()
+    _sync_all(devices)
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    _sync_all()
+    _sync_all(devices)
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
@@ -2687,6 +2701,391 @@ def phase_dp_cards(world: int) -> dict:
     return out
 
 
+# -t DDP_MP -------------------------------------------------------------------
+
+# the runs of each DDP_MP rank: model, schedule and steps, S = 2 stages and
+# -b 4 per rank in M = 2 microbatches, bf16, milesial with --wgrad-taps
+# under DPT_WGRAD_BACKEND=pallas
+DDP_MP_RUNS = (("unet", "gpipe", 3), ("unet", "1f1b", 3),
+               ("milesial", "gpipe", 2), ("milesial", "1f1b", 2))
+# a rank's first step against the one-process MP step on the global batch
+# at world·M microbatches: the same microbatches through the same stage
+# forwards and the same kernels, so the loss's statistics and each
+# microbatch's gradients are the same; the gradients of the microbatches
+# are summed in another order (within the rank, then over the ranks). The
+# loss relative, each weight gradient relative to its tensor's largest
+DDP_MP_LOSS_RTOL = 1e-5
+DDP_MP_GRAD_RTOL = 1e-3
+# milesial's by each tensor's relative L2 error, IN_PLACE_GRAD_REL_L2's
+# bound: the statistics summed in another order move the loss's output
+# gradient in its last float32 bits, which flips bf16 roundings that a
+# random-init milesial backward amplifies (4.7e-5 relative L2, 1.5e-3 of
+# a tensor's largest, in a CPU rehearsal at 48 x 32)
+DDP_MP_MILESIAL_GRAD_REL_L2 = IN_PLACE_GRAD_REL_L2
+# the bf16 UNet step each rank times, after 2 of warm-up
+DDP_MP_TIMED_STEPS = 5
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of the bytes of ``tensors``, in order."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _ddp_mp_step(arch: str, devices, schedule: str, kernels_name: str):
+    """``(model, step, opt, strategy)``: the DDP_MP strategy's train step
+    of this rank over ``devices`` (bf16, ``-b`` TRAIN_BATCH in
+    MP_MICROBATCHES microbatches, milesial with ``--wgrad-taps``) from the
+    seed's weights, Adam keeping its first gradients."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="DDP_MP", model_arch=arch, dtype="bf16",
+                      kernels=kernels_name, device="cuda",
+                      batch_size=TRAIN_BATCH, num_stages=len(devices),
+                      num_microbatches=MP_MICROBATCHES,
+                      pipeline_schedule=schedule,
+                      wgrad_taps=arch == "milesial")
+    strategy = build_strategy(cfg, devices=devices)
+    check(strategy.name == "DDP_MP" and strategy.devices == list(devices),
+          f"DDP_MP strategy on {strategy.devices}")
+    model = create_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = strategy.place_model(model)
+    opt = _FirstGrads(make_optimizer(
+        model.parameters(), strategy.lr_for(cfg.learning_rate),
+        cfg.weight_decay), list(model.named_parameters()))
+    step = strategy.build_train_step(model, opt,
+                                     get_kernel_policy(kernels_name))
+    return model, step, opt, strategy
+
+
+def _ddp_mp_run(rank: int, world: int, devices, arch: str, schedule: str,
+                steps: int) -> dict:
+    """One run of a DDP_MP rank: ``steps`` steps under kernels cuda on its
+    rows of the global batches, the launches counted from zero over them
+    and the weights' digest after each; one step from the same weights
+    under kernels torch on the first batch; under the UNet the steady
+    step timed. Rank 0 keeps its first gradients."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    rows = slice(rank * TRAIN_BATCH, (rank + 1) * TRAIN_BATCH)
+    placed = [{k: torch.from_numpy(v[rows]).to(devices[0])
+               for k, v in batch.items()}
+              for batch in _ddp_batches(world, TRAIN_BATCH, steps)]
+    model, step, opt, strategy = _ddp_mp_step(arch, devices, schedule,
+                                              "cuda")
+    bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
+    check(all(m.epilogue and not m.global_stats for m in bns),
+          "DDP_MP BatchNorm: not the epilogue on local moments")
+    _sync_all(devices)
+    kernels.reset_launches()
+    losses, digests = [], []
+    for batch in placed:
+        losses.append(float(step(batch)))
+        digests.append(_digest(model.state_dict().values()))
+    _sync_all(devices)
+    launches = dict(kernels.LAUNCHES)
+    out = {"losses": losses, "weights_digests": digests,
+           "launches": launches,
+           "batchnorms_per_stage": _stage_batchnorms(strategy),
+           "grads_digest": _digest(opt.grads.values())}
+    if rank == 0:
+        out["grads"] = opt.grads
+    if arch == "unet":
+        out["step_ms"] = _wall_ms(lambda: step(placed[0]),
+                                  DDP_MP_TIMED_STEPS, warmup=2,
+                                  devices=devices)
+        out["busy_ms_by_card"] = _busy_ms_by_device(
+            lambda: step(placed[0]), 2, devices=devices)
+    first = opt.grads
+    del model, step, opt, strategy
+    torch.cuda.empty_cache()
+    model, step, opt, _ = _ddp_mp_step(arch, devices, schedule, "torch")
+    plain_loss = float(step(placed[0]))
+    plain = opt.grads
+    out["torch_policy"] = {
+        "loss": plain_loss,
+        "loss_rel_err": abs(losses[0] - plain_loss) / plain_loss,
+        "grad_max_err_rel_to_tensor_max": max(
+            float((first[n] - g).abs().max() / g.abs().max())
+            for n, g in plain.items()),
+        "grad_max_rel_l2": max(float((first[n] - g).norm() / g.norm())
+                               for n, g in plain.items()),
+    }
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_mp_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of a multi-process DDP_MP phase (``chip_smoke.py
+    --ddp-mp-rank R WORLD BACKEND DIR``): joins a ``backend`` group over a
+    file store in ``DIR`` with its MP_STAGES stages on cuda:0 under gloo
+    (``train_ddp_mp_gloo2``: every rank and stage on the one card) and on
+    ``cuda:(R·S + s)`` under nccl (``--cards``: the layout
+    ``runtime.stage_devices`` gives a torchrun rank), runs DDP_MP_RUNS
+    (``_ddp_mp_run``) and writes its results to ``DIR/result_R.pt``."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if backend == "gloo":
+        devices = [torch.device("cuda", 0)] * MP_STAGES
+    else:
+        devices = [torch.device("cuda", rank * MP_STAGES + s)
+                   for s in range(MP_STAGES)]
+    torch.cuda.set_device(devices[0])
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        runs = {}
+        for arch, schedule, steps in DDP_MP_RUNS:
+            def run(arch=arch, schedule=schedule, steps=steps):
+                return _ddp_mp_run(rank, world, devices, arch, schedule,
+                                   steps)
+            runs[f"{arch}/{schedule}"] = (
+                _with_wgrad_backend(run) if arch == "milesial" else run())
+        torch.save({"runs": runs, "devices": [str(d) for d in devices]},
+                   os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _ddp_mp_launches_expected(arch: str, schedule: str, steps: int,
+                              per_stage: list) -> dict:
+    """A rank's launches over ``steps`` steps at M microbatches: K1 M per
+    step (2M under 1f1b: phase A and the recomputation), K1-bwd M; for
+    milesial K3 18·M and K5 13·M, K2 18·M under gpipe and under 1f1b
+    18·M in phase A, one per BatchNorm of the stages before the last in
+    phase B's forward ticks and 18·M in its recomputations."""
+    mb = MP_MICROBATCHES
+    one_f = schedule == "1f1b"
+    want = {"loss_stats": steps * mb * (2 if one_f else 1),
+            "loss_stats_bwd": steps * mb}
+    if arch == "milesial":
+        k2 = mb * (36 + sum(per_stage[:-1])) if one_f else 18 * mb
+        want.update(bn_act=steps * k2, bn_act_bwd=steps * 18 * mb,
+                    wgrad_9tap=steps * 13 * mb)
+    return want
+
+
+def _check_ddp_mp_ranks(ranks, world: int, dev=None):
+    """Per run: the ranks' losses, weights after every step and first
+    gradients bitwise equal; the launches as ``_ddp_mp_launches_expected``
+    says; kernels cuda against kernels torch on the same path (the UNet:
+    loss within 1e-5 as train_parity, gradients within STEP_GRAD_RTOL;
+    milesial in bf16: MILESIAL_PARITY's bounds); and rank 0's first step
+    against one MP step of the same weights on the global batch at
+    world·M microbatches on cuda:0 (the per-process faithful scale): the
+    loss within DDP_MP_LOSS_RTOL, each UNet gradient within
+    DDP_MP_GRAD_RTOL of its tensor's largest, each milesial gradient
+    within DDP_MP_MILESIAL_GRAD_REL_L2 relative L2. Returns the rows and
+    the disagreements, which the caller checks after it emitted the
+    rows."""
+    import torch
+
+    dev = dev or torch.device("cuda", 0)
+    out, problems = {}, []
+    for arch, schedule, steps in DDP_MP_RUNS:
+        key = f"{arch}/{schedule}"
+        rs = [r["runs"][key] for r in ranks]
+        r0 = rs[0]
+        want = _ddp_mp_launches_expected(arch, schedule, steps,
+                                         r0["batchnorms_per_stage"])
+
+        def mp_step(arch=arch, schedule=schedule):
+            model, step, _ = _mp_model_step(
+                arch, [dev] * MP_STAGES, schedule, world * MP_MICROBATCHES,
+                "bf16", batch_size=TRAIN_BATCH,
+                wgrad_taps=arch == "milesial")
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     _ddp_batches(world, TRAIN_BATCH, 1)[0].items()}
+            loss = float(step(batch))
+            grads = {n: p.grad.float().cpu()
+                     for n, p in model.named_parameters()}
+            del model, step
+            torch.cuda.empty_cache()
+            return loss, grads
+
+        mp_loss, mp_grads = (_with_wgrad_backend(mp_step)
+                             if arch == "milesial" else mp_step())
+        row = {
+            "steps": steps, "losses": [r["losses"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "launches_expected": want,
+            "weights_bitwise_equal_every_step": all(
+                r["weights_digests"] == r0["weights_digests"] for r in rs),
+            "first_grads_bitwise_equal": all(
+                r["grads_digest"] == r0["grads_digest"] for r in rs),
+            "torch_policy": r0["torch_policy"],
+            "mp_step_loss": mp_loss,
+            "mp_loss_rel_err": abs(r0["losses"][0] - mp_loss) / mp_loss,
+            "mp_grad_max_err_rel_to_tensor_max": max(
+                float((r0["grads"][n] - g).abs().max() / g.abs().max())
+                for n, g in mp_grads.items()),
+            "mp_grad_max_rel_l2": max(
+                float((r0["grads"][n] - g).norm() / g.norm())
+                for n, g in mp_grads.items()),
+        }
+        for name in ("step_ms", "busy_ms_by_card"):
+            if name in r0:
+                row[name] = [r[name] for r in rs]
+        out[key] = row
+        del mp_grads
+        if not row["weights_bitwise_equal_every_step"]:
+            problems.append(f"{key}: the ranks' weights differ")
+        if not row["first_grads_bitwise_equal"]:
+            problems.append(f"{key}: the ranks' gradients differ")
+        if any(l != row["losses"][0] for l in row["losses"]):
+            problems.append(f"{key}: the ranks' losses differ")
+        for counts in row["launches"]:
+            if any(counts[n] != c for n, c in want.items()):
+                problems.append(f"{key}: launched {counts}, expected {want}")
+        if row["mp_loss_rel_err"] > DDP_MP_LOSS_RTOL:
+            problems.append(f"{key}: step 1 loss off the MP step by "
+                            f"{row['mp_loss_rel_err']}")
+        if (row["mp_grad_max_rel_l2"] > DDP_MP_MILESIAL_GRAD_REL_L2
+                if arch == "milesial" else
+                row["mp_grad_max_err_rel_to_tensor_max"] > DDP_MP_GRAD_RTOL):
+            problems.append(f"{key}: step 1 grads off the MP step: {row}")
+        tp = row["torch_policy"]
+        if arch == "unet":
+            ok = (tp["loss_rel_err"] <= 1e-5
+                  and tp["grad_max_err_rel_to_tensor_max"] <= STEP_GRAD_RTOL)
+        else:
+            bound = MILESIAL_PARITY["bf16"]
+            ok = (tp["loss_rel_err"] <= bound["loss"]
+                  and tp["grad_max_rel_l2"] <= bound["grad_rel_l2"])
+        if not ok:
+            problems.append(f"{key}: kernels cuda off kernels torch: {tp}")
+    return out, problems
+
+
+def phase_train_ddp_mp_gloo2(tmp: str) -> dict:
+    """``-t DDP_MP`` on the one card: two ranks (``ddp_mp_rank``, two
+    processes this script spawns) in a gloo group, each with both of its
+    stages on cuda:0, through DDP_MP_RUNS: the bf16 UNet under gpipe and
+    1f1b, milesial with ``--wgrad-taps`` under DPT_WGRAD_BACKEND=pallas
+    under both. Checked as ``_check_ddp_mp_ranks`` says, K1, K1-bwd, K2,
+    K3 and K5 counted per rank from zero over each run; the UNet step
+    timed by each rank (both ranks share the card and their gradients
+    cross the host through gloo: a correctness phase, whose step time is
+    read beside train_mp's)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ranks, wall_s = _run_ddp_ranks(
+        os.path.join(tmp, "train_ddp_mp_gloo2"), 2, "gloo", "--ddp-mp-rank")
+    runs, problems = _check_ddp_mp_ranks(ranks, 2)
+    out = {"phase": "train_ddp_mp_gloo2", "world": 2, "backend": "gloo",
+           "stages": MP_STAGES, "microbatches": MP_MICROBATCHES,
+           "devices": [r["devices"] for r in ranks],
+           "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
+           "runs": runs, "problems": problems}
+    emit(out)
+    check(not problems, f"train_ddp_mp_gloo2: {problems}")
+    return out
+
+
+def phase_ddp_mp_cards(tmp: str) -> dict:
+    """``-t DDP_MP`` across four cards (``--cards 4``): two NCCL ranks,
+    rank r's stages on cuda:2r and cuda:2r+1, checked as
+    ``train_ddp_mp_gloo2``; each rank's bf16 UNet step by wall time and
+    each card's busy time, with the bubble 1 − mean busy / step, beside
+    the same per-rank pipeline (``-b 4``, M = 2) with both stages on
+    cuda:0 in one process; then ``torchrun --standalone --nproc_per_node
+    2`` of the training CLI with ``-t DDP_MP --stages 2``, which must exit
+    0 with the DDP_MP artifacts and both ranks in its log."""
+    import torch
+
+    world = 2
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "ddp_mp_cards"),
+                                   world, "nccl", "--ddp-mp-rank")
+    runs, problems = _check_ddp_mp_ranks(ranks, world)
+    dev = torch.device("cuda", 0)
+    one_card = {}
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+    for schedule in ("gpipe", "1f1b"):
+        _, step, _ = _mp_model_step("unet", [dev] * MP_STAGES, schedule,
+                                    MP_MICROBATCHES, "bf16", lr=1e-4)
+        one_card[schedule] = {
+            "step_ms": _wall_ms(lambda: step(batch), DDP_MP_TIMED_STEPS,
+                                warmup=2, devices=[dev]),
+            "busy_ms": _busy_ms_by_device(lambda: step(batch), 2,
+                                          devices=[dev]).get(0)}
+        del step
+        torch.cuda.empty_cache()
+    for schedule in ("gpipe", "1f1b"):
+        row = runs[f"unet/{schedule}"]
+        row["bubble_by_rank"] = [
+            1.0 - sum(busy.values()) / len(busy) / ms
+            for busy, ms in zip(row["busy_ms_by_card"], row["step_ms"])]
+        row["one_card_mp"] = one_card[schedule]
+        row["images_per_s"] = world * TRAIN_BATCH * 1e3 / max(row["step_ms"])
+        row["one_card_mp_images_per_s"] = (
+            TRAIN_BATCH * 1e3 / one_card[schedule]["step_ms"])
+
+    sub = os.path.join(tmp, "ddp_mp_torchrun")
+    os.makedirs(sub)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for key in TORCHRUN_ENV:
+        env.pop(key, None)
+    w, h = IMAGE_WH
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), "-m",
+           "distributedpytorch_tpu_torch", "-t", "DDP_MP", "--stages",
+           str(MP_STAGES), "--microbatches", str(MP_MICROBATCHES),
+           "--pipeline-schedule", "1f1b", "--synthetic", "40", "-v", "20",
+           "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w), str(h),
+           "--kernels", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=sub, env=env, capture_output=True,
+                          text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    wrote = _files(sub)
+    log = ""
+    if "logs/DDP_MP.log" in wrote:
+        with open(os.path.join(sub, "logs", "DDP_MP.log")) as f:
+            log = f.read()
+    out = {"phase": "ddp_mp_cards", "world": world, "backend": "nccl",
+           "stages": MP_STAGES, "microbatches": MP_MICROBATCHES,
+           "devices": [r["devices"] for r in ranks],
+           "cards": [torch.cuda.get_device_name(i)
+                     for i in range(world * MP_STAGES)],
+           "wall_s": wall_s, "runs": runs, "problems": problems,
+           "torchrun_rc": proc.returncode, "torchrun_s": torchrun_s,
+           "torchrun_wrote": wrote,
+           "torchrun_ranks_logged": sum(f"(rank {r} of {world})" in log
+                                        for r in range(world))}
+    emit(out)
+    check(not problems, f"ddp_mp_cards: {problems}")
+    check(proc.returncode == 0,
+          f"torchrun -t DDP_MP exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    check(wrote == ["checkpoints/DDP_MP.pt", "checkpoints/DDP_MP.pth",
+                    "logs/DDP_MP.log", "loss/DDP_MP/train_loss.pkl",
+                    "loss/DDP_MP/val_dice.pkl", "loss/DDP_MP/val_loss.pkl"],
+          f"torchrun -t DDP_MP wrote {wrote}")
+    check(out["torchrun_ranks_logged"] == world,
+          f"{out['torchrun_ranks_logged']} of {world} ranks logged")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -2730,16 +3129,18 @@ def _finish(device: dict) -> None:
 
 def main_cards(world: int) -> int:
     """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
-    across N cards (``phase_ddp_cards``), ``-t MP`` across 2 and 4 of them
+    across N cards (``phase_ddp_cards``), ``-t DDP_MP`` as two ranks of
+    two cards (``phase_ddp_mp_cards``), ``-t MP`` across 2 and 4 of them
     (``phase_mp_cards``) and ``-t DP`` across all N (``phase_dp_cards``),
     and no other phase."""
     import torch
 
-    check(torch.cuda.device_count() >= world,
+    check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
           f"--cards {world} on {torch.cuda.device_count()} cards")
     device = phase_device()
     with tempfile.TemporaryDirectory() as tmp:
         phase_ddp_cards(tmp, world)
+        phase_ddp_mp_cards(tmp)
     phase_mp_cards(world)
     phase_dp_cards(world)
     _finish(device)
@@ -2755,6 +3156,8 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--ddp-rank"]:  # one rank of a multi-process phase
         return ddp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--ddp-mp-rank"]:
+        return ddp_mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
     device = phase_device()
@@ -2773,6 +3176,7 @@ def main(argv) -> int:
         train_mp = phase_train_mp(tmp, train)
         milesial_mp = phase_train_milesial_mp(tmp)
         train_dp = phase_train_dp(tmp, train)
+        ddp_mp = phase_train_ddp_mp_gloo2(tmp)
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()
@@ -2781,6 +3185,13 @@ def main(argv) -> int:
 
     def by_schedule(run, name):
         return {s: run[s]["launches"][name] for s in ("gpipe", "1f1b")}
+
+    def ddp_mp_launches(name):
+        """Rank 0's launches in each run of train_ddp_mp_gloo2 (K1 and
+        K1-bwd in every run, K2, K3 and K5 in milesial's)."""
+        return {key: row["launches"][0][name]
+                for key, row in ddp_mp["runs"].items()
+                if name in row["launches_expected"]}
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -2792,6 +3203,7 @@ def main(argv) -> int:
             "ddp_launches": None,
             "mp_launches": None,
             "dp_launches": None,
+            "ddp_mp_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
             "plain_ms": kernel["plain_ms"],
@@ -2812,6 +3224,8 @@ def main(argv) -> int:
             # output card in its -t DP run (train_dp)
             "mp_launches": by_schedule(train_mp, "loss_stats"),
             "dp_launches": train_dp["launches"]["loss_stats"],
+            # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
+            "ddp_mp_launches": ddp_mp_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
             "plain_ms": loss["stats_plain_ms"],
@@ -2829,6 +3243,8 @@ def main(argv) -> int:
             "ddp_launches": train_ddp["launches"]["loss_stats_bwd"],
             "mp_launches": by_schedule(train_mp, "loss_stats_bwd"),
             "dp_launches": train_dp["launches"]["loss_stats_bwd"],
+            # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
+            "ddp_mp_launches": ddp_mp_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
             "plain_ms": loss["bwd_plain_ms"],
@@ -2848,6 +3264,7 @@ def main(argv) -> int:
             # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
             "mp_launches": by_schedule(milesial_mp, "bn_act"),
             "dp_launches": train_dp["milesial_launches"]["bn_act"],
+            "ddp_mp_launches": ddp_mp_launches("bn_act"),
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],
@@ -2868,6 +3285,7 @@ def main(argv) -> int:
             # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
             "mp_launches": by_schedule(milesial_mp, "bn_act_bwd"),
             "dp_launches": train_dp["milesial_launches"]["bn_act_bwd"],
+            "ddp_mp_launches": ddp_mp_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
             "plain_ms": bn["f32"]["bwd_plain_ms"],
@@ -2886,6 +3304,7 @@ def main(argv) -> int:
             # milesial -t MP (train_milesial_mp) and -t DP (train_dp)
             "mp_launches": by_schedule(milesial_mp, "wgrad_9tap"),
             "dp_launches": train_dp["milesial_launches"]["wgrad_9tap"],
+            "ddp_mp_launches": ddp_mp_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],
             "plain_ms": k5["plain_ms"],

@@ -17,7 +17,9 @@ package's does (checkpoint.py:122).
 The state is replicated over DDP's ranks, so the main process writes it
 and a run at any world size restores it. Under ``-t MP`` each stage's
 layers live on its own device and ``state_dict()`` gathers them under
-the singleGPU keys (``.cpu()`` per tensor here), and under ``-t DP`` the
+the singleGPU keys (``.cpu()`` per tensor here; under ``-t DDP_MP`` on
+rank 0, whose stages hold the same weights as every rank's; the manifest
+records the world, stages, microbatches and schedule), and under ``-t DP`` the
 model itself sits on the first device: a checkpoint of any method loads
 under any other, at any stage count, with nothing to reshard
 (``load_state_dict`` copies each tensor to its parameter's device, and

@@ -1,5 +1,5 @@
 """Train the UNet on images and target masks — ``python -m
-distributedpytorch_tpu_torch [-t singleGPU|DP|DDP|MP] ...``.
+distributedpytorch_tpu_torch [-t singleGPU|DP|DDP|MP|DDP_MP] ...``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` for the flags the port
 implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
@@ -20,8 +20,11 @@ process. Every rank appends to the log file; only rank 0 mirrors it to
 stderr and writes the checkpoints, loss tables and ``.pth``. ``-t DP``
 splits the global batch ``-b`` over every visible card in one process;
 ``-t MP`` pipelines it over the first ``--stages`` cards in
-``--microbatches`` microbatches (``--pipeline-schedule gpipe|1f1b``). With
-``--device cpu`` both run on the CPU, every stage there.
+``--microbatches`` microbatches (``--pipeline-schedule gpipe|1f1b``).
+``-t DDP_MP`` runs one process per data replica under torchrun, each the
+``--stages`` pipeline on cards ``LOCAL_RANK·S`` … ``LOCAL_RANK·S + S − 1``
+of its node, ``-b`` per process. With ``--device cpu`` all of them run on
+the CPU, every stage there (DDP and DDP_MP under gloo).
 
 It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t singleGPU --synthetic 40
@@ -29,6 +32,9 @@ It runs on the card unless ``--device cpu`` asks for the CPU:
         --microbatches 2 --pipeline-schedule 1f1b --synthetic 40
     torchrun --standalone --nproc_per_node 4 \
         -m distributedpytorch_tpu_torch -t DDP --synthetic 40
+    torchrun --standalone --nproc_per_node 2 \
+        -m distributedpytorch_tpu_torch -t DDP_MP --stages 2 \
+        --microbatches 2 --pipeline-schedule 1f1b --synthetic 40
     DPT_WGRAD_BACKEND=pallas python -m distributedpytorch_tpu_torch \
         --model milesial --wgrad-taps --kernels cuda --synthetic 40
     python -m distributedpytorch_tpu_torch --synthetic 16 \\
@@ -50,8 +56,9 @@ def get_args(argv=None):
         description="Train UNet on images and target masks",
     )
     parser.add_argument("--train-method", "-t", type=str, default="singleGPU",
-                        help="Training method: singleGPU, DP, DDP or MP "
-                             "(DDP_MP and mesh specs: ROADMAP.md)")
+                        help="Training method: singleGPU, DP, DDP, MP or "
+                             "DDP_MP (mesh specs, SP, DDP_SP, TP, FSDP: "
+                             "ROADMAP.md)")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
                         help="Percentage of data used as validation")
@@ -62,8 +69,8 @@ def get_args(argv=None):
     parser.add_argument("--learning-rate", "--lr", type=float, default=1e-4,
                         dest="lr", help="Learning rate")
     parser.add_argument("--batch-size", "-b", type=int, default=4,
-                        help="Batch size (per process under DDP, global "
-                             "under DP and MP)")
+                        help="Batch size (per process under DDP and "
+                             "DDP_MP, global under DP and MP)")
     parser.add_argument("--checkpoint", "-c", type=str, default=None,
                         help="Resume from a native checkpoint (<name>.pt), "
                              "or load weights from a reference .pth")
@@ -175,21 +182,25 @@ def to_config(args):
 
 def start_runtime(args):
     """This process's place in the run, before anything else (reference
-    train.py:58): ``-t DDP`` joins the process group from torchrun's env
-    (world 1 without one); every other method is one process (DP and MP
-    over the devices their strategy lists)."""
+    train.py:58): ``-t DDP`` and ``-t DDP_MP`` join the process group from
+    torchrun's env (world 1 without one; a DDP_MP rank on the first of its
+    ``--stages`` cards); every other method is one process (DP and MP over
+    the devices their strategy lists)."""
     from distributedpytorch_tpu_torch.dist import runtime
     from distributedpytorch_tpu_torch.utils.device import resolve_device
 
     if args.train_method == "DDP":
         return runtime.initialize_from_env(args.device)
+    if args.train_method == "DDP_MP":
+        return runtime.initialize_from_env(args.device, args.stages)
     return runtime.RuntimeInfo(0, 1, device=resolve_device(args.device))
 
 
 def build_trainer(args, info=None, devices=None):
     """args → a :class:`Trainer` ready to ``train()``; ``info`` is
     ``start_runtime``'s, ``devices`` the device list of ``-t DP``/``MP``
-    (default: the visible cards)."""
+    or of this ``DDP_MP`` rank (default: the visible cards, a DDP_MP
+    rank's own S)."""
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.loop import Trainer
 
@@ -200,7 +211,8 @@ def build_trainer(args, info=None, devices=None):
 def configure_logging(config, to_stderr: bool = True
                       ) -> List[logging.Handler]:
     """The reference's logfile, ``<log_dir>/<method>.log`` appended
-    message-only, plus stderr when ``to_stderr`` (rank 0 under DDP);
+    message-only, plus stderr when ``to_stderr`` (rank 0 under DDP and
+    DDP_MP);
     returns the handlers it added to the root logger."""
     os.makedirs(config.log_dir, exist_ok=True)
     handlers: List[logging.Handler] = [

@@ -18,8 +18,8 @@ class TrainConfig:
     JAX package's (reference train.py:18-24 for the optimization ones)."""
 
     # -- strategy -----------------------------------------------------------
-    # "singleGPU", "DP", "DDP" or "MP" (parallel/strategy.py); DDP_MP and
-    # the mesh specs are not ported yet
+    # "singleGPU", "DP", "DDP", "MP" or "DDP_MP" (parallel/strategy.py);
+    # the mesh specs, SP, DDP_SP, TP and FSDP are not ported yet
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------
@@ -32,7 +32,7 @@ class TrainConfig:
     # the reference's `(batch_size * loss).backward()` while recording the
     # unscaled loss
     faithful_loss_scaling: bool = True
-    # reference quirk 2: DDP multiplies the lr by the world size
+    # reference quirk 2: DDP (and DDP_MP) multiplies the lr by the world size
     # (train_utils.py:199)
     ddp_lr_world_size_scaling: bool = True
     # ReduceLROnPlateau(mode='min') on the val loss
@@ -52,7 +52,7 @@ class TrainConfig:
     host_cache_mb: int = 1024
     synthetic_samples: int = 0  # >0: an in-memory procedural dataset
 
-    # -- pipeline (MP) ------------------------------------------------------
+    # -- pipeline (MP, and each rank of DDP_MP) -------------------------------
     num_microbatches: int = 2  # reference hardcodes 2 (unet_model.py:25)
     # Stages of the pipeline. 2 = the reference's encoder|decoder cut
     # (unet_model.py:16-20); any S up to the model's 2L+1 segments works —

@@ -5,9 +5,11 @@
   milesial's BatchNorm moments (``models/milesial.BatchNormAct``).
 * ``all_gather_rows`` — every rank's rows, rank by rank (the sharded
   eval's per-batch metrics, ``evaluate.evaluate_sharded``).
-* ``sum_over_ranks_`` — tensors summed over ranks in place, outside
-  autograd (gradient accumulation's statistics and gradients,
-  ``train/steps.make_accum_train_step``).
+* ``sum_over_ranks_`` — tensors summed (or averaged) over ranks in
+  place, outside autograd, one flat all-reduce per device (gradient
+  accumulation's statistics and gradients,
+  ``train/steps.make_accum_train_step``; ``-t DDP_MP``'s stage gradients
+  and BatchNorm deltas, ``parallel/pipeline.py``).
 
 **How the gradient comes out right.** Every rank computes the same
 global loss from the summed statistics, so every rank back-propagates
@@ -27,7 +29,7 @@ Adam, against the JAX DDP's).
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
@@ -63,13 +65,23 @@ def all_gather_rows(rows: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def sum_over_ranks_(tensors: List[torch.Tensor]) -> None:
-    """Each of ``tensors`` replaced by its sum over ranks, through one
-    all-reduce of their concatenation; autograd does not see it."""
-    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-    offset = 0
-    with torch.no_grad():
-        for t in tensors:
-            t.copy_(flat[offset:offset + t.numel()].view(t.shape))
-            offset += t.numel()
+def sum_over_ranks_(tensors: List[torch.Tensor], mean: bool = False) -> None:
+    """Each of ``tensors`` replaced by its sum over ranks (its mean with
+    ``mean``), through one all-reduce of the concatenation of the tensors
+    on each device, the devices in the order their first tensor comes;
+    autograd does not see it. Tensors on different cards (a pipeline's
+    stages) cannot be concatenated, and NCCL keeps one communicator per
+    device, so every rank must list its devices in the same order."""
+    by_device: Dict[torch.device, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_device.setdefault(t.device, []).append(t)
+    for group in by_device.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        if mean:
+            flat /= dist.get_world_size()
+        offset = 0
+        with torch.no_grad():
+            for t in group:
+                t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+                offset += t.numel()

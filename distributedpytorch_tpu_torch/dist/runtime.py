@@ -11,6 +11,14 @@ RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT (reference train.py:29-31,
 * a rank's device is ``cuda:LOCAL_RANK``; a LOCAL_RANK beyond the
   visible cards raises, it is never wrapped onto a card another rank
   holds. A device with an explicit index (``cuda:0``) is taken as it is;
+* a ``-t DDP_MP`` rank drives S cards, ``cuda:(LOCAL_RANK·S + s)`` for
+  s < S (``stage_devices``), and a node with fewer than
+  ``nproc_per_node × S`` cards raises the same way. The group is joined
+  without ``device_id``: such a process talks NCCL on S devices, and the
+  group makes one communicator per device at its first collective there,
+  in the same stage order on every rank (PyTorch's "DDP with model
+  parallel" layout). With ``--device cpu`` every stage of every rank runs
+  on the CPU, under gloo;
 * ``DPT_DIST_INIT_TIMEOUT_S`` (seconds) bounds the rendezvous, as the
   ``timeout=`` of ``init_process_group``;
 * with no launcher env the run is world 1, through the same code path
@@ -29,7 +37,7 @@ import dataclasses
 import datetime
 import logging
 import os
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -105,19 +113,48 @@ def rank_device(device: Union[None, str, torch.device],
     """The device a rank computes on: ``device`` as resolved by
     ``resolve_device`` (the card unless ``cpu`` is asked for), with
     ``cuda`` meaning ``card_of(local_rank, visible cards)``."""
+    return stage_devices(device, local_rank, 1)[0]
+
+
+def stage_devices(device: Union[None, str, torch.device], local_rank: int,
+                  stages: int) -> List[torch.device]:
+    """The ``stages`` devices of a rank, stage by stage: for ``cuda``
+    ``cuda:(local_rank·stages + s)``, raising as ``card_of`` does where
+    the node has too few cards; for ``cpu`` or a card named by its index,
+    that device for every stage."""
     dev = resolve_device(device)
     if dev.type != "cuda" or dev.index is not None:
-        return dev
-    return card_of(local_rank, torch.cuda.device_count())
+        return [dev] * stages
+    visible = torch.cuda.device_count()
+    if stages == 1:
+        return [card_of(local_rank, visible)]
+    first = local_rank * stages
+    if not 0 <= first <= visible - stages:
+        raise RuntimeError(
+            f"LOCAL_RANK {local_rank} has no cards cuda:{first}.."
+            f"{first + stages - 1}: {visible} visible — each -t DDP_MP "
+            f"process drives {stages} cards, so launch at most "
+            f"{visible // stages} per node (torchrun --nproc_per_node "
+            f"{visible // stages})")
+    return [torch.device("cuda", first + s) for s in range(stages)]
 
 
-def initialize_from_env(device: Union[None, str, torch.device] = None
-                        ) -> RuntimeInfo:
+def planned_world() -> int:
+    """The world size ``initialize_from_env`` would join: the existing
+    group's, else torchrun's, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return (torchrun_env() or RuntimeInfo(0, 1)).num_processes
+
+
+def initialize_from_env(device: Union[None, str, torch.device] = None,
+                        stages: int = 1) -> RuntimeInfo:
     """Join (or make) the default process group and return this process's
-    place in it; ``device`` as for ``rank_device``. Safe to call more than
-    once."""
+    place in it; its device is the first of ``stage_devices(device,
+    LOCAL_RANK, stages)`` (``rank_device``'s at one stage). Safe to call
+    more than once."""
     env = torchrun_env() or RuntimeInfo(0, 1)
-    dev = rank_device(device, env.local_rank)
+    dev = stage_devices(device, env.local_rank, stages)[0]
     if dist.is_initialized():
         return dataclasses.replace(env, process_id=dist.get_rank(),
                                    num_processes=dist.get_world_size(),

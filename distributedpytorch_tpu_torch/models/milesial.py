@@ -61,7 +61,10 @@ class BatchNormAct(nn.Module):
       variance ``max(0, E[x²] − E[x]²)``, and the running averages move by
       ``0.9·old + 0.1·batch``. ``F.batch_norm`` would store the unbiased
       variance (×n/(n−1)) instead, so it is not used;
-    * with ``global_stats`` (set by the DDP strategy) ``E[x]`` and
+    * with ``global_stats`` (set by the DDP strategy; DDP_MP leaves it
+      off: each microbatch normalizes with its own shard's moments, as
+      inside the JAX ``shard_map``, and the pipeline averages the running
+      averages' deltas over the ranks after the step) ``E[x]`` and
       ``E[x²]`` are averaged over the ranks through an all-reduce that
       autograd sees before ``var`` is formed: the moments of the global
       batch, as GSPMD computes them for the JAX DDP, valid because every

@@ -14,7 +14,9 @@ each rank's shard, summed over ranks, then ``loss_from_stats``.
 
 ``stats_function`` and ``loss_and_cotangent`` serve the paths that sum
 the statistics of several slices of the batch before one loss: gradient
-accumulation's chunks and the pipeline's microbatches. Where a slice's
+accumulation's chunks and the pipeline's microbatches (under ``-t
+DDP_MP`` summed over the data ranks too, ``parallel/pipeline.py``, so K1
+and K1-bwd run per microbatch inside that sum). Where a slice's
 backward runs apart from the loss (accumulation's second pass, 1f1b's
 backward ticks) it is fed the global loss's cotangent with respect to the
 four sums.

@@ -1,4 +1,5 @@
-"""Microbatched pipeline schedules over S stages: ``-t MP``.
+"""Microbatched pipeline schedules over S stages: ``-t MP`` and, one per
+data rank, ``-t DDP_MP``.
 
 Counterpart of ``distributedpytorch_tpu/parallel/pipeline.py`` without
 its in-stage mesh sharding. The reference's ``-t MP`` is a hand-written
@@ -43,6 +44,19 @@ JAX package does:
   ``frozen_running_stats`` (JAX ``fwd_stage``).
 * **Eval.** The fill-drain forward in eval mode (running averages), the
   predictions gathered on the last stage's card.
+* **Data ranks (DDP_MP).** With ``data_parallel`` every rank of the
+  default group runs this pipeline on its own shard, and three seams
+  close the step as the JAX psums over ('stage', 'data') do: the
+  statistics summed over the ranks before the loss (pipeline.py:590,
+  :770), each stage's gradients summed over the ranks after the schedule,
+  before Adam (``_reduce_grads``, :870), and the running averages' deltas
+  averaged over the ranks (``_combine_bn``, :372-384). BatchNorm
+  normalizes each microbatch with its own shard's moments. The gradient
+  factor differs per schedule: gpipe's statistics go through
+  ``all_reduce_sum``, whose backward sums the cotangent over the ranks,
+  so each rank's gradient is ``world ×`` its share and the ranks' mean is
+  the global loss's; 1f1b feeds every rank the global cotangent from
+  phase A, so each rank holds its share once and the ranks' sum is.
 
 ``LiveCarries`` counts what each stage holds for its backward, per tick:
 the input carries under 1f1b, the microbatches whose graph autograd keeps
@@ -56,7 +70,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from distributedpytorch_tpu_torch.models.milesial import frozen_running_stats
+from distributedpytorch_tpu_torch.dist.collectives import (
+    all_reduce_sum,
+    sum_over_ranks_,
+)
+from distributedpytorch_tpu_torch.models.milesial import (
+    BatchNormAct,
+    frozen_running_stats,
+)
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     loss_and_cotangent,
     stats_function,
@@ -258,6 +279,33 @@ def _summed(per_mb: Sequence[torch.Tensor]) -> torch.Tensor:
     return stats
 
 
+def _reduce_grads(params: Sequence[nn.Parameter], mean: bool) -> None:
+    """Every parameter's gradient summed (``mean``: averaged) over the
+    data ranks, one flat all-reduce per stage device (JAX
+    ``_reduce_grads``); a parameter without one contributes zeros, so
+    every rank reduces the same tensors."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    sum_over_ranks_([p.grad for p in params], mean=mean)
+
+
+def _running_stats(model: nn.Module) -> List[torch.Tensor]:
+    return [t for m in model.modules() if isinstance(m, BatchNormAct)
+            for t in (m.running_mean, m.running_var)]
+
+
+def _combine_bn(running: Sequence[torch.Tensor],
+                before: Sequence[torch.Tensor]) -> None:
+    """Each running average set to ``before`` plus the data ranks' mean
+    of how far it moved this step (JAX ``_combine_bn``)."""
+    deltas = [r - b for r, b in zip(running, before)]
+    sum_over_ranks_(deltas, mean=True)
+    with torch.no_grad():
+        for r, b, d in zip(running, before, deltas):
+            r.copy_(b + d)
+
+
 def make_pipeline_train_step(
     model: nn.Module,
     stages: Sequence[Stage],
@@ -267,14 +315,18 @@ def make_pipeline_train_step(
     schedule: str = "gpipe",
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
+    data_parallel: bool = False,
 ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> unscaled loss`` (on the last stage's device) of
     the ``schedule`` over ``stages``, then Adam. Each microbatch's
     statistics come from ``stats_function(train_loss_fused)``: K1 forward
     and K1-bwd backward on the card. The faithful scale is
-    ``batch_size``, the whole batch's, as in the JAX package
-    (strategy.py:331-336). ``step.live`` is the schedule's
-    ``LiveCarries``."""
+    ``batch_size``, the whole batch's (per process under
+    ``data_parallel``), as in the JAX package (strategy.py:331-336).
+    ``data_parallel`` makes the ranks of the default group data replicas
+    of this pipeline (the module docstring's three seams): the loss is
+    the global batch's, the same on every rank. ``step.live`` is the
+    schedule's ``LiveCarries``."""
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(
             f"pipeline schedule must be one of {PIPELINE_SCHEDULES}, "
@@ -286,22 +338,37 @@ def make_pipeline_train_step(
     stats_fn = stats_function(train_loss_fused)
     last = stages[-1].device
     live = LiveCarries(num_stages)
+    params = list(model.parameters())
+    running = _running_stats(model) if data_parallel else []
 
-    def gpipe_step(batch: Batch) -> torch.Tensor:
+    def open_step() -> List[torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        return [r.clone() for r in running]
+
+    def close_step(before: List[torch.Tensor], mean: bool) -> None:
+        if data_parallel:
+            _reduce_grads(params, mean)
+            if running:
+                _combine_bn(running, before)
+        optimizer.step()
+
+    def gpipe_step(batch: Batch) -> torch.Tensor:
+        before = open_step()
         inputs, target, rows = _split(batch, num_mb, last)
         per_mb = fill_drain(stages, inputs,
                             lambda m, y: stats_fn(y, target[rows(m)]), live)
-        loss = loss_from_stats(_summed(per_mb))
+        stats = _summed(per_mb)
+        loss = loss_from_stats(all_reduce_sum(stats) if data_parallel
+                               else stats)
         (loss * scale if scale != 1.0 else loss).backward()
         live.release_all()
-        optimizer.step()
+        # the statistics' all-reduce summed the cotangent over the ranks
+        close_step(before, mean=True)
         return loss.detach()
 
     def one_f_one_b_step(batch: Batch) -> torch.Tensor:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
+        before = open_step()
         inputs, target, rows = _split(batch, num_mb, last)
 
         def stats(m: int, y: torch.Tensor) -> torch.Tensor:
@@ -311,7 +378,10 @@ def make_pipeline_train_step(
         # running averages once per microbatch
         with torch.no_grad():
             per_mb = fill_drain(stages, inputs, stats)
-        loss, ct = loss_and_cotangent(_summed(per_mb), scale)
+            summed = _summed(per_mb)
+            if data_parallel:
+                summed = all_reduce_sum(summed)
+        loss, ct = loss_and_cotangent(summed, scale)
         # phase B: forward of (s, m) on tick s+2m, backward on tick
         # 2S-1-s+2m; one stage's two tick sets have opposite parities
         saved: Dict[Tuple[int, int], Carry] = {}
@@ -348,7 +418,8 @@ def make_pipeline_train_step(
                             sent_bwd[s - 1] = _carry_to(
                                 grads, stages[s - 1].device)
                 fwd, bwd = sent_fwd, sent_bwd
-        optimizer.step()
+        # every rank fed the global cotangent: each holds its share once
+        close_step(before, mean=False)
         return loss
 
     step = gpipe_step if schedule == "gpipe" else one_f_one_b_step

@@ -1,21 +1,23 @@
-"""Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``
-and ``MP``.
+"""Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``,
+``MP`` and ``DDP_MP``.
 
 Counterpart of ``Strategy``, ``SingleDevice``, ``DataParallel``
 (strategy.py:542-555), ``MultiProcessMixin`` (:558-693),
-``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736) and
-``build_strategy`` (:1046) of ``distributedpytorch_tpu/parallel/strategy.py``.
+``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736),
+``HybridDataPipeline`` (:739-780) and ``build_strategy`` (:1046) of
+``distributedpytorch_tpu/parallel/strategy.py``.
 A strategy answers: which devices a process computes on, which samples it
 loads, the global batch, the lr, which process writes, where the model's
 layers live, and the train and eval steps.
 
-Each process of the port drives one device under DDP, so the JAX mixin's
-row-based replica assignment (``_compute_batch_replica_shard``, for meshes
-whose data rows span processes) collapses to ``ShardSpec(rank, world)``.
-DP and MP are one process over a list of devices (``devices``, which may
-repeat one: the CPU tests run ``[cpu, cpu]``, a one-card check
-``[cuda:0, cuda:0]``). DDP_MP and the mesh specs are not ported
-(ROADMAP.md, Queue A).
+Each process of the port drives one device under DDP and one data row
+(its S stages) under DDP_MP, so the JAX mixin's row-based replica
+assignment (``_compute_batch_replica_shard``, for meshes whose data rows
+span processes) collapses to ``ShardSpec(rank, world)``. DP and MP are
+one process over a list of devices (``devices``, which may repeat one:
+the CPU tests run ``[cpu, cpu]``, a one-card check ``[cuda:0,
+cuda:0]``); so is each DDP_MP rank. The mesh specs, SP, DDP_SP, TP and
+FSDP are not ported (ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -27,11 +29,14 @@ rule; the two compute the same function. The port's DP and MP run the
 kernels the same way: under MP K1 and K1-bwd per microbatch on the last
 stage and K2, K3, K5 inside the stages, as the JAX MP does; under DP each
 replica's forward is local to its device (the JAX DP keeps XLA BatchNorm
-and XLA eval metrics there).
+and XLA eval metrics there). Under DDP_MP each rank's pipeline runs them
+as MP does, K1 and K1-bwd per microbatch inside the data ranks' sum of
+the statistics, and K2 and K3 fed each microbatch's local moments.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Callable, List, Optional, Sequence
 
@@ -307,11 +312,7 @@ class Pipeline(Strategy):
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
-        if config.pipeline_schedule not in PIPELINE_SCHEDULES:
-            raise ValueError(
-                f"pipeline_schedule must be one of {PIPELINE_SCHEDULES}, "
-                f"got {config.pipeline_schedule!r}"
-            )
+        _check_schedule(config)
         stages = config.num_stages
         if devices is not None:
             devs = [torch.device(d) for d in devices]
@@ -341,12 +342,16 @@ class Pipeline(Strategy):
                                    self.config.pipeline_cuts)
         return model
 
+    #: whether the ranks are data replicas of the pipeline (DDP_MP)
+    data_parallel = False
+
     def build_train_step(self, model, optimizer, kernels) -> Callable:
         cfg = self.config
         return make_pipeline_train_step(
             model, self.stages, optimizer, cfg.batch_size,
             cfg.num_microbatches, cfg.pipeline_schedule,
-            cfg.faithful_loss_scaling, kernels.train_loss_fused)
+            cfg.faithful_loss_scaling, kernels.train_loss_fused,
+            data_parallel=self.data_parallel)
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
         raise ValueError(
@@ -360,16 +365,101 @@ class Pipeline(Strategy):
                                        kernels.eval_stats_fused)
 
 
-STRATEGIES = {cls.name: cls for cls in (SingleDevice, DataParallel,
-                                        DistributedDataParallel, Pipeline)}
+def _check_schedule(config) -> None:
+    if config.pipeline_schedule not in PIPELINE_SCHEDULES:
+        raise ValueError(
+            f"pipeline_schedule must be one of {PIPELINE_SCHEDULES}, "
+            f"got {config.pipeline_schedule!r}"
+        )
+
+
+def _check_data_degree(batch_size: int, num_microbatches: int,
+                       world: int) -> None:
+    """The JAX ``HybridDataPipeline._mesh_layout`` rule (strategy.py:
+    753-776) over ``world`` processes of S devices each: the data degree
+    ``min(world, b // M)``, shrunk until ``b`` divides ``dp · M``, with
+    the JAX errors for ``b % M`` and for dp < 2. Each port process is one
+    data row, so a dp other than ``world`` raises too."""
+    if batch_size % num_microbatches:
+        raise ValueError(
+            f"batch_size {batch_size} must be a multiple of "
+            f"num_microbatches {num_microbatches}")
+    dp = min(world, batch_size // num_microbatches)
+    while dp > 1 and batch_size % (dp * num_microbatches):
+        dp -= 1
+    if dp < 2:
+        raise ValueError(
+            f"DDP_MP degenerates to plain MP: batch_size {batch_size} with "
+            f"{num_microbatches} microbatches leaves no room for a data "
+            f"axis ≥ 2 — use -t MP or raise the batch size")
+    if dp != world:
+        raise ValueError(
+            f"DDP_MP: batch_size {batch_size} with {num_microbatches} "
+            f"microbatches gives a data degree of {dp}, not the {world} "
+            f"processes launched — use a batch size that is a multiple of "
+            f"{world * num_microbatches}, or launch {dp} processes")
+
+
+class HybridDataPipeline(MultiProcessMixin, Pipeline):
+    """``-t DDP_MP`` (strategy.py:739-780): one process per data replica,
+    each an S-stage pipeline (``parallel/pipeline.py``) on S devices of its
+    own, ``cuda:(LOCAL_RANK·S + s)`` by default (``runtime.stage_devices``;
+    every stage on the CPU with ``--device cpu``), joined by
+    ``dist.runtime``. The torchrun contract of DDP (``MultiProcessMixin``):
+    ``-b`` per process, the lr times the world size, the ragged batch
+    dropped. The loss is one loss over the global batch: each microbatch's
+    statistics summed on the last stage, then over the ranks; the stage
+    gradients are summed over the ranks before Adam. milesial's BatchNorm
+    normalizes each microbatch with its own shard's moments, as inside the
+    JAX ``shard_map`` (not DDP's global moments), and the running
+    averages' deltas are averaged over the ranks after the step. The data
+    degree is the world size, and the JAX errors hold
+    (``_check_data_degree``): without a launcher (world 1) it degenerates
+    to plain MP and raises."""
+
+    name = "DDP_MP"
+    data_parallel = True
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        _check_schedule(config)
+        stages = config.num_stages
+        _check_data_degree(config.batch_size, config.num_microbatches,
+                           info.num_processes if info is not None
+                           else runtime.planned_world())
+        if info is None:
+            info = runtime.initialize_from_env(
+                devices[0] if devices else config.device, stages)
+        if devices is not None:
+            devs = [torch.device(d) for d in devices]
+            if len(devs) < stages:
+                raise ValueError(
+                    f"Requires at least {stages} devices, got {len(devs)}")
+        else:
+            devs = runtime.stage_devices(config.device, info.local_rank,
+                                         stages)
+        self.devices = devs[:stages]
+        self.stages = None
+        Strategy.__init__(self, config, dataclasses.replace(
+            info, device=self.devices[0]))
+
+    @property
+    def drop_last_train(self) -> bool:
+        return True
+
+
+STRATEGIES = {cls.name: cls for cls in (
+    SingleDevice, DataParallel, DistributedDataParallel, Pipeline,
+    HybridDataPipeline)}
 
 
 def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
                    devices: Optional[Sequence[torch.device]] = None
                    ) -> Strategy:
     """``config.train_method`` → its strategy, on ``devices`` where one is
-    given (DP and MP; every method takes its first as its device).
-    DDP_MP and the mesh specs raise with the ROADMAP pointer."""
+    given (DP, MP and each DDP_MP rank; every method takes its first as
+    its device). The mesh specs, SP, DDP_SP, TP and FSDP raise with the
+    ROADMAP pointer."""
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
         raise ValueError(unported_method_message(config.train_method))
@@ -379,6 +469,6 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
 def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{', '.join(sorted(STRATEGIES))}; DDP_MP and the mesh specs "
-        f"are still to port (ROADMAP.md, Queue A)"
+        f"{', '.join(sorted(STRATEGIES))}; the mesh specs, SP, DDP_SP, "
+        f"TP and FSDP are still to port (ROADMAP.md, Queue A)"
     )

@@ -1,6 +1,7 @@
 """The trainer: epoch loop, eval, scheduler, checkpoints.
 
-Counterpart of the ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP``,
+Counterpart of the ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` /
+``DDP_MP``,
 ``nonfinite_policy="abort"`` subset of ``distributedpytorch_tpu/train/
 loop.py`` (``Trainer``, ``fit``). A strategy (``parallel/strategy.py``)
 says what differs between them, and builds the train and eval steps:
@@ -26,7 +27,10 @@ says what differs between them, and builds the train and eval steps:
 * under DP and MP: one process; the model's layers sit on the strategy's
   devices (every stage's on its card under MP), its state dict gathers
   them under the singleGPU keys, so a checkpoint of any method resumes
-  under any other and at any stage count.
+  under any other and at any stage count;
+* under DDP_MP: DDP's contract with MP's layout, one pipeline per rank:
+  each rank places its batch on its stage 0's device, and rank 0 writes,
+  its state dict gathering every stage's parameters.
 
 A stateful model's running statistics (milesial's BatchNorm) are buffers
 of its state dict, so the native checkpoint saves and restores them; the

@@ -2,7 +2,8 @@
 kernels, the BatchNorm epilogue kernels and the 9-tap weight-gradient
 kernel against their plain versions, the wrappers' refusals, a small
 engine's streams and masks, UNet and milesial train steps under both
-kernel policies, and the DDP loss and step at world 1 under NCCL. Every
+kernel policies, the DDP loss and step at world 1 under NCCL, and the
+DDP_MP pipeline's seams at world 1. Every
 test carries the ``cuda`` marker and skips without a card; this file
 imports nothing of JAX, so the card's machine runs it as it is:
 
@@ -421,6 +422,78 @@ def test_ddp_step_at_world_one_equals_a_single_gpu_step(nccl_world_one):
     for g, h in zip(grads["DDP"], grads["singleGPU"]):
         torch.testing.assert_close(g, h, rtol=1e-4,
                                    atol=1e-4 * float(h.abs().max()))
+
+
+def test_sum_over_ranks_groups_tensors_by_card(nccl_world_one):
+    """``sum_over_ranks_`` reduces the tensors of each card in one flat
+    all-reduce, cards in the order their first tensor comes (a DDP_MP
+    rank's stages); at world 1 the sum and the mean give every tensor
+    back as it was, on its own card, whatever the cards' order."""
+    from distributedpytorch_tpu_torch.dist.collectives import sum_over_ranks_
+
+    cards = [torch.device("cuda", i)
+             for i in range(min(2, torch.cuda.device_count()))]
+    order = [cards[-1], cards[0], cards[-1]]
+    gen = torch.Generator().manual_seed(0)
+    tensors = [torch.randn(5, n + 1, generator=gen).to(dev)
+               for n, dev in enumerate(order)]
+    want = [t.clone() for t in tensors]
+    for mean in (False, True):
+        sum_over_ranks_(tensors, mean=mean)
+        for got, ref in zip(tensors, want):
+            assert got.device == ref.device and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipeline_data_seams_at_world_one_equal_the_mp_step(nccl_world_one,
+                                                           schedule):
+    """A float32 milesial pipeline step (2 stages on the card, 2
+    microbatches, kernels cuda) with the DDP_MP seams and without them, at
+    world 1 under NCCL, from the same weights and batch: the statistics'
+    and the gradients' all-reduces are copies, so loss and gradients are
+    bitwise equal; the running averages, set to ``before + (after −
+    before)``, within 1e-6 of their largest."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.parallel.pipeline import (
+        build_stages,
+        make_pipeline_train_step,
+    )
+
+    dev = nccl_world_one.device
+    cfg = TrainConfig(model_arch="milesial", model_widths=(8, 16),
+                      dtype="f32", device="cuda")
+    init = create_model(cfg, generator=torch.Generator().manual_seed(0)
+                        ).state_dict()
+    rng = np.random.default_rng(1)
+    batch = {
+        "image": torch.from_numpy(rng.random((4, 32, 48, 3), np.float32)),
+        "mask": torch.from_numpy((rng.random((4, 32, 48)) > 0.6)
+                                 .astype(np.int32)),
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    runs = {}
+    for data_parallel in (False, True):
+        model = create_model(cfg)
+        model.load_state_dict(init)
+        model.to(dev)
+        stages = build_stages(model, [dev, dev])
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = make_pipeline_train_step(model, stages, opt, 4, 2, schedule,
+                                        train_loss_fused=True,
+                                        data_parallel=data_parallel)
+        runs[data_parallel] = (
+            step(batch), [p.grad.clone() for p in model.parameters()],
+            {n: b.clone() for n, b in model.named_buffers()
+             if "running" in n})
+    (loss, grads, stats), (dp_loss, dp_grads, dp_stats) = runs[False], \
+        runs[True]
+    assert torch.equal(dp_loss, loss)
+    for g, h in zip(dp_grads, grads):
+        assert torch.equal(g, h)
+    for name, t in stats.items():
+        torch.testing.assert_close(dp_stats[name], t, rtol=0,
+                                   atol=1e-6 * float(t.abs().max()))
 
 
 # -- milesial's BatchNorm epilogue (K2, K3) and the 9-tap wgrad (K5) ---------

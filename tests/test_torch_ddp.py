@@ -260,7 +260,7 @@ def test_strategy_matches_the_jax_ddp(scaling):
     assert single.wrap_model(torch.nn.Linear(1, 1)).__class__ is (
         torch.nn.Linear)
     with pytest.raises(ValueError, match="not ported yet.*ROADMAP"):
-        port_strategy.build_strategy(TrainConfig(train_method="DDP_MP"))
+        port_strategy.build_strategy(TrainConfig(train_method="DDP_SP"))
 
 
 # -- the sharded loss ------------------------------------------------------------
@@ -520,11 +520,12 @@ def test_cli_trains_under_torchrun_and_resumes_at_another_world(tmp_path):
 
 
 def test_cli_still_refuses_dp_and_mp_and_a_missing_card(monkeypatch):
-    """The methods still to port, DDP_MP and the mesh specs, exit with the
-    ROADMAP pointer (``-t DP`` and ``-t MP`` train now:
-    tests/test_torch_dp.py, tests/test_torch_pipeline.py); ``-t DDP``
-    without a card exits naming ``--device cpu``."""
-    for method in ("DDP_MP", "2x1x2"):
+    """The methods still to port, DDP_SP and the mesh specs among them,
+    exit with the ROADMAP pointer (``-t DP``, ``-t MP`` and ``-t DDP_MP``
+    train now: tests/test_torch_dp.py, tests/test_torch_pipeline.py,
+    tests/test_torch_ddp_mp.py); ``-t DDP`` without a card exits naming
+    ``--device cpu``."""
+    for method in ("DDP_SP", "2x1x2"):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
             cli.main(["-t", method, "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -366,10 +366,10 @@ def test_cli_config_mapping_and_server_build(checkpoint):
 
 def test_training_entry_point_is_not_ported():
     """Training is the default entry point now; the methods beyond
-    singleGPU, DP, DDP and MP (DDP_MP and the mesh specs) are what is not
-    ported, and the exit says where to look."""
+    singleGPU, DP, DDP, MP and DDP_MP (DDP_SP and the mesh specs among
+    them) are what is not ported, and the exit says where to look."""
     from distributedpytorch_tpu_torch.__main__ import main
 
-    for method in ("DDP_MP", "2x1x2"):
+    for method in ("DDP_SP", "2x1x2"):
         with pytest.raises(SystemExit, match="not ported.*ROADMAP"):
             main(["-t", method])

@@ -369,7 +369,7 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 
 def test_cli_refuses_what_it_does_not_run(capsys):
-    for method in ("DDP_MP", "2x1x2"):
+    for method in ("DDP_SP", "2x1x2"):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
             cli.main(["-t", method])
     with pytest.raises(SystemExit):

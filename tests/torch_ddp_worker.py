@@ -1,5 +1,6 @@
 """One rank of the port's data-parallel tests (``tests/test_torch_ddp.py``,
-``tests/test_torch_isolation.py``), and ``launch``, which runs them.
+``tests/test_torch_ddp_mp.py``, ``tests/test_torch_isolation.py``), and
+``launch``, which runs them.
 
     python tests/torch_ddp_worker.py JOB_DIR RANK WORLD
 
@@ -16,9 +17,13 @@ modules this process loaded. Scenarios:
   Adam), each step's loss, the final state dict;
 * ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
   and the gradients the optimizer receives;
-* ``trainer``: ``Trainer`` under ``-t DDP`` for its epochs; the losses,
-  the val metrics, the lr, the final state dict and what each rank wrote
-  into a directory of its own.
+* ``pipeline_steps``: train steps of ``-t DDP_MP``, the rank's S stages
+  all on the CPU, from given weights: as ``steps``, with the state after
+  every step, each BatchNorm's ``global_stats`` flag and the stages'
+  devices;
+* ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
+  its epochs; the losses, the val metrics, the lr, the final state dict
+  and what each rank wrote into a directory of its own.
 """
 
 import os
@@ -120,6 +125,38 @@ def run_steps(job, rank, world):
             "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
+def run_pipeline_steps(job, rank, world):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="DDP_MP", device="cpu", **job["config"])
+    strategy = build_strategy(cfg)
+    model = create_model(cfg)
+    model.load_state_dict(job["initial"])
+    model = strategy.place_model(model)
+    optimizer = _Capture(
+        make_optimizer(model.parameters(),
+                       strategy.lr_for(cfg.learning_rate),
+                       cfg.weight_decay),
+        list(model.named_parameters()))
+    step = strategy.build_train_step(model, optimizer,
+                                     get_kernel_policy(cfg.kernels))
+    losses, states = [], []
+    for batch in job["batches"]:
+        losses.append(step({k: _rows(v, rank, world)
+                            for k, v in batch.items()}))
+        states.append({k: v.clone() for k, v in model.state_dict().items()})
+    return {"losses": torch.stack(losses), "grads": optimizer.grads,
+            "states": states,
+            "global_stats": sorted({m.global_stats for m in model.modules()
+                                    if isinstance(m, BatchNormAct)}),
+            "devices": [str(d) for d in strategy.devices]}
+
+
 def run_accum(job, rank, world):
     from distributedpytorch_tpu_torch.config import TrainConfig
     from distributedpytorch_tpu_torch.models import create_model
@@ -150,13 +187,23 @@ def run_trainer(job, rank, world):
 
     out = os.path.join(job["dir"], f"rank{rank}")
     cfg = TrainConfig(
-        train_method="DDP", device="cpu",
+        train_method=job.get("method", "DDP"), device="cpu",
         checkpoint_dir=os.path.join(out, "checkpoints"),
         log_dir=os.path.join(out, "logs"),
         loss_dir=os.path.join(out, "loss"), **job["config"])
     trainer = Trainer(cfg, initial_state=job["initial"])
+    resumed_from = None
+    if cfg.checkpoint_name:
+        payload = torch.load(cfg.checkpoint_name, weights_only=True)
+        resumed_from = {k: payload[k] for k in ("manifest", "epoch", "step",
+                                                "scheduler")}
     result = trainer.train()
+    manifest = None
+    if trainer.strategy.is_main:
+        manifest = torch.load(trainer.checkpoint_path,
+                              weights_only=True)["manifest"]
     return {
+        "resumed_from": resumed_from, "manifest": manifest,
         "losses": [float(x) for x in trainer.records.losses],
         "result": result,
         "lr": get_learning_rate(trainer.optimizer),
@@ -167,7 +214,7 @@ def run_trainer(job, rank, world):
 
 
 SCENARIOS = {"loss": run_loss, "steps": run_steps, "accum": run_accum,
-             "trainer": run_trainer}
+             "pipeline_steps": run_pipeline_steps, "trainer": run_trainer}
 
 
 def main():
