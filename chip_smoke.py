@@ -39,8 +39,18 @@ processes this script spawns (``--ddp-mp-rank R 2 gloo DIR``) over a gloo
 group, each with both of its stages on cuda:0: the bf16 UNet under gpipe
 and 1f1b and milesial with ``--wgrad-taps`` under both, held against one
 ``-t MP`` step on their joint batch and against kernels torch
-(``train_ddp_mp_gloo2``). Each path's kernel launches are counted from
-zero over its run. It fails (non-zero exit, no result line) without a card,
+(``train_ddp_mp_gloo2``). Then the trainer's run control
+(``train_run_control``): the UNet with ``--steps-per-dispatch 4`` (one
+CUDA graph of 4 whole steps, K1 and K1-bwd inside it) against the same 16
+steps at K = 1, bitwise; milesial and the UNet with ``--remat`` against
+the plain step (K2 twice per step); both models under ``--dtype
+bf16_params`` against ``--dtype bf16``, K2, K3 and K5 against their plain
+versions in place, and the checkpoint resumed under bf16; a NaN loss at a
+chosen step under ``skip``, ``rollback`` and ``abort``; and 16 steps with
+``--trace-timeline``, async saves, ``--keep-checkpoints 2`` and
+``--save-best``, resumed past a corrupted newest checkpoint. Each path's
+kernel launches are counted from zero over its run (a CUDA graph's at
+each replay). It fails (non-zero exit, no result line) without a card,
 outside a checkout, or when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
@@ -2522,6 +2532,31 @@ def _busy_ms_by_device(fn, runs: int, devices=None) -> dict:
     return busy
 
 
+#: the kernels' function names in the profiler's trace, by launch counter
+KERNEL_SYMBOLS = {"loss_stats": "stats_kernel",
+                  "loss_stats_bwd": "stats_bwd_kernel"}
+
+
+def _traced_launches(fn, names=tuple(KERNEL_SYMBOLS)) -> dict:
+    """``{counter name: n}``: the kernels of ``names`` that the card ran
+    during one call of ``fn``, counted by function name in the profiler's
+    trace, not by the wrappers' counters."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [evt.name for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA]
+    return {name: sum(bool(re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", k))
+                      for k in kernels)
+            for name in names}
+
+
 def _wall_ms(fn, iters: int, warmup: int, devices=None) -> float:
     """Host milliseconds per call of ``fn`` with every card (or each of
     ``devices``) drained before and after: the step's wall time across
@@ -3086,6 +3121,601 @@ def phase_ddp_mp_cards(tmp: str) -> dict:
     return out
 
 
+# -- run control ---------------------------------------------------------------
+
+# train_run_control: 80 synthetic samples at -v 20 give 64 train samples,
+# 16 steps of -b 4 in one epoch, and 4 eval batches
+RC_SAMPLES = 80
+RC_K = 4
+# the bf16_params loss against the bf16 run from the same weights
+RC_BF16_PARAMS_LOSS_RTOL = 1e-3
+# a recomputed forward runs the same kernels on the same inputs: the
+# gradients may differ only where autograd adds BatchNorm's statistics'
+# gradients in another order
+RC_REMAT_GRAD_RTOL = 1e-6
+
+
+def _rc_argv(run: str, *extra, samples: int = RC_SAMPLES) -> list:
+    """The training CLI's arguments of a run-control case: the full-width
+    model at -b 4, kernels cuda, checkpoints under ``run``."""
+    w, h = IMAGE_WH
+    return ["-t", "singleGPU", "--synthetic", str(samples), "-v", "20",
+            "-b", str(TRAIN_BATCH), "--image-size", str(w), str(h),
+            "--kernels", "cuda", "--checkpoint-dir",
+            os.path.join(run, "checkpoints"), *extra]
+
+
+def _placed_batches(trainer, n: int, epoch: int = 0) -> list:
+    loader = trainer.train_loader
+    return [trainer.place_batch(loader.load_slice(idx))
+            for idx in loader.batch_slices(epoch)[:n]]
+
+
+def _capturable_(optimizer, device) -> None:
+    """Adam's step count and lr on the card, before its first step: the
+    arithmetic of the K-step graph's optimizer
+    (``make_optimizer(capturable=True)``) in an eager run."""
+    import torch
+
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                   device=device)
+
+
+def _rc_graph(tmp: str) -> dict:
+    """Run 1: the UNet, ``--steps-per-dispatch 4`` (one CUDA graph of 4
+    steps), 16 steps, against the same 16 steps at K = 1 with the same
+    capturable Adam (and with the CLI's plain Adam), from the same seeded
+    weights on the same data."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    runs = {}
+    # bitwise equality needs cuDNN's deterministic algorithms: a default
+    # one may add in a run-dependent order (two eager runs of the small
+    # case in tests/test_torch_cuda.py differ in the last bit)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, k, capturable in (("k4", RC_K, True), ("k1", 1, True),
+                                    ("k1_plain_adam", 1, False)):
+            runs[name] = _rc_graph_run(tmp, name, k, capturable, dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return _rc_graph_report(runs)
+
+
+def _rc_graph_run(tmp: str, name: str, k: int, capturable: bool, dev
+                  ) -> dict:
+    """One run of ``_rc_graph``: 16 steps at K = ``k``, the losses, the
+    weights, the launches, and (but for the plain Adam) the step's
+    timings."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    run = os.path.join(tmp, f"rc_graph_{name}")
+    trainer, close = _cli_trainer(run, _rc_argv(
+        run, "-e", "1", "--dtype", "bf16",
+        "--steps-per-dispatch", str(k)))
+    try:
+        if k == 1 and capturable:
+            _capturable_(trainer.optimizer, dev)
+        kernels.reset_launches()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        out = {
+            "steps": result["steps"], "launches": launches,
+            "losses": [float(x) for x in trainer.records.losses],
+            "weights": [p.detach().clone()
+                        for p in trainer.model.parameters()],
+        }
+        if name == "k4":
+            host = [trainer.train_loader.load_slice(idx) for idx in
+                    trainer.train_loader.batch_slices(0)[:k]]
+            stacked = trainer.place_batch(
+                {key: np.stack([b[key] for b in host])
+                 for key in host[0]})
+
+            def fn():
+                return trainer.multi_step(stacked)
+        else:
+            batch = _placed_batches(trainer, 1)[0]
+
+            def fn():
+                return trainer.train_step(batch)
+        if name != "k1_plain_adam":
+            # one replay of the graph (K = 4), one eager step (K = 1)
+            out["traced_launches_per_call"] = _traced_launches(fn)
+            out["step_ms"] = cuda_ms(fn, 4, warmup=2) / k
+            out["host_enqueue_ms_per_step"] = _host_enqueue_ms(fn) / k
+            wall = _wall_ms(fn, 4, 1) / k
+            busy = _busy_ms_by_device(fn, 2).get(0, 0.0) / k
+            out["wall_ms_per_step"] = wall
+            # None where the profiler saw no kernel of the replay
+            out["device_busy_ms_per_step"] = busy or None
+            out["device_idle_share"] = (1.0 - busy / wall) if busy \
+                else None
+    finally:
+        close()
+    return out
+
+
+def _rc_graph_report(runs: dict) -> dict:
+    import torch
+
+    ref, k4 = runs["k1"], runs["k4"]
+
+    def weight_err(a, b):
+        return max(float((x.float() - y.float()).abs().max()
+                         / y.float().abs().max()) for x, y in zip(a, b))
+
+    bitwise = (k4["losses"] == ref["losses"]
+               and all(torch.equal(a, b)
+                       for a, b in zip(k4["weights"], ref["weights"])))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(k4["losses"], ref["losses"]))
+    plain = runs["k1_plain_adam"]
+    report = {
+        "phase": "train_run_control", "run": "cuda_graph",
+        "steps": k4["steps"], "k": RC_K,
+        "bitwise_equal_to_k1": bitwise,
+        "loss_max_rel_err_vs_k1": loss_err,
+        "weights_max_err_rel_to_tensor_max_vs_k1": weight_err(
+            k4["weights"], ref["weights"]),
+        "loss_max_rel_err_vs_k1_plain_adam": max(
+            abs(a - b) / abs(b)
+            for a, b in zip(k4["losses"], plain["losses"])),
+        "weights_max_err_rel_to_tensor_max_vs_k1_plain_adam": weight_err(
+            k4["weights"], plain["weights"]),
+        # counted by name in the profiler's trace of one call
+        "graph_launches_per_replay": k4["traced_launches_per_call"],
+        "k1_step_launches_traced": ref["traced_launches_per_call"],
+        "cudnn_deterministic": True,
+        # the wrappers' counts over the run: K = 4 counts its warm-up's
+        # and its capture's launches, and no replay
+        "launches": {"k4": k4["launches"], "k1": ref["launches"]},
+        **{f"{key}_{name}": runs[name][key]
+           for name in ("k4", "k1")
+           for key in ("step_ms", "host_enqueue_ms_per_step",
+                       "wall_ms_per_step", "device_busy_ms_per_step",
+                       "device_idle_share")},
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(report)
+    check(k4["steps"] == ref["steps"] == 16, f"{k4['steps']} steps")
+    check(report["graph_launches_per_replay"] == {"loss_stats": RC_K,
+                                                  "loss_stats_bwd": RC_K}
+          and report["k1_step_launches_traced"] == {"loss_stats": 1,
+                                                    "loss_stats_bwd": 1},
+          f"traced: a replay ran {report['graph_launches_per_replay']}, "
+          f"an eager step {report['k1_step_launches_traced']}")
+    # K = 1: 16 steps and 4 eval batches; K = 4: the first stack's eager
+    # warm-up, the capture of the second, and the eval batches
+    check(ref["launches"]["loss_stats"] == 16 + 4
+          and ref["launches"]["loss_stats_bwd"] == 16
+          and k4["launches"]["loss_stats"] == 2 * RC_K + 4
+          and k4["launches"]["loss_stats_bwd"] == 2 * RC_K,
+          f"launches over the run: {report['launches']}")
+    check(bitwise, f"K = {RC_K} graph against K = 1: losses rel "
+                   f"{loss_err}, weights {report['weights_max_err_rel_to_tensor_max_vs_k1']}")
+    return report
+
+
+def _rc_step_run(run: str, argv, n: int = 2) -> dict:
+    """The CLI trainer of ``argv``; ``n`` train steps on the epoch's first
+    batches, each step's loss, launches and gradients, the running
+    statistics after them, then the steady step's time and peak memory."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    trainer, close = _cli_trainer(run, argv)
+    try:
+        batches = _placed_batches(trainer, n)
+        out = {"losses": [], "launches": [], "grads": []}
+        for b in batches:
+            kernels.reset_launches()
+            out["losses"].append(float(trainer.train_step(b)))
+            out["launches"].append(dict(kernels.LAUNCHES))
+            out["grads"].append({name: p.grad.float().clone()
+                                 for name, p in
+                                 trainer.model.named_parameters()})
+        out["stats"] = {name: t.clone() for name, t in
+                        trainer.model.named_buffers() if "running" in name}
+        torch.cuda.synchronize()
+        out.update(_peak_step_bytes(trainer.train_step, batches[0]))
+        out["step_ms"] = cuda_ms(lambda: trainer.train_step(batches[0]), 3,
+                                 warmup=1)
+    finally:
+        close()
+    return out
+
+
+def _rc_remat(tmp: str) -> dict:
+    """Run 2: milesial ``--remat --wgrad-taps`` for 2 steps against the
+    same steps without ``--remat``, and the UNet likewise."""
+    import torch
+
+    report = {"phase": "train_run_control", "run": "remat"}
+    for arch, extra in (("milesial", ["--model", "milesial",
+                                      "--wgrad-taps"]),
+                        ("unet", [])):
+        runs = {}
+        for remat in (False, True):
+            run = os.path.join(tmp, f"rc_remat_{arch}_{int(remat)}")
+            argv = _rc_argv(run, "-e", "1", *extra,
+                            *(["--remat"] if remat else []), samples=20)
+            runs[remat] = _with_wgrad_backend(
+                lambda run=run, argv=argv: _rc_step_run(run, argv))
+        plain, remat = runs[False], runs[True]
+        grad_err = max(
+            float((g[n] - t).abs().max() / t.abs().max())
+            for g, ref in zip(remat["grads"], plain["grads"])
+            for n, t in ref.items() if float(t.abs().max()) > 0)
+        report[arch] = {
+            "losses_bitwise_equal": remat["losses"] == plain["losses"],
+            "running_stats_bitwise_equal": all(
+                torch.equal(remat["stats"][n], t)
+                for n, t in plain["stats"].items()),
+            "grad_max_err_rel_to_tensor_max": grad_err,
+            "launches_per_step": {"plain": plain["launches"][0],
+                                  "remat": remat["launches"][0]},
+            "peak_bytes": {"plain": plain["peak_bytes"],
+                           "remat": remat["peak_bytes"]},
+            "step_bytes": {"plain": plain["step_bytes"],
+                           "remat": remat["step_bytes"]},
+            "step_ms": {"plain": plain["step_ms"],
+                        "remat": remat["step_ms"]},
+        }
+    report["device"] = torch.cuda.get_device_name(0)
+    emit(report)
+    m = report["milesial"]
+    want = {False: {"bn_act": 18, "bn_act_bwd": 18, "wgrad_9tap": 13},
+            True: {"bn_act": 36, "bn_act_bwd": 18, "wgrad_9tap": 13}}
+    for remat, counts in want.items():
+        got = m["launches_per_step"]["remat" if remat else "plain"]
+        check(all(got[k] == v for k, v in counts.items()),
+              f"milesial remat={remat} launched {got}, expected {counts}")
+    for arch in ("milesial", "unet"):
+        r = report[arch]
+        check(r["losses_bitwise_equal"] and r["running_stats_bitwise_equal"]
+              and r["grad_max_err_rel_to_tensor_max"] <= RC_REMAT_GRAD_RTOL,
+              f"{arch} remat against the plain step: {r}")
+        check(r["step_bytes"]["remat"] < r["step_bytes"]["plain"],
+              f"{arch} remat does not lower the step's memory: {r}")
+    return report
+
+
+def _rc_bf16_params(tmp: str) -> dict:
+    """Run 3: the UNet and milesial, 2 steps each under ``--dtype
+    bf16_params`` against ``--dtype bf16`` from the same weights; the
+    kernels with bf16 parameters against their plain versions in place;
+    a resume of the bf16_params checkpoint under ``--dtype bf16``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    report = {"phase": "train_run_control", "run": "bf16_params"}
+    for arch, extra in (("unet", []), ("milesial", ["--model", "milesial",
+                                                    "--wgrad-taps"])):
+        losses, out, step_ms = {}, {}, {}
+        for dtype in ("bf16", "bf16_params"):
+            run = os.path.join(tmp, f"rc_bf16p_{arch}_{dtype}")
+            argv = _rc_argv(run, "-e", "1", "--dtype", dtype, *extra,
+                            samples=20)
+
+            def go(run=run, argv=argv, dtype=dtype):
+                trainer, close = _cli_trainer(run, argv)
+                try:
+                    batches = _placed_batches(trainer, 2)
+                    kernels.reset_launches()
+                    got = [float(trainer.train_step(b)) for b in batches]
+                    launches = dict(kernels.LAUNCHES)
+                    step_ms[dtype] = cuda_ms(
+                        lambda: trainer.train_step(batches[0]), 3, warmup=1)
+                    if dtype == "bf16":
+                        return got, None
+                    opt = trainer.optimizer
+                    params = list(trainer.model.parameters())
+                    res = {
+                        "launches_2_steps": launches,
+                        "params_bf16": all(p.dtype == torch.bfloat16
+                                           for p in params),
+                        "master_f32": all(m.dtype == torch.float32
+                                          for m in opt.master),
+                        "params_equal_master_rounded": all(
+                            torch.equal(p, m.to(torch.bfloat16))
+                            for p, m in zip(params, opt.master)),
+                    }
+                    if arch == "milesial":
+                        res["kernels_vs_plain_versions"] = \
+                            _rc_in_place(trainer, batches[0])
+                    trainer.save(1)
+                    trainer._drain_checkpoint_futures(raise_errors=True)
+                    master = [m.clone() for m in opt.master]
+                    path = trainer.checkpoint_path
+                finally:
+                    close()
+                rerun = run + "_resumed_bf16"
+                again, close = _cli_trainer(rerun, _rc_argv(
+                    rerun, "-e", "2", "--dtype", "bf16", *extra,
+                    "-c", path, samples=20))
+                try:
+                    res["resume_bf16_params_equal_master"] = all(
+                        p.dtype == torch.float32 and torch.equal(p, m)
+                        for p, m in zip(again.model.parameters(), master))
+                finally:
+                    close()
+                return got, res
+
+            losses[dtype], res = _with_wgrad_backend(go)
+            if res is not None:
+                out.update(res)
+        out["losses"] = losses
+        out["step_ms"] = step_ms
+        out["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in
+                               zip(losses["bf16_params"], losses["bf16"])]
+        report[arch] = out
+    report["device"] = torch.cuda.get_device_name(0)
+    emit(report)
+    for arch in ("unet", "milesial"):
+        r = report[arch]
+        check(r["params_bf16"] and r["master_f32"]
+              and r["params_equal_master_rounded"]
+              and r["resume_bf16_params_equal_master"]
+              and max(r["loss_rel_err"]) <= RC_BF16_PARAMS_LOSS_RTOL,
+              f"{arch} bf16_params: {r}")
+    m = report["milesial"]
+    check(m["launches_2_steps"]["bn_act"] == 36
+          and m["launches_2_steps"]["wgrad_9tap"] == 26,
+          f"milesial bf16_params launched {m['launches_2_steps']}")
+    in_place = m["kernels_vs_plain_versions"]
+    check(in_place["running_stats_bitwise_equal"]
+          and in_place["loss_rel_err"] <= IN_PLACE_LOSS_RTOL
+          and in_place["grad_global_rel_l2"] <= IN_PLACE_GRAD_GLOBAL_REL_L2
+          and in_place["grad_max_rel_l2"] <= IN_PLACE_GRAD_REL_L2,
+          f"milesial bf16_params, kernels vs their plain versions: "
+          f"{in_place}")
+    return report
+
+
+def _rc_in_place(trainer, batch) -> dict:
+    """One bf16_params milesial step with K2, K3, K5 (and K1) against the
+    same step from the same state with every kernel swapped for its plain
+    version (``_PlainVersions``): the f32 master gradients Adam read, the
+    loss and the running statistics, by the in-place bounds."""
+    import copy
+
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    model, opt = trainer.model, trainer.optimizer
+    saved = (copy.deepcopy(model.state_dict()),
+             copy.deepcopy(opt.state_dict()))
+
+    def one():
+        model.load_state_dict(saved[0])
+        opt.load_state_dict(saved[1])
+        kernels.reset_launches()
+        loss = float(trainer.train_step(batch))
+        return {"loss": loss, "launches": dict(kernels.LAUNCHES),
+                "grads": [m.grad.clone() for m in opt.master],
+                "stats": [t.clone() for n, t in model.named_buffers()
+                          if "running" in n]}
+
+    kern = one()
+    with _PlainVersions():
+        plain = one()
+    check(kern["launches"]["bn_act"] == 18 and not any(
+        plain["launches"].values()),
+          f"in place: {kern['launches']} and {plain['launches']}")
+    rel = [float((a - b).norm() / b.norm())
+           for a, b in zip(kern["grads"], plain["grads"])
+           if float(b.norm()) > 0]
+    diff = torch.cat([(a - b).flatten()
+                      for a, b in zip(kern["grads"], plain["grads"])])
+    whole = torch.cat([b.flatten() for b in plain["grads"]])
+    return {
+        "loss_rel_err": abs(kern["loss"] - plain["loss"]) / abs(plain["loss"]),
+        "grad_global_rel_l2": float(diff.norm() / whole.norm()),
+        "grad_max_rel_l2": max(rel),
+        "running_stats_bitwise_equal": all(
+            torch.equal(a, b) for a, b in zip(kern["stats"], plain["stats"])),
+    }
+
+
+def _nan_at(trainer, at_step: int, state: dict) -> None:
+    """Global step ``at_step``'s loss reads NaN, once (the counterpart of
+    the JAX ``nan_loss`` fault site); ``state`` gets the model and
+    optimizer state before that step, and at the next step call whether
+    the state then equals it bit for bit."""
+    import torch
+
+    real = trainer.train_step
+
+    def snapshot():
+        inner = getattr(trainer.optimizer, "inner", trainer.optimizer)
+        return ([t.detach().clone() for t in trainer.model.state_dict()
+                 .values()],
+                [v.clone() for s in inner.state.values() for v in s.values()
+                 if isinstance(v, torch.Tensor)])
+
+    def step(batch):
+        if "before" in state and "equal_after" not in state:
+            now = snapshot()
+            state["equal_after"] = all(
+                torch.equal(a, b) for a, b in zip(now[0] + now[1],
+                                                  state["before"][0]
+                                                  + state["before"][1]))
+        if trainer.step + 1 == at_step and "before" not in state:
+            state["before"] = snapshot()
+            return real(batch) * float("nan")
+        return real(batch)
+
+    trainer.train_step = step
+
+
+def _rc_nonfinite(tmp: str) -> dict:
+    """Run 4: a NaN loss at a chosen step of the full-width UNet under
+    ``skip``, ``rollback`` and ``abort``; and what a batch of NaN pixels
+    gives."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.train.loop import NonFiniteLossError
+
+    report = {"phase": "train_run_control", "run": "nonfinite"}
+    # 20 samples: 16 train, 4 steps an epoch
+    for policy, epochs, at in (("skip", 1, 2), ("rollback", 2, 6),
+                               ("abort", 1, 2)):
+        run = os.path.join(tmp, f"rc_nonfinite_{policy}")
+        trainer, close = _cli_trainer(run, _rc_argv(
+            run, "-e", str(epochs), "--nonfinite-policy", policy,
+            samples=20))
+        state: dict = {}
+        try:
+            _nan_at(trainer, at, state)
+            try:
+                result = trainer.train()
+                out = {k: result[k] for k in ("steps", "skipped_steps",
+                                              "rollbacks")}
+            except NonFiniteLossError as exc:
+                out = {"raised": str(exc)}
+            if policy == "skip":
+                out["state_after_equals_state_before"] = state.get(
+                    "equal_after")
+            if policy == "abort":
+                nan = _placed_batches(trainer, 1)[0]
+                nan["image"] = torch.full_like(nan["image"], float("nan"))
+                loss = float(trainer.train_step(nan))
+                out["nan_pixels_loss"] = loss
+                out["nan_pixels_loss_finite"] = bool(np.isfinite(loss))
+                out["nan_pixels_weights_nonfinite"] = not all(
+                    bool(torch.isfinite(p).all())
+                    for p in trainer.model.parameters())
+        finally:
+            close()
+        report[policy] = out
+    report["device"] = torch.cuda.get_device_name(0)
+    emit(report)
+    skip, rollback, abort = (report[p] for p in ("skip", "rollback",
+                                                 "abort"))
+    check(skip.get("skipped_steps") == 1 and skip.get("steps") == 3
+          and skip["state_after_equals_state_before"] is True,
+          f"skip: {skip}")
+    check(rollback.get("rollbacks") == 1 and rollback.get("steps") == 8,
+          f"rollback: {rollback}")
+    check("raised" in abort and "policy=abort" in abort["raised"],
+          f"abort: {abort}")
+    return report
+
+
+def _rc_timeline(tmp: str) -> dict:
+    """Run 5: the UNet for 16 steps (2 epochs, ``--steps-per-dispatch
+    4``) with ``--trace-timeline``, async saves, ``--keep-checkpoints 2``
+    and ``--save-best``; then ``-c`` with the newest checkpoint
+    corrupted, which resumes at K = 1 and trains the last epoch."""
+    import torch
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.utils.trace import summarize_timeline
+
+    run = os.path.join(tmp, "rc_timeline")
+    path = os.path.join(run, "timeline.jsonl")
+    argv = _rc_argv(run, "-e", "2", "--steps-per-dispatch", str(RC_K),
+                    "--trace-timeline", path, "--keep-checkpoints", "2",
+                    "--save-best", samples=40)
+    trainer, close = _cli_trainer(run, argv)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ckpt = trainer.checkpoint_path
+        files = _files(run)
+    finally:
+        close()
+    summary = summarize_timeline(path)
+    with open(ckpt, "r+b") as f:
+        f.seek(os.path.getsize(ckpt) // 2)
+        f.write(b"\0" * 4096)
+    records: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep(logging.WARNING)
+    logging.getLogger("distributedpytorch_tpu_torch").addHandler(keep)
+    try:
+        again, close = _cli_trainer(run + "_resumed", _rc_argv(
+            run + "_resumed", "-e", "2", "-c", ckpt, samples=40))
+        try:
+            resumed = again.train()
+            resumed_losses = [float(x) for x in again.records.losses]
+        finally:
+            close()
+    finally:
+        logging.getLogger("distributedpytorch_tpu_torch").removeHandler(keep)
+    report = {
+        "phase": "train_run_control", "run": "timeline_checkpoints",
+        "steps": result["steps"], "wall_ms": wall_ms,
+        "phases": summary,
+        "phase_share_of_wall": {
+            p: (s["total_ms"] / wall_ms if s else None)
+            for p, s in summary.items()},
+        "checkpoint_files": [f for f in files if f.startswith("checkpoints")],
+        "corrupt_newest_resumed_at_epoch": again.start_epoch,
+        "resumed_k1_steps": resumed["steps"],
+        "resumed_k1_losses_finite": bool(np.isfinite(resumed_losses).all()),
+        "fallback_warned": any("restored the newest intact" in m
+                               for m in records),
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(report)
+    check(all(summary[p] for p in ("decode", "stack", "h2d", "dispatch",
+                                   "readback")),
+          f"timeline phases: {summary}")
+    check(result["steps"] == 16, f"{result['steps']} steps")
+    for need in ("checkpoints/singleGPU.pt", "checkpoints/singleGPU.pt.1",
+                 "checkpoints/singleGPU_best.pt"):
+        check(need in report["checkpoint_files"],
+              f"missing {need}: {report['checkpoint_files']}")
+    check(report["corrupt_newest_resumed_at_epoch"] == 1
+          and report["fallback_warned"]
+          and report["resumed_k1_steps"] == 16
+          and report["resumed_k1_losses_finite"],
+          f"corrupt newest checkpoint: {report}")
+    return report
+
+
+def phase_train_run_control(tmp: str) -> dict:
+    """The trainer's run control on the card, full width, random weights
+    from the seed, synthetic data: the CUDA graph of K steps (run 1),
+    ``--remat`` (run 2), ``--dtype bf16_params`` (run 3), the non-finite
+    policies (run 4), the step timeline and the checkpoint policy (run
+    5), one JSON line each. Returns the launches the kernels line reads:
+    K1 and K1-bwd per replay of run 1's graph, K2, K3 and K5 per milesial
+    remat step."""
+    graph = _rc_graph(tmp)
+    remat = _rc_remat(tmp)
+    _rc_bf16_params(tmp)
+    _rc_nonfinite(tmp)
+    _rc_timeline(tmp)
+    return {"graph": graph, "remat": remat,
+            "launches": {**graph["graph_launches_per_replay"],
+                         **{k: v for k, v in remat["milesial"][
+                             "launches_per_step"]["remat"].items()
+                            if k in ("bn_act", "bn_act_bwd", "wgrad_9tap")}}}
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -3177,6 +3807,7 @@ def main(argv) -> int:
         milesial_mp = phase_train_milesial_mp(tmp)
         train_dp = phase_train_dp(tmp, train)
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
+        run_control = phase_train_run_control(tmp)["launches"]
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()
@@ -3204,6 +3835,7 @@ def main(argv) -> int:
             "mp_launches": None,
             "dp_launches": None,
             "ddp_mp_launches": None,
+            "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
             "plain_ms": kernel["plain_ms"],
@@ -3226,6 +3858,9 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats"),
+            # per replay of train_run_control's graph of 4 steps (run
+            # 1), counted by name in the profiler's trace
+            "run_control_launches": run_control["loss_stats"],
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
             "plain_ms": loss["stats_plain_ms"],
@@ -3245,6 +3880,9 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats_bwd"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats_bwd"),
+            # per replay of train_run_control's graph of 4 steps (run
+            # 1), counted by name in the profiler's trace
+            "run_control_launches": run_control["loss_stats_bwd"],
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
             "plain_ms": loss["bwd_plain_ms"],
@@ -3265,6 +3903,8 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act"),
             "dp_launches": train_dp["milesial_launches"]["bn_act"],
             "ddp_mp_launches": ddp_mp_launches("bn_act"),
+            # per milesial --remat step (train_run_control run 2)
+            "run_control_launches": run_control["bn_act"],
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],
@@ -3286,6 +3926,8 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act_bwd"),
             "dp_launches": train_dp["milesial_launches"]["bn_act_bwd"],
             "ddp_mp_launches": ddp_mp_launches("bn_act_bwd"),
+            # per milesial --remat step (train_run_control run 2)
+            "run_control_launches": run_control["bn_act_bwd"],
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
             "plain_ms": bn["f32"]["bwd_plain_ms"],
@@ -3305,6 +3947,8 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "wgrad_9tap"),
             "dp_launches": train_dp["milesial_launches"]["wgrad_9tap"],
             "ddp_mp_launches": ddp_mp_launches("wgrad_9tap"),
+            # per milesial --remat step (train_run_control run 2)
+            "run_control_launches": run_control["wgrad_9tap"],
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],
             "plain_ms": k5["plain_ms"],

@@ -10,10 +10,24 @@ reference ``.pth`` loads with plain ``load_state_dict``.
 batch_stats)``; it keeps its own copy of the layout and name rules.
 
 The port's native checkpoint, ``<dir>/<method>.pt``, is one ``torch.save``
-file: the model's state dict under reference names, the optimizer, the
-plateau scheduler, step, epoch, the loss records and a manifest, which
-records the saving run's strategy and world size, as the JAX
-package's does (checkpoint.py:122).
+file: the model's state dict under reference names, the optimizer (under
+``bf16_params`` with the f32 master weights), the plateau scheduler,
+step, epoch, the loss records, the trainer's small state (best val Dice,
+best val loss, stale epochs) and a manifest, which records the saving
+run's strategy, world size and precision policy, as the JAX package's
+does (checkpoint.py:122, :147-150). As in the JAX package
+(checkpoint.py:184-400):
+
+* each file ends in a footer with the SHA-256 of what precedes it
+  (``torch.load`` reads the file as it is: the footer follows the zip
+  archive); a restore verifies it and falls back to the newest intact
+  file of the chain, with a warning;
+* a save keeps the newest ``keep`` files of the path, ``<tag>.pt``,
+  ``<tag>.pt.1``, …, rotated under one lock;
+* ``host_snapshot`` copies the state to the host in the calling thread;
+  ``write_payload`` writes it there, ``save_native_async`` on one
+  background writer thread in submission order, its future raising the
+  write's error.
 The state is replicated over DDP's ranks, so the main process writes it
 and a run at any world size restores it. Under ``-t MP`` each stage's
 layers live on its own device and ``state_dict()`` gathers them under
@@ -30,11 +44,20 @@ the optimizer's state follows its parameter's). A JAX
 
 from __future__ import annotations
 
+import hashlib
+import io
+import itertools
+import logging
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+import queue as queue_mod
+import threading
+from concurrent.futures import Future
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 # ConvBlock map: JAX path prefix → reference tensor stem; the two convs
 # of a block sit at Sequential indices 0/2.
@@ -74,6 +97,10 @@ def resolve_checkpoint(name: str, checkpoint_dir: str = "./checkpoints",
         cand = os.path.join(checkpoint_dir, f"{base}{ext}")
         if os.path.isfile(cand):
             return cand
+        if ext == NATIVE_EXT and retained_checkpoints(cand):
+            # the live slot is empty but the chain survives: the restore
+            # walks it from the primary path
+            return cand
     raise FileNotFoundError(os.path.join(checkpoint_dir, f"{base}{exts[0]}"))
 
 
@@ -102,9 +129,12 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
 
 
 def save_pth(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
-    """Write a reference-format ``.pth`` (CPU tensors, reference names)."""
+    """Write a reference-format ``.pth`` (CPU tensors, reference names,
+    floating tensors in float32 as the reference's are)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    torch.save({k: (v.detach().cpu().float() if v.is_floating_point()
+                    else v.detach().cpu())
+                for k, v in state_dict.items()}, path)
 
 
 # -- JAX params → state dict ---------------------------------------------------
@@ -217,33 +247,180 @@ def params_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
 
 # -- native save/resume --------------------------------------------------------
 
+_HASH_MAGIC = b"DPTSHA256"
+_FOOTER_LEN = len(_HASH_MAGIC) + 32
+_TMP_COUNTER = itertools.count()
+# one lock around every rotate, rename and prune of a retention chain: the
+# writer thread and a synchronous save may share a chain
+_RETENTION_LOCK = threading.Lock()
 
-def save_native(path: str, model: torch.nn.Module,
-                optimizer: torch.optim.Optimizer, scheduler_state: dict,
-                step: int, epoch: int, records_state: Optional[dict],
-                manifest: Mapping[str, Any]) -> None:
-    """Write the trainer's full state to ``path`` atomically (a temporary
-    file renamed into place): a crash mid-write leaves the previous file
-    whole."""
-    payload = {
-        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict(),
+
+class CheckpointCorruptError(ValueError):
+    """A checkpoint file whose content hash does not verify, or that does
+    not parse."""
+
+
+def retained_checkpoints(path: str) -> List[str]:
+    """The retention chain on disk, newest first: ``path``, ``path.1``, …
+    (the restore's fallback order)."""
+    out = [path] if os.path.exists(path) else []
+    for i in range(1, 64):
+        cand = f"{path}.{i}"
+        if os.path.exists(cand):
+            out.append(cand)
+    return out
+
+
+def _rotate_retained(path: str, keep: int) -> None:
+    """``path`` → ``path.1`` → … → ``path.(keep-1)``; ``keep <= 1`` keeps
+    the live file only."""
+    if keep <= 1 or not os.path.exists(path):
+        return
+    for i in range(keep - 1, 0, -1):
+        src = path if i == 1 else f"{path}.{i - 1}"
+        if os.path.exists(src):
+            os.replace(src, f"{path}.{i}")
+
+
+def _prune_retained(path: str, keep: int) -> None:
+    for i in range(max(1, keep), 64):
+        stale = f"{path}.{i}"
+        if os.path.exists(stale):
+            os.remove(stale)
+
+
+def _detached_copy(obj):
+    """``obj`` with every tensor copied to the host, so later steps cannot
+    change what is written (a CPU tensor is cloned, not shared)."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        return t.clone() if t.device.type == "cpu" else t.cpu()
+    if isinstance(obj, dict):
+        return {k: _detached_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_detached_copy(v) for v in obj)
+    return obj
+
+
+def host_snapshot(model: torch.nn.Module, optimizer, scheduler_state: dict,
+                  step: int, epoch: int, records_state: Optional[dict],
+                  manifest: Mapping[str, Any],
+                  train_meta: Optional[dict] = None) -> Dict[str, Any]:
+    """The trainer's full state as a payload of host tensors, taken now:
+    the part of a save that must happen in the step loop's thread."""
+    return {
+        "model": _detached_copy(model.state_dict()),
+        "optimizer": _detached_copy(optimizer.state_dict()),
         "scheduler": dict(scheduler_state),
         "step": int(step),
         "epoch": int(epoch),
         "records": records_state,
+        "train_meta": dict(train_meta or {}),
         "manifest": {"format": NATIVE_FORMAT, **manifest},
     }
+
+
+def write_payload(path: str, payload: Mapping[str, Any], keep: int = 1
+                  ) -> str:
+    """Serialize ``payload``, append the hash footer and write ``path``
+    atomically (a uniquely named temporary file renamed into place),
+    rotating the chain first so the previous file survives as
+    ``path.1`` and pruning it to ``keep`` files."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    buf = io.BytesIO()
+    torch.save(dict(payload), buf)
+    blob = buf.getvalue()
+    tmp = f"{path}.tmp.{os.getpid()}.{next(_TMP_COUNTER)}"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+        f.write(_HASH_MAGIC)
+        f.write(hashlib.sha256(blob).digest())
+    with _RETENTION_LOCK:
+        _rotate_retained(path, keep)
+        os.replace(tmp, path)
+        _prune_retained(path, keep)
+    return path
+
+
+_writer_lock = threading.Lock()
+_writer_queue: Optional[queue_mod.Queue] = None
+
+
+def _writer_loop(q: queue_mod.Queue) -> None:
+    while True:
+        fut, path, payload, keep = q.get()
+        if not fut.set_running_or_notify_cancel():
+            continue
+        try:
+            fut.set_result(write_payload(path, payload, keep=keep))
+        except BaseException as exc:  # raised by fut.result()
+            fut.set_exception(exc)
+
+
+def save_native_async(path: str, payload: Mapping[str, Any],
+                      keep: int = 1) -> Future:
+    """``write_payload`` on the background writer thread, saves written in
+    the order they are submitted; the future resolves to ``path`` when the
+    file is in place, or raises the write's error. ``payload`` is a
+    ``host_snapshot``, taken by the caller."""
+    global _writer_queue
+    with _writer_lock:
+        if _writer_queue is None:
+            _writer_queue = queue_mod.Queue()
+            threading.Thread(target=_writer_loop, args=(_writer_queue,),
+                             daemon=True, name="dpt-ckpt-writer").start()
+    fut: Future = Future()
+    _writer_queue.put((fut, path, payload, keep))
+    return fut
+
+
+def _read_verified(path: str) -> Dict[str, Any]:
+    """One file's payload, its hash verified when it has a footer (a file
+    without one loads unverified); a mismatch or an unreadable payload
+    raises ``CheckpointCorruptError``."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if (len(blob) > _FOOTER_LEN
+            and blob[-_FOOTER_LEN:-32] == _HASH_MAGIC):
+        body, digest = blob[:-_FOOTER_LEN], blob[-32:]
+        if hashlib.sha256(body).digest() != digest:
+            raise CheckpointCorruptError(
+                f"{path}: content hash mismatch (torn write or bit rot)")
+        blob = body
+    try:
+        return torch.load(io.BytesIO(blob), map_location="cpu",
+                          weights_only=True)
+    except Exception as exc:
+        raise CheckpointCorruptError(
+            f"{path}: unreadable payload: {exc}") from exc
+
+
+def read_payload(path: str) -> Dict[str, Any]:
+    """The payload of the newest intact file of ``path``'s chain, with a
+    warning when that is not ``path`` itself; raises
+    ``CheckpointCorruptError`` when none is intact."""
+    candidates = retained_checkpoints(path) or [path]
+    for cand in candidates:
+        try:
+            payload = _read_verified(cand)
+        except CheckpointCorruptError as exc:
+            logger.warning("checkpoint integrity failure: %s", exc)
+            continue
+        if cand != path:
+            logger.warning(
+                "checkpoint %s is corrupt or missing — restored the newest "
+                "intact retained file %s instead", path, cand)
+        return payload
+    raise CheckpointCorruptError(
+        f"no intact checkpoint among {candidates} — every candidate failed "
+        f"its integrity check")
 
 
 def load_native(path: str) -> Dict[str, Any]:
-    """A native checkpoint's payload, tensors on the CPU. Raises
-    ValueError for a file that is not one."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    """A native checkpoint's payload, tensors on the CPU, from the newest
+    intact file of ``path``'s chain. Raises ValueError for a file that is
+    not one."""
+    payload = read_payload(path)
     fmt = (payload.get("manifest") or {}).get("format") \
         if isinstance(payload, dict) else None
     if fmt != NATIVE_FORMAT:

@@ -6,10 +6,14 @@ implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
 ``--data-dir --synthetic --image-size --microbatches --stages
 --pipeline-cuts --pipeline-schedule --model --model-widths --wgrad-taps
 --dtype --kernels --device --grad-accum --num-workers --prefetch-batches
---checkpoint-dir``.
+--host-cache-mb --checkpoint-dir`` and the run control's ``--remat
+--steps-per-dispatch --nonfinite-policy --rollback-retries --save-best
+--early-stop --keep-checkpoints --sync-checkpoint --trace-timeline
+--export-pth``.
 ``--s2d-levels`` is accepted and has no effect (the port runs the pixel
-path). A flag the port does not implement is not defined, so argparse
-rejects it. The run writes ``./logs/<method>.log`` (message-only),
+path), and so is ``--export-pth``: the port writes ``<method>.pth`` at the
+end of every run. A flag the port does not implement is not defined, so
+argparse rejects it. The run writes ``./logs/<method>.log`` (message-only),
 ``./loss/<method>/``, ``<checkpoint-dir>/<method>.pt`` (resume with
 ``-c <method>``) and ``<checkpoint-dir>/<method>.pth`` (serve with
 ``python -m distributedpytorch_tpu_torch serve -c <method>``).
@@ -116,9 +120,11 @@ def get_args(argv=None):
                              "and --kernels cuda the convs with both "
                              "channel counts >= 128 take the 9-tap kernel")
     parser.add_argument("--dtype", type=str, default="bf16",
-                        choices=["f32", "bf16"],
+                        choices=["f32", "bf16", "bf16_params"],
                         help="Precision policy: bf16 conv compute with f32 "
-                             "params and loss (default), or f32")
+                             "params and loss (default), f32, or "
+                             "bf16_params (bf16 params on the device, f32 "
+                             "master weights in the optimizer)")
     parser.add_argument("--s2d-levels", type=int, default=-1,
                         help="Accepted for parity; the port always runs the "
                              "(equivalent) pixel path")
@@ -140,9 +146,54 @@ def get_args(argv=None):
     parser.add_argument("--prefetch-batches", type=int, default=2,
                         help="Batches copied to the card ahead of the step "
                              "(0 = inline)")
+    parser.add_argument("--host-cache-mb", type=int, default=1024,
+                        help="Host RAM budget (MiB) of the decoded-sample "
+                             "cache shared by the train and val loaders "
+                             "(0 = off)")
     parser.add_argument("--checkpoint-dir", type=str,
                         default="./checkpoints",
                         help="Where checkpoints and final weights go")
+    # run control
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute the forward in the backward "
+                             "(activation memory for about one more "
+                             "forward per step)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="Optimizer steps per dispatch: one CUDA graph "
+                             "of K steps on the card (-t singleGPU)")
+    parser.add_argument("--nonfinite-policy", type=str, default="abort",
+                        choices=["abort", "rollback", "skip"],
+                        help="On a non-finite train loss: abort (raise), "
+                             "rollback (reload the newest intact "
+                             "checkpoint, bounded by --rollback-retries), "
+                             "or skip (discard that step's update; reads "
+                             "every step's loss)")
+    parser.add_argument("--rollback-retries", type=int, default=2,
+                        help="Rollback budget of --nonfinite-policy "
+                             "rollback before aborting")
+    parser.add_argument("--save-best", action="store_true",
+                        help="Keep a separate <method>_best.pt at the "
+                             "highest validation Dice")
+    parser.add_argument("--early-stop", type=int, default=0, metavar="N",
+                        help="Stop when val loss has not improved for N "
+                             "consecutive epochs (0 = off)")
+    parser.add_argument("--keep-checkpoints", type=int, default=2,
+                        help="Retain the newest N checkpoint files per "
+                             "path; restore hash-verifies and falls back "
+                             "to the newest intact one")
+    parser.add_argument("--sync-checkpoint", action="store_true",
+                        help="Write checkpoints synchronously instead of on "
+                             "the background writer thread")
+    parser.add_argument("--trace-timeline", type=str, default=None,
+                        metavar="PATH",
+                        help="Append per-phase step-timeline spans "
+                             "(decode/stack/h2d/dispatch/readback) to this "
+                             "JSONL file (rank R of a multi-process run "
+                             "writes PATH.rankR); read it with "
+                             "utils.trace.summarize_timeline")
+    parser.add_argument("--export-pth", action="store_true",
+                        help="Accepted for parity: the port writes "
+                             "<method>.pth at the end of every run")
     return parser.parse_args(argv)
 
 
@@ -177,6 +228,16 @@ def to_config(args):
         checkpoint_name=args.checkpoint or args.load or None,
         synthetic_samples=args.synthetic,
         checkpoint_dir=args.checkpoint_dir,
+        host_cache_mb=args.host_cache_mb,
+        remat=args.remat,
+        steps_per_dispatch=args.steps_per_dispatch,
+        nonfinite_policy=args.nonfinite_policy,
+        rollback_retries=args.rollback_retries,
+        save_best=args.save_best,
+        early_stop_patience=args.early_stop,
+        keep_checkpoints=args.keep_checkpoints,
+        async_checkpoint=not args.sync_checkpoint,
+        timeline_path=args.trace_timeline,
     )
 
 
@@ -234,12 +295,20 @@ def main(argv=None) -> int:
     from distributedpytorch_tpu_torch.dist.runtime import shutdown
     from distributedpytorch_tpu_torch.parallel.strategy import (
         STRATEGIES,
+        check_run_control,
         unported_method_message,
     )
+    from distributedpytorch_tpu_torch.train.loop import check_config
 
     args = get_args(argv)
     if args.train_method not in STRATEGIES:
         raise SystemExit(unported_method_message(args.train_method))
+    try:
+        # the refusals, before any process group is joined
+        check_config(to_config(args))
+        check_run_control(to_config(args))
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
     try:
         info = start_runtime(args)
     except RuntimeError as exc:

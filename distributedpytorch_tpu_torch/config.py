@@ -1,8 +1,11 @@
 """Run configuration of the port.
 
 Counterpart of ``distributedpytorch_tpu/config.py``: ``TrainConfig`` with
-the ``-t singleGPU`` / ``-t DDP`` trainer's fields and ``ServeConfig``
-with the serving slice's, under the JAX package's names and defaults.
+the fields of the strategies the port trains and of the trainer's run
+control (checkpoint retention and async writes, ``--save-best``, early
+stop, the non-finite policies, remat, K steps per dispatch, the step
+timeline), and ``ServeConfig`` with the serving slice's, under the JAX
+package's names and defaults.
 """
 
 from __future__ import annotations
@@ -76,9 +79,44 @@ class TrainConfig:
     # -c: a native checkpoint to resume from, or a .pth to load weights from
     checkpoint_name: Optional[str] = None
     checkpoint_every_epochs: int = 1  # 0 = final save only
+    # keep a separate <method>_best.pt at the highest val Dice seen
+    save_best: bool = False
+    # the file write on a background thread (the host snapshot is taken
+    # in the step loop's thread); train() drains the writes before it
+    # returns. False = synchronous saves (--sync-checkpoint)
+    async_checkpoint: bool = True
+    # stop when the val loss has not improved for N epochs (0 = off)
+    early_stop_patience: int = 0
+    # the newest N files per checkpoint path (<tag>.pt, <tag>.pt.1, ...);
+    # a restore verifies each file's content hash and falls back to the
+    # newest intact one. 1 = overwrite in place
+    keep_checkpoints: int = 2
     metric_every_steps: int = 10  # a train loss row every N steps
     # one optimizer step per K loader batches, exact for the log-Dice loss
     grad_accum: int = 1
+
+    # -- resilience -----------------------------------------------------------
+    # on a non-finite train loss: "abort" raises when its row is read;
+    # "rollback" reloads the newest intact checkpoint in place and redoes
+    # its epoch, up to rollback_retries times (single process only);
+    # "skip" reads every step's loss and puts back the state from before
+    # a non-finite step (one host sync per step)
+    nonfinite_policy: str = "abort"
+    rollback_retries: int = 2
+
+    # -- memory and dispatch --------------------------------------------------
+    # recompute the forward in the backward (torch.utils.checkpoint):
+    # activation memory for about one more forward per step
+    remat: bool = False
+    # K optimizer steps per dispatch: on the card one CUDA graph of K
+    # whole steps, on the CPU K plain steps with one loss readback
+    steps_per_dispatch: int = 1
+
+    # -- observability --------------------------------------------------------
+    # the step timeline (utils/trace.py): per-phase host spans appended to
+    # this JSONL path; rank R of a multi-process run writes <path>.rankR.
+    # None = off
+    timeline_path: Optional[str] = None
 
     # -- model --------------------------------------------------------------
     # "unet" = the reference course model (7,760,097 params); "milesial" =
@@ -95,7 +133,9 @@ class TrainConfig:
     s2d_levels: int = -1
 
     # -- execution ----------------------------------------------------------
-    # precision policy (ops/precision.py): "bf16" or "f32" compute
+    # precision policy (ops/precision.py): "bf16" (bf16 compute, f32
+    # parameters), "f32", or "bf16_params" (bf16 parameters on the device,
+    # f32 master weights in the optimizer)
     dtype: str = "bf16"
     # kernel policy (ops/kernels.py): "cuda" trains through the loss
     # statistics kernel and its backward, evaluates through the statistics

@@ -13,7 +13,8 @@ JAX package's, epoch for epoch:
   ragged last one dropped under ``drop_last``.
 
 Batches are host numpy arrays, ``{'image': (B, H, W, 3) float32,
-'mask': (B, H, W) int32}``; the trainer copies them to the card.
+'mask': (B, H, W) int32}``; the trainer copies them to the card. Each
+batch's assembly is the timeline's ``decode`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from distributedpytorch_tpu_torch.utils.trace import NULL_TIMELINE
 
 Batch = Dict[str, np.ndarray]
 
@@ -64,7 +67,8 @@ class DataLoader:
     ``{'image': (H, W, C) float32, 'mask': (H, W) int32}``. With
     ``num_workers > 0`` whole batches decode on a thread pool, two ahead
     of the consumer; ``cache`` (a ``SampleCache``) serves samples decoded
-    in an earlier epoch."""
+    in an earlier epoch; ``tracer`` (a ``StepTimeline``) times each
+    batch's assembly as ``decode``."""
 
     def __init__(
         self,
@@ -77,8 +81,10 @@ class DataLoader:
         shard: ShardSpec = ShardSpec(),
         num_workers: int = 0,
         cache=None,
+        tracer=None,
     ):
         self.dataset = dataset
+        self.tracer = tracer or NULL_TIMELINE
         self.indices = (np.arange(len(dataset)) if indices is None
                         else np.asarray(indices))
         self.batch_size = int(batch_size)
@@ -116,6 +122,10 @@ class DataLoader:
 
     def load_slice(self, idx_list) -> Batch:
         """One batch: cached samples from host memory, the rest decoded."""
+        with self.tracer.span("decode", n=len(idx_list)):
+            return self._assemble(idx_list)
+
+    def _assemble(self, idx_list) -> Batch:
         items = {}
         for i in map(int, idx_list):
             item = self.cache.get(i) if self.cache is not None else None

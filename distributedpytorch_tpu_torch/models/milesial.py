@@ -231,8 +231,10 @@ class OutConv(nn.Module):
 class MilesialUNet(nn.Module):
     """inc → Down × L → Up × L → OutConv, L = ``len(widths) − 1``.
 
-    Parameters are float32; convs compute in ``dtype``; BatchNorm
-    statistics and normalization are float32. ``generator`` seeds flax's
+    Parameters are float32 (bf16 under ``bf16_params``, cast by
+    ``models.create_model``); convs compute in ``dtype``; BatchNorm
+    statistics and normalization are float32, a bf16 scale and bias
+    widened there. ``generator`` seeds flax's
     init (lecun-normal kernels, zero biases; BatchNorm scale 1, bias 0).
     ``wgrad_taps`` builds every 3×3 conv as a ``TapsConv2d`` with
     ``wgrad_cuda`` its leave for K5; ``conv_epilogue`` runs every

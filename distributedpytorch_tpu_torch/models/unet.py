@@ -13,9 +13,11 @@ float32 sigmoid. 7,760,097 parameters at the reference widths.
   (``encoder.conv{i}.conv_block.{0,2}``, ``mid.conv_block.{0,2}``,
   ``decoder.deconv{i}``, ``decoder.conv{i}.conv_block.{0,2}``,
   ``segmap``), so a reference ``.pth`` loads with ``load_state_dict``.
-* Parameters are float32; convolutions compute in ``dtype`` (bf16 by
-  default) with the weights cast at the call, as flax does for
-  ``nn.Conv(dtype=...)``. Convs, max-pool and the transposed conv go to
+* Parameters are float32, or bf16 under the ``bf16_params`` policy
+  (``models.create_model`` casts them); convolutions compute in ``dtype``
+  (bf16 by default) with the weights cast at the call, as flax does for
+  ``nn.Conv(dtype=...)``. ``models.Rematerialized`` recomputes the
+  forward in the backward under ``--remat``. Convs, max-pool and the transposed conv go to
   cuDNN through ``torch.nn.functional``.
 * The space-to-depth execution mode of the JAX package is a TPU layout
   rewrite of the same function; the port runs the pixel path only.

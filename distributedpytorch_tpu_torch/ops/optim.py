@@ -6,26 +6,91 @@ optimizes with ``optim.Adam(params, lr, weight_decay=1e-8)``: L2 folded
 into the gradient before the moment updates, which is what the JAX
 package's ``adam_l2`` chain (``add_decayed_weights`` → ``scale_by_adam``
 → ``-lr``) reproduces and ``torch.optim.Adam`` is.
+
+The optimizer is built through the precision policy: under
+``bf16_params`` Adam runs over the f32 master weights
+(``ops/precision.MasterWeights``). With ``capturable`` (the CUDA graph of
+K steps, ``train/steps.make_multi_train_step``) Adam keeps its step count
+and its learning rate in tensors on the card, as the JAX lr lives in the
+optimizer state: a graph reads the lr tensor at every replay, so
+``set_learning_rate`` writes into it rather than replacing it.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
+
+from distributedpytorch_tpu_torch.ops.precision import (
+    MasterWeights,
+    PrecisionPolicy,
+)
+
+
+def _adam(params, learning_rate: float, weight_decay: float,
+          capturable: bool) -> torch.optim.Adam:
+    params = list(params)
+    lr = learning_rate
+    if capturable:
+        lr = torch.tensor(float(learning_rate), dtype=torch.float32,
+                          device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=capturable)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    learning_rate: float,
-                   weight_decay: float = 1e-8) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+                   weight_decay: float = 1e-8,
+                   policy: Optional[PrecisionPolicy] = None,
+                   capturable: bool = False):
+    """``torch.optim.Adam`` over ``params``, or under a master-weight
+    ``policy`` over their f32 master copy."""
+    if policy is not None and policy.master_weights:
+        return MasterWeights(params, lambda master: _adam(
+            master, learning_rate, weight_decay, capturable))
+    return _adam(params, learning_rate, weight_decay, capturable)
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+def set_learning_rate(optimizer, lr: float) -> None:
+    """The lr of every param group. A capturable group's lr is a tensor on
+    its parameters' device, written in place (a tensor from elsewhere, as
+    ``load_state_dict`` leaves a checkpoint's, is replaced by one)."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if not group.get("capturable"):
+            group["lr"] = float(lr)
+            continue
+        device = group["params"][0].device
+        current = group["lr"]
+        if isinstance(current, torch.Tensor) and current.device == device:
+            current.fill_(float(lr))
+        else:
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                       device=device)
 
 
-def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+def load_optimizer_state(optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` with this run's ``capturable``
+    kept. torch takes each param group whole from the state, so a
+    checkpoint of another ``--steps-per-dispatch`` or device would leave
+    a K-step graph a non-capturable Adam, or a run on the CPU a
+    capturable one. The lr and Adam's step counts then go where this
+    run's arithmetic reads them: on the parameters' device when
+    capturable, a float and on the CPU otherwise."""
+    capturable = [bool(g.get("capturable")) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, cap in zip(optimizer.param_groups, capturable):
+        device = group["params"][0].device if cap else torch.device("cpu")
+        lr = float(group["lr"])
+        group["capturable"] = cap
+        group["lr"] = (torch.tensor(lr, dtype=torch.float32, device=device)
+                       if cap else lr)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(device=device,
+                                           dtype=torch.float32)
+
+
+def get_learning_rate(optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])

@@ -58,6 +58,16 @@ JAX package does:
   the global loss's; 1f1b feeds every rank the global cotangent from
   phase A, so each rank holds its share once and the ranks' sum is.
 
+* **Run control.** ``remat`` recomputes each stage's forward in its
+  backward (``models.Rematerialized``, JAX ``_build_stage_fns``
+  pipeline.py:230-276), under both schedules: gpipe keeps each stage's
+  input carries only, and 1f1b's backward units run their stage once more
+  inside autograd's backward. The seeds (gpipe's loss, 1f1b's
+  cotangent) carry the policy's ``backward_scale``: under master weights
+  (``bf16_params``) each unit's bf16 gradients add up in the f32 master
+  gradients, the data ranks sum those, and the master's step scales
+  them, the JAX policy's order.
+
 ``LiveCarries`` counts what each stage holds for its backward, per tick:
 the input carries under 1f1b, the microbatches whose graph autograd keeps
 under gpipe.
@@ -74,6 +84,7 @@ from distributedpytorch_tpu_torch.dist.collectives import (
     all_reduce_sum,
     sum_over_ranks_,
 )
+from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.models.milesial import (
     BatchNormAct,
     frozen_running_stats,
@@ -83,10 +94,15 @@ from distributedpytorch_tpu_torch.ops.fused_loss import (
     stats_function,
 )
 from distributedpytorch_tpu_torch.ops.losses import loss_from_stats
+from distributedpytorch_tpu_torch.ops.precision import (
+    backward_scale,
+    optimizer_grads,
+)
 from distributedpytorch_tpu_torch.train.steps import (
     Batch,
     batch_metrics,
     prep_mask,
+    scaled,
 )
 
 PIPELINE_SCHEDULES = ("gpipe", "1f1b")
@@ -207,6 +223,8 @@ def fill_drain(stages: Sequence[Stage], inputs: Sequence[Carry],
     microbatch's output ``y`` in microbatch order, on the last stage's
     device; ``live`` counts every stage forward as held."""
     num_stages, num_mb = len(stages), len(inputs)
+    # a stage or its Rematerialized wrapper
+    devices = [getattr(st, "module", st).device for st in stages]
     edge: List[Optional[Carry]] = [None] * (num_stages - 1)
     outs = []
     for tick in range(num_mb + num_stages - 1):
@@ -220,7 +238,7 @@ def fill_drain(stages: Sequence[Stage], inputs: Sequence[Carry],
                 live.hold(s)
             out = stage(carry)
             if s < num_stages - 1:
-                sent[s] = _carry_to(out, stages[s + 1].device)
+                sent[s] = _carry_to(out, devices[s + 1])
             else:
                 outs.append(finish(m, out[0]))
         edge = sent
@@ -279,15 +297,12 @@ def _summed(per_mb: Sequence[torch.Tensor]) -> torch.Tensor:
     return stats
 
 
-def _reduce_grads(params: Sequence[nn.Parameter], mean: bool) -> None:
-    """Every parameter's gradient summed (``mean``: averaged) over the
-    data ranks, one flat all-reduce per stage device (JAX
-    ``_reduce_grads``); a parameter without one contributes zeros, so
-    every rank reduces the same tensors."""
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    sum_over_ranks_([p.grad for p in params], mean=mean)
+def _reduce_grads(grads: Sequence[torch.Tensor], mean: bool) -> None:
+    """The step's gradients (``optimizer_grads``: one per parameter, zeros
+    where there is none, so every rank reduces the same tensors) summed
+    (``mean``: averaged) over the data ranks, one flat all-reduce per
+    stage device (JAX ``_reduce_grads``)."""
+    sum_over_ranks_(list(grads), mean=mean)
 
 
 def _running_stats(model: nn.Module) -> List[torch.Tensor]:
@@ -316,6 +331,7 @@ def make_pipeline_train_step(
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
     data_parallel: bool = False,
+    remat: bool = False,
 ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> unscaled loss`` (on the last stage's device) of
     the ``schedule`` over ``stages``, then Adam. Each microbatch's
@@ -326,7 +342,8 @@ def make_pipeline_train_step(
     ``data_parallel`` makes the ranks of the default group data replicas
     of this pipeline (the module docstring's three seams): the loss is
     the global batch's, the same on every rank. ``step.live`` is the
-    schedule's ``LiveCarries``."""
+    schedule's ``LiveCarries``. ``remat`` recomputes each stage in its
+    backward."""
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(
             f"pipeline schedule must be one of {PIPELINE_SCHEDULES}, "
@@ -340,6 +357,7 @@ def make_pipeline_train_step(
     live = LiveCarries(num_stages)
     params = list(model.parameters())
     running = _running_stats(model) if data_parallel else []
+    runs = [rematerialized(stage, remat) for stage in stages]
 
     def open_step() -> List[torch.Tensor]:
         model.train()
@@ -348,7 +366,7 @@ def make_pipeline_train_step(
 
     def close_step(before: List[torch.Tensor], mean: bool) -> None:
         if data_parallel:
-            _reduce_grads(params, mean)
+            _reduce_grads(optimizer_grads(optimizer, params), mean)
             if running:
                 _combine_bn(running, before)
         optimizer.step()
@@ -356,12 +374,12 @@ def make_pipeline_train_step(
     def gpipe_step(batch: Batch) -> torch.Tensor:
         before = open_step()
         inputs, target, rows = _split(batch, num_mb, last)
-        per_mb = fill_drain(stages, inputs,
+        per_mb = fill_drain(runs, inputs,
                             lambda m, y: stats_fn(y, target[rows(m)]), live)
         stats = _summed(per_mb)
         loss = loss_from_stats(all_reduce_sum(stats) if data_parallel
                                else stats)
-        (loss * scale if scale != 1.0 else loss).backward()
+        scaled(loss, backward_scale(optimizer, scale)).backward()
         live.release_all()
         # the statistics' all-reduce summed the cotangent over the ranks
         close_step(before, mean=True)
@@ -381,7 +399,8 @@ def make_pipeline_train_step(
             summed = _summed(per_mb)
             if data_parallel:
                 summed = all_reduce_sum(summed)
-        loss, ct = loss_and_cotangent(summed, scale)
+        loss, ct = loss_and_cotangent(summed,
+                                      backward_scale(optimizer, scale))
         # phase B: forward of (s, m) on tick s+2m, backward on tick
         # 2S-1-s+2m; one stage's two tick sets have opposite parities
         saved: Dict[Tuple[int, int], Carry] = {}
@@ -409,10 +428,10 @@ def make_pipeline_train_step(
                         live.release(s)
                         if s == num_stages - 1:
                             grads = _backward_unit(
-                                stage, carry, s > 0, ct,
+                                runs[s], carry, s > 0, ct,
                                 finish=lambda y, m=m: stats(m, y))
                         else:
-                            grads = _backward_unit(stage, carry, s > 0,
+                            grads = _backward_unit(runs[s], carry, s > 0,
                                                    bwd[s])
                         if s > 0:
                             sent_bwd[s - 1] = _carry_to(

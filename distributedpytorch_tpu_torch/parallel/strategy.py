@@ -32,6 +32,19 @@ replica's forward is local to its device (the JAX DP keeps XLA BatchNorm
 and XLA eval metrics there). Under DDP_MP each rank's pipeline runs them
 as MP does, K1 and K1-bwd per microbatch inside the data ranks' sum of
 the statistics, and K2 and K3 fed each microbatch's local moments.
+
+The run control (``check_run_control``): ``--remat`` recomputes the
+forward of the step (singleGPU, DDP, ``--grad-accum``) or of each stage
+(MP, DDP_MP, both schedules) in its backward, and is refused under DP,
+whose recompute would enter the replicas' BatchNorm meeting a second time
+on the autograd threads. ``--steps-per-dispatch K > 1`` (one CUDA graph
+of K steps, ``build_multi_train_step``) runs under singleGPU only.
+``--dtype bf16_params`` runs under every strategy; under DDP the
+gradients are averaged over the ranks in ``REDUCE_DTYPE`` and rounded to
+bf16 once (``_allreduce_master_grads``), which is where the compiled JAX
+DDP step sums them too (its gradient all-reduce is float32 on the CPU
+mesh), and DDP_MP's stage gradients are reduced as the f32 master
+gradients.
 """
 
 from __future__ import annotations
@@ -41,15 +54,22 @@ import logging
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from distributedpytorch_tpu_torch.data.loader import ShardSpec
 from distributedpytorch_tpu_torch.dist import runtime
 from distributedpytorch_tpu_torch.dist.collectives import sum_over_ranks_
+from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     fused_bce_dice_loss,
     make_sharded_loss,
 )
 from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
+from distributedpytorch_tpu_torch.ops.precision import (
+    REDUCE_DTYPE,
+    get_policy,
+    has_master_weights,
+)
 from distributedpytorch_tpu_torch.parallel.pipeline import (
     PIPELINE_SCHEDULES,
     build_stages,
@@ -60,6 +80,7 @@ from distributedpytorch_tpu_torch.parallel.replicas import Replicated
 from distributedpytorch_tpu_torch.train.steps import (
     make_accum_train_step,
     make_eval_step,
+    make_multi_train_step,
     make_train_step,
 )
 from distributedpytorch_tpu_torch.utils.device import resolve_device
@@ -147,9 +168,11 @@ class Strategy:
         """What the checkpoint manifest records of the saving run."""
         return {"strategy": self.name, "world": self.world}
 
-    def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
-        """The module the train step drives (the model itself here)."""
-        return model
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The module the train step of ``optimizer`` drives: the model
+        itself, recomputed in the backward under ``--remat``."""
+        return rematerialized(model, self.config.remat)
 
     def train_loss(self, fused: bool) -> Callable:
         """``loss(preds, target)``: through K1 / K1-bwd when ``fused``."""
@@ -167,7 +190,8 @@ class Strategy:
         the faithful scale is the per-process ``batch_size``
         (strategy.py:303-314)."""
         return make_train_step(
-            self.wrap_model(model), optimizer, self.config.batch_size,
+            self.wrap_model(model, optimizer), optimizer,
+            self.config.batch_size,
             self.config.faithful_loss_scaling,
             loss_impl=self.train_loss(kernels.train_loss_fused))
 
@@ -176,7 +200,16 @@ class Strategy:
         return make_accum_train_step(
             model, optimizer, self.config.batch_size, self.config.grad_accum,
             self.config.faithful_loss_scaling, kernels.train_loss_fused,
-            sum_over_ranks=self.sum_over_ranks)
+            sum_over_ranks=self.sum_over_ranks, remat=self.config.remat)
+
+    def build_multi_train_step(self, model, optimizer, kernels) -> Callable:
+        """``multi(stacked) -> (K,) losses``: ``steps_per_dispatch`` train
+        steps per call, one CUDA graph of them on the card
+        (``train/steps.MultiStep``; ``check_run_control`` keeps it to
+        singleGPU)."""
+        return make_multi_train_step(
+            self.build_train_step(model, optimizer, kernels),
+            self.config.steps_per_dispatch, self.device)
 
     def build_eval_step(self, model, kernels) -> Callable:
         """``step(batch) -> {'loss', 'dice'}`` on this process's device."""
@@ -221,7 +254,8 @@ class DataParallel(Strategy):
         return {"strategy": self.name, "world": self.world,
                 "devices": len(self.devices)}
 
-    def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
         return Replicated(model, self.devices)
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
@@ -279,7 +313,10 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
     def drop_last_train(self) -> bool:
         return True
 
-    def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The DDP-wrapped model; under master weights its gradients are
+        reduced through ``optimizer``'s f32 master gradients."""
         from torch.nn.parallel import DistributedDataParallel as DDP
 
         from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
@@ -289,14 +326,47 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
                 module.global_stats = True
         # the running statistics are computed from global moments, so
         # they are equal on every rank already: nothing to broadcast
-        return DDP(model, broadcast_buffers=False,
-                   device_ids=([self.device.index]
-                               if self.device.type == "cuda" else None))
+        ddp = DDP(rematerialized(model, self.config.remat),
+                  broadcast_buffers=False,
+                  device_ids=([self.device.index]
+                              if self.device.type == "cuda" else None))
+        if get_policy(self.config).master_weights:
+            if not has_master_weights(optimizer):
+                raise ValueError(
+                    f"-t DDP --dtype {self.config.dtype}: wrap_model needs "
+                    f"the master-weights optimizer the step drives")
+            ddp.register_comm_hook(optimizer, _allreduce_master_grads)
+        return ddp
 
     def train_loss(self, fused: bool) -> Callable:
         return make_sharded_loss(fused)
 
     sum_over_ranks = staticmethod(sum_over_ranks_)
+
+
+def _allreduce_master_grads(optimizer, bucket):
+    """DDP's communication hook under master weights. Autograd's hook has
+    moved each bf16 gradient into its f32 master gradient already
+    (``MasterWeights``), so the bucket DDP filled from the parameters
+    holds zeros: the masters' gradients of its parameters are averaged
+    over the ranks instead, in ``REDUCE_DTYPE``, and rounded to the
+    parameters' dtype once, as the JAX DDP step all-reduces its bf16
+    gradient in float32 (DDP's own hook would sum a bf16 bucket in bf16).
+    DDP writes the zero bucket back as the parameters' gradients, which
+    the master's step adds in: nothing."""
+    buffer = bucket.buffer()
+    grads = optimizer.master_grads(bucket.parameters())
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat.div_(dist.get_world_size())
+    fut = dist.all_reduce(flat, async_op=True).get_future()
+
+    def narrow(done):
+        mean = done.value()[0].to(buffer.dtype).to(REDUCE_DTYPE)
+        for g, t in zip(grads, mean.split([g.numel() for g in grads])):
+            g.copy_(t.view_as(g))
+        return buffer
+
+    return fut.then(narrow)
 
 
 class Pipeline(Strategy):
@@ -351,7 +421,7 @@ class Pipeline(Strategy):
             model, self.stages, optimizer, cfg.batch_size,
             cfg.num_microbatches, cfg.pipeline_schedule,
             cfg.faithful_loss_scaling, kernels.train_loss_fused,
-            data_parallel=self.data_parallel)
+            data_parallel=self.data_parallel, remat=cfg.remat)
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
         raise ValueError(
@@ -448,6 +518,25 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
         return True
 
 
+def check_run_control(config) -> None:
+    """The run control's limits of the port, with their ROADMAP pointer:
+    ``--steps-per-dispatch K > 1`` runs under singleGPU only, and
+    ``--remat`` is refused under DP."""
+    method = config.train_method
+    k = int(config.steps_per_dispatch)
+    if k > 1 and method != SingleDevice.name:
+        raise ValueError(
+            f"--steps-per-dispatch {k} runs under -t singleGPU only: the "
+            f"CUDA graph of K steps under -t {method} (NCCL and DDP's "
+            f"reducer, the pipeline's and the replicas' work inside a "
+            f"capture) is still to port (ROADMAP.md, Queue A)")
+    if config.remat and method == DataParallel.name:
+        raise ValueError(
+            "--remat under -t DP is not ported: the recompute would enter "
+            "the replicas' BatchNorm meeting a second time on the autograd "
+            "threads (ROADMAP.md, Queue A)")
+
+
 STRATEGIES = {cls.name: cls for cls in (
     SingleDevice, DataParallel, DistributedDataParallel, Pipeline,
     HybridDataPipeline)}
@@ -459,10 +548,11 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
     """``config.train_method`` → its strategy, on ``devices`` where one is
     given (DP, MP and each DDP_MP rank; every method takes its first as
     its device). The mesh specs, SP, DDP_SP, TP and FSDP raise with the
-    ROADMAP pointer."""
+    ROADMAP pointer, and so do the limits of ``check_run_control``."""
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
         raise ValueError(unported_method_message(config.train_method))
+    check_run_control(config)
     return cls(config, info, devices)
 
 

@@ -1,20 +1,23 @@
-"""The trainer: epoch loop, eval, scheduler, checkpoints.
+"""The trainer: epoch loop, eval, scheduler, checkpoints and run control.
 
-Counterpart of the ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` /
-``DDP_MP``,
-``nonfinite_policy="abort"`` subset of ``distributedpytorch_tpu/train/
-loop.py`` (``Trainer``, ``fit``). A strategy (``parallel/strategy.py``)
-says what differs between them, and builds the train and eval steps:
+Counterpart of ``distributedpytorch_tpu/train/loop.py`` (``Trainer``,
+``fit``) for ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` / ``DDP_MP``. A
+strategy (``parallel/strategy.py``) says what differs between them, and
+builds the train and eval steps:
 
 * per step: forward, backward and Adam with the batch-size loss-scaling
   quirk; the unscaled loss is recorded and stays on the card until its
   metrics row is read;
 * per epoch: eval → val row → ``scheduler.step(val_loss)`` → the new lr
-  on the optimizer; a native checkpoint every ``checkpoint_every_epochs``;
+  on the optimizer; ``--save-best`` writes ``<method>_best.pt`` on a
+  higher val Dice; a native checkpoint every ``checkpoint_every_epochs``;
+  ``--early-stop N`` ends the run after N epochs without a better val
+  loss, with a save (loop.py:1224-1254);
 * at the end: the final checkpoint, the loss tables and
   ``<checkpoint_dir>/<method>.pth`` in reference format (upstream
   milesial names for ``--model milesial``), which the serve CLI loads as
-  it is;
+  it is; ``train()`` returns once every async checkpoint write is on
+  disk, and raises a write's error (loop.py:504-561);
 * under DDP: each rank trains on its shard of every epoch
   (``ShardSpec(rank, world)``, the ragged batch dropped) with the lr
   times the world size, every step's loss is the global batch's and the
@@ -38,25 +41,43 @@ steps switch the model between train and eval mode.
 
 Host and card overlap: batches decode on the loader's threads, and a
 placement worker copies them from pinned memory to the card on a copy
-stream ``prefetch_batches`` ahead of the step loop; the step loop makes
-the compute stream wait for each copy's event. Nothing in the loop waits
-for the card except a metrics row falling due (for the previous row) and
-the per-epoch eval.
+stream ``prefetch_batches`` ahead of the step loop (a ``--grad-accum`` or
+``--steps-per-dispatch`` group as one stacked payload); the step loop
+makes the compute stream wait for each copy's event. Nothing in the loop
+waits for the card except a metrics row falling due (for the previous
+row), the per-epoch eval and the ``skip`` policy. Each of these phases is
+a span of the step timeline (``utils/trace.py``, ``--trace-timeline``):
+``decode``, ``stack``, ``h2d``, ``dispatch`` (the host's enqueue of a
+step) and ``readback``.
 
-A non-finite train loss raises ``NonFiniteLossError`` when its row is
-read. The split is the JAX package's (``seeded_split`` with seed 0, one
-split for every strategy), and the train order per epoch comes from
-``(seed, epoch)``, so a port run and a JAX run from the same weights see
-the same batches.
+``--steps-per-dispatch K`` groups K full batches into one call of the
+strategy's multi-step (one CUDA graph of K steps on the card, K plain
+steps on the CPU); its ``(K,)`` losses are read once per row. The ragged
+tail of an epoch runs as single steps on the same parameters and
+optimizer state (loop.py:991-1020).
+
+A non-finite train loss (``nonfinite_policy``, loop.py:609-670, :926,
+:961-990, :1256-1272): ``abort`` raises ``NonFiniteLossError`` when its
+row is read; ``rollback`` catches it in the epoch loop, reloads the newest
+intact checkpoint in place and redoes its epoch, up to
+``rollback_retries`` times, in a single process only; ``skip`` reads
+every step's loss and, where it is non-finite, puts back the state from
+before the step (parameters, optimizer state, BatchNorm buffers, step
+count) from a copy on the device. Under DDP every rank decides alike: the
+loss is the global batch's. The split is the JAX package's
+(``seeded_split`` with seed 0, one split for every strategy), and the
+train order per epoch comes from ``(seed, epoch)``, so a port run and a
+JAX run from the same weights see the same batches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import logging
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,11 +85,14 @@ import torch
 from distributedpytorch_tpu_torch.checkpoint import (
     NATIVE_EXT,
     TRAIN_EXTS,
+    host_snapshot,
     load_native,
     load_pth,
     resolve_checkpoint,
-    save_native,
+    retained_checkpoints,
+    save_native_async,
     save_pth,
+    write_payload,
 )
 from distributedpytorch_tpu_torch.config import TrainConfig
 from distributedpytorch_tpu_torch.data.dataset import (
@@ -82,13 +106,22 @@ from distributedpytorch_tpu_torch.models import create_model
 from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
 from distributedpytorch_tpu_torch.ops.optim import (
     get_learning_rate,
+    load_optimizer_state,
     make_optimizer,
     set_learning_rate,
+)
+from distributedpytorch_tpu_torch.ops.precision import (
+    POLICIES,
+    cast_params_,
+    convert_checkpoint_state,
+    get_policy,
+    has_master_weights,
 )
 from distributedpytorch_tpu_torch.ops.schedule import ReduceLROnPlateau
 from distributedpytorch_tpu_torch.parallel.strategy import (
     Strategy,
     build_strategy,
+    check_run_control,
 )
 from distributedpytorch_tpu_torch.utils.metrics import LossRecords
 from distributedpytorch_tpu_torch.utils.prefetch import (
@@ -96,8 +129,11 @@ from distributedpytorch_tpu_torch.utils.prefetch import (
     pipelined_placement,
     stacked_work,
 )
+from distributedpytorch_tpu_torch.utils.trace import StepTimeline, rank_path
 
 logger = logging.getLogger(__name__)
+
+NONFINITE_POLICIES = ("abort", "rollback", "skip")
 
 
 class NonFiniteLossError(RuntimeError):
@@ -111,6 +147,55 @@ class Placed:
 
     tensors: Dict[str, torch.Tensor]
     ready: Optional["torch.cuda.Event"] = None
+
+
+def check_config(config: TrainConfig) -> None:
+    """The JAX trainer's refusals, word for word (loop.py:246-265), and
+    the policy's name."""
+    if config.nonfinite_policy not in NONFINITE_POLICIES:
+        raise ValueError(
+            f"nonfinite_policy must be abort|rollback|skip, got "
+            f"{config.nonfinite_policy!r}"
+        )
+    if config.early_stop_patience < 0:
+        raise ValueError(
+            f"early_stop_patience must be >= 0 (0 = off), got "
+            f"{config.early_stop_patience}"
+        )
+    k_dispatch = max(1, int(config.steps_per_dispatch))
+    grad_accum = max(1, int(config.grad_accum))
+    if k_dispatch > 1 and grad_accum > 1:
+        raise ValueError(
+            "--steps-per-dispatch and --grad-accum both stack loader "
+            "batches with conflicting step semantics — choose one"
+        )
+    if config.nonfinite_policy == "skip" and (k_dispatch > 1
+                                              or grad_accum > 1):
+        raise ValueError(
+            "--nonfinite-policy skip discards one STEP's update, which "
+            "a fused dispatch / accumulated step cannot isolate — use "
+            "rollback or abort with --steps-per-dispatch/--grad-accum"
+        )
+
+
+class _Snapshot:
+    """A copy on the device of everything a step changes (policy
+    ``skip``): the model's parameters and buffers, and the optimizer's
+    state dict, the master weights with it. ``put_back`` restores it:
+    the model in place, the optimizer through its ``load_state_dict``,
+    which drops the state the step created."""
+
+    def __init__(self, model: torch.nn.Module, optimizer):
+        self.optimizer = optimizer
+        self.tensors = [*model.parameters(), *model.buffers()]
+        self.saved = [t.detach().clone() for t in self.tensors]
+        self.opt = copy.deepcopy(optimizer.state_dict())
+
+    @torch.no_grad()
+    def put_back(self) -> None:
+        for t, v in zip(self.tensors, self.saved):
+            t.copy_(v)
+        self.optimizer.load_state_dict(self.opt)
 
 
 class Trainer:
@@ -127,32 +212,60 @@ class Trainer:
                  initial_state: Optional[Dict[str, torch.Tensor]] = None,
                  strategy: Optional[Strategy] = None,
                  devices: Optional[Sequence[torch.device]] = None):
+        check_config(config)
+        check_run_control(config)
         self.config = config
         self.strategy = strategy or build_strategy(config, devices=devices)
         self.device = self.strategy.device
         self.kernels = get_kernel_policy(config.kernels, self.device)
+        self.policy = get_policy(config)
         self.dataset = dataset if dataset is not None else self._build_dataset()
+        # the step timeline: rank R of a multi-process run writes
+        # <path>.rankR; no path, no spans
+        rank = self.strategy.rank
+        self.tracer = StepTimeline(rank_path(config.timeline_path, rank),
+                                   rank=rank)
         # one decoded-sample cache for the train and val loaders
         cache = (SampleCache(int(config.host_cache_mb) * 2**20)
                  if config.host_cache_mb > 0 else None)
 
+        # float32 parameters first: under master weights the master is
+        # seeded from them before they are rounded to the policy's dtype,
+        # as the JAX create_train_state does
         model = create_model(
-            config, generator=torch.Generator().manual_seed(config.seed))
+            config, generator=torch.Generator().manual_seed(config.seed),
+            cast_params=False)
         if initial_state is not None:
             model.load_state_dict(initial_state)
         self.model = self.strategy.place_model(model)
+        self.k_dispatch = max(1, int(config.steps_per_dispatch))
+        self.grad_accum = max(1, int(config.grad_accum))
         lr0 = self.strategy.lr_for(config.learning_rate)
-        self.optimizer = make_optimizer(self.model.parameters(), lr0,
-                                        config.weight_decay)
+        # a CUDA graph of K steps reads Adam's lr and step from the card
+        self.optimizer = make_optimizer(
+            self.model.parameters(), lr0, config.weight_decay,
+            policy=self.policy,
+            capturable=self.k_dispatch > 1 and self.device.type == "cuda")
+        cast_params_(self.model, self.policy)
         self.scheduler = ReduceLROnPlateau(lr=lr0,
                                            patience=config.plateau_patience,
                                            factor=config.plateau_factor)
-        self.records = LossRecords(config.train_method, config.loss_dir,
-                                   every=config.metric_every_steps,
-                                   nonfinite_hook=self._on_nonfinite_loss)
+        self.records = self._new_records()
         self.step = 0
         self.start_epoch = 0
         self._last_saved_epoch: Optional[int] = None
+        # the trainer's small state that a checkpoint carries (train_meta)
+        self._best_dice = float("-inf")
+        self._best_loss = float("inf")
+        self._stale_epochs = 0
+        # counts down over the run, not per epoch: a run that keeps going
+        # non-finite aborts in the end
+        self._rollback_budget = int(config.rollback_retries)
+        self._skipped_steps = 0
+        # futures of async checkpoint writes, drained before train()
+        # returns
+        self._ckpt_futures: List = []
+        self.multi_step = None
         if config.checkpoint_name:
             self._restore(config.checkpoint_name)
 
@@ -169,14 +282,13 @@ class Trainer:
             self.dataset, indices=train_idx, batch_size=config.batch_size,
             shuffle=True, drop_last=self.strategy.drop_last_train,
             seed=config.seed, shard=self.strategy.data_shard(),
-            num_workers=config.num_workers, cache=cache,
+            num_workers=config.num_workers, cache=cache, tracer=self.tracer,
         )
         self.val_loader = DataLoader(
             self.dataset, indices=val_idx, batch_size=config.batch_size,
             shuffle=False, drop_last=True, num_workers=config.num_workers,
             cache=cache,
         )
-        self.grad_accum = max(1, int(config.grad_accum))
         # the strategy's steps: the DDP-wrapped model's under DDP, the
         # replicas' under DP, the schedule's under MP; self.model stays
         # the bare model, which saves and serves
@@ -187,6 +299,9 @@ class Trainer:
                 self.model, self.optimizer, self.kernels)
             if self.grad_accum > 1 else None
         )
+        if self.k_dispatch > 1:
+            self.multi_step = self.strategy.build_multi_train_step(
+                self.model, self.optimizer, self.kernels)
         self.eval_step = self.strategy.build_eval_step(self.model,
                                                        self.kernels)
         self.copy_stream = (torch.cuda.Stream(self.device)
@@ -204,10 +319,24 @@ class Trainer:
                              os.path.join(cfg.data_dir, cfg.masks_subdir),
                              cfg.image_size)
 
+    def _new_records(self) -> LossRecords:
+        cfg = self.config
+        return LossRecords(cfg.train_method, cfg.loss_dir,
+                           every=cfg.metric_every_steps,
+                           nonfinite_hook=self._on_nonfinite_loss,
+                           tracer=self.tracer)
+
+    def _ckpt_path(self, tag: Optional[str] = None) -> str:
+        tag = tag or self.config.train_method
+        return os.path.join(self.config.checkpoint_dir, f"{tag}{NATIVE_EXT}")
+
     @property
     def checkpoint_path(self) -> str:
-        return os.path.join(self.config.checkpoint_dir,
-                            f"{self.config.train_method}{NATIVE_EXT}")
+        return self._ckpt_path()
+
+    @property
+    def best_checkpoint_path(self) -> str:
+        return self._ckpt_path(f"{self.config.train_method}_best")
 
     @property
     def weights_path(self) -> str:
@@ -225,13 +354,24 @@ class Trainer:
                        if self.device.type == "cuda" else "cpu"),
         }
 
+    def _param_names(self) -> List[str]:
+        return [name for name, _ in self.model.named_parameters()]
+
     def _restore(self, name: str) -> None:
-        """``-c``: resume the full state from a native checkpoint, or load
-        the weights alone from a reference ``.pth``."""
+        """``-c``: resume the full state from a native checkpoint (the
+        newest intact file of its chain), converted from the policy it
+        was saved under to this run's; or load the weights alone from a
+        reference ``.pth`` (under master weights the master is seeded
+        from them, or the fresh init's master would win at the first
+        update)."""
         path = resolve_checkpoint(name, self.config.checkpoint_dir,
                                   exts=TRAIN_EXTS)
         if path.endswith(".pth"):
-            self.model.load_state_dict(load_pth(path))
+            weights = load_pth(path)
+            self.model.load_state_dict(weights)
+            if has_master_weights(self.optimizer):
+                self.optimizer.reseed_(
+                    [weights[n] for n in self._param_names()])
             logger.info("Loaded reference .pth weights from %s", path)
             return
         payload = load_native(path)
@@ -241,18 +381,31 @@ class Trainer:
             raise ValueError(
                 f"{path} holds a {arch!r} model; this run builds "
                 f"{self.config.model_arch!r} (--model)")
-        if saved.get("dtype") != self.config.dtype:
-            # parameters are float32 under both policies: nothing converts
-            logger.warning("resuming a %s checkpoint under --dtype %s",
-                           saved.get("dtype"), self.config.dtype)
-        self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        saved_policy = POLICIES.get(saved.get("dtype") or "bf16")
+        if saved_policy is None:
+            raise ValueError(f"{path} was saved under an unknown precision "
+                             f"policy {saved.get('dtype')!r}")
+        model_state, opt_state = convert_checkpoint_state(
+            saved_policy, self.policy, payload["model"],
+            payload["optimizer"], self._param_names(),
+            where=f"restore {path}")
+        self.model.load_state_dict(model_state)
+        load_optimizer_state(self.optimizer, opt_state)
         self.scheduler.load_state_dict(payload["scheduler"])
         set_learning_rate(self.optimizer, self.scheduler.lr)
         self.step = int(payload["step"])
         self.start_epoch = int(payload["epoch"])
         if payload.get("records"):
             self.records.load_state_dict(payload["records"])
+        else:  # nothing to resume: drop what this run recorded
+            self.records = self._new_records()
+        meta = payload.get("train_meta") or {}
+        self._best_dice = float(meta.get("best_dice", float("-inf")))
+        self._best_loss = float(meta.get("best_loss", float("inf")))
+        self._stale_epochs = int(meta.get("stale_epochs", 0))
+        if self.multi_step is not None:
+            # the optimizer's state tensors were replaced: capture again
+            self.multi_step.reset()
         logger.info("Resumed from %s at epoch %d (step %d)", path,
                     self.start_epoch, self.step)
         saved_world = saved.get("world", 1)
@@ -268,8 +421,9 @@ class Trainer:
 
     # -- placement --------------------------------------------------------------
     def _place(self, batch) -> Placed:
-        """A host batch → the card: pinned memory, copied on the copy
-        stream, an event at its end. On the CPU the arrays are shared."""
+        """A host batch (or a stacked group of them) → the card: pinned
+        memory, copied on the copy stream, an event at its end. On the CPU
+        the arrays are shared."""
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
         if self.copy_stream is None:
@@ -281,11 +435,6 @@ class Trainer:
             ready = torch.cuda.Event()
             ready.record(self.copy_stream)
         return Placed(tensors, ready)
-
-    def _place_work(self, kind: str, payload):
-        if kind == SINGLE:
-            return self._place(payload)
-        return [self._place(b) for b in payload]
 
     def _claim(self, placed: Placed) -> Dict[str, torch.Tensor]:
         """The placed tensors, usable on the current stream: it waits for
@@ -304,10 +453,58 @@ class Trainer:
 
     # -- failure policy -----------------------------------------------------------
     def _on_nonfinite_loss(self, step: int, value: float) -> None:
+        """LossRecords' hook for a non-finite loss read back. ``skip``
+        checks every step in the loop, so reaching here under it means an
+        unguarded path: log and go on. ``abort`` and ``rollback`` raise;
+        the epoch loop catches it for ``rollback``."""
+        if self.config.nonfinite_policy == "skip":
+            logger.warning(
+                "non-finite loss %s at step %d reached the metrics drain "
+                "under policy 'skip' (unguarded path) — continuing",
+                value, step)
+            return
         raise NonFiniteLossError(
-            f"non-finite train loss {value} at step {step} (policy=abort)")
+            f"non-finite train loss {value} at step {step} "
+            f"(policy={self.config.nonfinite_policy})")
+
+    def _try_rollback(self, exc: Exception) -> bool:
+        """``rollback``: reload the newest intact checkpoint in place and
+        let the epoch loop redo its epoch. False (the caller re-raises)
+        for another policy, a multi-process run, a spent budget or no
+        checkpoint."""
+        cfg = self.config
+        if cfg.nonfinite_policy != "rollback":
+            return False
+        if self.strategy.world > 1:
+            # ranks would race rank 0's write and could restore different
+            # epochs: the launcher's restart owns multi-process recovery
+            logger.error(
+                "rollback policy is single-process; multi-process runs "
+                "abort and rely on the launcher's restart loop")
+            return False
+        if self._rollback_budget <= 0:
+            logger.error(
+                "rollback budget exhausted (%d rollbacks used) — aborting",
+                cfg.rollback_retries)
+            return False
+        # the checkpoint may still be queued on the writer
+        self._drain_checkpoint_futures(raise_errors=False)
+        path = self.checkpoint_path
+        if not retained_checkpoints(path):
+            logger.error("rollback requested but no checkpoint at %s", path)
+            return False
+        self._rollback_budget -= 1
+        logger.warning("%s — rolling back to %s (%d retries left)", exc,
+                       path, self._rollback_budget)
+        self._restore(cfg.train_method)
+        self._last_saved_epoch = None
+        return True
 
     # -- checkpoints ---------------------------------------------------------------
+    def _train_meta(self) -> dict:
+        return {"best_dice": self._best_dice, "best_loss": self._best_loss,
+                "stale_epochs": self._stale_epochs}
+
     def save(self, epoch: int) -> None:
         """The native checkpoint at the end of ``epoch`` (once per epoch),
         written by the main process; the decision depends on the epoch
@@ -317,33 +514,158 @@ class Trainer:
         self._last_saved_epoch = epoch
         if not self.strategy.is_main:
             return
-        save_native(self.checkpoint_path, self.model, self.optimizer,
-                    self.scheduler.state_dict(), self.step, epoch,
-                    self.records.state_dict(), self._manifest())
+        self._save_tagged(self.checkpoint_path, epoch)
+
+    def _save_tagged(self, path: str, epoch: int) -> None:
+        """One save of the main process: the host snapshot here, the write
+        on the background writer (``async_checkpoint``) or here, keeping
+        the newest ``keep_checkpoints`` files of ``path``. An earlier async
+        write's error is raised now, and more than two writes in flight
+        wait for the oldest (loop.py:504-561)."""
+        cfg = self.config
+        if cfg.async_checkpoint:
+            for fut in [f for f in self._ckpt_futures if f.done()]:
+                self._ckpt_futures.remove(fut)
+                fut.result()
+            while len(self._ckpt_futures) > 2:
+                self._ckpt_futures.pop(0).result()
+        payload = host_snapshot(
+            self.model, self.optimizer, self.scheduler.state_dict(),
+            self.step, epoch, self.records.state_dict(), self._manifest(),
+            self._train_meta())
+        if cfg.async_checkpoint:
+            self._ckpt_futures.append(
+                save_native_async(path, payload, cfg.keep_checkpoints))
+        else:
+            write_payload(path, payload, cfg.keep_checkpoints)
+
+    def _drain_checkpoint_futures(self, raise_errors: bool) -> None:
+        """Wait for every queued write; the first error raises when asked
+        (a clean exit) and is logged otherwise (another error is already
+        unwinding)."""
+        futures, self._ckpt_futures = self._ckpt_futures, []
+        first = None
+        for fut in futures:
+            try:
+                fut.result()
+            except Exception as exc:  # noqa: BLE001 — raised below
+                logger.exception("async checkpoint write failed")
+                first = first or exc
+        if first is not None and raise_errors:
+            raise first
 
     # -- the loop ------------------------------------------------------------------
+    def _run_one(self, batch, placed: Placed) -> None:
+        tensors = self._claim(placed)
+        snapshot = (_Snapshot(self.model, self.optimizer)
+                    if self.config.nonfinite_policy == "skip" else None)
+        with self.tracer.span("dispatch", step=self.step + 1):
+            loss = self.train_step(tensors)
+        if snapshot is not None and not np.isfinite(float(loss)):
+            # the one host sync per step this policy costs
+            self._skipped_steps += 1
+            logger.warning("non-finite loss at step %d: update discarded "
+                           "(%d skipped so far)", self.step + 1,
+                           self._skipped_steps)
+            snapshot.put_back()
+            return
+        self.step += 1
+        # the images of the global batch, as the JAX loop counts
+        self.records.record_train(
+            self.step, loss, batch["image"].shape[0] * self.strategy.world)
+
+    def _run_stack(self, batches, placed: Placed) -> None:
+        stacked = self._claim(placed)
+        with self.tracer.span("dispatch", step=self.step + 1,
+                              k=len(batches)):
+            losses = self.multi_step(stacked)
+        # views into one (K,) tensor: a row reads them in one copy
+        for i, b in enumerate(batches):
+            self.step += 1
+            self.records.record_train(
+                self.step, losses[i],
+                b["image"].shape[0] * self.strategy.world)
+
+    def _run_accum(self, batches, placed: Placed) -> None:
+        stacked = self._claim(placed)
+        chunks = [{k: v[i] for k, v in stacked.items()}
+                  for i in range(len(batches))]
+        with self.tracer.span("dispatch", step=self.step + 1,
+                              k=len(batches)):
+            loss = self.accum_step(chunks)
+        self.step += 1
+        self.records.record_train(
+            self.step, loss,
+            sum(b["image"].shape[0] for b in batches) * self.strategy.world)
+
     def _train_epoch(self, epoch: int) -> None:
         cfg = self.config
+        stack_size = (self.k_dispatch if self.multi_step is not None
+                      else self.grad_accum)
+        run_stack = (self._run_stack if self.multi_step is not None
+                     else self._run_accum)
         source = pipelined_placement(
-            stacked_work(self.train_loader.epoch_batches(epoch),
-                         self.grad_accum, cfg.batch_size),
-            self._place_work, depth=cfg.prefetch_batches,
-            name="dpt-train-place",
+            stacked_work(self.train_loader.epoch_batches(epoch), stack_size,
+                         cfg.batch_size),
+            # a STACK arrives stacked by pipelined_placement: (K, B, ...)
+            lambda _kind, payload: self._place(payload),
+            depth=cfg.prefetch_batches,
+            name="dpt-train-place", tracer=self.tracer,
         )
         with contextlib.closing(source):
             for (kind, payload), placed in source:
                 if kind == SINGLE:
-                    loss = self.train_step(self._claim(placed))
-                    n_imgs = payload["image"].shape[0]
+                    self._run_one(payload, placed)
                 else:
-                    loss = self.accum_step([self._claim(p) for p in placed])
-                    n_imgs = sum(b["image"].shape[0] for b in payload)
-                self.step += 1
-                # the images of the global batch, as the JAX loop counts
-                self.records.record_train(self.step, loss,
-                                          n_imgs * self.strategy.world)
+                    run_stack(payload, placed)
 
-    def train(self) -> dict:
+    def _end_epoch(self, epoch: int) -> bool:
+        """Eval, the val row, the scheduler, ``--save-best``, the epoch's
+        checkpoint and ``--early-stop``; True when the run stops early."""
+        cfg = self.config
+        val_loss, val_dice = evaluate_sharded(
+            self.eval_step, self.val_loader, self.place_batch,
+            self.strategy.eval_shard())
+        self.val_loss, self.val_dice = val_loss, val_dice
+        self.records.record_val(self.step, val_loss, val_dice)
+        new_lr = self.scheduler.step(val_loss)
+        if not np.isclose(new_lr, get_learning_rate(self.optimizer),
+                          rtol=1e-6):
+            logger.info("Epoch %d: plateau → lr %.3e", epoch + 1, new_lr)
+            set_learning_rate(self.optimizer, new_lr)
+        logger.info(
+            "Epoch %d/%d: val loss %.4f, val dice %.4f (%.1f imgs/s)",
+            epoch + 1, cfg.epochs, val_loss, val_dice,
+            self.records.images_per_second(),
+        )
+        self.tracer.flush()
+        # val_dice is the same on every rank: all take this branch
+        if cfg.save_best and val_dice > self._best_dice:
+            self._best_dice = val_dice
+            if self.strategy.is_main:
+                self._save_tagged(self.best_checkpoint_path, epoch + 1)
+            logger.info("New best val Dice %.4f at epoch %d → %s", val_dice,
+                        epoch + 1, self.best_checkpoint_path)
+        if cfg.checkpoint_every_epochs and (
+                (epoch + 1) % cfg.checkpoint_every_epochs == 0):
+            self.save(epoch + 1)
+        if cfg.early_stop_patience:
+            # a NaN val loss (empty split) never counts as better
+            if val_loss < self._best_loss:
+                self._best_loss = val_loss
+                self._stale_epochs = 0
+            else:
+                self._stale_epochs += 1
+                if self._stale_epochs >= cfg.early_stop_patience:
+                    logger.info(
+                        "Early stop at epoch %d: val loss has not improved "
+                        "for %d epochs (best %.4f)", epoch + 1,
+                        self._stale_epochs, self._best_loss)
+                    self.save(epoch + 1)
+                    return True
+        return False
+
+    def _run(self) -> dict:
         cfg = self.config
         logger.info(
             "Training %s on %s (rank %d of %d): %d epochs, batch %d per "
@@ -354,37 +676,55 @@ class Trainer:
             get_learning_rate(self.optimizer), len(self.train_loader),
             self.kernels.name, cfg.dtype,
         )
-        val_loss = val_dice = float("nan")
-        for epoch in range(self.start_epoch, cfg.epochs):
-            self._train_epoch(epoch)
-            val_loss, val_dice = evaluate_sharded(
-                self.eval_step, self.val_loader, self.place_batch,
-                self.strategy.eval_shard())
-            self.records.record_val(self.step, val_loss, val_dice)
-            new_lr = self.scheduler.step(val_loss)
-            if not np.isclose(new_lr, get_learning_rate(self.optimizer),
-                              rtol=1e-6):
-                logger.info("Epoch %d: plateau → lr %.3e", epoch + 1, new_lr)
-                set_learning_rate(self.optimizer, new_lr)
-            logger.info(
-                "Epoch %d/%d: val loss %.4f, val dice %.4f (%.1f imgs/s)",
-                epoch + 1, cfg.epochs, val_loss, val_dice,
-                self.records.images_per_second(),
-            )
-            if cfg.checkpoint_every_epochs and (
-                    (epoch + 1) % cfg.checkpoint_every_epochs == 0):
-                self.save(epoch + 1)
-        self.save(cfg.epochs)
+        self.val_loss = self.val_dice = float("nan")
+        stopped_early = False
+        # while, not for: a rollback rewinds the epoch
+        epoch = self.start_epoch
+        while epoch < cfg.epochs:
+            try:
+                self._train_epoch(epoch)
+                if self._end_epoch(epoch):
+                    stopped_early = True
+                    break
+            except NonFiniteLossError as exc:
+                if not self._try_rollback(exc):
+                    raise
+                epoch = self.start_epoch  # the restore rewound it
+                continue
+            epoch += 1
+        if not stopped_early:
+            self.save(cfg.epochs)
+        if (cfg.save_best and self.strategy.is_main
+                and self._best_dice == float("-inf")):
+            logger.warning(
+                "--save-best: no epoch produced a finite val Dice "
+                "(empty/missing validation split?) — %s was never written",
+                self.best_checkpoint_path)
         if self.strategy.is_main:
             self.records.save()
             save_pth(self.model.state_dict(), self.weights_path)
         return {
-            "val_loss": val_loss,
-            "val_dice": val_dice,
+            "val_loss": self.val_loss,
+            "val_dice": self.val_dice,
             "steps": self.step,
             "images_per_second": self.records.images_per_second(),
             "n_train": self.train_loader.num_samples(),
+            # updates discarded by 'skip' and rollbacks used
+            "skipped_steps": self._skipped_steps,
+            "rollbacks": cfg.rollback_retries - self._rollback_budget,
         }
+
+    def train(self) -> dict:
+        """Run the epochs; returns once every checkpoint write is on disk
+        (a write's error raises here on a clean run)."""
+        ok = False
+        try:
+            result = self._run()
+            ok = True
+            return result
+        finally:
+            self.tracer.flush()
+            self._drain_checkpoint_futures(raise_errors=ok)
 
 
 def fit(config: TrainConfig, dataset=None) -> dict:

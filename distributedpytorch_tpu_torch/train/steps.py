@@ -19,7 +19,17 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
   running averages, as the JAX package's stateful steps do;
 * under ``-t DDP`` the strategy supplies the loss, one loss over the
   global batch, and the DDP-wrapped model; gradient accumulation sums
-  its statistics and gradients over the ranks (strategy.py:296-314).
+  its statistics and gradients over the ranks (strategy.py:296-314);
+* ``remat`` recomputes the forward in the backward
+  (``models.Rematerialized``); the loss stays outside the recomputed
+  region, so K1 and K1-bwd launch once per step as without it;
+* the precision policy's gradient contract (JAX steps.py:191-205) is
+  ``ops/precision``'s: the backward's seed carries the factor
+  ``backward_scale`` gives (``batch_size`` with float32 parameters, 1
+  under master weights, whose step widens and then scales), and
+  ``optimizer_grads`` are what the step reads;
+* ``make_multi_train_step`` runs K whole steps per call: on the card one
+  CUDA graph of them, on the CPU K plain steps.
 
 A step takes a batch already on the model's device and returns the loss
 as a 0-d tensor there: nothing in a step waits for the card.
@@ -31,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     fused_bce_dice_loss,
     loss_and_cotangent,
@@ -41,7 +52,11 @@ from distributedpytorch_tpu_torch.ops.losses import (
     bce_dice_loss,
     dice_coefficient,
 )
-from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
+from distributedpytorch_tpu_torch.ops.precision import (
+    LOSS_DTYPE,
+    backward_scale,
+    optimizer_grads,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -58,6 +73,10 @@ def is_stateful_model(model: torch.nn.Module) -> bool:
     return bool(getattr(model, "is_stateful", False))
 
 
+def scaled(t: torch.Tensor, scale: float) -> torch.Tensor:
+    return t * scale if scale != 1.0 else t
+
+
 def make_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -65,6 +84,7 @@ def make_train_step(
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
     loss_impl: Optional[Callable] = None,
+    remat: bool = False,
 ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> unscaled loss``: forward, loss, backward, Adam.
 
@@ -72,18 +92,20 @@ def make_train_step(
     single-device loss, fused under ``train_loss_fused``). Under DDP it
     is one loss over the global batch, the same on every rank, and
     ``model`` is the DDP-wrapped module, whose backward all-reduces the
-    gradients; the faithful scale stays the per-process ``batch_size``
+    gradients (the strategy wraps the rematerialized model there); the
+    faithful scale stays the per-process ``batch_size``
     (strategy.py:303-314)."""
     grad_scale = float(batch_size) if faithful_loss_scaling else 1.0
     if loss_impl is None:
         loss_impl = fused_bce_dice_loss if train_loss_fused else bce_dice_loss
+    forward = rematerialized(model, remat)
 
     def train_step(batch: Batch) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        preds = model(batch["image"])
+        preds = forward(batch["image"])
         loss = loss_impl(preds, prep_mask(batch["mask"]))
-        (loss * grad_scale if grad_scale != 1.0 else loss).backward()
+        scaled(loss, backward_scale(optimizer, grad_scale)).backward()
         optimizer.step()
         return loss.detach()
 
@@ -98,6 +120,7 @@ def make_accum_train_step(
     faithful_loss_scaling: bool = True,
     train_loss_fused: bool = False,
     sum_over_ranks: Optional[Callable[[List[torch.Tensor]], None]] = None,
+    remat: bool = False,
 ) -> Callable[[List[Batch]], torch.Tensor]:
     """One optimizer step over ``chunks`` batches with one batch's
     activations alive at a time, exact for the log-Dice loss, which does
@@ -120,6 +143,9 @@ def make_accum_train_step(
     statistics of pass 1 over the ranks, so ``ct`` is the global batch's,
     and after pass 2 the gradients, which then are the global loss's;
     ``model`` is the bare model and the faithful scale stays per process.
+    ``remat`` recomputes each chunk's forward in its backward. Under
+    master weights the chunks' bf16 gradients add up in the f32 master
+    gradients (``MasterWeights``, JAX steps.py:287).
     """
     if is_stateful_model(model):
         raise ValueError(
@@ -131,10 +157,11 @@ def make_accum_train_step(
                   else 1.0)
     stats_fn = stats_function(train_loss_fused)
     params = [p for p in model.parameters() if p.requires_grad]
+    forward = rematerialized(model, remat)
 
     def chunk_stats(chunk: Batch) -> torch.Tensor:
         model.train()
-        return stats_fn(model(chunk["image"]), prep_mask(chunk["mask"]))
+        return stats_fn(forward(chunk["image"]), prep_mask(chunk["mask"]))
 
     def accum_step(stack: List[Batch]) -> torch.Tensor:
         if len(stack) != chunks:
@@ -153,7 +180,7 @@ def make_accum_train_step(
         optimizer.zero_grad(set_to_none=True)
         for chunk in stack:
             chunk_stats(chunk).backward(ct)
-        grads = [p.grad for p in params if p.grad is not None]
+        grads = optimizer_grads(optimizer, params)
         if sum_over_ranks is not None:
             sum_over_ranks(grads)
         if grad_scale != 1.0:
@@ -162,6 +189,97 @@ def make_accum_train_step(
         return loss
 
     return accum_step
+
+
+def _row(stacked: Batch, i: int) -> Batch:
+    return {k: v[i] for k, v in stacked.items()}
+
+
+class MultiStep:
+    """``multi(stacked) -> losses``: ``steps`` whole train steps of
+    ``step`` over a ``(K, B, ...)`` stack, the ``(K,)`` unscaled losses
+    out (JAX ``make_multi_train_step``, steps.py:338-356). The same
+    function as K calls of ``step`` on the rows, in order.
+
+    On the card it is one CUDA graph of the K steps: forward, loss (K1),
+    backward (K1-bwd) and Adam, which must be capturable (``make_optimizer
+    (..., capturable=True)``). The first call runs the K steps eagerly on
+    the graph's own stream, which makes every lazily built state (Adam's
+    moments, cuDNN's and cuBLAS's handles, K1's per-stream workspace)
+    before the capture; the second captures them, reading static input
+    buffers, and every call from then on copies its stack into those
+    buffers on the current stream and replays the graph there. A capture
+    that fails raises: nothing falls back to eager steps. The kernel
+    wrappers count what they launch (``ops.kernels.LAUNCHES``): the
+    warm-up's kernels, and the capture's, which go into the graph once;
+    a replay runs the graph's kernels without a wrapper, and counts
+    nothing (``chip_smoke.py`` counts them by name in the profiler's
+    trace of a replay). ``reset()`` drops the graph (a restore replaced
+    the optimizer's state tensors); the next call warms up again.
+
+    On the CPU it is K plain steps; the losses still come back as one
+    ``(K,)`` tensor, so a metrics row reads them in one copy."""
+
+    def __init__(self, step: Callable[[Batch], torch.Tensor], steps: int,
+                 device: torch.device):
+        self.step = step
+        self.steps = int(steps)
+        self.device = torch.device(device)
+        self._stream = None
+        self.reset()
+
+    def reset(self) -> None:
+        self._graph = None
+        self._warm = False
+        self._static: Optional[Batch] = None
+        self._losses: Optional[torch.Tensor] = None
+
+    def _run(self, stacked: Batch) -> torch.Tensor:
+        return torch.stack([self.step(_row(stacked, i))
+                            for i in range(self.steps)])
+
+    def _warm_up(self, stacked: Batch) -> torch.Tensor:
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            losses = self._run(stacked)
+        current.wait_stream(self._stream)
+        losses.record_stream(current)
+        self._warm = True
+        return losses
+
+    def _capture(self, stacked: Batch) -> None:
+        self._static = {k: torch.empty_like(v) for k, v in stacked.items()}
+        graph = torch.cuda.CUDAGraph()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._losses = self._run(self._static)
+        self._graph = graph
+
+    def __call__(self, stacked: Batch) -> torch.Tensor:
+        k = stacked["image"].shape[0]
+        if k != self.steps:
+            raise ValueError(f"stack carries {k} batches but this step was "
+                             f"built for steps_per_dispatch={self.steps}")
+        if self.device.type != "cuda":
+            return self._run(stacked)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        if not self._warm:
+            return self._warm_up(stacked)
+        if self._graph is None:
+            self._capture(stacked)
+        for key, v in stacked.items():
+            self._static[key].copy_(v)
+        self._graph.replay()
+        return self._losses.clone()
+
+
+def make_multi_train_step(step: Callable[[Batch], torch.Tensor], steps: int,
+                          device: torch.device) -> MultiStep:
+    """K = ``steps`` train steps of ``step`` per call (``MultiStep``)."""
+    return MultiStep(step, steps, device)
 
 
 def batch_metrics(preds: torch.Tensor, target: torch.Tensor,

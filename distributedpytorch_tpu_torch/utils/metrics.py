@@ -9,8 +9,11 @@ pickles ``<loss_dir>/<method>/{train,val}_loss.pkl`` with columns
 The step's losses stay 0-d tensors on the device. When a row falls due
 its window is stacked and its copy to the host starts (pinned memory, no
 wait); the row is read at the next row boundary or flush, when its steps
-are long done. pandas loads only in ``save``; without it the same rows go
-to ``.json`` files beside the pickle paths.
+are long done; reading them is the timeline's ``readback`` span
+(``utils/trace.py``). A loss may also be a view into a ``(K,)`` tensor of
+K steps' losses: a row's window is then still one copy. pandas loads only
+in ``save``; without it the same rows go to ``.json`` files beside the
+pickle paths.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from distributedpytorch_tpu_torch.utils.trace import NULL_TIMELINE
 
 logger = logging.getLogger(__name__)
 
@@ -62,12 +67,15 @@ class LossRecords:
     """Accumulates train/val rows and writes them at the end of a run.
 
     ``nonfinite_hook(step, value)`` is called for the first non-finite
-    loss of each drained window; the trainer's hook raises."""
+    loss of each drained window; the trainer's hook raises. ``tracer``
+    (a ``StepTimeline``) times each read as ``readback``."""
 
     def __init__(self, method_tag: str, loss_dir: str = "./loss",
                  every: int = 10,
-                 nonfinite_hook: Optional[Callable[[int, float], None]] = None):
+                 nonfinite_hook: Optional[Callable[[int, float], None]] = None,
+                 tracer=None):
         self.method_tag = method_tag
+        self.tracer = tracer or NULL_TIMELINE
         self.loss_dir = loss_dir
         self.every = int(every)
         self.nonfinite_hook = nonfinite_hook
@@ -105,9 +113,13 @@ class LossRecords:
     def drain(self) -> None:
         """Read the pending rows and append them; the Time column keeps
         when each row fell due."""
+        if not self._pending_rows:
+            return
         pending, self._pending_rows = self._pending_rows, []
-        for step, ts, lo, hi, copy in pending:
-            window = _finish_copy(self.losses[lo:hi], copy)
+        with self.tracer.span("readback", rows=len(pending)):
+            windows = [_finish_copy(self.losses[lo:hi], copy)
+                       for _step, _ts, lo, hi, copy in pending]
+        for (step, ts, lo, hi, _copy), window in zip(pending, windows):
             self.losses[lo:hi] = window
             self.train_rows.append([step, ts, float(np.mean(window))])
             if self.nonfinite_hook is not None:

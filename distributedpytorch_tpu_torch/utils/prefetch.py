@@ -6,7 +6,10 @@ Counterpart of ``bounded_prefetch`` / ``pipelined_placement`` /
 server the work items are flushed request buckets, which ``place_fn``
 stacks, pads and copies to the claimed replica's card; for the trainer
 they are an epoch's batches (``stacked_work``), which it copies to the
-card ``depth`` items ahead of the step loop.
+card ``depth`` items ahead of the step loop: a ``STACK`` item's K batches
+are stacked into one ``(K, B, ...)`` payload there first. The stacking and
+the placement are the timeline's ``stack`` and ``h2d`` spans
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from __future__ import annotations
 import queue as queue_mod
 import threading
 from typing import Callable, Iterable, Iterator, Tuple, TypeVar
+
+import numpy as np
+
+from distributedpytorch_tpu_torch.utils.trace import NULL_TIMELINE
 
 T = TypeVar("T")
 R = TypeVar("R")
@@ -75,14 +82,27 @@ def pipelined_placement(
     place_fn: Callable[[str, object], object],
     depth: int = 2,
     name: str = "dpt-prefetch",
+    tracer=None,
 ) -> Iterator[Tuple[Tuple[str, object], object]]:
     """Yield ``(work_item, placed)`` with ``place_fn(kind, payload)``
     running up to ``depth`` items ahead on the prefetch worker;
-    ``depth <= 0`` places inline on the consumer thread."""
+    ``depth <= 0`` places inline on the consumer thread. A ``STACK``
+    item's batches reach ``place_fn`` as one dict of ``np.stack``-ed
+    arrays (the ``stack`` span), and the call is the ``h2d`` span of
+    ``tracer``."""
+    tracer = tracer or NULL_TIMELINE
+    counter = {"n": 0}
 
     def place(item):
         kind, payload = item
-        return place_fn(kind, payload)
+        seq = counter["n"]
+        counter["n"] += 1
+        if kind == STACK:
+            with tracer.span("stack", seq=seq):
+                payload = {key: np.stack([b[key] for b in payload])
+                           for key in payload[0]}
+        with tracer.span("h2d", seq=seq, kind=kind):
+            return place_fn(kind, payload)
 
     if depth <= 0:
         return ((item, place(item)) for item in work)

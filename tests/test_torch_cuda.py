@@ -10,6 +10,8 @@ imports nothing of JAX, so the card's machine runs it as it is:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -714,3 +716,175 @@ def test_milesial_kernels_equal_their_plain_versions_in_place(
     for s, t in zip(stats_k, stats_p):
         assert torch.equal(s, t)
     assert _rel_l2(grads_k, grads_p) <= 1e-4
+
+
+# -- run control: the CUDA graph of K steps, remat ------------------------------
+
+
+def _unet_trainer_parts(cuda_device, capturable=True):
+    """A small float32 UNet on the card under kernels cuda, its capturable
+    Adam and its train step."""
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    model = UNet(dtype=torch.float32, widths=(8, 16),
+                 generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    opt = make_optimizer(model.parameters(), 1e-3, capturable=capturable)
+    return model, opt, make_train_step(model, opt, 2, train_loss_fused=True)
+
+
+def _stacks(cuda_device, n, k=3):
+    rng = np.random.default_rng(0)
+    return [{"image": torch.from_numpy(rng.random((k, 2, 32, 48, 3),
+                                                  np.float32)).to(cuda_device),
+             "mask": torch.from_numpy((rng.random((k, 2, 32, 48)) > 0.6)
+                                      .astype(np.int32)).to(cuda_device)}
+            for _ in range(n)]
+
+
+def test_k_step_graph_equals_eager_steps_bitwise(cuda_device, monkeypatch):
+    """Three calls of the K = 3 multi-step (eager warm-up, capture and
+    replay, replay) against nine eager steps of the same capturable Adam
+    from the same weights: the nine losses and the weights bitwise equal.
+    cuDNN keeps to its deterministic algorithms here: at this size one of
+    its default ones adds in a run-dependent order, and two eager runs
+    already differ in the last bit. A replay runs three K1 and three
+    K1-bwd kernels, counted by name in the profiler's trace; the wrappers
+    count the warm-up's launches and the capture's, none at a replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    stacks = _stacks(cuda_device, 3)
+    model_e, _opt, step = _unet_trainer_parts(cuda_device)
+    eager = [float(step({k: v[i] for k, v in s.items()}))
+             for s in stacks for i in range(3)]
+    model_g, _opt, step = _unet_trainer_parts(cuda_device)
+    multi = make_multi_train_step(step, 3, cuda_device)
+    kernels.reset_launches()
+    graphed = []
+    for s in stacks:
+        graphed += [float(x) for x in multi(s)]
+    assert graphed == eager
+    for a, b in zip(model_e.parameters(), model_g.parameters()):
+        assert torch.equal(a, b)
+    # warm-up 3 + capture 3, each kernel
+    assert kernels.LAUNCHES["loss_stats"] == 6
+    assert kernels.LAUNCHES["loss_stats_bwd"] == 6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        multi(stacks[0])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(bool(re.search(r"\bstats_kernel\b", n)) for n in names) == 3
+    assert sum(bool(re.search(r"\bstats_bwd_kernel\b", n))
+               for n in names) == 3
+    assert kernels.LAUNCHES["loss_stats"] == 6
+
+
+def test_set_learning_rate_between_replays_changes_the_graphs_lr(
+        cuda_device):
+    """The lr is a tensor the graph reads at each replay: set to 0 the
+    replay leaves the weights (Adam's update and its L2 term both scale by
+    it), set back it moves them."""
+    from distributedpytorch_tpu_torch.ops.optim import (
+        get_learning_rate,
+        set_learning_rate,
+    )
+    from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
+
+    stacks = _stacks(cuda_device, 4)
+    model, opt, step = _unet_trainer_parts(cuda_device)
+    multi = make_multi_train_step(step, 3, cuda_device)
+    multi(stacks[0])
+    multi(stacks[1])  # captured
+    lr_tensor = opt.param_groups[0]["lr"]
+    set_learning_rate(opt, 0.0)
+    assert opt.param_groups[0]["lr"] is lr_tensor
+    assert get_learning_rate(opt) == 0.0
+    before = [p.detach().clone() for p in model.parameters()]
+    multi(stacks[2])
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    set_learning_rate(opt, 1e-3)
+    multi(stacks[3])
+    assert not all(torch.equal(a, p)
+                   for a, p in zip(before, model.parameters()))
+
+
+@pytest.mark.parametrize("first,then", [(1, 4), (4, 1)])
+def test_resume_across_steps_per_dispatch_trains_on(cuda_device, tmp_path,
+                                                    first, then):
+    """A checkpoint written at ``--steps-per-dispatch first`` resumed at
+    ``then`` trains its next epoch on the card. torch's
+    ``load_state_dict`` takes each param group whole from the
+    checkpoint; the trainer keeps this run's ``capturable`` (K > 1 on the
+    card), with the lr and Adam's step counts on the card then and a
+    float lr and step counts on the CPU otherwise, so the K = 4 capture
+    and the K = 1 steps both run and their losses are finite."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    def config(k, epochs, **kw):
+        return TrainConfig(
+            epochs=epochs, batch_size=2, val_percent=25.0, seed=0,
+            image_size=(48, 32), model_widths=(8, 16), synthetic_samples=16,
+            metric_every_steps=1, num_workers=0, s2d_levels=0, dtype="f32",
+            kernels="cuda", device=str(cuda_device), steps_per_dispatch=k,
+            checkpoint_dir=str(tmp_path / "checkpoints"),
+            log_dir=str(tmp_path / "logs"), loss_dir=str(tmp_path / "loss"),
+            **kw)
+
+    Trainer(config(first, 1)).train()
+    again = Trainer(config(then, 2, checkpoint_name="singleGPU"))
+    graphed = then > 1
+    for group in again.optimizer.param_groups:
+        assert group["capturable"] is graphed
+        assert isinstance(group["lr"], torch.Tensor) is graphed
+    assert again.optimizer.state
+    for state in again.optimizer.state.values():
+        assert state["step"].device.type == ("cuda" if graphed else "cpu")
+    result = again.train()
+    # 12 train samples at -b 2: 6 steps an epoch
+    assert again.start_epoch == 1 and result["steps"] == 12
+    assert np.isfinite([float(x) for x in again.records.losses]).all()
+
+
+def test_milesial_remat_step_equals_the_plain_step(cuda_device,
+                                                   milesial_case):
+    """The kernels-cuda milesial step with ``remat`` against the one
+    without: K2 launches twice (forward and recompute), K3 and K5 once;
+    the loss and the running statistics (moved once) bitwise equal, and
+    each gradient within 1e-6 of its tensor's largest (a recompute runs
+    the same kernels on the same inputs; only the order autograd adds
+    the BatchNorm statistics' gradients may differ)."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.train.steps import make_train_step
+
+    batch, init, base = milesial_case
+    out = {}
+    for remat in (False, True):
+        model = create_model(TrainConfig(kernels="cuda", **base))
+        model.load_state_dict(init)
+        model.to(cuda_device)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        kernels.reset_launches()
+        loss = float(make_train_step(model, opt, 2, train_loss_fused=True,
+                                     remat=remat)(batch))
+        out[remat] = (loss, dict(kernels.LAUNCHES),
+                      [p.grad.clone() for p in model.parameters()],
+                      [b.clone() for n, b in model.named_buffers()
+                       if "running" in n])
+    (l0, n0, g0, s0), (l1, n1, g1, s1) = out[False], out[True]
+    assert n1["bn_act"] == 2 * n0["bn_act"] == 20
+    assert n1["bn_act_bwd"] == n0["bn_act_bwd"] == 10
+    assert n1["wgrad_9tap"] == n0["wgrad_9tap"] == 5
+    assert l1 == l0
+    for a, b in zip(s1, s0):
+        assert torch.equal(a, b)
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())

@@ -132,6 +132,11 @@ def _jobs(tmp):
                     "kind": "accum", "fused": policy == "cuda",
                     "config": dict(config, grad_accum=ACCUM),
                     "initial": initial, "chunks": _step_batches()}
+            if arch == "unet" and policy == "torch":
+                jobs["steps-unet-bf16_params"] = {
+                    "kind": "steps", "fused": False,
+                    "config": dict(config, dtype="bf16_params"),
+                    "initial": initial, "batches": _step_batches()[:1]}
             jobs[f"trainer-{arch}-{policy}"] = {
                 "kind": "trainer", "initial": initial,
                 "dir": str(tmp / f"trainer-{arch}-{policy}"),
@@ -360,6 +365,52 @@ def test_steps_match_the_jax_ddp(ranks, arch, policy, jax_policy):
             continue
         err = _max_err_rel_to_max(value.numpy(), final[key].numpy())
         assert err <= (1e-5 if "running" in key else 1e-4), (key, err)
+
+
+def test_bf16_params_step_matches_the_jax_ddp(ranks):
+    """One ``--dtype bf16_params`` step under DDP from the same f32
+    weights against the JAX DDP's on the 2-device mesh (both seed the f32
+    master from them and round the parameters). The port averages the
+    bf16 gradients over the ranks in float32 (the JAX DDP's compiled
+    gradient all-reduce is float32). The loss within 1e-3 relative and the
+    masters by tests/test_torch_precision.py's bounds: within 1e-2 of each
+    tensor's largest, and for the zero-initialized biases (largest under
+    10·lr, their whole value Adam's first ±lr update) within 2·lr with at
+    least 3 of 4 elements on JAX's side of zero. Both ranks' parameters
+    and masters bitwise equal, the parameters their master rounded."""
+    from distributedpytorch_tpu.ops.precision import get_policy
+
+    cfg = JaxTrainConfig(train_method="DDP", batch_size=B,
+                         dtype="bf16_params", kernels="xla",
+                         model_widths=WIDTHS, image_size=(W, H),
+                         s2d_levels=0, learning_rate=LR)
+    strategy = jax_build_strategy(cfg, devices=jax.devices()[:WORLD])
+    model, init_fn = jax_create_model(cfg)
+    params, _ = init_fn(jax.random.key(0), (H, W))
+    lr = strategy.lr_for(cfg.learning_rate)
+    state, tx = create_train_state(params, lr, cfg.weight_decay,
+                                   policy=get_policy(cfg))
+    state = strategy.place_state(state)
+    state, jloss = strategy.build_train_step(model, tx)(
+        state, strategy.place_batch(_step_batches()[0]))
+    r0, r1 = (r["steps-unet-bf16_params"] for r in ranks)
+    np.testing.assert_allclose(float(r0["losses"][0]), float(jloss),
+                               rtol=1e-3)
+    want = _to_port(state.opt_state.master, None)
+    names = [k for k in r0["state"] if k in want]
+    assert len(names) == len(r0["master"])
+    for name, m, m1 in zip(names, r0["master"], r1["master"]):
+        p = r0["state"][name]
+        assert p.dtype == torch.bfloat16 and m.dtype == torch.float32
+        assert torch.equal(m, m1) and torch.equal(p, r1["state"][name])
+        assert torch.equal(p, m.to(torch.bfloat16)), name
+        ref, got = want[name].numpy(), m.numpy()
+        largest = np.abs(ref).max()
+        if largest >= 10 * lr:
+            assert np.abs(got - ref).max() <= 1e-2 * largest, name
+            continue
+        assert np.abs(got - ref).max() <= 2 * lr * (1 + 1e-3), name
+        assert np.mean(np.sign(got) == np.sign(ref)) >= 0.75, name
 
 
 @pytest.mark.parametrize("policy,jax_policy", POLICIES)

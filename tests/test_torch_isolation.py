@@ -70,7 +70,8 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
     assert "distributedpytorch_tpu_torch.ops._build" in report["modules"]
     for trainer_module in ("cli", "train.loop", "train.steps",
                            "ops.loss_kernels", "ops.fused_loss", "evaluate",
-                           "utils.metrics", "data.loader", "models.milesial",
+                           "utils.metrics", "utils.trace", "data.loader",
+                           "models.milesial",
                            "ops.conv_backward", "ops.wgrad_kernels",
                            "dist", "dist.runtime", "dist.collectives",
                            "parallel", "parallel.strategy",

@@ -14,7 +14,8 @@ modules this process loaded. Scenarios:
   of this rank's rows of a global batch, and its gradient;
 * ``steps``: train steps of a DDP-wrapped model from given weights; the
   gradients of the first step as the optimizer receives them (before
-  Adam), each step's loss, the final state dict;
+  Adam), each step's loss, the final state dict (and, under
+  ``--dtype bf16_params``, the f32 master weights);
 * ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
   and the gradients the optimizer receives;
 * ``pipeline_steps``: train steps of ``-t DDP_MP``, the rank's S stages
@@ -79,41 +80,46 @@ def run_loss(job, rank, world):
     return {"loss": loss.detach(), "grad": preds.grad}
 
 
-class _Capture:
-    """An optimizer that keeps the gradients of its first step, then steps
-    ``inner``."""
+def _first_step_grads(optimizer, names):
+    """``{name: gradient}`` as the optimizer's first step reads them (under
+    master weights the scaled f32 ones Adam reads), filled by a step
+    pre-hook when that step runs."""
+    grads = {}
 
-    def __init__(self, inner, named):
-        self.inner = inner
-        self.named = named
-        self.grads = None
+    def hook(opt, _args, _kwargs):
+        if not grads:
+            params = [p for g in opt.param_groups for p in g["params"]]
+            grads.update({n: p.grad.clone() for n, p in zip(names, params)})
 
-    def zero_grad(self, set_to_none=True):
-        self.inner.zero_grad(set_to_none=set_to_none)
-
-    def step(self):
-        if self.grads is None:
-            self.grads = {n: p.grad.clone() for n, p in self.named}
-        self.inner.step()
+    optimizer.register_step_pre_hook(hook)
+    return grads
 
 
 def run_steps(job, rank, world):
     from distributedpytorch_tpu_torch.config import TrainConfig
     from distributedpytorch_tpu_torch.models import create_model
     from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.ops.precision import (
+        cast_params_,
+        get_policy,
+    )
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.steps import make_train_step
 
     cfg = TrainConfig(train_method="DDP", device="cpu", **job["config"])
     strategy = build_strategy(cfg)
-    model = create_model(cfg)
+    policy = get_policy(cfg)
+    # the master (bf16_params) is seeded from the f32 weights, then the
+    # parameters are rounded, as the trainer does
+    model = create_model(cfg, cast_params=False)
     model.load_state_dict(job["initial"])
-    wrapped = strategy.wrap_model(model)
-    optimizer = _Capture(
-        make_optimizer(model.parameters(),
-                       strategy.lr_for(cfg.learning_rate),
-                       cfg.weight_decay),
-        list(model.named_parameters()))
+    optimizer = make_optimizer(model.parameters(),
+                               strategy.lr_for(cfg.learning_rate),
+                               cfg.weight_decay, policy=policy)
+    cast_params_(model, policy)
+    wrapped = strategy.wrap_model(model, optimizer)
+    grads = _first_step_grads(optimizer, [n for n, _ in
+                                          model.named_parameters()])
     step = make_train_step(
         wrapped, optimizer, cfg.batch_size, cfg.faithful_loss_scaling,
         loss_impl=strategy.train_loss(job["fused"]))
@@ -121,8 +127,9 @@ def run_steps(job, rank, world):
     for batch in job["batches"]:
         losses.append(step({k: _rows(v, rank, world)
                             for k, v in batch.items()}))
-    return {"losses": torch.stack(losses), "grads": optimizer.grads,
-            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+    return {"losses": torch.stack(losses), "grads": grads,
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "master": [m.clone() for m in getattr(optimizer, "master", ())]}
 
 
 def run_pipeline_steps(job, rank, world):
@@ -138,11 +145,11 @@ def run_pipeline_steps(job, rank, world):
     model = create_model(cfg)
     model.load_state_dict(job["initial"])
     model = strategy.place_model(model)
-    optimizer = _Capture(
-        make_optimizer(model.parameters(),
-                       strategy.lr_for(cfg.learning_rate),
-                       cfg.weight_decay),
-        list(model.named_parameters()))
+    optimizer = make_optimizer(model.parameters(),
+                               strategy.lr_for(cfg.learning_rate),
+                               cfg.weight_decay)
+    grads = _first_step_grads(optimizer, [n for n, _ in
+                                          model.named_parameters()])
     step = strategy.build_train_step(model, optimizer,
                                      get_kernel_policy(cfg.kernels))
     losses, states = [], []
@@ -150,7 +157,7 @@ def run_pipeline_steps(job, rank, world):
         losses.append(step({k: _rows(v, rank, world)
                             for k, v in batch.items()}))
         states.append({k: v.clone() for k, v in model.state_dict().items()})
-    return {"losses": torch.stack(losses), "grads": optimizer.grads,
+    return {"losses": torch.stack(losses), "grads": grads,
             "states": states,
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
@@ -169,15 +176,16 @@ def run_accum(job, rank, world):
     strategy = build_strategy(cfg)
     model = create_model(cfg)
     model.load_state_dict(job["initial"])
-    optimizer = _Capture(torch.optim.SGD(model.parameters(), lr=0.0),
-                         list(model.named_parameters()))
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.0)
+    grads = _first_step_grads(optimizer, [n for n, _ in
+                                          model.named_parameters()])
     step = make_accum_train_step(
         model, optimizer, cfg.batch_size, cfg.grad_accum,
         cfg.faithful_loss_scaling, job["fused"],
         sum_over_ranks=strategy.sum_over_ranks)
     loss = step([{k: _rows(v, rank, world) for k, v in chunk.items()}
                  for chunk in job["chunks"]])
-    return {"loss": loss, "grads": optimizer.grads}
+    return {"loss": loss, "grads": grads}
 
 
 def run_trainer(job, rank, world):
