@@ -48,10 +48,18 @@ bf16_params`` against ``--dtype bf16``, K2, K3 and K5 against their plain
 versions in place, and the checkpoint resumed under bf16; a NaN loss at a
 chosen step under ``skip``, ``rollback`` and ``abort``; and 16 steps with
 ``--trace-timeline``, async saves, ``--keep-checkpoints 2`` and
-``--save-best``, resumed past a corrupted newest checkpoint. Each path's
-kernel launches are counted from zero over its run (a CUDA graph's at
-each replay). It fails (non-zero exit, no result line) without a card,
-outside a checkout, or when any phase disagrees.
+``--save-best``, resumed past a corrupted newest checkpoint. Then the CUDA
+graph of 4 steps outside singleGPU (``train_graph_strategies``): the UNet
+under ``-t DDP`` at world 1 (NCCL) in bf16 and bf16_params, under ``-t
+MP`` on ``[cuda:0, cuda:0]`` with gpipe (two epochs, an eval between the
+replays, then resumed with ``-c``) and 1f1b, and milesial ``--wgrad-taps``
+under MP gpipe, each against K = 1 with the same capturable Adam, bitwise,
+a replay's kernels counted by name in the profiler's trace, step, host
+enqueue and idle share of both; the gloo DDP_MP ranks check that K = 4
+over gloo on a card is refused. Each path's kernel launches are counted
+from zero over its run (a CUDA graph's at each replay). It fails
+(non-zero exit, no result line) without a card, outside a checkout, or
+when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
 
@@ -64,7 +72,11 @@ beside the one-card pipeline, and a ``torchrun --nproc_per_node 2``
 launch of the training CLI (``ddp_mp_cards``); then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
-one-card step (``dp_cards``).
+one-card step (``dp_cards``). ``ddp_cards``, ``ddp_mp_cards`` and
+``mp_cards`` also run their path as one CUDA graph of 4 steps against
+its eager steps: losses and weights bitwise (the ranks' equal after
+every stack), a guard tensor on every card between replays left alone,
+and both timed (step, host enqueue, each card's busy time, bubble).
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary (not with ``--cards``) and the card's
@@ -75,6 +87,8 @@ name and power limit as ``nvidia-smi`` reports them; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import http.client
 import json
 import logging
@@ -1698,6 +1712,16 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
             batch = place(_ddp_batches(world, TRAIN_BATCH, 1)[0])
             result["bf16_step_ms"] = cuda_ms(lambda: step(batch), 10,
                                              warmup=3)
+            del step
+            from distributedpytorch_tpu_torch.config import TrainConfig
+
+            # DDP's 11 eager warm-up steps take three stacks: five stacks
+            # put two through the graph
+            result["graph"] = _rank_graph_run(TrainConfig(
+                train_method="DDP", device=device, dtype="bf16",
+                kernels="cuda", batch_size=TRAIN_BATCH,
+                steps_per_dispatch=GS_K), rank, world,
+                [torch.device(device)], 5)
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -1860,6 +1884,7 @@ def phase_ddp_cards(tmp: str, world: int) -> dict:
         "bf16_step_ms_world1": one[0]["bf16_step_ms"],
         "bf16_step_ms_by_rank": step_ms,
         "weak_scaling_efficiency": one[0]["bf16_step_ms"] / max(step_ms),
+        "graph": _ranks_graph_rows(ranks, world),
         "torchrun_rc": proc.returncode, "torchrun_s": torchrun_s,
         "torchrun_wrote": wrote,
         "torchrun_ranks_logged": sum(f"(rank {r} of {world})" in log
@@ -1867,6 +1892,7 @@ def phase_ddp_cards(tmp: str, world: int) -> dict:
     }
     emit(out)
     _assert_ranks(out, f"{world} cards")
+    _check_ranks_graph(out["graph"], f"DDP on {world} cards")
     check(proc.returncode == 0,
           f"torchrun -t DDP on {world} cards exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
@@ -1981,11 +2007,11 @@ def _with_wgrad_backend(fn):
             os.environ["DPT_WGRAD_BACKEND"] = saved
 
 
-def _cli_trainer(run: str, argv, devices=None):
+def _cli_trainer(run: str, argv, devices=None, info=None):
     """The trainer the training CLI builds from ``argv`` with its logging,
-    in ``run`` (made here) as the working directory; ``devices`` as
-    ``cli.build_trainer`` takes them. Returns ``(trainer, close)``:
-    ``close()`` restores the directory and the logging."""
+    in ``run`` (made here) as the working directory; ``devices`` and
+    ``info`` as ``cli.build_trainer`` takes them. Returns ``(trainer,
+    close)``: ``close()`` restores the directory and the logging."""
     from distributedpytorch_tpu_torch import cli
 
     os.makedirs(run)
@@ -2002,7 +2028,7 @@ def _cli_trainer(run: str, argv, devices=None):
         os.chdir(cwd)
 
     try:
-        return cli.build_trainer(args, devices=devices), close
+        return cli.build_trainer(args, info, devices=devices), close
     except BaseException:
         close()
         raise
@@ -2533,11 +2559,17 @@ def _busy_ms_by_device(fn, runs: int, devices=None) -> dict:
 
 
 #: the kernels' function names in the profiler's trace, by launch counter
+#: (K3's wrapper launches a partial and a final kernel, K5's its tile
+#: kernel and, when split, a sum: the first of each is counted)
 KERNEL_SYMBOLS = {"loss_stats": "stats_kernel",
-                  "loss_stats_bwd": "stats_bwd_kernel"}
+                  "loss_stats_bwd": "stats_bwd_kernel",
+                  "bn_act": "bn_act_kernel",
+                  "bn_act_bwd": "bn_act_bwd_partial_kernel",
+                  "wgrad_9tap": "wgrad_(?:bf16|f32)_kernel"}
+LOSS_KERNELS = ("loss_stats", "loss_stats_bwd")
 
 
-def _traced_launches(fn, names=tuple(KERNEL_SYMBOLS)) -> dict:
+def _traced_launches(fn, names=LOSS_KERNELS) -> dict:
     """``{counter name: n}``: the kernels of ``names`` that the card ran
     during one call of ``fn``, counted by function name in the profiler's
     trace, not by the wrappers' counters."""
@@ -2577,13 +2609,20 @@ def phase_mp_cards(world: int) -> dict:
     cards, under gpipe and 1f1b at M = 2 and M = 8 (batch 8). For each:
     the step's wall time, every stage card's busy time by the profiler
     and the bubble it leaves, 1 − mean busy / step, beside gpipe's
-    (S − 1)/(M + S − 1); and the same pipeline with every stage on
-    cuda:0, whose first loss the cards' must equal within MP_LOSS_RTOL."""
+    (S − 1)/(M + S − 1); the same pipeline with every stage on cuda:0,
+    whose first loss the cards' must equal within MP_LOSS_RTOL; and the
+    pipeline across the cards as one CUDA graph of GS_K steps against
+    the eager steps with the same capturable Adam (``_graph_and_eager``:
+    three stacks, losses and weights bitwise, guards on every card
+    intact), both timed (``_timed_sides``)."""
     import torch
 
+    from distributedpytorch_tpu_torch.config import TrainConfig
     from distributedpytorch_tpu_torch.models.unet import UNet
 
     batch = _synthetic_batch(MP_MEMORY_BATCH, torch.device("cuda", 0))
+    stacks = _rolled_stacks(_synthetic_batch(
+        MP_MEMORY_BATCH * GS_K, torch.device("cuda", 0)), GS_K, 3)
     init = UNet(generator=torch.Generator().manual_seed(SEED)).state_dict()
     out = {"phase": "mp_cards", "batch": MP_MEMORY_BATCH,
            "devices": [torch.cuda.get_device_name(i) for i in range(world)]}
@@ -2609,6 +2648,22 @@ def phase_mp_cards(world: int) -> dict:
                         ) / stages / step_ms
                     del model, step
                     torch.cuda.empty_cache()
+                devices = [torch.device("cuda", i) for i in range(stages)]
+                sides = _graph_and_eager(_graph_build(TrainConfig(
+                    train_method="MP", dtype="bf16", kernels="cuda",
+                    device="cuda", batch_size=MP_MEMORY_BATCH,
+                    num_stages=stages, num_microbatches=m,
+                    pipeline_schedule=schedule, steps_per_dispatch=GS_K),
+                    devices, init), stacks, GS_K)
+                row["graph"] = {
+                    "bitwise_equal_to_eager": sides["bitwise_equal"],
+                    "guards_intact": all(sides[x]["guards_intact"]
+                                         for x in ("eager", "graph")),
+                    **_timed_sides(sides, stacks[0], GS_K, devices)}
+                row["graph"]["bubble_eager_vs_graph"] = [
+                    row["graph"][x]["bubble"] for x in ("eager", "graph")]
+                del sides
+                torch.cuda.empty_cache()
                 row["bubble_gpipe_formula"] = (stages - 1) / (m + stages - 1)
                 row["cards_speedup_over_one_card"] = (
                     row["one_card"]["step_ms"] / row["cards"]["step_ms"])
@@ -2622,6 +2677,10 @@ def phase_mp_cards(world: int) -> dict:
             check(row["first_loss_rel_err"] <= MP_LOSS_RTOL,
                   f"MP {key}: cards' loss off the one-card pipeline's: "
                   f"{row['first_loss_rel_err']}")
+            check(row["graph"]["bitwise_equal_to_eager"]
+                  and row["graph"]["guards_intact"],
+                  f"MP {key}: the graph across cards is off its eager "
+                  f"steps, or wrote into eager memory")
     return out
 
 
@@ -2893,8 +2952,24 @@ def ddp_mp_rank(rank: int, world: int, backend: str, job: str) -> int:
                                    steps)
             runs[f"{arch}/{schedule}"] = (
                 _with_wgrad_backend(run) if arch == "milesial" else run())
-        torch.save({"runs": runs, "devices": [str(d) for d in devices]},
-                   os.path.join(job, f"result_{rank}.pt"))
+        result = {"runs": runs, "devices": [str(d) for d in devices]}
+        from distributedpytorch_tpu_torch.config import TrainConfig
+
+        cfg = TrainConfig(train_method="DDP_MP", dtype="bf16",
+                          kernels="cuda", device="cuda",
+                          batch_size=TRAIN_BATCH, num_stages=MP_STAGES,
+                          num_microbatches=MP_MICROBATCHES,
+                          steps_per_dispatch=GS_K)
+        if backend == "gloo":
+            result["k_refusal"] = _refusal(
+                dataclasses.replace(cfg, steps_per_dispatch=2), devices)
+        else:
+            result["graph"] = {
+                schedule: _rank_graph_run(
+                    dataclasses.replace(cfg, pipeline_schedule=schedule),
+                    rank, world, devices, 3)
+                for schedule in ("gpipe", "1f1b")}
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -3026,7 +3101,12 @@ def phase_train_ddp_mp_gloo2(tmp: str) -> dict:
     ranks, wall_s = _run_ddp_ranks(
         os.path.join(tmp, "train_ddp_mp_gloo2"), 2, "gloo", "--ddp-mp-rank")
     runs, problems = _check_ddp_mp_ranks(ranks, 2)
+    refusals = [r["k_refusal"] for r in ranks]
+    if not all(GLOO_REFUSAL in (msg or "") for msg in refusals):
+        problems.append(f"--steps-per-dispatch 2 over gloo on a card: "
+                        f"{refusals}")
     out = {"phase": "train_ddp_mp_gloo2", "world": 2, "backend": "gloo",
+           "k_refusals": refusals,
            "stages": MP_STAGES, "microbatches": MP_MICROBATCHES,
            "devices": [r["devices"] for r in ranks],
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
@@ -3103,12 +3183,17 @@ def phase_ddp_mp_cards(tmp: str) -> dict:
            "cards": [torch.cuda.get_device_name(i)
                      for i in range(world * MP_STAGES)],
            "wall_s": wall_s, "runs": runs, "problems": problems,
+           "graph": {schedule: _ranks_graph_rows(
+               [{"graph": r["graph"][schedule]} for r in ranks], world)
+               for schedule in ("gpipe", "1f1b")},
            "torchrun_rc": proc.returncode, "torchrun_s": torchrun_s,
            "torchrun_wrote": wrote,
            "torchrun_ranks_logged": sum(f"(rank {r} of {world})" in log
                                         for r in range(world))}
     emit(out)
     check(not problems, f"ddp_mp_cards: {problems}")
+    for schedule, rows in out["graph"].items():
+        _check_ranks_graph(rows, f"DDP_MP {schedule} on four cards")
     check(proc.returncode == 0,
           f"torchrun -t DDP_MP exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
@@ -3151,16 +3236,22 @@ def _placed_batches(trainer, n: int, epoch: int = 0) -> list:
             for idx in loader.batch_slices(epoch)[:n]]
 
 
-def _capturable_(optimizer, device) -> None:
-    """Adam's step count and lr on the card, before its first step: the
-    arithmetic of the K-step graph's optimizer
-    (``make_optimizer(capturable=True)``) in an eager run."""
+def _capturable_(optimizer) -> None:
+    """Adam's step counts and lr on each group's card: the arithmetic of
+    the K-step graph's optimizer (``make_optimizer(capturable=True)``) in
+    an eager run, from its first step or from a restored state."""
     import torch
 
     for group in optimizer.param_groups:
+        device = group["params"][0].device
         group["capturable"] = True
         group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
                                    device=device)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(device=device,
+                                           dtype=torch.float32)
 
 
 def _rc_graph(tmp: str) -> dict:
@@ -3202,7 +3293,7 @@ def _rc_graph_run(tmp: str, name: str, k: int, capturable: bool, dev
         "--steps-per-dispatch", str(k)))
     try:
         if k == 1 and capturable:
-            _capturable_(trainer.optimizer, dev)
+            _capturable_(trainer.optimizer)
         kernels.reset_launches()
         result = trainer.train()
         torch.cuda.synchronize()
@@ -3716,6 +3807,509 @@ def phase_train_run_control(tmp: str) -> dict:
                             if k in ("bn_act", "bn_act_bwd", "wgrad_9tap")}}}
 
 
+# -- the K-step graph outside singleGPU ------------------------------------------
+
+# train_graph_strategies: each run at K = GS_K against K = 1 with the same
+# capturable Adam, full width, bf16 (bf16_params where named), -b 4. DDP
+# captures after its 11 eager warm-up steps (three stacks), so its runs
+# take 160 samples (32 steps, five stacks through the graph); milesial
+# takes 40 (8 steps: one warm-up stack, one through the graph)
+GS_K = RC_K
+GS_RUNS = (
+    # label, extra CLI arguments, samples, epochs, the wgrad backend
+    ("ddp", ("-t", "DDP"), 160, 1, False),
+    ("ddp_bf16_params", ("-t", "DDP", "--dtype", "bf16_params"), 160, 1,
+     False),
+    ("mp_gpipe", ("-t", "MP", "--stages", "2", "--microbatches", "2",
+                  "--pipeline-schedule", "gpipe"), RC_SAMPLES, 2, False),
+    ("mp_1f1b", ("-t", "MP", "--stages", "2", "--microbatches", "2",
+                 "--pipeline-schedule", "1f1b"), RC_SAMPLES, 1, False),
+    ("milesial_mp_gpipe", ("--model", "milesial", "--wgrad-taps", "-t",
+                           "MP", "--stages", "2", "--microbatches", "2",
+                           "--pipeline-schedule", "gpipe"), 40, 1, True),
+)
+# the run that puts an eval between replays (its two epochs) and then
+# resumes (-c) for a third epoch, graph against eager again
+GS_RESUMED = "mp_gpipe"
+
+
+@contextlib.contextmanager
+def _world_one_env():
+    """torchrun's env of a one-process launch (a free port), restored
+    after the block."""
+    saved = {k: os.environ.get(k) for k in TORCHRUN_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def _gs_trainer(run: str, argv, devices=None):
+    """``_cli_trainer``'s trainer, for ``-t DDP`` at world 1 under NCCL
+    with torchrun's env set (``cli.start_runtime``); ``close()`` also
+    ends the group."""
+    import torch
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    if cli.get_args(argv).train_method != "DDP":
+        return _cli_trainer(run, argv, devices)
+    stack = contextlib.ExitStack()
+    stack.enter_context(_world_one_env())
+    stack.callback(runtime.shutdown)
+    try:
+        info = cli.start_runtime(cli.get_args(argv))
+        check(info.num_processes == 1
+              and torch.distributed.get_backend() == "nccl",
+              "world-1 DDP is not NCCL")
+        trainer, close = _cli_trainer(run, argv, info=info)
+        stack.callback(close)
+        return trainer, stack.close
+    except BaseException:
+        stack.close()
+        raise
+
+
+@contextlib.contextmanager
+def _counting_ddp(counts: dict):
+    """Within the block, ``counts["built"]`` counts the
+    ``DistributedDataParallel`` wrappers this process builds."""
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    init = DDP.__init__
+
+    def counted(self, *args, **kwargs):
+        counts["built"] += 1
+        init(self, *args, **kwargs)
+
+    DDP.__init__ = counted
+    try:
+        yield
+    finally:
+        DDP.__init__ = init
+
+
+def _gs_measure(trainer, k: int, names) -> dict:
+    """The steady step of ``trainer`` at K = ``k`` (one graph replay of
+    ``k`` steps, or one eager step): step ms by CUDA events, host enqueue
+    ms, wall and busy ms per step, the card's idle share, and the
+    kernels of ``names`` one call ran, counted by name in the trace."""
+    import numpy as np
+
+    if k > 1:
+        host = [trainer.train_loader.load_slice(idx) for idx in
+                trainer.train_loader.batch_slices(0)[:k]]
+        stacked = trainer.place_batch({key: np.stack([b[key] for b in host])
+                                       for key in host[0]})
+
+        def fn():
+            return trainer.multi_step(stacked)
+    else:
+        batch = _placed_batches(trainer, 1)[0]
+
+        def fn():
+            return trainer.train_step(batch)
+    out = {"traced_launches_per_call": _traced_launches(fn, names),
+           "step_ms": cuda_ms(fn, 4, warmup=2) / k,
+           "host_enqueue_ms_per_step": _host_enqueue_ms(fn) / k}
+    wall = _wall_ms(fn, 4, 1) / k
+    busy = _busy_ms_by_device(fn, 2).get(0, 0.0) / k
+    out.update(wall_ms_per_step=wall, device_busy_ms_per_step=busy or None,
+               device_idle_share=(1.0 - busy / wall) if busy else None)
+    return out
+
+
+def _gs_trainer_run(run: str, argv, k: int, names, measure: bool,
+                    devices=None) -> dict:
+    """One trainer of a graph-strategies run: built from ``argv`` at K =
+    ``k`` (K = 1 with capturable Adam), trained, its losses, weights,
+    buffers and launches kept; then measured (``_gs_measure``)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    counts = {"built": 0}
+    with _counting_ddp(counts):
+        trainer, close = _gs_trainer(
+            run, [*argv, "--steps-per-dispatch", str(k)], devices)
+    try:
+        if k == 1:
+            _capturable_(trainer.optimizer)
+        kernels.reset_launches()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        out = {"steps": result["steps"], "launches": dict(kernels.LAUNCHES),
+               "losses": [float(x) for x in trainer.records.losses],
+               "state": [t.detach().clone() for t in
+                         trainer.model.state_dict().values()],
+               "strategy": trainer.strategy.name,
+               "ddp_wrappers": counts["built"]}
+        if measure:
+            out.update(_gs_measure(trainer, k, names))
+    finally:
+        close()
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gs_expected_per_replay(label: str) -> dict:
+    """The kernels one replay of GS_K steps runs: K1 and K1-bwd once per
+    step under DDP (one shard per rank); under MP M per step each (gpipe),
+    K1 2M under 1f1b (phase A and the recomputation); milesial's K2, K3,
+    K5 18, 18 and 13 per microbatch under gpipe."""
+    m = MP_MICROBATCHES
+    if label.startswith("ddp"):
+        return {"loss_stats": GS_K, "loss_stats_bwd": GS_K}
+    want = {"loss_stats": GS_K * m * (2 if label == "mp_1f1b" else 1),
+            "loss_stats_bwd": GS_K * m}
+    if label.startswith("milesial"):
+        want.update(bn_act=GS_K * 18 * m, bn_act_bwd=GS_K * 18 * m,
+                    wgrad_9tap=GS_K * 13 * m)
+    return want
+
+
+def _gs_run(tmp: str, label: str, extra, samples: int, epochs: int,
+            wgrad: bool) -> dict:
+    """One row of train_graph_strategies: the run at K = GS_K and at K = 1
+    (capturable Adam), the losses and the state bitwise; for
+    GS_RESUMED also a third epoch resumed from each run's checkpoint at
+    its own K."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    devices = [dev] * MP_STAGES if "-t" in extra and "MP" in extra else None
+    names = tuple(_gs_expected_per_replay(label))
+    runs = {}
+    for k in (GS_K, 1):
+        run = os.path.join(tmp, f"gs_{label}_k{k}")
+        argv = _rc_argv(run, "-e", str(epochs), "--dtype", "bf16", *extra,
+                        samples=samples)
+
+        def one(run=run, argv=argv, k=k):
+            out = _gs_trainer_run(run, argv, k, names, True, devices)
+            if label == GS_RESUMED:
+                again = os.path.join(run, "resumed")
+                out["resumed"] = _gs_trainer_run(
+                    again, [*argv, "-e", str(epochs + 1), "-c", "MP"], k,
+                    names, False, devices)
+            return out
+
+        runs[k] = _with_wgrad_backend(one) if wgrad else one()
+    graph, eager = runs[GS_K], runs[1]
+
+    def same(a, b):
+        return (a["losses"] == b["losses"]
+                and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                          b["state"])))
+
+    row = {"phase": "train_graph_strategies", "run": label, "k": GS_K,
+           "strategy": graph["strategy"], "steps": graph["steps"],
+           "cudnn_deterministic": True,
+           "bitwise_equal_to_k1": same(graph, eager),
+           "loss_max_rel_err_vs_k1": max(
+               abs(a - b) / abs(b)
+               for a, b in zip(graph["losses"], eager["losses"])),
+           "graph_launches_per_replay": graph["traced_launches_per_call"],
+           "k1_step_launches_traced": eager["traced_launches_per_call"],
+           "expected_per_replay": _gs_expected_per_replay(label),
+           "launches": {"k4": graph["launches"], "k1": eager["launches"]},
+           "ddp_wrappers": [graph["ddp_wrappers"], eager["ddp_wrappers"]],
+           **{f"{key}_{name}": run_[key]
+              for name, run_ in (("k4", graph), ("k1", eager))
+              for key in ("step_ms", "host_enqueue_ms_per_step",
+                          "wall_ms_per_step", "device_busy_ms_per_step",
+                          "device_idle_share")},
+           "device": torch.cuda.get_device_name(0)}
+    if label == GS_RESUMED:
+        row["resumed_steps"] = graph["resumed"]["steps"]
+        row["resumed_bitwise_equal_to_k1"] = same(graph["resumed"],
+                                                  eager["resumed"])
+    emit(row)
+    return row
+
+
+def phase_train_graph_strategies(tmp: str) -> dict:
+    """The CUDA graph of K steps outside singleGPU on the one card, through
+    the training CLI's own functions, full width, cuDNN's deterministic
+    algorithms: the UNet under ``-t DDP`` at world 1 (NCCL), under bf16
+    and bf16_params; under ``-t MP`` on ``[cuda:0, cuda:0]``, gpipe and
+    1f1b at M = 2; milesial ``--wgrad-taps`` under MP gpipe. Each run at
+    K = GS_K against K = 1 with the same capturable Adam: the losses and
+    the weights bitwise equal, one replay's kernels counted by name
+    against ``_gs_expected_per_replay``, under DDP one DDP wrapper for the
+    graph and the tail, the step by CUDA events, the host's enqueue and
+    the idle share of both. The MP gpipe run trains two epochs (an eval
+    between the replays) and resumes for a third (``-c``), graph and
+    eager bitwise again. Returns the rows by label."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rows = {label: _gs_run(tmp, label, extra, samples, epochs, wgrad)
+                for label, extra, samples, epochs, wgrad in GS_RUNS}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for label, row in rows.items():
+        check(row["bitwise_equal_to_k1"],
+              f"graph {label}: losses or weights off K = 1 (loss rel "
+              f"{row['loss_max_rel_err_vs_k1']})")
+        check(row["graph_launches_per_replay"] == row["expected_per_replay"],
+              f"graph {label}: a replay ran "
+              f"{row['graph_launches_per_replay']}, not "
+              f"{row['expected_per_replay']}")
+        if label.startswith("ddp"):
+            check(row["ddp_wrappers"] == [1, 1],
+                  f"graph {label}: {row['ddp_wrappers']} DDP wrappers")
+    resumed = rows[GS_RESUMED]
+    check(resumed["resumed_bitwise_equal_to_k1"]
+          and resumed["resumed_steps"] == 3 * resumed["steps"] // 2,
+          f"graph {GS_RESUMED}: the resumed epoch is off K = 1 "
+          f"({resumed['resumed_steps']} steps)")
+    return rows
+
+
+# -- the K-step graph across cards (--cards) ----------------------------------------
+
+# the per-card guard the graph runs across cards hold between stacks: a
+# tensor this large, filled with GUARD_VALUE, on every card of the step
+GUARD_BYTES = 256 * 2**20
+GUARD_VALUE = 7.0
+
+
+def _guards(devices) -> list:
+    """After ``torch.cuda.empty_cache()``: a GUARD_BYTES tensor of
+    GUARD_VALUE on each of ``devices``, allocated on its current stream.
+    If a graph's memory on a card had gone back to its cache, the release
+    and these allocations could take it, and the next replay write into
+    them."""
+    import torch
+
+    torch.cuda.empty_cache()
+    return [torch.full((GUARD_BYTES // 4,), GUARD_VALUE, device=d)
+            for d in dict.fromkeys(devices)]
+
+
+def _graph_and_eager(build, stacks, k: int) -> dict:
+    """The same ``stacks`` (``(k, B, ...)`` batches on the step's first
+    card) through ``build()``'s step (``_graph_build``: a fresh model from
+    the seed's weights, its strategy's train step, capturable Adam):
+    eagerly, k steps per stack, and through ``MultiStep`` over the
+    strategy's cards (its eager warm-up, then one graph of k steps).
+    After every stack: the step's losses, a digest of the weights, and
+    fresh guards (``_guards``) on every card, checked after the next
+    stack. Returns both sides, each with its model, step and multi-step
+    for timing. cuDNN keeps to its deterministic algorithms meanwhile
+    (ROADMAP trap 5)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.train.steps import MultiStep
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _graph_and_eager_sides(build, stacks, k, MultiStep)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _graph_and_eager_sides(build, stacks, k: int, multi_step) -> dict:
+    import torch
+
+    sides = {}
+    for mode in ("eager", "graph"):
+        model, step, strategy = build()
+        devices = strategy.step_devices
+        multi = multi_step(step, k, devices,
+                           warmup_steps=strategy.capture_warmup_steps,
+                           streams=strategy.capture_streams)
+        losses, digests, held, guards_ok = [], [], [], True
+        for stacked in stacks:
+            if mode == "graph":
+                got = multi(stacked)
+            else:
+                got = torch.stack([step({key: v[j] for key, v in
+                                         stacked.items()})
+                                   for j in range(k)])
+            _sync_all(devices)
+            losses.extend(float(x) for x in got.cpu())
+            digests.append(_digest(model.state_dict().values()))
+            guards_ok = guards_ok and all(
+                bool((g == GUARD_VALUE).all()) for g in held)
+            held = _guards(devices)
+        sides[mode] = {"losses": losses, "digests": digests,
+                       "guards_intact": guards_ok, "model": model,
+                       "step": step, "multi": multi}
+    sides["bitwise_equal"] = (
+        sides["graph"]["losses"] == sides["eager"]["losses"]
+        and sides["graph"]["digests"] == sides["eager"]["digests"])
+    return sides
+
+
+def _timed_sides(sides: dict, stacked, k: int, devices) -> dict:
+    """Per step, eager (one step) and graph (one replay of k): the wall
+    ms with every card drained, the host's enqueue ms, each card's busy
+    ms and the bubble 1 − mean busy / step."""
+    import torch
+
+    row = {}
+    first = {key: v[0] for key, v in stacked.items()}
+    for mode, fn, n in (
+            ("eager", lambda: sides["eager"]["step"](first), 1),
+            ("graph", lambda: sides["graph"]["multi"](stacked), k)):
+        wall = _wall_ms(fn, 3, 1, devices) / n
+        _sync_all(devices)
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3 / n
+        _sync_all(devices)
+        busy = {i: ms / n for i, ms in
+                _busy_ms_by_device(fn, 2, devices).items()}
+        cards = sorted({torch.device(d).index for d in devices})
+        row[mode] = {"step_ms": wall, "host_enqueue_ms_per_step": host,
+                     "busy_ms_by_card": busy,
+                     "bubble": 1.0 - sum(busy.get(i, 0.0) for i in cards)
+                     / len(cards) / wall}
+    _sync_all(devices)
+    t0 = time.perf_counter()
+    sides["graph"]["multi"]._graph.replay()
+    # the host's time in cudaGraphLaunch alone, per step
+    row["graph"]["launch_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / k
+    _sync_all(devices)
+    row["graph_speedup"] = row["eager"]["step_ms"] / row["graph"]["step_ms"]
+    return row
+
+
+def _rolled_stacks(batch: dict, k: int, n: int) -> list:
+    """``n`` stacks of ``k`` batches from ``batch`` (``k·B`` rows), the
+    rows rolled by one more for each stack."""
+    import torch
+
+    b = batch["image"].shape[0] // k
+    return [{key: torch.roll(v, i, 0).reshape(k, b, *v.shape[1:])
+             for key, v in batch.items()} for i in range(n)]
+
+#: what the refusal of K > 1 over a gloo group on a card says
+GLOO_REFUSAL = "gloo moves CUDA tensors through the host"
+
+
+def _refusal(cfg, devices):
+    """The message ``build_strategy`` raises for ``cfg`` on ``devices``,
+    or None if it builds."""
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    try:
+        build_strategy(cfg, devices=devices)
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
+def _ranks_graph_rows(ranks, world: int) -> dict:
+    """The ranks' graph runs (``_rank_graph_run``) side by side: each
+    rank's graph against its eager steps, the ranks' weights after every
+    stack bitwise equal, the step by wall time and the images per second
+    of the slowest rank, eager and graph."""
+    rows = [r["graph"] for r in ranks]
+    out = {"bitwise_equal_to_eager": [r["bitwise_equal"] for r in rows],
+           "guards_intact": [r["guards_intact"] for r in rows],
+           "ranks_weights_equal_every_stack": all(
+               r["digests"] == rows[0]["digests"] for r in rows),
+           "ranks_losses_equal": all(r["losses"] == rows[0]["losses"]
+                                     for r in rows),
+           "graph_speedup_by_rank": [r["graph_speedup"] for r in rows]}
+    for mode in ("eager", "graph"):
+        step = max(r[mode]["step_ms"] for r in rows)
+        out[mode] = {
+            "step_ms_by_rank": [r[mode]["step_ms"] for r in rows],
+            "host_enqueue_ms_per_step_by_rank": [
+                r[mode]["host_enqueue_ms_per_step"] for r in rows],
+            "busy_ms_by_card": [r[mode]["busy_ms_by_card"] for r in rows],
+            "bubble_by_rank": [r[mode]["bubble"] for r in rows],
+            "images_per_s": world * TRAIN_BATCH * 1e3 / step}
+    return out
+
+
+def _check_ranks_graph(rows: dict, what: str) -> None:
+    check(all(rows["bitwise_equal_to_eager"]) and all(rows["guards_intact"]),
+          f"{what}: a rank's graph is off its eager steps, or wrote into "
+          f"eager memory")
+    check(rows["ranks_weights_equal_every_stack"]
+          and rows["ranks_losses_equal"],
+          f"{what}: the ranks' weights or losses differ")
+
+
+
+def _graph_build(cfg, devices=None, init=None):
+    """``build()`` for ``_graph_and_eager``: ``cfg``'s strategy (on
+    ``devices``), the full-width model from the seed's weights (or
+    ``init``) placed by it, capturable Adam at the strategy's lr, and its
+    train step; returns ``(model, step, strategy)``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    def build():
+        strategy = build_strategy(cfg, devices=devices)
+        model = create_model(cfg, generator=torch.Generator().manual_seed(
+            SEED))
+        if init is not None:
+            model.load_state_dict(init)
+        model = strategy.place_model(model)
+        opt = make_optimizer(model.parameters(),
+                             strategy.lr_for(cfg.learning_rate),
+                             cfg.weight_decay, capturable=True)
+        return model, strategy.build_train_step(
+            model, opt, get_kernel_policy(cfg.kernels)), strategy
+
+    return build
+
+
+def _rank_stacks(rank: int, world: int, per_rank: int, n: int, device):
+    """``n`` stacks of GS_K of this rank's rows of the global synthetic
+    batches, on ``device``."""
+    import numpy as np
+    import torch
+
+    rows = slice(rank * per_rank, (rank + 1) * per_rank)
+    batches = _ddp_batches(world, per_rank, GS_K * n)
+    return [{key: torch.from_numpy(np.stack(
+        [b[key][rows] for b in batches[i * GS_K:(i + 1) * GS_K]])).to(device)
+        for key in batches[0]} for i in range(n)]
+
+
+def _rank_graph_run(cfg, rank: int, world: int, devices, stacks_n: int
+                    ) -> dict:
+    """One rank's graph against eager (``_graph_and_eager``) of ``cfg``'s
+    strategy over ``stacks_n`` stacks of its rows, then both timed
+    (``_timed_sides``); the losses and digests per stack for the ranks'
+    comparison."""
+    import torch
+
+    stacks = _rank_stacks(rank, world, cfg.batch_size, stacks_n, devices[0])
+    sides = _graph_and_eager(_graph_build(cfg, devices), stacks, GS_K)
+    row = {"bitwise_equal": sides["bitwise_equal"],
+           "guards_intact": all(sides[m]["guards_intact"]
+                                for m in ("eager", "graph")),
+           "losses": sides["graph"]["losses"],
+           "digests": sides["graph"]["digests"],
+           **_timed_sides(sides, stacks[0], GS_K, devices)}
+    del sides, stacks
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -3808,6 +4402,7 @@ def main(argv) -> int:
         train_dp = phase_train_dp(tmp, train)
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
         run_control = phase_train_run_control(tmp)["launches"]
+        graphs = phase_train_graph_strategies(tmp)
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()
@@ -3816,6 +4411,20 @@ def main(argv) -> int:
 
     def by_schedule(run, name):
         return {s: run[s]["launches"][name] for s in ("gpipe", "1f1b")}
+
+    def replay_launches(name):
+        """Per replay of a CUDA graph of 4 steps, counted by name in the
+        profiler's trace: singleGPU (train_run_control run 1) and each
+        run of train_graph_strategies; K2, K3 and K5 per milesial
+        --remat step (train_run_control run 2) beside milesial's MP
+        replay."""
+        out = {"single_gpu": run_control[name]}
+        if name in ("bn_act", "bn_act_bwd", "wgrad_9tap"):
+            out = {"milesial_remat_step": run_control[name]}
+        out.update({label: row["graph_launches_per_replay"][name]
+                    for label, row in graphs.items()
+                    if name in row["graph_launches_per_replay"]})
+        return out
 
     def ddp_mp_launches(name):
         """Rank 0's launches in each run of train_ddp_mp_gloo2 (K1 and
@@ -3858,9 +4467,7 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats"),
-            # per replay of train_run_control's graph of 4 steps (run
-            # 1), counted by name in the profiler's trace
-            "run_control_launches": run_control["loss_stats"],
+            "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
             "plain_ms": loss["stats_plain_ms"],
@@ -3880,9 +4487,7 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats_bwd"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats_bwd"),
-            # per replay of train_run_control's graph of 4 steps (run
-            # 1), counted by name in the profiler's trace
-            "run_control_launches": run_control["loss_stats_bwd"],
+            "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
             "plain_ms": loss["bwd_plain_ms"],
@@ -3903,8 +4508,7 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act"),
             "dp_launches": train_dp["milesial_launches"]["bn_act"],
             "ddp_mp_launches": ddp_mp_launches("bn_act"),
-            # per milesial --remat step (train_run_control run 2)
-            "run_control_launches": run_control["bn_act"],
+            "run_control_launches": replay_launches("bn_act"),
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],
@@ -3926,8 +4530,7 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act_bwd"),
             "dp_launches": train_dp["milesial_launches"]["bn_act_bwd"],
             "ddp_mp_launches": ddp_mp_launches("bn_act_bwd"),
-            # per milesial --remat step (train_run_control run 2)
-            "run_control_launches": run_control["bn_act_bwd"],
+            "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
             "plain_ms": bn["f32"]["bwd_plain_ms"],
@@ -3947,8 +4550,7 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "wgrad_9tap"),
             "dp_launches": train_dp["milesial_launches"]["wgrad_9tap"],
             "ddp_mp_launches": ddp_mp_launches("wgrad_9tap"),
-            # per milesial --remat step (train_run_control run 2)
-            "run_control_launches": run_control["wgrad_9tap"],
+            "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],
             "plain_ms": k5["plain_ms"],

@@ -25,6 +25,12 @@ averages the gradients over the ranks: ``(1/world) Σ_r world·g_r =
 were the identity would, with that averaging, give ``1/world`` of it
 (``tests/test_torch_ddp.py`` holds every gradient of one step, before
 Adam, against the JAX DDP's).
+
+No call here reads a tensor back to the host: under NCCL the all-reduces
+order NCCL's stream after the current one and the current one after it,
+so a CUDA graph of K steps (``train/steps.MultiStep``) captures them. A
+gloo group moves CUDA tensors through the host, and K > 1 is refused
+there (``parallel/strategy.check_run_control``).
 """
 
 from __future__ import annotations

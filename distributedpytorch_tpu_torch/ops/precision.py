@@ -115,6 +115,14 @@ class MasterWeights:
             p._master_weights_hook = p.register_post_accumulate_grad_hook(
                 self._widen)
 
+    def leaf(self, p: torch.nn.Parameter) -> torch.Tensor:
+        """``p``'s f32 master as an autograd leaf: a use that computes with
+        ``leaf(p)`` cast to ``p``'s dtype sends its gradient to the
+        master's ``.grad``, widened before it meets another use's
+        (``PerUseCasts``). The optimizer's step runs without grad, so the
+        flag changes nothing else."""
+        return self._master_of[p].requires_grad_(True)
+
     def _widen(self, p: torch.Tensor) -> None:
         m = self._master_of[p]
         g = p.grad.to(WGRAD_DTYPE)
@@ -196,6 +204,45 @@ class MasterWeights:
     def load_state_dict(self, state: dict) -> None:
         self.reseed_(state["master"])
         self.inner.load_state_dict(state["inner"])
+
+
+class PerUseCasts:
+    """The parameters of ``module`` for one use, under master weights: each
+    its f32 master (``MasterWeights.leaf``) cast to the parameter's dtype,
+    on the use's device. A parameter that several uses share in one
+    backward (gpipe's microbatches, DP's replicas) would otherwise collect
+    their bf16 gradients in bf16 before the master's hook widens the sum;
+    through its own cast each use's gradient becomes f32 first, and
+    autograd adds the uses at the f32 leaf. That is the JAX steps'
+    design, which differentiate an f32 view of the parameters and let the
+    model cast it (parallel/pipeline.py:699-707). The cast of the master
+    is the parameter's value: the master's step sets each parameter to
+    its master rounded."""
+
+    def __init__(self, optimizer, module: torch.nn.Module):
+        self.named = [(name, p, optimizer.leaf(p))
+                      for name, p in module.named_parameters()]
+        self._leaf = {p: m for _, p, m in self.named}
+
+    def of(self, p: torch.nn.Parameter,
+           device: Optional[torch.device] = None) -> torch.Tensor:
+        """``p``'s cast for one use on ``device`` (default: ``p``'s)."""
+        return self._leaf[p].to(device=device or p.device, dtype=p.dtype)
+
+    def named_casts(self) -> Dict[str, torch.Tensor]:
+        """``{name: cast}`` of every parameter, each on its own device:
+        what ``torch.func.functional_call`` runs one use of the module
+        with."""
+        return {name: self.of(p) for name, p, _ in self.named}
+
+
+def per_use_casts(optimizer, module: torch.nn.Module
+                  ) -> Optional[PerUseCasts]:
+    """``PerUseCasts`` of ``module`` under master weights; None otherwise,
+    where the parameters are f32 and their uses add in f32 already."""
+    if not has_master_weights(optimizer):
+        return None
+    return PerUseCasts(optimizer, module)
 
 
 def has_master_weights(optimizer) -> bool:

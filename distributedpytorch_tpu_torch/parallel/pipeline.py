@@ -66,11 +66,23 @@ JAX package does:
   cotangent) carry the policy's ``backward_scale``: under master weights
   (``bf16_params``) each unit's bf16 gradients add up in the f32 master
   gradients, the data ranks sum those, and the master's step scales
-  them, the JAX policy's order.
+  them, the JAX policy's order. gpipe's one backward runs every
+  microbatch, so each microbatch's stages compute with their own cast
+  of the f32 masters (``PerUse``), and the microbatches' gradients add
+  at the f32 leaf, as the JAX gpipe differentiates an f32 view
+  (pipeline.py:699-707).
 
 ``LiveCarries`` counts what each stage holds for its backward, per tick:
 the input carries under 1f1b, the microbatches whose graph autograd keeps
 under gpipe.
+
+* **A CUDA graph of K steps** (``train/steps.MultiStep``) captures either
+  schedule, on one card or across cards: the copies between cards run on
+  the current streams of both cards, which the capture has joined, and
+  the zero gradients of ``optimizer_grads``, ``_reduce_grads`` and
+  ``_combine_bn`` allocate and reduce on the card without reading
+  anything back. The Python tick loop and 1f1b's ``saved`` carries run
+  at the warm-up and at the capture only.
 """
 
 from __future__ import annotations
@@ -95,8 +107,10 @@ from distributedpytorch_tpu_torch.ops.fused_loss import (
 )
 from distributedpytorch_tpu_torch.ops.losses import loss_from_stats
 from distributedpytorch_tpu_torch.ops.precision import (
+    PerUseCasts,
     backward_scale,
     optimizer_grads,
+    per_use_casts,
 )
 from distributedpytorch_tpu_torch.train.steps import (
     Batch,
@@ -160,10 +174,34 @@ def _microbatch_size(batch_size: int, num_microbatches: int) -> int:
     return batch_size // num_microbatches
 
 
+class _CopyTo(torch.autograd.Function):
+    """``x.to(device)`` across cards, whose backward copies the gradient
+    back with the source card's stream of the forward current. Autograd
+    runs the backward on the thread of the gradient's card, where the
+    other card's current stream is its default one: a plain ``.to``
+    there would order the copy after that stream, outside a CUDA graph's
+    capture, which CUDA refuses."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, device: torch.device) -> torch.Tensor:
+        ctx.source = x.device
+        ctx.stream = (torch.cuda.current_stream(x.device) if x.is_cuda
+                      else None)
+        return x.to(device, non_blocking=True)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        with torch.cuda.stream(ctx.stream):
+            return grad.to(ctx.source, non_blocking=True), None
+
+
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return x if x.device == device else _CopyTo.apply(x, device)
+
+
 def _carry_to(carry: Carry, device: torch.device) -> Carry:
     x, skips = carry
-    return (x.to(device, non_blocking=True),
-            tuple(t.to(device, non_blocking=True) for t in skips))
+    return _to(x, device), tuple(_to(t, device) for t in skips)
 
 
 class Stage(nn.Module):
@@ -188,6 +226,22 @@ class Stage(nn.Module):
         return x, skips
 
 
+class PerUse(nn.Module):
+    """``stage`` run with its parameters as ``casts`` gives them for one
+    use (``ops/precision.PerUseCasts``), so that the microbatches of one
+    gpipe backward add their gradients in f32 under master weights."""
+
+    def __init__(self, stage: Stage, casts: PerUseCasts):
+        super().__init__()
+        self.module = stage
+        self.device = stage.device
+        self._casts = casts
+
+    def forward(self, carry: Carry) -> Carry:
+        return torch.func.functional_call(
+            self.module, self._casts.named_casts(), (carry,))
+
+
 def build_stages(model: nn.Module, devices: Sequence[torch.device],
                  cuts: Optional[Sequence[int]] = None) -> List[Stage]:
     """One stage per device, ``len(devices)`` of them, each on its
@@ -198,7 +252,9 @@ def build_stages(model: nn.Module, devices: Sequence[torch.device],
 
 class LiveCarries:
     """What each stage holds for its backward: ``now[s]`` and the most it
-    held at once, ``peak[s]``."""
+    held at once, ``peak[s]``. It counts on the host, as the schedule's
+    Python runs: eager steps, and a K-step graph's warm-up and capture,
+    not its replays."""
 
     def __init__(self, num_stages: int):
         self.now = [0] * num_stages
@@ -223,7 +279,7 @@ def fill_drain(stages: Sequence[Stage], inputs: Sequence[Carry],
     microbatch's output ``y`` in microbatch order, on the last stage's
     device; ``live`` counts every stage forward as held."""
     num_stages, num_mb = len(stages), len(inputs)
-    # a stage or its Rematerialized wrapper
+    # a stage, or a wrapper of it (Rematerialized, PerUse)
     devices = [getattr(st, "module", st).device for st in stages]
     edge: List[Optional[Carry]] = [None] * (num_stages - 1)
     outs = []
@@ -358,6 +414,14 @@ def make_pipeline_train_step(
     params = list(model.parameters())
     running = _running_stats(model) if data_parallel else []
     runs = [rematerialized(stage, remat) for stage in stages]
+    if schedule == "gpipe":
+        # one backward over every microbatch: under master weights each
+        # microbatch's stage uses its own cast of the f32 masters
+        gpipe_runs = [
+            rematerialized(stage if casts is None else PerUse(stage, casts),
+                           remat)
+            for stage, casts in ((st, per_use_casts(optimizer, st))
+                                 for st in stages)]
 
     def open_step() -> List[torch.Tensor]:
         model.train()
@@ -374,7 +438,7 @@ def make_pipeline_train_step(
     def gpipe_step(batch: Batch) -> torch.Tensor:
         before = open_step()
         inputs, target, rows = _split(batch, num_mb, last)
-        per_mb = fill_drain(runs, inputs,
+        per_mb = fill_drain(gpipe_runs, inputs,
                             lambda m, y: stats_fn(y, target[rows(m)]), live)
         stats = _summed(per_mb)
         loss = loss_from_stats(all_reduce_sum(stats) if data_parallel

@@ -10,7 +10,9 @@ Instead, ``Replicated`` runs, per forward:
 * replica 0 is the model itself on the first device; replica i > 0 is a
   copy of its modules on device i whose parameters are ``p.to(device)``,
   autograd-visible, so every replica's gradient sums back into the one
-  parameter set, and whose buffers are copies;
+  parameter set, and whose buffers are copies; under master weights
+  every replica computes with its own cast of the f32 masters
+  (``ops/precision.PerUseCasts``), so the sum is in f32;
 * the batch is split in equal slices, replica i computes slice i on its
   device in a thread of its own (replica 0 in the caller's), and the
   predictions are gathered on the first device;
@@ -30,12 +32,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+from distributedpytorch_tpu_torch.ops.precision import PerUseCasts
 
 
 class _MeanOverReplicas(torch.autograd.Function):
@@ -95,10 +98,12 @@ class Meeting:
         return self._means[i]
 
 
-def replicate(module: nn.Module, device: torch.device) -> nn.Module:
+def replicate(module: nn.Module, device: torch.device,
+              casts: Optional[PerUseCasts] = None) -> nn.Module:
     """A copy of ``module``'s module tree on ``device``: parameters
     ``p.to(device)`` (the parameter itself on its own device, else a copy
-    autograd sends the gradient back through), buffers copied."""
+    autograd sends the gradient back through), or under master weights
+    this replica's cast of each f32 master (``casts``); buffers copied."""
     copies: Dict[nn.Module, nn.Module] = {
         m: m._replicate_for_data_parallel() for m in module.modules()}
     for m, r in copies.items():
@@ -108,7 +113,8 @@ def replicate(module: nn.Module, device: torch.device) -> nn.Module:
             if p is None:
                 r._parameters[key] = None
             else:
-                setattr(r, key, p.to(device))
+                setattr(r, key, p.to(device) if casts is None
+                        else casts.of(p, device))
         for key, b in m._buffers.items():
             r._buffers[key] = None if b is None else b.to(device, copy=True)
     return copies[module]
@@ -116,18 +122,30 @@ def replicate(module: nn.Module, device: torch.device) -> nn.Module:
 
 class Replicated(nn.Module):
     """``module`` run data-parallel over ``devices`` (the first holds the
-    module, takes the batch and gets the predictions back)."""
+    module, takes the batch and gets the predictions back). Under master
+    weights (``casts``) every replica, the first too, computes with its
+    own cast of the f32 masters, so autograd adds the replicas' gradients
+    in f32, where the GSPMD DP step of the JAX package sums them."""
 
-    def __init__(self, module: nn.Module, devices: Sequence[torch.device]):
+    def __init__(self, module: nn.Module, devices: Sequence[torch.device],
+                 casts: Optional[PerUseCasts] = None):
         super().__init__()
         self.module = module
         self.devices = [torch.device(d) for d in devices]
         self.is_stateful = bool(getattr(module, "is_stateful", False))
+        self._casts = casts
+
+    def _first(self, images: torch.Tensor) -> torch.Tensor:
+        """Replica 0: the module itself, its own buffers kept."""
+        if self._casts is None:
+            return self.module(images)
+        return torch.func.functional_call(
+            self.module, self._casts.named_casts(), (images,))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         n = len(self.devices)
         if n == 1:
-            return self.module(images)
+            return self._first(images)
         if images.shape[0] % n:
             raise ValueError(f"DP: a batch of {images.shape[0]} does not "
                              f"split over {n} replicas")
@@ -138,8 +156,9 @@ class Replicated(nn.Module):
         for bn in bns:
             bn.replicas = meeting
         try:
-            replicas = [self.module] + [replicate(self.module, d)
-                                        for d in self.devices[1:]]
+            replicas = [self._first] + [
+                replicate(self.module, d, self._casts)
+                for d in self.devices[1:]]
             slices = [x.to(d, non_blocking=True)
                       for x, d in zip(images.chunk(n), self.devices)]
             outs = self._run(replicas, slices, meeting)

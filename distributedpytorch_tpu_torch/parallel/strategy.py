@@ -38,17 +38,22 @@ forward of the step (singleGPU, DDP, ``--grad-accum``) or of each stage
 (MP, DDP_MP, both schedules) in its backward, and is refused under DP,
 whose recompute would enter the replicas' BatchNorm meeting a second time
 on the autograd threads. ``--steps-per-dispatch K > 1`` (one CUDA graph
-of K steps, ``build_multi_train_step``) runs under singleGPU only.
-``--dtype bf16_params`` runs under every strategy; under DDP the
-gradients are averaged over the ranks in ``REDUCE_DTYPE`` and rounded to
-bf16 once (``_allreduce_master_grads``), which is where the compiled JAX
-DDP step sums them too (its gradient all-reduce is float32 on the CPU
-mesh), and DDP_MP's stage gradients are reduced as the f32 master
-gradients.
+of K steps, ``build_multi_train_step``, from the trainer's own train
+step) runs under singleGPU, DDP, MP and DDP_MP; it is refused under DP
+and under a gloo group on a card. ``--dtype bf16_params`` runs under
+every strategy; under DDP the gradients are averaged over the ranks in
+``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
+which is where the compiled JAX DDP step sums them too (its gradient
+all-reduce is float32 on the CPU mesh), and DDP_MP's stage gradients are
+reduced as the f32 master gradients. Where one backward adds several uses
+of a parameter (gpipe's microbatches, DP's replicas) each use computes
+with its own cast of the f32 master (``ops/precision.PerUseCasts``), so
+the uses add in f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Callable, List, Optional, Sequence
@@ -69,6 +74,7 @@ from distributedpytorch_tpu_torch.ops.precision import (
     REDUCE_DTYPE,
     get_policy,
     has_master_weights,
+    per_use_casts,
 )
 from distributedpytorch_tpu_torch.parallel.pipeline import (
     PIPELINE_SCHEDULES,
@@ -202,14 +208,33 @@ class Strategy:
             self.config.faithful_loss_scaling, kernels.train_loss_fused,
             sum_over_ranks=self.sum_over_ranks, remat=self.config.remat)
 
-    def build_multi_train_step(self, model, optimizer, kernels) -> Callable:
-        """``multi(stacked) -> (K,) losses``: ``steps_per_dispatch`` train
-        steps per call, one CUDA graph of them on the card
-        (``train/steps.MultiStep``; ``check_run_control`` keeps it to
-        singleGPU)."""
+    #: eager steps ``MultiStep`` runs before it captures K steps
+    capture_warmup_steps = 1
+    #: a stream per device that ``MultiStep`` must warm up and capture
+    #: on, where the strategy built state on it (DDP)
+    capture_streams: dict = {}
+
+    @property
+    def step_devices(self) -> List[torch.device]:
+        """The devices one train step computes on, the batch's first."""
+        return list(getattr(self, "devices", [self.device]))
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The process group's backend where the steps talk over one."""
+        return None
+
+    def build_multi_train_step(self, train_step: Callable) -> Callable:
+        """``multi(stacked) -> (K,) losses``: ``steps_per_dispatch`` calls
+        of ``train_step`` per call, one CUDA graph of them on the card
+        (``train/steps.MultiStep``). ``train_step`` is the one the
+        trainer holds and runs the epoch's tail with, so both drive one
+        DDP wrapper and one pipeline step (``check_run_control`` keeps
+        ``-t DP`` and gloo on a card out)."""
         return make_multi_train_step(
-            self.build_train_step(model, optimizer, kernels),
-            self.config.steps_per_dispatch, self.device)
+            train_step, self.config.steps_per_dispatch, self.step_devices,
+            warmup_steps=self.capture_warmup_steps,
+            streams=self.capture_streams)
 
     def build_eval_step(self, model, kernels) -> Callable:
         """``step(batch) -> {'loss', 'dice'}`` on this process's device."""
@@ -256,11 +281,14 @@ class DataParallel(Strategy):
 
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
-        return Replicated(model, self.devices)
+        """The replicas; under master weights each computes with its own
+        cast of ``optimizer``'s f32 masters."""
+        return Replicated(model, self.devices,
+                          per_use_casts(optimizer, model))
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
-        return super().build_accum_train_step(self.wrap_model(model),
-                                              optimizer, kernels)
+        return super().build_accum_train_step(
+            self.wrap_model(model, optimizer), optimizer, kernels)
 
     def build_eval_step(self, model, kernels) -> Callable:
         return make_eval_step(self.wrap_model(model),
@@ -289,6 +317,10 @@ class MultiProcessMixin:
             return base_lr * self.world
         return base_lr
 
+    @property
+    def backend(self) -> Optional[str]:
+        return dist.get_backend() if dist.is_initialized() else None
+
 
 class DistributedDataParallel(MultiProcessMixin, Strategy):
     """Reference ``-t DDP`` (train_utils.py:170-248): one process per
@@ -303,6 +335,10 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
     gradients over the ranks itself. Rank 0 writes."""
 
     name = "DDP"
+    # DDP's reducer times its first 10 iterations with CUDA events read
+    # on the host, which a capture cannot hold (PyTorch's notes on CUDA
+    # graphs with DDP ask for 11 eager iterations)
+    capture_warmup_steps = 11
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
@@ -324,12 +360,29 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
         for module in model.modules():
             if isinstance(module, BatchNormAct):
                 module.global_stats = True
+        graphed = (int(self.config.steps_per_dispatch) > 1
+                   and self.device.type == "cuda")
+        stream = contextlib.nullcontext()
+        if graphed:
+            # the reducer keeps each parameter's gradient accumulator,
+            # whose stream is the one current when DDP is built: built on
+            # the default stream, the accumulators would make it wait on
+            # the capture, which CUDA refuses (PyTorch's notes on CUDA
+            # graphs with DDP: build DDP on the capture's side stream)
+            self.capture_streams = {self.device:
+                                    torch.cuda.Stream(self.device)}
+            stream = torch.cuda.stream(self.capture_streams[self.device])
         # the running statistics are computed from global moments, so
         # they are equal on every rank already: nothing to broadcast
-        ddp = DDP(rematerialized(model, self.config.remat),
-                  broadcast_buffers=False,
-                  device_ids=([self.device.index]
-                              if self.device.type == "cuda" else None))
+        with stream:
+            ddp = DDP(rematerialized(model, self.config.remat),
+                      broadcast_buffers=False,
+                      device_ids=([self.device.index]
+                                  if self.device.type == "cuda" else None))
+        if graphed:
+            # past its first 10 iterations the reducer times one in 100
+            # by default; a capture may fall on one
+            ddp._set_ddp_runtime_logging_sample_rate(2**31 - 1)
         if get_policy(self.config).master_weights:
             if not has_master_weights(optimizer):
                 raise ValueError(
@@ -353,20 +406,23 @@ def _allreduce_master_grads(optimizer, bucket):
     parameters' dtype once, as the JAX DDP step all-reduces its bf16
     gradient in float32 (DDP's own hook would sum a bf16 bucket in bf16).
     DDP writes the zero bucket back as the parameters' gradients, which
-    the master's step adds in: nothing."""
+    the master's step adds in: nothing. The all-reduce and the rounding
+    run here, on the stream of the backward that calls the hook (NCCL
+    orders its stream after it and it after NCCL's), not in a callback
+    on another stream: a CUDA graph of K steps captures them as they
+    run eagerly."""
     buffer = bucket.buffer()
     grads = optimizer.master_grads(bucket.parameters())
     flat = torch.cat([g.reshape(-1) for g in grads])
     flat.div_(dist.get_world_size())
-    fut = dist.all_reduce(flat, async_op=True).get_future()
-
-    def narrow(done):
-        mean = done.value()[0].to(buffer.dtype).to(REDUCE_DTYPE)
-        for g, t in zip(grads, mean.split([g.numel() for g in grads])):
-            g.copy_(t.view_as(g))
-        return buffer
-
-    return fut.then(narrow)
+    dist.all_reduce(flat)
+    mean = flat.to(buffer.dtype).to(REDUCE_DTYPE)
+    for g, t in zip(grads, mean.split([g.numel() for g in grads])):
+        g.copy_(t.view_as(g))
+    fut = torch.futures.Future(
+        devices=[buffer.device] if buffer.is_cuda else None)
+    fut.set_result(buffer)
+    return fut
 
 
 class Pipeline(Strategy):
@@ -518,18 +574,28 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
         return True
 
 
-def check_run_control(config) -> None:
+def check_run_control(config, device: Optional[torch.device] = None,
+                      backend: Optional[str] = None) -> None:
     """The run control's limits of the port, with their ROADMAP pointer:
-    ``--steps-per-dispatch K > 1`` runs under singleGPU only, and
-    ``--remat`` is refused under DP."""
+    ``--steps-per-dispatch K > 1`` is refused under DP and, once the
+    strategy knows its ``device`` and its group's ``backend``, under gloo
+    on a card; ``--remat`` is refused under DP."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
-    if k > 1 and method != SingleDevice.name:
+    if k > 1 and method == DataParallel.name:
         raise ValueError(
-            f"--steps-per-dispatch {k} runs under -t singleGPU only: the "
-            f"CUDA graph of K steps under -t {method} (NCCL and DDP's "
-            f"reducer, the pipeline's and the replicas' work inside a "
-            f"capture) is still to port (ROADMAP.md, Queue A)")
+            f"--steps-per-dispatch {k} under -t DP is not ported: the "
+            f"replicas run on threads of their own and meet at every "
+            f"BatchNorm, which a CUDA graph of K steps does not capture "
+            f"yet (ROADMAP.md, Queue A)")
+    if (k > 1 and backend == "gloo" and device is not None
+            and torch.device(device).type == "cuda"):
+        raise ValueError(
+            f"--steps-per-dispatch {k} under -t {method} over a gloo "
+            f"group on {device}: gloo moves CUDA tensors through the "
+            f"host, which a CUDA graph of K steps cannot capture — use "
+            f"the NCCL group torchrun makes on cards (ROADMAP.md, "
+            f"Queue A)")
     if config.remat and method == DataParallel.name:
         raise ValueError(
             "--remat under -t DP is not ported: the recompute would enter "
@@ -553,7 +619,9 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
     if cls is None:
         raise ValueError(unported_method_message(config.train_method))
     check_run_control(config)
-    return cls(config, info, devices)
+    strategy = cls(config, info, devices)
+    check_run_control(config, strategy.device, strategy.backend)
+    return strategy
 
 
 def unported_method_message(method: str) -> str:

@@ -51,10 +51,12 @@ a span of the step timeline (``utils/trace.py``, ``--trace-timeline``):
 step) and ``readback``.
 
 ``--steps-per-dispatch K`` groups K full batches into one call of the
-strategy's multi-step (one CUDA graph of K steps on the card, K plain
-steps on the CPU); its ``(K,)`` losses are read once per row. The ragged
-tail of an epoch runs as single steps on the same parameters and
-optimizer state (loop.py:991-1020).
+strategy's multi-step (one CUDA graph of K steps on the card, over every
+card of a pipeline, K plain steps on the CPU); its ``(K,)`` losses, on
+the card of the step's loss (a pipeline's last stage), are read once per
+row. The ragged tail of an epoch runs as single steps of the same train
+step, on the same parameters and optimizer state (loop.py:991-1020):
+under DDP through the one DDP wrapper the graph drives.
 
 A non-finite train loss (``nonfinite_policy``, loop.py:609-670, :926,
 :961-990, :1256-1272): ``abort`` raises ``NonFiniteLossError`` when its
@@ -213,9 +215,12 @@ class Trainer:
                  strategy: Optional[Strategy] = None,
                  devices: Optional[Sequence[torch.device]] = None):
         check_config(config)
-        check_run_control(config)
         self.config = config
         self.strategy = strategy or build_strategy(config, devices=devices)
+        # a strategy built elsewhere: the run control's limits, with its
+        # device and group
+        check_run_control(config, self.strategy.device,
+                          self.strategy.backend)
         self.device = self.strategy.device
         self.kernels = get_kernel_policy(config.kernels, self.device)
         self.policy = get_policy(config)
@@ -241,11 +246,13 @@ class Trainer:
         self.k_dispatch = max(1, int(config.steps_per_dispatch))
         self.grad_accum = max(1, int(config.grad_accum))
         lr0 = self.strategy.lr_for(config.learning_rate)
-        # a CUDA graph of K steps reads Adam's lr and step from the card
+        # a CUDA graph of K steps reads Adam's lr and step from the card,
+        # from each card the step computes on
         self.optimizer = make_optimizer(
             self.model.parameters(), lr0, config.weight_decay,
             policy=self.policy,
-            capturable=self.k_dispatch > 1 and self.device.type == "cuda")
+            capturable=self.k_dispatch > 1 and all(
+                d.type == "cuda" for d in self.strategy.step_devices))
         cast_params_(self.model, self.policy)
         self.scheduler = ReduceLROnPlateau(lr=lr0,
                                            patience=config.plateau_patience,
@@ -300,8 +307,10 @@ class Trainer:
             if self.grad_accum > 1 else None
         )
         if self.k_dispatch > 1:
+            # the same step: one DDP wrapper, one pipeline, for the
+            # graph and the epoch's tail
             self.multi_step = self.strategy.build_multi_train_step(
-                self.model, self.optimizer, self.kernels)
+                self.train_step)
         self.eval_step = self.strategy.build_eval_step(self.model,
                                                        self.kernels)
         self.copy_stream = (torch.cuda.Stream(self.device)

@@ -29,7 +29,8 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
   under master weights, whose step widens and then scales), and
   ``optimizer_grads`` are what the step reads;
 * ``make_multi_train_step`` runs K whole steps per call: on the card one
-  CUDA graph of them, on the CPU K plain steps.
+  CUDA graph of them, over every card the strategy's step computes on,
+  on the CPU K plain steps.
 
 A step takes a batch already on the model's device and returns the loss
 as a 0-d tensor there: nothing in a step waits for the card.
@@ -37,6 +38,7 @@ as a 0-d tensor there: nothing in a step waits for the card.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -199,63 +201,119 @@ class MultiStep:
     """``multi(stacked) -> losses``: ``steps`` whole train steps of
     ``step`` over a ``(K, B, ...)`` stack, the ``(K,)`` unscaled losses
     out (JAX ``make_multi_train_step``, steps.py:338-356). The same
-    function as K calls of ``step`` on the rows, in order.
+    function as K calls of ``step`` on the rows, in order. ``step`` is
+    the trainer's own train step, which also runs the epoch's tail as
+    single steps: one DDP wrapper, one pipeline, one optimizer.
 
     On the card it is one CUDA graph of the K steps: forward, loss (K1),
-    backward (K1-bwd) and Adam, which must be capturable (``make_optimizer
-    (..., capturable=True)``). The first call runs the K steps eagerly on
-    the graph's own stream, which makes every lazily built state (Adam's
-    moments, cuDNN's and cuBLAS's handles, K1's per-stream workspace)
-    before the capture; the second captures them, reading static input
-    buffers, and every call from then on copies its stack into those
-    buffers on the current stream and replays the graph there. A capture
-    that fails raises: nothing falls back to eager steps. The kernel
-    wrappers count what they launch (``ops.kernels.LAUNCHES``): the
-    warm-up's kernels, and the capture's, which go into the graph once;
-    a replay runs the graph's kernels without a wrapper, and counts
-    nothing (``chip_smoke.py`` counts them by name in the profiler's
-    trace of a replay). ``reset()`` drops the graph (a restore replaced
-    the optimizer's state tensors); the next call warms up again.
+    backward (K1-bwd), the strategy's collectives and copies between
+    cards, and Adam, which must be capturable (``make_optimizer(...,
+    capturable=True)``). ``devices`` are the cards the step computes on,
+    the first holding the stack (a pipeline's stage 0) and the losses on
+    whichever card the step leaves them (its last stage). Each card gets
+    a stream of the graph's own, or the one of ``streams`` the strategy
+    built state on (DDP's gradient accumulators). The first calls run
+    ``warmup_steps`` eager steps (whole stacks) on those streams, which
+    makes every lazily built state before the capture: Adam's moments, cuDNN's and cuBLAS's
+    handles, K1's per-stream workspace, NCCL's communicators, and DDP's
+    rebuilt buckets and its timed first iterations (at least 11 steps
+    under DDP). The next call captures, reading static input buffers on
+    the first card; every call from then on copies its stack into them on
+    the current stream and replays the graph there, ordered after each
+    card's current stream and before its next work. The first card's
+    allocations during the capture go to the graph's private pool
+    (``torch.cuda.graph``, which routes one card only); every other
+    card's go to a ``torch.cuda.MemPool`` of its own for the capture,
+    from any thread (autograd runs each card's backward on a thread of
+    its own), and the pool lives as long as the graph. Otherwise blocks
+    the capture freed there would go back to the card's cache, eager
+    work (the tail's steps, eval) would take them, and the next replay
+    would write into them. A capture that fails raises: nothing falls
+    back to eager steps. The kernel wrappers count what they launch
+    (``ops.kernels.LAUNCHES``): the warm-up's kernels, and the
+    capture's, which go into the graph once; a replay runs the graph's
+    kernels without a wrapper, and counts nothing (``chip_smoke.py``
+    counts them by name in the profiler's trace of a replay).
+    ``reset()`` drops the graph and its pools (a restore replaced the
+    optimizer's state tensors); the next call warms up one stack and
+    captures again.
 
     On the CPU it is K plain steps; the losses still come back as one
     ``(K,)`` tensor, so a metrics row reads them in one copy."""
 
     def __init__(self, step: Callable[[Batch], torch.Tensor], steps: int,
-                 device: torch.device):
+                 devices, warmup_steps: int = 1,
+                 streams: Optional[Dict[torch.device, "torch.cuda.Stream"]]
+                 = None):
         self.step = step
         self.steps = int(steps)
-        self.device = torch.device(device)
-        self._stream = None
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        # distinct, in order: a pipeline may put several stages on a card
+        self.devices = list(dict.fromkeys(_indexed(d) for d in devices))
+        self.device = self.devices[0]
+        self.warmup_steps = max(1, int(warmup_steps))
+        self._given = {_indexed(d): s for d, s in (streams or {}).items()}
+        self._streams: Optional[Dict[torch.device, torch.cuda.Stream]] = None
         self.reset()
 
     def reset(self) -> None:
         self._graph = None
-        self._warm = False
+        self._pools: Dict[torch.device, "torch.cuda.MemPool"] = {}
         self._static: Optional[Batch] = None
         self._losses: Optional[torch.Tensor] = None
+        # eager steps before the next capture: the strategy's warm-up
+        # before the first, one stack after a restore
+        self._eager_left = (self.warmup_steps if self._streams is None
+                            else self.steps)
 
     def _run(self, stacked: Batch) -> torch.Tensor:
         return torch.stack([self.step(_row(stacked, i))
                             for i in range(self.steps)])
 
+    def _own_streams(self, stack: contextlib.ExitStack) -> None:
+        """The graph's stream of every card current, the first card's
+        last, so that the first card is the current device."""
+        for d in reversed(self.devices):
+            stack.enter_context(torch.cuda.stream(self._streams[d]))
+
     def _warm_up(self, stacked: Batch) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
+        current = {d: torch.cuda.current_stream(d) for d in self.devices}
+        for d, s in self._streams.items():
+            s.wait_stream(current[d])
+        with contextlib.ExitStack() as stack:
+            self._own_streams(stack)
             losses = self._run(stacked)
-        current.wait_stream(self._stream)
-        losses.record_stream(current)
-        self._warm = True
+        for d, s in self._streams.items():
+            current[d].wait_stream(s)
+        losses.record_stream(torch.cuda.current_stream(losses.device))
         return losses
 
     def _capture(self, stacked: Batch) -> None:
         self._static = {k: torch.empty_like(v) for k, v in stacked.items()}
         graph = torch.cuda.CUDAGraph()
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        others = self.devices[1:]
+        pools = {}
+        for d in others:
+            with torch.cuda.device(d):
+                pools[d] = torch.cuda.MemPool()
+        for d, s in self._streams.items():
+            s.wait_stream(torch.cuda.current_stream(d))
+        capturing = self._streams[self.device]
+        with contextlib.ExitStack() as stack:
+            self._own_streams(stack)
+            stack.enter_context(torch.cuda.graph(
+                graph, stream=capturing, capture_error_mode="thread_local"))
+            for d in others:
+                stack.enter_context(_allocating_to(pools[d], d))
+                # an event of the capturing stream joins d's stream to
+                # the capture
+                self._streams[d].wait_stream(capturing)
             self._losses = self._run(self._static)
-        self._graph = graph
+            # every joined stream back in before the capture ends
+            for d in others:
+                capturing.wait_stream(self._streams[d])
+        self._graph, self._pools = graph, pools
 
     def __call__(self, stacked: Batch) -> torch.Tensor:
         k = stacked["image"].shape[0]
@@ -264,22 +322,56 @@ class MultiStep:
                              f"built for steps_per_dispatch={self.steps}")
         if self.device.type != "cuda":
             return self._run(stacked)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        if not self._warm:
+        if self._streams is None:
+            self._streams = {d: self._given.get(d) or torch.cuda.Stream(d)
+                             for d in self.devices}
+        if self._eager_left > 0:
+            self._eager_left -= self.steps
             return self._warm_up(stacked)
         if self._graph is None:
             self._capture(stacked)
         for key, v in stacked.items():
             self._static[key].copy_(v)
+        first = torch.cuda.current_stream(self.device)
+        for d in self.devices[1:]:
+            first.wait_stream(torch.cuda.current_stream(d))
         self._graph.replay()
+        for d in self.devices[1:]:
+            torch.cuda.current_stream(d).wait_stream(first)
         return self._losses.clone()
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card, as the
+    tensors placed on it report their device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@contextlib.contextmanager
+def _allocating_to(pool: "torch.cuda.MemPool", device: torch.device):
+    """Every allocation on ``device``, from any thread, from ``pool``
+    (``torch.cuda.use_mem_pool`` routes the calling thread's only, and a
+    card's backward runs on autograd's thread for that card)."""
+    index = torch.device(device).index
+    torch._C._cuda_beginAllocateToPool(index, pool.id)
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(index, pool.id)
+        torch._C._cuda_releasePool(index, pool.id)
+
+
 def make_multi_train_step(step: Callable[[Batch], torch.Tensor], steps: int,
-                          device: torch.device) -> MultiStep:
-    """K = ``steps`` train steps of ``step`` per call (``MultiStep``)."""
-    return MultiStep(step, steps, device)
+                          devices, warmup_steps: int = 1,
+                          streams=None) -> MultiStep:
+    """K = ``steps`` train steps of ``step`` per call on ``devices`` (one
+    device or the list a pipeline computes on), captured after
+    ``warmup_steps`` eager steps, on ``streams`` where given (a device's
+    stream the strategy built state on; ``MultiStep``)."""
+    return MultiStep(step, steps, devices, warmup_steps, streams)
 
 
 def batch_metrics(preds: torch.Tensor, target: torch.Tensor,

@@ -888,3 +888,129 @@ def test_milesial_remat_step_equals_the_plain_step(cuda_device,
         assert torch.equal(a, b)
     for a, b in zip(g1, g0):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+# -- the K-step graph under MP ---------------------------------------------------
+
+
+def _mp_parts(devices, schedule, dtype="f32"):
+    """A small UNet through the MP strategy's pipeline (M = 2) on
+    ``devices``, under kernels cuda, with capturable Adam."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="MP", num_stages=len(devices),
+                      num_microbatches=2, pipeline_schedule=schedule,
+                      dtype=dtype, kernels="cuda", device="cuda",
+                      model_widths=(8, 16), batch_size=2,
+                      steps_per_dispatch=3)
+    strategy = build_strategy(cfg, devices=devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = strategy.place_model(model)
+    opt = make_optimizer(model.parameters(), 1e-3, capturable=True)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, opt, step, strategy
+
+
+def _graph_against_eager(devices, schedule):
+    """Three calls of the K = 3 multi-step over ``devices`` against nine
+    eager steps from the same weights, after each call every card's cache
+    emptied and a guard tensor allocated on it that the next replay must
+    leave alone: (eager losses, graph losses, weights equal, guards
+    intact)."""
+    from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
+
+    stacks = _stacks(devices[0], 3)
+    model_e, _opt, step, _s = _mp_parts(devices, schedule)
+    eager = [float(step({k: v[i] for k, v in s.items()}))
+             for s in stacks for i in range(3)]
+    model_g, _opt, step, strategy = _mp_parts(devices, schedule)
+    multi = make_multi_train_step(step, 3, strategy.step_devices)
+    graphed, intact, guards = [], True, []
+    for s in stacks:
+        graphed += [float(x) for x in multi(s)]
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+        intact = intact and all(bool((g == 7.0).all()) for g in guards)
+        torch.cuda.empty_cache()
+        guards = [torch.full((1 << 22,), 7.0, device=d)
+                  for d in dict.fromkeys(devices)]
+    same = all(torch.equal(a, b) for a, b in zip(model_e.parameters(),
+                                                 model_g.parameters()))
+    return eager, graphed, same, intact
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_mp_k_step_graph_on_one_card_equals_eager_bitwise(
+        cuda_device, monkeypatch, schedule):
+    """``-t MP`` with both stages on cuda:0, K = 3: the graph's nine losses
+    and the weights bitwise equal to nine eager steps of the same
+    capturable Adam (cuDNN's deterministic algorithms), and guard tensors
+    allocated between replays left alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graphed, same, intact = _graph_against_eager(
+        [cuda_device, cuda_device], schedule)
+    assert graphed == eager and same and intact
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_mp_k_step_graph_across_two_cards_equals_eager_bitwise(
+        monkeypatch, schedule):
+    """The same across cuda:0 and cuda:1: the capture joins the second
+    card's stream to the capturing one, its allocations go to a pool of
+    the graph's own, and eager work between replays (the emptied cache,
+    the guards) takes none of its memory."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graphed, same, intact = _graph_against_eager(
+        [torch.device("cuda", 0), torch.device("cuda", 1)], schedule)
+    assert graphed == eager and same and intact
+
+
+def test_capturable_adam_over_two_groups_reads_each_lr_at_replay(
+        cuda_device):
+    """Capturable Adam over two param groups on one card, each with its
+    own lr tensor (the groups ``make_optimizer`` gives a pipeline's two
+    cards, made by hand on the one), captured in a graph of a step:
+    ``set_learning_rate`` between replays writes into both tensors, so a
+    replay at 0 leaves every parameter, and back at 1e-3 moves both
+    groups."""
+    from distributedpytorch_tpu_torch.ops.optim import set_learning_rate
+
+    a = torch.nn.Parameter(torch.linspace(-1, 1, 64, device=cuda_device))
+    b = torch.nn.Parameter(torch.linspace(1, 2, 32, device=cuda_device))
+    opt = torch.optim.Adam(
+        [{"params": [a], "lr": torch.tensor(1e-3, device=cuda_device)},
+         {"params": [b], "lr": torch.tensor(1e-3, device=cuda_device)}],
+        lr=1e-3, capturable=True)
+    lrs = [g["lr"] for g in opt.param_groups]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        ((a * a).sum() + (b * b * b).sum()).backward()
+        opt.step()
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    set_learning_rate(opt, 0.0)
+    assert [g["lr"] for g in opt.param_groups] == lrs  # the same tensors
+    before = [a.detach().clone(), b.detach().clone()]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, before[0]) and torch.equal(b, before[1])
+    set_learning_rate(opt, 1e-3)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(a, before[0]) and not torch.equal(b, before[1])

@@ -36,6 +36,7 @@ from distributedpytorch_tpu_torch.ops.optim import make_optimizer
 from distributedpytorch_tpu_torch.parallel.strategy import (
     SingleDevice,
     build_strategy,
+    check_run_control,
 )
 from distributedpytorch_tpu_torch.train import steps
 from distributedpytorch_tpu_torch.train.loop import (
@@ -354,16 +355,33 @@ def test_the_jax_refusals_carry_over_word_for_word(tmp_path, kw, message):
     assert str(port_err.value) == str(jax_err.value)
 
 
-@pytest.mark.parametrize("method", ["DDP", "MP", "DP", "DDP_MP"])
+@pytest.mark.parametrize("method", ["DDP", "DP", "DDP_MP"])
 def test_k_steps_outside_single_gpu_raise(tmp_path, method):
+    """What stays refused of K > 1 outside singleGPU, with the ROADMAP
+    pointer: ``-t DP`` (its replica threads are not captured yet), through
+    ``build_strategy`` and the CLI; and a gloo group on a card under the
+    multi-process methods, through the check with the strategy's device
+    and backend (gloo moves CUDA tensors through the host). Gloo on the
+    CPU and NCCL on a card pass the check."""
     cfg = _port_config(tmp_path, train_method=method, steps_per_dispatch=2)
+    if method == "DP":
+        with pytest.raises(ValueError,
+                           match="--steps-per-dispatch 2 under -t DP is "
+                                 "not ported.*ROADMAP"):
+            build_strategy(cfg)
+        with pytest.raises(SystemExit, match="-t DP is not ported.*ROADMAP"):
+            cli.main(["-t", method, "--steps-per-dispatch", "2",
+                      "--device", "cpu"])
+        return
     with pytest.raises(ValueError,
-                       match=f"runs under -t singleGPU only.*-t {method}"
-                             ".*ROADMAP"):
-        build_strategy(cfg)
-    with pytest.raises(SystemExit, match="singleGPU only.*ROADMAP"):
-        cli.main(["-t", method, "--steps-per-dispatch", "2", "--device",
-                  "cpu"])
+                       match=f"under -t {method} over a gloo group on "
+                             "cuda:0: gloo moves CUDA tensors through the "
+                             "host.*ROADMAP"):
+        check_run_control(cfg, torch.device("cuda", 0), "gloo")
+    check_run_control(cfg, CPU, "gloo")
+    check_run_control(cfg, torch.device("cuda", 0), "nccl")
+    check_run_control(dataclasses.replace(cfg, steps_per_dispatch=1),
+                      torch.device("cuda", 0), "gloo")
 
 
 # -- the non-finite policies -----------------------------------------------------

@@ -24,9 +24,12 @@ modules this process loaded. Scenarios:
   devices;
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
   its epochs; the losses, the val metrics, the lr, the final state dict
-  and what each rank wrote into a directory of its own.
+  and what each rank wrote into a directory of its own; how many
+  ``DistributedDataParallel`` wrappers it built and how many forwards
+  they ran; and whether its K-step dispatch drives its own train step.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -138,16 +141,24 @@ def run_pipeline_steps(job, rank, world):
     from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
     from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
     from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.ops.precision import (
+        cast_params_,
+        get_policy,
+    )
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
 
     cfg = TrainConfig(train_method="DDP_MP", device="cpu", **job["config"])
     strategy = build_strategy(cfg)
-    model = create_model(cfg)
+    policy = get_policy(cfg)
+    # as run_steps: the master seeded from the f32 weights, then the
+    # parameters rounded
+    model = create_model(cfg, cast_params=False)
     model.load_state_dict(job["initial"])
     model = strategy.place_model(model)
     optimizer = make_optimizer(model.parameters(),
                                strategy.lr_for(cfg.learning_rate),
-                               cfg.weight_decay)
+                               cfg.weight_decay, policy=policy)
+    cast_params_(model, policy)
     grads = _first_step_grads(optimizer, [n for n, _ in
                                           model.named_parameters()])
     step = strategy.build_train_step(model, optimizer,
@@ -159,9 +170,35 @@ def run_pipeline_steps(job, rank, world):
         states.append({k: v.clone() for k, v in model.state_dict().items()})
     return {"losses": torch.stack(losses), "grads": grads,
             "states": states,
+            "master": [m.detach().clone()
+                       for m in getattr(optimizer, "master", ())],
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
             "devices": [str(d) for d in strategy.devices]}
+
+
+@contextlib.contextmanager
+def _counting_ddp(counts):
+    """Within the block, ``counts`` (``{"built": 0, "forwards": 0}``)
+    counts the ``DistributedDataParallel`` wrappers built in this process
+    and the forwards they run."""
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    init, forward = DDP.__init__, DDP.forward
+
+    def counted_init(self, *args, **kwargs):
+        counts["built"] += 1
+        init(self, *args, **kwargs)
+
+    def counted_forward(self, *args, **kwargs):
+        counts["forwards"] += 1
+        return forward(self, *args, **kwargs)
+
+    DDP.__init__, DDP.forward = counted_init, counted_forward
+    try:
+        yield
+    finally:
+        DDP.__init__, DDP.forward = init, forward
 
 
 def run_accum(job, rank, world):
@@ -193,24 +230,29 @@ def run_trainer(job, rank, world):
     from distributedpytorch_tpu_torch.ops.optim import get_learning_rate
     from distributedpytorch_tpu_torch.train.loop import Trainer
 
+    counts = {"built": 0, "forwards": 0}
     out = os.path.join(job["dir"], f"rank{rank}")
     cfg = TrainConfig(
         train_method=job.get("method", "DDP"), device="cpu",
         checkpoint_dir=os.path.join(out, "checkpoints"),
         log_dir=os.path.join(out, "logs"),
         loss_dir=os.path.join(out, "loss"), **job["config"])
-    trainer = Trainer(cfg, initial_state=job["initial"])
+    with _counting_ddp(counts):
+        trainer = Trainer(cfg, initial_state=job["initial"])
+        result = trainer.train()
     resumed_from = None
     if cfg.checkpoint_name:
         payload = torch.load(cfg.checkpoint_name, weights_only=True)
         resumed_from = {k: payload[k] for k in ("manifest", "epoch", "step",
                                                 "scheduler")}
-    result = trainer.train()
     manifest = None
     if trainer.strategy.is_main:
         manifest = torch.load(trainer.checkpoint_path,
                               weights_only=True)["manifest"]
     return {
+        "ddp": counts, "same_step": (trainer.multi_step is not None and
+                                     trainer.multi_step.step
+                                     is trainer.train_step),
         "resumed_from": resumed_from, "manifest": manifest,
         "losses": [float(x) for x in trainer.records.losses],
         "result": result,
