@@ -9,18 +9,30 @@ builds the port's kernels from ``distributedpytorch_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together) and holds each against
 its plain PyTorch version on the card. Then it serves the full-width
 UNet (random weights from a seed, saved as a reference-format ``.pth``)
-through the serve CLI's own build functions: 24 concurrent requests
-through ``Server.submit`` plus ``/healthz`` and ``/stats`` over loopback
-HTTP. Then it trains the full-width UNet through the training CLI's own
-functions (``--synthetic 40 -b 4 -e 2`` at 960 x 640, bf16, kernels
-cuda), serves the weights it wrote, and holds one train step under
+through the serve CLI's own build functions, each bucket's forward one
+CUDA graph with K4 inside it: 24 concurrent requests through
+``Server.submit`` plus ``/healthz`` and ``/stats`` over loopback HTTP,
+then the same burst under the profiler, K4 counted per replay
+(``serve``); each bucket's graph against its eager forward, bitwise
+under cuDNN's deterministic algorithms, with the card's and the host's
+time per dispatch, the burst both ways, and one bucket dispatched twice
+before either result is drained (``serve_graph``). Then it trains the
+full-width UNet through the training CLI's own functions
+(``--synthetic 40 -b 4 -e 2`` at 960 x 640, bf16, kernels cuda), serves the weights it wrote, and holds one train step under
 kernels cuda against kernels torch. Then it trains the full-width
 milesial UNet (31M parameters, BatchNorm) through the same CLI with
 ``--model milesial --wgrad-taps --kernels cuda`` under
 ``DPT_WGRAD_BACKEND=pallas`` (``--synthetic 20 -b 4 -e 1``), which runs
 the BatchNorm + ReLU epilogue kernels and the 9-tap weight-gradient
 kernel, serves its weights, and holds one milesial step under kernels
-cuda against kernels torch. ``-t DDP`` runs three ways: the UNet run and
+cuda against kernels torch. Both models' weights then go through the
+``quantize`` converter and serve the burst as int8 (``--quantize int8``)
+beside their float serving: latency, forward ms per bucket, the
+replica's bytes on the card, the probabilities against the float ones,
+quantize-on-load against the file, K4 and K2 per replay
+(``serve_int8``); ``predict -b 4`` writes masks for ten PNGs from the
+UNet's float and int8 weights, held against the server's answers to the
+same files (``predict``). ``-t DDP`` runs three ways: the UNet run and
 the milesial run again at world 1 under NCCL through the same CLI
 functions with torchrun's env set (``train_ddp``, ``train_milesial_ddp``;
 the UNet once more as a real ``torchrun --standalone --nproc_per_node 1``
@@ -760,10 +772,51 @@ def phase_wgrad() -> dict:
     return result
 
 
+def _burst_requests() -> list:
+    """The 24 seeded requests of one to three 960 x 640 rows each."""
+    import numpy as np
+
+    w, h = IMAGE_WH
+    rng = np.random.default_rng(SEED)
+    return [rng.random((int(rng.integers(1, 4)), h, w, 3), dtype=np.float32)
+            for _ in range(N_REQUESTS)]
+
+
+def _serve_argv(checkpoint: str, ckpt_dir: str, *extra) -> list:
+    """The serve CLI's flags for the full-width engine under kernels cuda
+    at the four buckets, admitting the whole burst (these runs check
+    answers, not shedding)."""
+    w, h = IMAGE_WH
+    return ["-c", checkpoint, "--checkpoint-dir", ckpt_dir,
+            "--image-size", str(w), str(h), "--kernels", "cuda",
+            "--buckets", *map(str, BUCKETS),
+            "--queue-cap", str(3 * N_REQUESTS), "--port", "0", *extra]
+
+
+def _burst(server, requests) -> list:
+    """Submit every request from 8 threads at once; their responses."""
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futures = list(pool.map(server.submit, requests))
+        return [f.result(timeout=600) for f in futures]
+
+
+def _check_masks(requests, responses) -> None:
+    import numpy as np
+
+    w, h = IMAGE_WH
+    for req, resp in zip(requests, responses):
+        check(resp.ok, f"request answered {resp.status}: {resp.reason}")
+        check(len(resp.masks) == req.shape[0], "wrong mask count")
+        for m in resp.masks:
+            check(m.shape == (h, w) and m.dtype == np.uint8,
+                  f"mask {m.shape} {m.dtype}")
+
+
 def phase_serve(tmp: str) -> dict:
-    """The port's main path: the serve CLI's build functions, a server
-    answering concurrent requests, the kernel's launches counted over
-    that run."""
+    """The port's main path: the serve CLI's build functions (one CUDA
+    graph per bucket, K4 inside it), a server answering concurrent
+    requests, and the same burst again under the profiler, where K4 is
+    counted per replay by name."""
     import numpy as np
     import torch
 
@@ -781,40 +834,26 @@ def phase_serve(tmp: str) -> dict:
     check(n_params == UNET_PARAMS, f"UNet has {n_params} parameters")
     save_pth(model.state_dict(), os.path.join(tmp, "smoke.pth"))
     w, h = IMAGE_WH
-    rng = np.random.default_rng(SEED)
-    requests = [
-        rng.random((int(rng.integers(1, 4)), h, w, 3), dtype=np.float32)
-        for _ in range(N_REQUESTS)
-    ]
+    requests = _burst_requests()
     n_images = sum(r.shape[0] for r in requests)
-    argv = ["-c", "smoke", "--checkpoint-dir", tmp,
-            "--image-size", str(w), str(h), "--kernels", "cuda",
-            "--buckets", *map(str, BUCKETS),
-            # admit the whole burst: this run checks answers, not shedding
-            "--queue-cap", str(n_images), "--port", "0"]
     t0 = time.perf_counter()
-    server = cli.build_server(cli.get_args(argv))  # builds + warms
-    startup_s = time.perf_counter() - t0
+    server = cli.build_server(cli.get_args(_serve_argv("smoke", tmp)))
+    startup_s = time.perf_counter() - t0  # build, graph capture, warm-up
     check(server.engine.kernel_policy.name == "cuda", "policy is not cuda")
+    check(server.engine.graph_captures == len(BUCKETS),
+          f"{server.engine.graph_captures} bucket graphs captured")
     server.start()
     httpd = None
     try:
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(8) as pool:
-            futures = list(pool.map(server.submit, requests))
-            responses = [f.result(timeout=600) for f in futures]
+        responses = _burst(server, requests)
         burst_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        # the wrappers count at capture only: a replay launches K4
+        # without them (0 here)
+        wrapper_launches = dict(kernels.LAUNCHES)
         stats = server.stats()
-        for req, resp in zip(requests, responses):
-            check(resp.ok, f"request answered {resp.status}: {resp.reason}")
-            check(len(resp.masks) == req.shape[0], "wrong mask count")
-            for m in resp.masks:
-                check(m.shape == (h, w) and m.dtype == np.uint8,
-                      f"mask {m.shape} {m.dtype}")
-        check(launches["serve_mask"] > 0,
-              "the serve path never launched the serve-mask kernel")
+        _check_masks(requests, responses)
         httpd = cli.make_http_server(server, port=0)
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
         conn = http.client.HTTPConnection("127.0.0.1",
@@ -829,7 +868,20 @@ def phase_serve(tmp: str) -> dict:
         check(resp.status == 200
               and http_stats["requests_ok"] == N_REQUESTS,
               f"stats {http_stats}")
+        check(http_stats["aot_cache"]["compiles"] == len(BUCKETS),
+              f"aot_cache {http_stats['aot_cache']}")
         conn.close()
+        # the same burst again under the profiler: K4 counted per replay
+        # by name in the trace, one for each bucket dispatched
+        before = sum(server.stats()["bucket_dispatches"].values())
+        traced_responses, traced = _traced_call(
+            lambda: _burst(server, requests), ("serve_mask",))
+        _check_masks(requests, traced_responses)
+        dispatches = sum(server.stats()["bucket_dispatches"].values()) \
+            - before
+        check(traced["serve_mask"] == dispatches > 0,
+              f"{traced['serve_mask']} serve-mask kernels traced over "
+              f"{dispatches} bucket dispatches")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -862,13 +914,503 @@ def phase_serve(tmp: str) -> dict:
         "imgs_per_s": n_images / burst_s,
         "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
         "bucket_dispatches": stats["bucket_dispatches"],
-        "pad_ratio": stats["pad_ratio"], "launches": launches,
+        "pad_ratio": stats["pad_ratio"],
+        "launches": {"serve_mask": traced["serve_mask"]},
+        "traced_dispatches": dispatches,
+        "wrapper_launches": wrapper_launches,
         "mask_flips": flips, "mask_flips_outside_band": outside,
         "pixels_in_band": near, "pixels": pixels,
         "device": torch.cuda.get_device_name(0),
     }
     emit(result)
     return {"result": result, "engine": ref}
+
+
+#: the predict phase: ten files, ``-b 4`` (two full batches and a ragged
+#: one), sent to the server as requests of the same sizes
+PREDICT_FILES = 10
+PREDICT_BATCH = 4
+# the int8 A/B (the JAX package's tests/test_quantize.py): probabilities
+# within this of the float engine's, so that at any threshold the int8
+# masks equal the float ones wherever the float probability is at least
+# this far from it. The masks' Dice agreement at the float probabilities'
+# 80th percentile is reported beside the same agreement between bf16 and
+# float32 compute of the float weights, not held to a bound: the models
+# these phases train (16 and 4 steps) put that percentile in the dense
+# middle of their probabilities, where bf16 rounding alone moved the
+# UNet's masks to 0.941 and int8 to 0.975 on an H100 (PERF.md)
+INT8_PROB_ATOL = 1e-2
+# the int8 replica's weights against the float replica's, by the storage
+# of every tensor each holds on the card (7,760,097 parameters: ~0.25).
+# What placing them allocates (torch.cuda.memory_allocated around a copy
+# of the replica's model on the card, as the engine places it) is
+# reported beside it: the caching allocator hands out a cached block up
+# to 1 MB larger than asked whole, which moved the UNet's ratio between
+# 0.278 and 0.304 in two runs of the same code on an H100 (PERF.md). That
+# figure is held below half of the float weights' storage, which any
+# float copy of the weights on the replica exceeds
+INT8_BYTES_RATIO = 0.3
+RESIDENT_FLOAT_SHARE = 0.5
+
+
+def _eager_run(engine, replica, placed):
+    """``engine.run`` with the bucket's eager forward in place of its
+    graph replay: the dispatch as it was before the graphs."""
+    import torch
+
+    from distributedpytorch_tpu_torch.serve.engine import DeviceResult
+
+    with engine._on(replica, replica.stream):
+        replica.stream.wait_event(placed.ready)
+        placed.x.record_stream(replica.stream)
+        out = replica.compiled[placed.x.shape[0]].eager(placed.x)
+        done = torch.cuda.Event()
+        done.record(replica.stream)
+    return DeviceResult(out, done)
+
+
+def _dispatch_timings(fn, runs: int = 20) -> dict:
+    """One dispatch function timed three ways: the card's busy time per
+    call (profiler), the host's time to return from it on an idle card,
+    and the wall time per call back to back (the card drained after)."""
+    host = sorted(_host_enqueue_ms(fn) for _ in range(5))
+    return {"device_ms": _busy_ms_by_device(fn, 5, devices=[0])[0],
+            "host_ms": host[len(host) // 2],
+            "wall_ms": _wall_ms(fn, runs, 3, devices=[0])}
+
+
+def _burst_row(engine, eager: bool) -> dict:
+    """The 24-request burst through a fresh server on ``engine``, with its
+    buckets dispatched eagerly (``_eager_run``) or as their graphs."""
+    from distributedpytorch_tpu_torch.serve.server import Server
+
+    requests = _burst_requests()
+    if eager:
+        engine.run = lambda replica, placed: _eager_run(engine, replica,
+                                                        placed)
+    server = Server(engine, hard_cap_images=3 * N_REQUESTS).start()
+    try:
+        t0 = time.perf_counter()
+        responses = _burst(server, requests)
+        burst_s = time.perf_counter() - t0
+        stats = server.stats()
+    finally:
+        server.stop()
+        engine.__dict__.pop("run", None)
+    _check_masks(requests, responses)
+    return {"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+            "imgs_per_s": sum(r.shape[0] for r in requests) / burst_s}
+
+
+def phase_serve_graph(tmp: str, serve: dict) -> dict:
+    """Each bucket's forward as its CUDA graph against the eager forward
+    it was captured from, under cuDNN's deterministic algorithms (set for
+    this phase only): masks (kernels cuda, K4 in the graph) and
+    probabilities (kernels torch) bitwise; the card's time, the host's
+    time per dispatch and the wall time per dispatch of both; the burst
+    through a server dispatching eagerly and as graphs, in turns; the
+    same bucket dispatched twice before either result is drained; the
+    engine's startup, graph capture included."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.serve.engine import (
+        engine_from_checkpoint,
+    )
+
+    w, h = IMAGE_WH
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        engines = {}
+        startup_s = {}
+        for policy in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            engines[policy] = engine_from_checkpoint(
+                "smoke", checkpoint_dir=tmp, image_size=IMAGE_WH,
+                dtype="bf16", bucket_sizes=BUCKETS, kernels=policy,
+                device="cuda")
+            engines[policy].warmup()
+            startup_s[policy] = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        buckets = {}
+        for b in BUCKETS:
+            x = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+            row = {}
+            for policy, engine in engines.items():
+                forward = engine.replicas[0].compiled[b]
+                check(forward.graph is not None,
+                      f"bucket {b} has no graph under {policy}")
+                eager, graph = forward.eager(x), forward(x)
+                torch.cuda.synchronize()
+                row[f"{policy}_bitwise"] = bool(torch.equal(eager, graph))
+                check(row[f"{policy}_bitwise"],
+                      f"bucket {b}: graph and eager forward differ "
+                      f"(kernels {policy})")
+            engine = engines["cuda"]
+            replica = engine.replicas[0]
+            placed = engine.place(replica, x.cpu().numpy())
+            placed.ready.synchronize()
+            row["eager"] = _dispatch_timings(
+                lambda: _eager_run(engine, replica, placed))
+            row["graph"] = _dispatch_timings(
+                lambda: engine.run(replica, placed))
+            buckets[str(b)] = row
+        # the 24-request burst through a server on the cuda engine with
+        # the eager dispatch and with the graphs, in turns
+        bursts = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            bursts[mode].append(_burst_row(engines["cuda"], mode == "eager"))
+        # two dispatches of one bucket in flight before either is drained
+        engine = engines["torch"]
+        replica = engine.replicas[0]
+        b = max(BUCKETS)
+        rng = np.random.default_rng(SEED + 1)
+        batches = [rng.random((b, h, w, 3), dtype=np.float32)
+                   for _ in range(2)]
+        placed = [engine.place(replica, batch) for batch in batches]
+        results = [engine.run(replica, p) for p in placed]
+        got = [r.numpy() for r in results]
+        intact = []
+        for batch, probs in zip(batches, got):
+            x = torch.from_numpy(batch).cuda()
+            want = replica.compiled[b].eager(x).cpu().numpy()
+            intact.append(bool(np.array_equal(probs, want)))
+        check(all(intact) and not np.array_equal(got[0], got[1]),
+              f"two in-flight replays of bucket {b}: intact {intact}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out = {
+        "phase": "serve_graph", "cudnn_deterministic": True,
+        "buckets": buckets, "bursts": bursts, "inflight_bucket": b,
+        "inflight_results_intact": intact,
+        "graphs_captured": engines["cuda"].graph_captures,
+        "startup_s": startup_s["cuda"],
+        "startup_s_torch_policy": startup_s["torch"],
+        "serve_startup_s": serve["result"]["startup_s"],
+    }
+    del engines, engine, replica, placed, results
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def _repo_module(*argv) -> dict:
+    """``python -m distributedpytorch_tpu_torch ARGV`` from the checkout's
+    root; its wall seconds and the last lines of its log."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedpytorch_tpu_torch", *argv],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"{argv[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return {"wall_s": wall_s,
+            "log": proc.stderr.strip().splitlines()[-1:]}
+
+
+def _forward_ms(engine) -> dict:
+    """Each bucket's forward (a graph replay, its copies included) by
+    CUDA events, back to back on the current stream."""
+    import numpy as np
+
+    replica = engine.replicas[0]
+    h, w = engine.input_hw
+    out = {}
+    for b in engine.planner.sizes:
+        placed = engine.place(replica, np.zeros((b, h, w, 3), np.float32))
+        placed.ready.synchronize()
+        fn = replica.compiled[b]
+        out[str(b)] = cuda_ms(lambda: fn(placed.x), 10, warmup=2)
+    return out
+
+
+def _serve_burst(argv) -> dict:
+    """A server built by the serve CLI from ``argv`` answers the 24-request
+    burst; its startup, latency, images / s, forward ms per bucket and
+    the replica's weight bytes on the card. The engine is kept
+    (``engine``) for the caller's comparisons; the server is stopped."""
+    from distributedpytorch_tpu_torch.serve import cli
+
+    requests = _burst_requests()
+    t0 = time.perf_counter()
+    server = cli.build_server(cli.get_args(argv))
+    startup_s = time.perf_counter() - t0
+    server.start()
+    try:
+        t0 = time.perf_counter()
+        responses = _burst(server, requests)
+        burst_s = time.perf_counter() - t0
+        stats = server.stats()
+    finally:
+        server.stop()
+    _check_masks(requests, responses)
+    engine = server.engine
+    n_images = sum(r.shape[0] for r in requests)
+    return {
+        "row": {"startup_s": startup_s, "burst_s": burst_s,
+                "imgs_per_s": n_images / burst_s,
+                "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                "forward_ms": _forward_ms(engine),
+                "resident_weight_bytes": _placed_bytes(
+                    engine.replicas[0].model),
+                "weight_storage_bytes": sum(
+                    t.untyped_storage().nbytes() for t in
+                    engine.replicas[0].model.state_dict().values()),
+                "quantized": engine.quantized},
+        "engine": engine,
+    }
+
+
+def _placed_bytes(model) -> int:
+    """What placing ``model`` on its card allocates: torch.cuda's
+    allocated bytes around a copy of it there, as the engine's replica
+    build copies the model onto its device."""
+    import copy
+
+    import torch
+
+    # free blocks cached by earlier phases would be handed out whole
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    placed = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    del placed
+    torch.cuda.empty_cache()
+    return allocated
+
+
+def _synthetic_rows(n: int):
+    """``n`` procedural 960 x 640 car images (the training data's kind)."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data.dataset import (
+        SyntheticSegmentationDataset,
+    )
+
+    ds = SyntheticSegmentationDataset(length=n, newsize=IMAGE_WH,
+                                      seed=SEED + 7)
+    return np.stack([ds[i]["image"] for i in range(n)]).astype(np.float32)
+
+
+def _agreement(reference, other, quantile: float = 0.8) -> float:
+    """Dice of the two masks at ``reference``'s ``quantile``."""
+    import numpy as np
+
+    thr = float(np.quantile(reference, quantile))
+    ma, mb = reference >= thr, other >= thr
+    return 2.0 * float(np.sum(ma & mb)) / max(1.0, float(ma.sum() + mb.sum()))
+
+
+def _int8_model(tmp: str, arch: str, pth: str) -> dict:
+    """One model's int8 serving against its float serving: the converter
+    (``python -m distributedpytorch_tpu_torch quantize``) on its ``.pth``;
+    the burst through the serve CLI with the float ``.pth`` and with
+    ``--quantize int8`` on the int8 file; the same file loaded without the
+    flag; the bytes on the card; the probabilities of the kernels-torch
+    engines on eight synthetic images (int8 against float in bf16, and
+    float in bf16 against float32 for the rounding the served compute
+    already adds); quantize-on-load against the file; the kernels per
+    replay in the trace."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.serve.engine import (
+        engine_from_checkpoint,
+    )
+    from distributedpytorch_tpu_torch.serve.infer import load_inference_bundle
+
+    int8 = os.path.join(tmp, f"{arch}.int8.pt")
+    model = ["--model", arch]
+    converter = _repo_module("quantize", "-c", pth, "-o", int8,
+                             "--image-size", *map(str, IMAGE_WH), *model)
+    ckpt_dir = os.path.dirname(pth)
+    fl = _serve_burst(_serve_argv(pth, ckpt_dir, *model))
+    q8 = _serve_burst(_serve_argv(int8, ckpt_dir, *model,
+                                  "--quantize", "int8"))
+    check(q8["engine"].quantized and not fl["engine"].quantized,
+          "the int8 server does not serve int8 weights")
+    ratio = (q8["row"]["weight_storage_bytes"]
+             / fl["row"]["weight_storage_bytes"])
+    allocated_ratio = (q8["row"]["resident_weight_bytes"]
+                       / fl["row"]["resident_weight_bytes"])
+    check(ratio < INT8_BYTES_RATIO,
+          f"{arch}: int8 replica holds {ratio:.4f} of the float bytes")
+    check(q8["row"]["resident_weight_bytes"]
+          < RESIDENT_FLOAT_SHARE * fl["row"]["weight_storage_bytes"],
+          f"{arch}: placing the int8 replica allocated "
+          f"{q8['row']['resident_weight_bytes']} bytes")
+    check(all(name.endswith(".scale") for name, t in
+              q8["engine"].replicas[0].model.state_dict().items()
+              if t.is_floating_point() and t.ndim == 4),
+          f"{arch}: a float conv weight is resident on the int8 replica")
+    # the file without the flag: detected, the same int8 state
+    detected = load_inference_bundle(int8, image_size=IMAGE_WH,
+                                     model_arch=arch)
+    state = q8["engine"].replicas[0].model.state_dict()
+    same_state = detected.quantized and all(
+        torch.equal(v, state[k].cpu())
+        for k, v in detected.model.state_dict().items())
+    check(same_state, f"{arch}: the int8 file loads otherwise without "
+                      f"--quantize")
+    kernels_replay = ("serve_mask", "bn_act") if arch == "milesial" \
+        else ("serve_mask",)
+    rows = _synthetic_rows(max(BUCKETS))
+    _, per_replay = _traced_call(lambda: q8["engine"].infer(rows[:1]),
+                                 kernels_replay)
+    _, per_replay_float = _traced_call(
+        lambda: fl["engine"].infer(rows[:1]), kernels_replay)
+    want = {"serve_mask": 1, "bn_act": 18}
+    check(all(per_replay[k] == per_replay_float[k] == want[k]
+              for k in kernels_replay),
+          f"{arch}: kernels per replay {per_replay} / {per_replay_float}")
+    del fl["engine"], q8["engine"]
+    # probabilities (kernels torch, host threshold), float against int8
+    common = dict(image_size=IMAGE_WH, model_arch=arch, dtype="bf16",
+                  bucket_sizes=(max(BUCKETS),), kernels="torch",
+                  device="cuda")
+    probs_f = engine_from_checkpoint(pth, **common).infer(rows)
+    q_file = engine_from_checkpoint(int8, quantize="int8", **common)
+    probs_q = q_file.infer(rows)
+    on_load = engine_from_checkpoint(pth, quantize="int8", **common)
+    file_state = q_file.replicas[0].model.state_dict()
+    onload_state_equal = all(
+        torch.equal(v, file_state[k])
+        for k, v in on_load.replicas[0].model.state_dict().items())
+    check(onload_state_equal, f"{arch}: quantize-on-load (host) and the "
+                              f"converter (card) quantized differently")
+    onload_equal = bool(np.array_equal(
+        on_load.postprocess(on_load.infer(rows)),
+        q_file.postprocess(probs_q)))
+    check(onload_equal, f"{arch}: quantize-on-load masks differ from the "
+                        f"int8 file's")
+    probs_f32 = engine_from_checkpoint(
+        pth, **dict(common, dtype="f32")).infer(rows)
+    max_abs = float(np.max(np.abs(probs_f - probs_q)))
+    thr = float(np.quantile(probs_f, 0.8))
+    mf, mq = probs_f >= thr, probs_q >= thr
+    outside = int(((mf != mq) & (np.abs(probs_f - thr) >= INT8_PROB_ATOL))
+                  .sum())
+    check(max_abs < INT8_PROB_ATOL and mf.sum() > 0,
+          f"{arch}: int8 probabilities {max_abs} from the float ones")
+    del q_file, on_load
+    torch.cuda.empty_cache()
+    return {
+        "int8_file": os.path.basename(int8), "converter": converter,
+        "float": fl["row"], "int8": q8["row"],
+        "weight_storage_bytes_ratio": ratio,
+        "resident_weight_bytes_ratio": allocated_ratio,
+        "detected_without_flag": True,
+        "launches_per_replay": per_replay,
+        "launches_per_replay_float": per_replay_float,
+        "prob_max_abs_diff": max_abs,
+        "prob_mean_abs_diff": float(np.mean(np.abs(probs_f - probs_q))),
+        "p80_threshold": thr, "p80_flips_outside_band": outside,
+        "p80_mask_agreement": _agreement(probs_f, probs_q),
+        "p80_mask_agreement_bf16_vs_f32": _agreement(probs_f32, probs_f),
+        "quantize_on_load_masks_equal_file": onload_equal,
+        "int8_path": int8,
+    }
+
+
+def phase_serve_int8(tmp: str) -> dict:
+    """Weights-only int8 serving of the weights the ``train`` and
+    ``train_milesial`` phases wrote (``_int8_model`` for each)."""
+    out = {"phase": "serve_int8"}
+    for arch, run in (("unet", "train"), ("milesial", "train_milesial")):
+        pth = os.path.join(tmp, run, "checkpoints", "singleGPU.pth")
+        out[arch] = _int8_model(tmp, arch, pth)
+    emit(out)
+    return out
+
+
+def phase_predict(tmp: str, serve_int8: dict) -> dict:
+    """``python -m distributedpytorch_tpu_torch predict -b 4`` on ten
+    seeded 960 x 640 PNGs (two full batches and a ragged one) with the
+    UNet's float ``.pth`` and its int8 file, held against the server's
+    answers to the same files sent as requests of 4, 4 and 2 images:
+    masks equal wherever the probability is at least ``SERVE_BAND`` from
+    the threshold (cuDNN may pick other algorithms for the graph and for
+    predict's eager forward), and the bit-equal share reported; then the
+    images / s of predict's batch loop on the card."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from distributedpytorch_tpu_torch.predict import predict_batches
+    from distributedpytorch_tpu_torch.serve import cli
+    from distributedpytorch_tpu_torch.serve.infer import (
+        load_image,
+        load_inference_bundle,
+    )
+
+    w, h = IMAGE_WH
+    images = os.path.join(tmp, "predict_in")
+    os.makedirs(images)
+    rows = _synthetic_rows(PREDICT_FILES)
+    names = [f"car{i:02d}.png" for i in range(PREDICT_FILES)]
+    for name, row in zip(names, rows):
+        Image.fromarray((row * 255).astype(np.uint8)).save(
+            os.path.join(images, name))
+    paths = [os.path.join(images, n) for n in names]
+    decoded = np.stack([load_image(p, IMAGE_WH) for p in paths])
+    pth = os.path.join(tmp, "train", "checkpoints", "singleGPU.pth")
+    out = {"phase": "predict", "files": PREDICT_FILES,
+           "batch": PREDICT_BATCH}
+    for label, ckpt, extra in (
+            ("float", pth, ()),
+            ("int8", serve_int8["unet"]["int8_path"], ("--quantize", "int8"))):
+        dest = os.path.join(tmp, f"predict_{label}")
+        run = _repo_module("predict", "-c", ckpt, "-i", images, "-o", dest,
+                           "-b", str(PREDICT_BATCH))
+        written = [os.path.join(dest, f"{os.path.splitext(n)[0]}_mask.png")
+                   for n in names]
+        predicted = [np.asarray(Image.open(p)) for p in written]
+        server = cli.build_server(cli.get_args(
+            _serve_argv(ckpt, os.path.dirname(ckpt), *extra)))
+        server.start()
+        try:
+            served = []
+            for i in range(0, PREDICT_FILES, PREDICT_BATCH):
+                resp = server.submit(paths[i:i + PREDICT_BATCH]).result(600)
+                check(resp.ok, f"predict phase request: {resp.reason}")
+                served += resp.masks
+        finally:
+            server.stop()
+        del server
+        # predict's own probabilities, for the band
+        bundle = load_inference_bundle(ckpt, image_size=IMAGE_WH)
+        model = bundle.model.to("cuda")
+        probs = np.concatenate([p for p, _ in predict_batches(
+            model, decoded, PREDICT_BATCH, device="cuda")])
+        t0 = time.perf_counter()
+        for _ in predict_batches(model, decoded, PREDICT_BATCH,
+                                 device="cuda"):
+            pass
+        loop_s = time.perf_counter() - t0
+        got, want = np.stack(predicted), np.stack(served)
+        check(got.shape == (PREDICT_FILES, h, w) and got.dtype == np.uint8,
+              f"predicted masks {got.shape} {got.dtype}")
+        diff = got != want
+        outside = int((diff & (np.abs(probs - THRESHOLD) >= SERVE_BAND)).sum())
+        check(outside == 0, f"predict ({label}): {outside} mask pixels "
+                            f"differ from the served ones outside the band")
+        check(bundle.quantized == (label == "int8"),
+              f"predict ({label}) loaded quantized={bundle.quantized}")
+        out[label] = {
+            "cli": run, "masks_written": len(written),
+            "pixels_bit_equal_share": float(1.0 - diff.mean()),
+            "mask_flips": int(diff.sum()),
+            "mask_flips_outside_band": outside,
+            "loop_imgs_per_s": PREDICT_FILES / loop_s,
+        }
+        del model, bundle
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 def phase_profile(engine) -> dict:
@@ -1177,14 +1719,17 @@ def phase_train_milesial(tmp: str) -> dict:
             os.path.relpath(os.path.join(d, f), run)
             for d, _, files in os.walk(run) for f in files
         )
-        kernels.reset_launches()
         engine = engine_from_checkpoint(
             "singleGPU", checkpoint_dir=ckpt_dir, image_size=IMAGE_WH,
             model_arch="milesial", dtype="bf16", bucket_sizes=(1,),
             kernels="cuda", device="cuda",
         )
-        masks = engine.infer(np.zeros((1, h, w, 3), np.float32))
-        serve_launches = dict(kernels.LAUNCHES)
+        # the bucket forward is a CUDA graph: its kernels are counted in
+        # the trace of one replay
+        masks, serve_launches = _traced_call(
+            lambda: engine.infer(np.zeros((1, h, w, 3), np.float32)),
+            ("bn_act", "serve_mask"))
+        del engine
         batch = trainer.place_batch(trainer.train_loader.load_slice(
             trainer.train_loader.batch_slices(0)[0]))
         step_ms = cuda_ms(lambda: trainer.train_step(batch), 5, warmup=2)
@@ -2201,16 +2746,17 @@ def phase_train_mp(tmp: str, train: dict) -> dict:
             "top_kernels_ms": top[:8],
         }
         if schedule == "gpipe":
-            kernels.reset_launches()
             engine = engine_from_checkpoint(
                 "MP", checkpoint_dir=ckpt_dir, image_size=IMAGE_WH,
                 dtype="bf16", bucket_sizes=(1,), kernels="cuda",
                 device="cuda")
-            masks = engine.infer(np.zeros((1, h, w, 3), np.float32))
+            masks, served = _traced_call(
+                lambda: engine.infer(np.zeros((1, h, w, 3), np.float32)),
+                ("serve_mask",))
             check(masks.shape == (1, h, w) and masks.dtype == np.uint8
-                  and kernels.LAUNCHES["serve_mask"] == 1,
-                  f"serving MP.pth: {masks.shape} {masks.dtype} "
-                  f"{kernels.LAUNCHES}")
+                  and served["serve_mask"] == 1,
+                  f"serving MP.pth: {masks.shape} {masks.dtype} {served}")
+            del engine
             out["served_mp_pth"] = True
         del trainer
     out["train_step_ms"] = train["step_ms"]
@@ -2561,7 +3107,8 @@ def _busy_ms_by_device(fn, runs: int, devices=None) -> dict:
 #: the kernels' function names in the profiler's trace, by launch counter
 #: (K3's wrapper launches a partial and a final kernel, K5's its tile
 #: kernel and, when split, a sum: the first of each is counted)
-KERNEL_SYMBOLS = {"loss_stats": "stats_kernel",
+KERNEL_SYMBOLS = {"serve_mask": "serve_mask_kernel",
+                  "loss_stats": "stats_kernel",
                   "loss_stats_bwd": "stats_bwd_kernel",
                   "bn_act": "bn_act_kernel",
                   "bn_act_bwd": "bn_act_bwd_partial_kernel",
@@ -2573,6 +3120,12 @@ def _traced_launches(fn, names=LOSS_KERNELS) -> dict:
     """``{counter name: n}``: the kernels of ``names`` that the card ran
     during one call of ``fn``, counted by function name in the profiler's
     trace, not by the wrappers' counters."""
+    return _traced_call(fn, names)[1]
+
+
+def _traced_call(fn, names) -> tuple:
+    """``(fn(), _traced_launches' counts)`` of one call of ``fn``; the
+    trace holds the kernels every thread of the process ran."""
     import re
 
     import torch
@@ -2580,13 +3133,14 @@ def _traced_launches(fn, names=LOSS_KERNELS) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
     kernels = [evt.name for evt in prof.events()
                if evt.device_type == torch.autograd.DeviceType.CUDA]
-    return {name: sum(bool(re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", k))
-                      for k in kernels)
-            for name in names}
+    return out, {
+        name: sum(bool(re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", k))
+                  for k in kernels)
+        for name in names}
 
 
 def _wall_ms(fn, iters: int, warmup: int, devices=None) -> float:
@@ -4391,11 +4945,14 @@ def main(argv) -> int:
     wgrad = phase_wgrad()
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
-        phase_profile(serve["engine"])
+        phase_profile(serve.pop("engine"))
+        phase_serve_graph(tmp, serve)
         train = phase_train(tmp)
         train_ddp = phase_train_ddp(tmp, train)
         milesial = phase_train_milesial(tmp)
         milesial_ddp = phase_train_milesial_ddp(tmp, milesial)
+        serve_int8 = phase_serve_int8(tmp)
+        phase_predict(tmp, serve_int8)
         phase_train_ddp_gloo2(tmp)
         train_mp = phase_train_mp(tmp, train)
         milesial_mp = phase_train_milesial_mp(tmp)
@@ -4426,6 +4983,19 @@ def main(argv) -> int:
                     if name in row["graph_launches_per_replay"]})
         return out
 
+    def serve_replay_launches(name):
+        """Per replay of a bucket graph, counted in the trace: the float
+        and int8 engines of serve_int8, and milesial's .pth served after
+        train_milesial."""
+        out = {}
+        for arch in ("unet", "milesial"):
+            row = serve_int8[arch]
+            if name in row["launches_per_replay"]:
+                out[arch] = row["launches_per_replay_float"][name]
+                out[f"{arch}_int8"] = row["launches_per_replay"][name]
+        out["milesial_pth"] = milesial["serve_launches"][name]
+        return out
+
     def ddp_mp_launches(name):
         """Rank 0's launches in each run of train_ddp_mp_gloo2 (K1 and
         K1-bwd in every run, K2, K3 and K5 in milesial's)."""
@@ -4438,7 +5008,9 @@ def main(argv) -> int:
             "route": "cuda",
             "source": source + "serve_mask.cu",
             "replaces": "distributedpytorch_tpu/ops/kernels.py:519",
+            # per replay of the bucket graphs, counted in the trace
             "launches": serve["result"]["launches"]["serve_mask"],
+            "serve_launches_per_replay": serve_replay_launches("serve_mask"),
             # not on the training paths
             "ddp_launches": None,
             "mp_launches": None,
@@ -4509,6 +5081,8 @@ def main(argv) -> int:
             "dp_launches": train_dp["milesial_launches"]["bn_act"],
             "ddp_mp_launches": ddp_mp_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
+            # per replay of milesial's bucket graphs, float and int8
+            "serve_launches_per_replay": serve_replay_launches("bn_act"),
             "max_abs_err": bn["fwd_max_abs_err"],
             # timed with the float32 x of the training path
             "ms": bn["f32"]["fwd_ms"],

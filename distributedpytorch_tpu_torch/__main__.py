@@ -1,7 +1,9 @@
 """``python -m distributedpytorch_tpu_torch [-t singleGPU] ...`` trains on
 the card (cli.py), as the JAX package's entry point does;
 ``python -m distributedpytorch_tpu_torch serve ...`` serves
-(serve/cli.py)."""
+(serve/cli.py), ``predict ...`` writes masks for a directory of images
+(predict.py) and ``quantize ...`` converts a checkpoint to int8 weights
+(quantize.py)."""
 
 import sys
 
@@ -12,6 +14,14 @@ def main(argv=None) -> int:
         from distributedpytorch_tpu_torch.serve.cli import main as serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "predict":
+        from distributedpytorch_tpu_torch.predict import main as predict_main
+
+        return predict_main(argv[1:])
+    if argv and argv[0] == "quantize":
+        from distributedpytorch_tpu_torch.quantize import main as quant_main
+
+        return quant_main(argv[1:])
     from distributedpytorch_tpu_torch.cli import main as train_main
 
     return train_main(argv)

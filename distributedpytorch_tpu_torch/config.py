@@ -163,6 +163,10 @@ class ServeConfig:
     model_arch: str = "unet"
     model_widths: Optional[Tuple[int, ...]] = None
     s2d_levels: int = -1
+    # Weights-only int8 serving (ops/quant.py): "int8" loads an int8 file
+    # as it is and quantizes a float checkpoint on load; None serves float
+    # weights unless the file is int8 (detected, with a warning).
+    quantize: Optional[str] = None
     threshold: float = 0.5
     # Kernel policy (ops/kernels.py): "cuda" ends every bucket forward in
     # the serve-mask kernel (uint8 masks come back from the card);

@@ -45,8 +45,9 @@ def get_args(argv=None):
                     "batching on the card",
     )
     parser.add_argument("--checkpoint", "-c", required=True,
-                        help="Checkpoint name (e.g. singleGPU) or path to a "
-                             "reference-format .pth")
+                        help="Checkpoint name (e.g. singleGPU) or path: a "
+                             "reference-format .pth, the port's .pt, or an "
+                             "int8 weights file")
     parser.add_argument("--checkpoint-dir", default="./checkpoints")
     parser.add_argument("--image-size", type=int, nargs=2, default=(960, 640),
                         metavar=("W", "H"))
@@ -58,6 +59,14 @@ def get_args(argv=None):
                         help="Accepted for parity; the port always runs the "
                              "(equivalent) pixel path")
     parser.add_argument("--threshold", "-t", type=float, default=0.5)
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=["int8"],
+                        help="Serve weights-only int8 (per-out-channel "
+                             "symmetric, dequantized inside the forward): "
+                             "an int8 file from `python -m "
+                             "distributedpytorch_tpu_torch quantize` loads "
+                             "as it is, a float checkpoint is quantized on "
+                             "load. An int8 file is detected without it")
     parser.add_argument("--kernels", type=str, default=None,
                         choices=["torch", "cuda"],
                         help="Kernel policy: cuda ends every bucket forward "
@@ -111,6 +120,7 @@ def to_config(args):
         model_arch=args.model_arch,
         model_widths=tuple(args.model_widths) if args.model_widths else None,
         s2d_levels=args.s2d_levels,
+        quantize=args.quantize,
         threshold=args.threshold,
         kernels=args.kernels,
         device=args.device,

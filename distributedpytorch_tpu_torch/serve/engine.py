@@ -2,17 +2,29 @@
 data-parallel over the cards.
 
 Counterpart of ``distributedpytorch_tpu/serve/engine.py`` (without the
-AOT store, quantization and weight rollout). PyTorch runs eagerly, so a
-bucket's entry in ``Replica.compiled`` is the forward bound to that
-replica, which refuses any other batch shape; ``warmup`` runs every
-bucket once so cuDNN's algorithm choice and the caching allocator's
-pools settle before traffic.
+AOT store and weight rollout). Where the JAX engine compiles one
+executable per (replica, bucket), the port captures one CUDA graph per
+(replica, bucket) on a card: ``Replica.compiled[b]`` is a
+:class:`BucketForward`, which refuses any other batch shape. At build
+each bucket's forward runs eagerly on a side stream (cuDNN's algorithm
+choice, the kernels' first-use build and the caching allocator settle),
+then one forward is captured into a graph whose memory comes from the
+replica's own pool. A call copies the batch into the graph's static
+input, replays the graph and copies the static output into a tensor of
+its own, all on the current stream: a later replay of the same bucket
+cannot overwrite a result that the completion drain has not read yet. A
+capture that fails raises; there is no eager fallback on a card. On the
+CPU the forward runs eagerly.
+
+With ``quantized`` the replica holds the int8 twin of the model
+(ops/quant.py), made on the host before the replica is built, so no
+float copy of a quantized weight reaches the card.
 
 **Streams.** Each replica on a card owns two CUDA streams. The placement
 worker copies a bucket from pinned host memory on the *copy* stream and
 records an event; the dispatch thread makes the *compute* stream wait on
-that event, runs the forward there and records a *done* event. The
-completion drain waits on the done event before it reads the result.
+that event, runs the bucket's forward there and records a *done* event.
+The completion drain waits on the done event before it reads the result.
 Both the current stream and ``inference_mode`` are per thread in
 PyTorch, which is why each step sets them itself; the dispatch thread
 never blocks on the card.
@@ -43,6 +55,69 @@ from distributedpytorch_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 
+#: Eager forwards of a bucket on the side stream before its capture.
+GRAPH_WARMUP = 2
+
+
+class BucketForward:
+    """One bucket's forward on one replica: eager on the CPU, a replay of
+    the CUDA graph captured by :meth:`capture` on a card. Calls on one
+    replica must come from one stream at a time (the replica's compute
+    stream), as the graph's input, output and pool are shared."""
+
+    def __init__(self, fwd: Callable[[torch.Tensor], torch.Tensor],
+                 shape: Tuple[int, ...]):
+        self.fwd = fwd
+        self.shape = tuple(shape)
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.static_x: Optional[torch.Tensor] = None
+        self.static_out: Optional[torch.Tensor] = None
+
+    def _check(self, x: torch.Tensor) -> None:
+        if tuple(x.shape) != self.shape:
+            raise ValueError(
+                f"bucket forward built for {self.shape}, got {tuple(x.shape)}"
+            )
+
+    def eager(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward without the graph (the graph's comparator)."""
+        self._check(x)
+        return self.fwd(x)
+
+    def capture(self, device: torch.device, pool) -> None:
+        """Warm up on a side stream, then capture one forward on it into
+        a graph allocating from ``pool``. A failure raises."""
+        b = self.shape[0]
+        try:
+            with torch.cuda.device(device):
+                static_x = torch.zeros(self.shape, dtype=torch.float32,
+                                       device=device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    for _ in range(GRAPH_WARMUP):
+                        self.fwd(static_x)
+                torch.cuda.current_stream(device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool, stream=side):
+                    static_out = self.fwd(static_x)
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the bucket-{b} forward on {device} as a CUDA "
+                f"graph failed: {exc}") from exc
+        self.graph = graph
+        self.static_x, self.static_out = static_x, static_out
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        if self.graph is None:
+            return self.fwd(x)
+        with torch.inference_mode():
+            self.static_x.copy_(x)
+            self.graph.replay()
+            return self.static_out.clone()
+
+
 @dataclasses.dataclass
 class Replica:
     """One device's serving state: the model's weights resident on
@@ -52,7 +127,7 @@ class Replica:
     index: int
     device: torch.device
     model: torch.nn.Module
-    compiled: Dict[int, Callable[[torch.Tensor], torch.Tensor]]
+    compiled: Dict[int, BucketForward]
     stream: Optional["torch.cuda.Stream"] = None
     copy_stream: Optional["torch.cuda.Stream"] = None
 
@@ -91,7 +166,9 @@ def _devices_for(device: torch.device) -> List[torch.device]:
 
 class ServeEngine:
     """Build with a float32 model (its weights are copied to each replica's
-    device) or from an :class:`InferenceBundle`."""
+    device) or from an :class:`InferenceBundle`. With ``quantized`` a
+    float model is quantized on the host first (an int8 twin is taken as
+    it is)."""
 
     def __init__(
         self,
@@ -103,8 +180,13 @@ class ServeEngine:
         host_cache_mb: int = 0,
         kernels=None,
         device=None,
+        quantized: bool = False,
     ):
         from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+        from distributedpytorch_tpu_torch.ops.quant import (
+            is_quantized_model,
+            quantize_model,
+        )
 
         self.device = resolve_device(device)
         self.planner = BucketPlanner(bucket_sizes)
@@ -119,6 +201,12 @@ class ServeEngine:
         # masks, which postprocess() passes through untouched
         self.kernel_policy = get_kernel_policy(kernels, self.device)
         self.mask_on_device = self.kernel_policy.serve_mask
+        if quantized and not is_quantized_model(model):
+            model = quantize_model(model)
+        self.quantized = is_quantized_model(model)
+        # CUDA graphs captured over the engine's life: the /stats
+        # aot_cache block's ``compiles``
+        self.graph_captures = 0
         devices = _devices_for(self.device)
         n = max(1, min(int(replicas), len(devices)))
         if replicas > len(devices):
@@ -131,16 +219,20 @@ class ServeEngine:
             self._build_replica(i, devices[i], model) for i in range(n)
         ]
         logger.info(
-            "built %d replica(s) with buckets %s on %s in %.1f s",
+            "built %d replica(s) with buckets %s on %s in %.1f s "
+            "(%d CUDA graphs captured%s)",
             n, list(self.planner.sizes), self.device, time.monotonic() - t0,
+            self.graph_captures, ", int8 weights" if self.quantized else "",
         )
 
     @classmethod
     def from_bundle(cls, bundle: InferenceBundle, **kwargs) -> "ServeEngine":
+        kwargs.setdefault("quantized", bundle.quantized)
         return cls(bundle.model, input_hw=bundle.input_hw, **kwargs)
 
     def _build_replica(self, index: int, device: torch.device,
                        model: torch.nn.Module) -> Replica:
+        cuda = device.type == "cuda"
         model = copy.deepcopy(model).to(device).eval()
         if hasattr(model, "set_conv_epilogue"):
             # milesial: the bucket forward's BatchNorm + ReLU takes the
@@ -151,27 +243,30 @@ class ServeEngine:
             mask_threshold=self.threshold if self.mask_on_device else None,
         )
         h, w = self.input_hw
-        compiled = {}
-        for b in self.planner.sizes:
-            compiled[b] = self._bucket_forward(fwd, (b, h, w, self.channels))
+        compiled = {b: BucketForward(fwd, (b, h, w, self.channels))
+                    for b in self.planner.sizes}
         stream = copy_stream = None
-        if device.type == "cuda":
+        if cuda:
             stream = torch.cuda.Stream(device)
             copy_stream = torch.cuda.Stream(device)
+            # one pool for the replica's graphs: their replays are
+            # serialized on its compute stream
+            pool = torch.cuda.graph_pool_handle()
+            for forward in compiled.values():
+                forward.capture(device, pool)
+                self.graph_captures += 1
         return Replica(index=index, device=device, model=model,
                        compiled=compiled, stream=stream,
                        copy_stream=copy_stream)
 
-    @staticmethod
-    def _bucket_forward(fwd, shape):
-        def run(x: torch.Tensor) -> torch.Tensor:
-            if tuple(x.shape) != shape:
-                raise ValueError(
-                    f"bucket forward built for {shape}, got {tuple(x.shape)}"
-                )
-            return fwd(x)
-
-        return run
+    @property
+    def aot_cache_stats(self) -> dict:
+        """The ``/stats`` ``aot_cache`` block with the JAX engine's keys.
+        Nothing persists across restarts (a CUDA graph cannot be
+        stored), so the store is never enabled; ``compiles`` counts the
+        graphs this engine captured."""
+        return {"enabled": False, "dir": None, "hit": 0, "miss": 0,
+                "skew": 0, "compiles": self.graph_captures}
 
     @property
     def num_replicas(self) -> int:
@@ -284,10 +379,12 @@ def engine_from_checkpoint(
     model_widths: Optional[Sequence[int]] = None,
     s2d_levels: int = -1,
     dtype: str = "bf16",
+    quantize: Optional[str] = None,
     **engine_kwargs,
 ) -> ServeEngine:
     """Checkpoint name/path → a ready engine (``engine_kwargs`` go to
-    :class:`ServeEngine`; ``device="cpu"`` for a CPU run)."""
+    :class:`ServeEngine`; ``device="cpu"`` for a CPU run;
+    ``quantize="int8"`` serves int8 weights)."""
     from distributedpytorch_tpu_torch.serve.infer import load_inference_bundle
 
     # fail on a missing card before reading any weights
@@ -295,6 +392,6 @@ def engine_from_checkpoint(
     bundle = load_inference_bundle(
         checkpoint, checkpoint_dir=checkpoint_dir, image_size=image_size,
         model_arch=model_arch, model_widths=model_widths,
-        s2d_levels=s2d_levels, dtype=dtype,
+        s2d_levels=s2d_levels, dtype=dtype, quantize=quantize,
     )
     return ServeEngine.from_bundle(bundle, **engine_kwargs)

@@ -1,8 +1,8 @@
 """Shared inference pieces: preprocess → forward → postprocess.
 
-Counterpart of ``distributedpytorch_tpu/serve/infer.py`` for float
-weights. Module scope imports numpy and torch only; PIL loads inside the
-functions that decode.
+Counterpart of ``distributedpytorch_tpu/serve/infer.py``, shared by the
+serve engine and the offline ``predict``. Module scope imports numpy and
+torch only; PIL loads inside the functions that decode.
 """
 
 from __future__ import annotations
@@ -71,11 +71,19 @@ def postprocess_mask(probs: np.ndarray, threshold: float = 0.5) -> np.ndarray:
 @dataclasses.dataclass
 class InferenceBundle:
     """What one checkpoint needs to serve: the model (float32 weights on
-    the CPU), the config that sized it, and the input geometry."""
+    the CPU, or its int8 twin with ``quantized``: ops/quant.py), the
+    config that sized it, and the input geometry."""
 
     model: torch.nn.Module
     config: object
     input_hw: Tuple[int, int]  # (H, W) — note: CLI flags order (W, H)
+    quantized: bool = False
+
+
+#: What a bare checkpoint name resolves to for inference, in order: a JAX
+#: ``.ckpt`` (which raises, naming the export), a reference ``.pth``, the
+#: port's own ``.pt``.
+INFERENCE_EXTS = (".ckpt", ".pth", ".pt")
 
 
 def load_inference_bundle(
@@ -86,17 +94,29 @@ def load_inference_bundle(
     model_widths: Optional[Sequence[int]] = None,
     s2d_levels: int = -1,
     dtype: str = "bf16",
+    quantize: Optional[str] = None,
 ) -> InferenceBundle:
     """Resolve a checkpoint name/path and build the model with its weights
-    for inference (float weights, reference-format ``.pth``)."""
+    for inference, on the CPU: a reference-format ``.pth``, the port's
+    native ``.pt`` (its ``model`` state dict), or an int8 weights file
+    (ops/quant.py), which one read of the file tells apart.
+
+    ``quantize="int8"`` serves weights-only int8: an int8 file loads as
+    it is, a float checkpoint is quantized on load. An int8 file is also
+    detected when ``quantize`` is unset, with a warning, since the
+    serving numerics change."""
     from distributedpytorch_tpu_torch.checkpoint import (
-        load_pth,
+        read_payload,
         resolve_checkpoint,
     )
     from distributedpytorch_tpu_torch.config import TrainConfig
     from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import quant
 
-    path = resolve_checkpoint(checkpoint, checkpoint_dir)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    path = resolve_checkpoint(checkpoint, checkpoint_dir,
+                              exts=INFERENCE_EXTS)
     w, h = int(image_size[0]), int(image_size[1])
     cfg = TrainConfig(
         model_arch=model_arch,
@@ -104,6 +124,90 @@ def load_inference_bundle(
         s2d_levels=s2d_levels,
         dtype=dtype,
     )
+    # one read of the file decides its kind and feeds the loader
+    payload = None
+    if not path.endswith((".pth", ".ckpt")):
+        payload = read_payload(path)
+    if isinstance(payload, dict) and payload.get("kind") == quant.QUANT_KIND:
+        if quantize is None:
+            logger.warning(
+                "%s is an int8 weights file — serving quantized (pass "
+                "--quantize int8 to make this explicit)", path,
+            )
+        params, model_state, manifest = quant.load_quantized(
+            path, payload=payload)
+        _check_quantized_identity(manifest, model_arch, model_widths, path)
+        model = quant.load_quantized_model(create_model(cfg), params,
+                                           model_state)
+        return InferenceBundle(model=model.eval(), config=cfg,
+                               input_hw=(h, w), quantized=True)
     model = create_model(cfg)
-    model.load_state_dict(load_pth(path))
-    return InferenceBundle(model=model.eval(), config=cfg, input_hw=(h, w))
+    model.load_state_dict(_float_weights(path, payload))
+    if quantize == "int8":
+        logger.info(
+            "quantizing %s to int8 weights on load (per-out-channel "
+            "symmetric); persist with `python -m "
+            "distributedpytorch_tpu_torch quantize` to skip this at every "
+            "startup", path,
+        )
+        model = quant.quantize_model(model)
+    return InferenceBundle(model=model.eval(), config=cfg, input_hw=(h, w),
+                           quantized=quantize == "int8")
+
+
+def _float_weights(path: str, payload) -> dict:
+    """The float state dict of a ``.pth`` (``payload`` None) or of a
+    native checkpoint's payload, floating tensors promoted to float32
+    with a warning where they are not (a checkpoint trained under
+    ``--dtype bf16_params`` stores bf16 weights), as the JAX
+    ``ensure_restored_dtypes`` does for inference."""
+    from distributedpytorch_tpu_torch.checkpoint import (
+        NATIVE_FORMAT,
+        load_pth,
+        strip_module_prefix,
+    )
+
+    if payload is None:
+        state = load_pth(path)
+    else:
+        fmt = (payload.get("manifest") or {}).get("format") \
+            if isinstance(payload, dict) else None
+        if fmt != NATIVE_FORMAT:
+            raise ValueError(
+                f"{path} is neither a native checkpoint of the port nor an "
+                f"int8 weights file (format {fmt!r})")
+        state = strip_module_prefix(payload["model"])
+    drifted = sorted({str(v.dtype) for v in state.values()
+                      if v.is_floating_point() and v.dtype != torch.float32})
+    if drifted:
+        logger.warning(
+            "inference %s: restored float tensors with dtype(s) %s — "
+            "re-cast to float32 for serving (a checkpoint saved under a "
+            "different --dtype)", path, drifted,
+        )
+        state = {k: (v.to(torch.float32) if v.is_floating_point() else v)
+                 for k, v in state.items()}
+    return state
+
+
+def _check_quantized_identity(manifest, model_arch, model_widths, path):
+    """An int8 file's manifest records the model identity its ints were
+    produced for; a mismatched ``--model`` or ``--model-widths`` raises
+    here with the JAX package's message, not as a shape error later."""
+    saved_arch = manifest.get("model_arch")
+    if saved_arch is not None and saved_arch != model_arch:
+        raise ValueError(
+            f"{path} was quantized from a {saved_arch!r} checkpoint but "
+            f"--model is {model_arch!r} — pass the architecture the "
+            f"manifest records"
+        )
+    saved_widths = manifest.get("model_widths")
+    got_widths = list(model_widths) if model_widths else None
+    if saved_widths is not None and list(saved_widths or []) != (
+        got_widths or []
+    ):
+        raise ValueError(
+            f"{path} was quantized for model_widths={saved_widths} but "
+            f"--model-widths is {got_widths} — pass the widths the "
+            f"manifest records"
+        )

@@ -479,6 +479,7 @@ class Server:
             model_arch=cfg.model_arch,
             model_widths=cfg.model_widths,
             s2d_levels=cfg.s2d_levels,
+            quantize=cfg.quantize,
             bucket_sizes=cfg.bucket_sizes,
             replicas=cfg.replicas,
             threshold=cfg.threshold,
@@ -505,7 +506,8 @@ class Server:
         """The ``/stats`` snapshot, with the JAX package's key set. Keys
         of features this port does not have yet read ``None``;
         ``weights_version`` is always 0 (the startup weights — there is
-        no hot swap)."""
+        no hot swap). ``aot_cache`` carries the JAX block, never enabled,
+        with ``compiles`` the CUDA graphs the engine captured."""
         snap = self.metrics.snapshot()
         snap.update({
             "queue_depth_images": self.queue.depth_images,
@@ -518,7 +520,7 @@ class Server:
             "core_restarts": self.core_restarts,
             "predict_cache": None,
             "attribution": None,
-            "aot_cache": None,
+            "aot_cache": self.engine.aot_cache_stats,
             "ab": None,
             "scaler": None,
         })

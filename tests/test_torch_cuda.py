@@ -1,11 +1,13 @@
 """The port on the card: the serve-mask kernel, the loss statistics
 kernels, the BatchNorm epilogue kernels and the 9-tap weight-gradient
 kernel against their plain versions, the wrappers' refusals, a small
-engine's streams and masks, UNet and milesial train steps under both
-kernel policies, the DDP loss and step at world 1 under NCCL, and the
-DDP_MP pipeline's seams at world 1. Every
-test carries the ``cuda`` marker and skips without a card; this file
-imports nothing of JAX, so the card's machine runs it as it is:
+engine's streams, masks and bucket graphs (replay against the eager
+forward, two replays of one bucket in flight, int8 bytes on the card,
+quantization on the card against the host), UNet and milesial train
+steps under both kernel policies, the DDP loss and step at world 1 under
+NCCL, and the DDP_MP pipeline's seams at world 1. Every test carries
+the ``cuda`` marker and skips without a card; this file imports nothing
+of JAX, so the card's machine runs it as it is:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -23,6 +25,20 @@ from distributedpytorch_tpu_torch.ops.kernels import (
 )
 
 pytestmark = pytest.mark.cuda
+
+
+def _traced(fn, symbol):
+    """``(fn(), n)``: n is how many kernels named ``symbol`` the card ran
+    during the call, by the profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(bool(re.search(rf"\b{symbol}\b", evt.name))
+                    for evt in prof.events()
+                    if evt.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.fixture
@@ -72,15 +88,129 @@ def test_engine_masks_on_the_card(cuda_device):
     masked = ServeEngine(model, kernels="cuda", **common)
     plain = ServeEngine(model, kernels="torch", **common)
     batch = np.random.default_rng(0).random((3, 64, 96, 3), np.float32)
-    kernels.reset_launches()
-    got = masked.infer(batch)
-    assert kernels.LAUNCHES["serve_mask"] == 1
+    # the bucket forward is a CUDA graph: its replay launches the kernel
+    # without the wrapper, so the launch is counted in the trace
+    got, traced = _traced(lambda: masked.infer(batch), "serve_mask_kernel")
+    assert traced == 1
     probs = plain.infer(batch)
     assert got.dtype == np.uint8 and probs.dtype == np.float32
     diff = got != plain.postprocess(probs)
     assert not (diff & (np.abs(probs - 0.5) >= 1e-3)).any()
     solo = plain.infer(batch[:1])
     np.testing.assert_allclose(probs[0], solo[0], rtol=0, atol=1e-3)
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda_device):
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("policy", ["cuda", "torch"])
+def test_bucket_graphs_replay_the_eager_forward_bitwise(deterministic_cudnn,
+                                                        policy):
+    """Every (replica, bucket) forward is a CUDA graph, captured at build;
+    its replay equals the eager forward bit for bit under cuDNN's
+    deterministic algorithms, milesial's K2 and K4 inside it."""
+    from distributedpytorch_tpu_torch.models.milesial import MilesialUNet
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.serve.engine import ServeEngine
+
+    gen = torch.Generator(device=deterministic_cudnn).manual_seed(1)
+    for model in (UNet(widths=(8, 16)), MilesialUNet(widths=(8, 16))):
+        engine = ServeEngine(model, input_hw=(64, 96), bucket_sizes=(1, 2, 4),
+                             kernels=policy, device="cuda")
+        assert engine.graph_captures == 3
+        assert engine.aot_cache_stats["compiles"] == 3
+        replica = engine.replicas[0]
+        for b, forward in replica.compiled.items():
+            assert forward.graph is not None
+            x = torch.rand((b, 64, 96, 3), generator=gen,
+                           device=deterministic_cudnn)
+            eager = forward.eager(x)
+            graph = forward(x)
+            torch.cuda.synchronize()
+            assert torch.equal(eager, graph), (type(model).__name__, b)
+
+
+def test_two_inflight_replays_of_one_bucket_keep_their_results(
+        deterministic_cudnn):
+    """The same bucket dispatched twice before either result is drained:
+    each result is its own buffer, the second replay leaves the first
+    intact."""
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(UNet(widths=(8, 16)), input_hw=(64, 96),
+                         bucket_sizes=(2,), kernels="torch", device="cuda")
+    replica = engine.replicas[0]
+    rng = np.random.default_rng(2)
+    batches = [rng.random((2, 64, 96, 3), np.float32) for _ in range(2)]
+    results = [engine.run(replica, engine.place(replica, b))
+               for b in batches]
+    got = [r.numpy() for r in results]
+    assert not np.array_equal(got[0], got[1])
+    for batch, probs in zip(batches, got):
+        x = torch.from_numpy(batch).to(deterministic_cudnn)
+        want = replica.compiled[2].eager(x).cpu().numpy()
+        np.testing.assert_array_equal(probs, want)
+
+
+def test_quantization_on_the_card_equals_the_host(cuda_device):
+    """q and scales computed on the card are the host's bit for bit (the
+    converter quantizes on the card, serve's quantize-on-load on the
+    host)."""
+    from distributedpytorch_tpu_torch.ops.quant import quantize_weight
+
+    gen = torch.Generator().manual_seed(4)
+    for shape, axis in (((64, 32, 3, 3), 0), ((32, 16, 2, 2), 1)):
+        w = torch.randn(shape, generator=gen) * 0.05
+        q_host, s_host = quantize_weight(w, axis)
+        q_card, s_card = quantize_weight(w.to(cuda_device), axis)
+        assert torch.equal(q_card.cpu(), q_host)
+        assert torch.equal(s_card.cpu(), s_host)
+
+
+def test_int8_replica_holds_int8_bytes_on_the_card(cuda_device):
+    """The full-width UNet's int8 replica holds under 0.3 of the float
+    replica's bytes on the card, no float conv weight is there, and
+    placing its model on the card (a copy, as the engine's replica build
+    copies it) allocates under half of the float weights' bytes (the
+    caching allocator may hand out a block up to 1 MB larger than asked,
+    so the allocation itself is not held to 0.3)."""
+    import copy
+
+    from distributedpytorch_tpu_torch.models.unet import UNet
+    from distributedpytorch_tpu_torch.serve.engine import ServeEngine
+
+    model = UNet()
+    common = dict(input_hw=(64, 96), bucket_sizes=(1,), device="cuda")
+    float_engine = ServeEngine(model, **common)
+    int8_engine = ServeEngine(model, quantized=True, **common)
+    replica = int8_engine.replicas[0]
+
+    def storage(r):
+        tensors = r.model.state_dict().values()
+        assert all(t.is_cuda for t in tensors)
+        return sum(t.untyped_storage().nbytes() for t in tensors)
+
+    float_bytes = storage(float_engine.replicas[0])
+    assert storage(replica) / float_bytes < 0.3
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(cuda_device)
+    placed = copy.deepcopy(replica.model)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.cuda.memory_allocated(cuda_device) - before \
+        < 0.5 * float_bytes
+    del placed
+    # the only 4-d float tensors are the per-out-channel scales
+    assert all(name.endswith(".scale")
+               for name, t in replica.model.state_dict().items()
+               if t.is_floating_point() and t.ndim == 4)
+    x = np.random.default_rng(3).random((1, 64, 96, 3), np.float32)
+    assert int8_engine.infer(x).shape == (1, 64, 96)
 
 
 # -- the loss statistics kernel (K1) and its backward (K1-bwd) -----------------

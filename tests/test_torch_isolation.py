@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither jax nor the JAX package, a DDP rank it spawns loads neither, nor
-does a ``-t MP`` or ``-t DP`` run of the training CLI, and
-its entry points (the serve engine, the trainer and the training CLI)
-refuse to fall back to the CPU on a machine without a card unless
-asked."""
+does a ``-t MP`` or ``-t DP`` run of the training CLI, nor a ``quantize``
+and ``predict`` run, and its entry points (the serve engine, the trainer
+and the training CLI) refuse to fall back to the CPU on a machine
+without a card unless asked."""
 
 import json
 import os
@@ -75,7 +75,9 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
                            "ops.conv_backward", "ops.wgrad_kernels",
                            "dist", "dist.runtime", "dist.collectives",
                            "parallel", "parallel.strategy",
-                           "parallel.pipeline", "parallel.replicas"):
+                           "parallel.pipeline", "parallel.replicas",
+                           "predict", "quantize", "ops.quant",
+                           "utils.plotting"):
         assert (f"distributedpytorch_tpu_torch.{trainer_module}"
                 in report["modules"])
     refusals = report["refusals"]
@@ -160,3 +162,40 @@ def test_mp_and_dp_runs_never_load_jax(tmp_path):
     assert "LEAKED []" in out.stdout
     for method in ("MP", "DP"):
         assert (tmp_path / "checkpoints" / f"{method}.pth").exists()
+
+
+def test_quantize_and_predict_runs_never_load_jax(tmp_path):
+    """``quantize`` and ``predict`` with ``--device cpu`` through
+    ``python -m distributedpytorch_tpu_torch``'s own dispatch, in a process
+    of their own: the int8 file is written, its masks are written, and no
+    module of the jax family is loaded."""
+    probe = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from PIL import Image\n"
+        "from distributedpytorch_tpu_torch.__main__ import main\n"
+        "from distributedpytorch_tpu_torch.checkpoint import save_pth\n"
+        "from distributedpytorch_tpu_torch.models.unet import UNet\n"
+        "save_pth(UNet(widths=(8, 16)).state_dict(), 'ck/unet.pth')\n"
+        "import os; os.makedirs('imgs')\n"
+        "for i in range(3):\n"
+        "    Image.fromarray(np.full((16, 24, 3), 40 * i, np.uint8))"
+        ".save(f'imgs/c{i}.png')\n"
+        "size = ['--image-size', '24', '16', '--model-widths', '8', '16',"
+        " '--device', 'cpu']\n"
+        "assert main(['quantize', '-c', 'unet', '--checkpoint-dir', 'ck',"
+        " *size]) == 0\n"
+        "assert main(['predict', '-c', 'ck/unet.pth.int8.pt', '-i', 'imgs',"
+        " '-o', 'out', '-b', '2', *size]) == 0\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu')]\n"
+        "print('LEAKED', leaked)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout
+    assert (tmp_path / "ck" / "unet.pth.int8.pt").exists()
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        f"c{i}_mask.png" for i in range(3)]
