@@ -46,7 +46,12 @@ M = 8, its ``.pth`` served), milesial likewise for two steps of each
 schedule (``train_milesial_mp``: K2, K3 and K5 inside the stages at
 launch counts derived from the schedule, and in float32 against their
 plain versions in place), ``-t DP`` trains both models on the card
-(``train_dp``), and ``-t DDP_MP`` runs as two ranks on the one card, two
+(``train_dp``), then runs on ``[cuda:0, cuda:0]``, two replica threads on
+the one card: the bf16 UNet and milesial ``--wgrad-taps`` as one CUDA
+graph of 4 steps against their eager steps, bitwise, a replay's kernels
+counted by name, step and host ms (``dp_graph``), and milesial under
+``--remat`` against the plain DP step, bitwise, with its launches and
+peak memory (``dp_remat``); ``-t DDP_MP`` runs as two ranks on the one card, two
 processes this script spawns (``--ddp-mp-rank R 2 gloo DIR``) over a gloo
 group, each with both of its stages on cuda:0: the bf16 UNet under gpipe
 and 1f1b and milesial with ``--wgrad-taps`` under both, held against one
@@ -84,11 +89,20 @@ beside the one-card pipeline, and a ``torchrun --nproc_per_node 2``
 launch of the training CLI (``ddp_mp_cards``); then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
-one-card step (``dp_cards``). ``ddp_cards``, ``ddp_mp_cards`` and
-``mp_cards`` also run their path as one CUDA graph of 4 steps against
-its eager steps: losses and weights bitwise (the ranks' equal after
-every stack), a guard tensor on every card between replays left alone,
-and both timed (step, host enqueue, each card's busy time, bubble).
+one-card step (``dp_cards``). Every one of them also runs its path as
+one CUDA graph of 4 steps against its eager steps (``dp_cards``: the
+bf16 UNet at batch 16 and milesial at 8, ``dp_graph``): losses and
+weights bitwise (the ranks' equal after every stack), a guard tensor on
+every card between replays left alone, and both timed (step, host
+enqueue, each card's busy time, bubble, ``cudaGraphLaunch``).
+
+    python3 chip_smoke.py --dp-eager-ab OTHER
+
+times the eager ``-t DP`` step of the checkout at ``OTHER`` (a parent
+commit unpacked with ``git archive``) and of this one in turns, each in
+a process of its own (``dp_eager_step``): the bf16 UNet at batch 16 and
+milesial at batch 8 across every visible card, and the UNet at batch 8
+on ``[cuda:0, cuda:0]``.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary (not with ``--cards``) and the card's
@@ -2984,7 +2998,11 @@ def phase_train_dp(tmp: str, train: dict) -> dict:
     batch for DP's drop_last), K1 launches once per step and eval batch,
     K1-bwd once per step. Then two steps of the full-width milesial under
     DP with ``--wgrad-taps`` (DPT_WGRAD_BACKEND=pallas): K2, K3 and K5
-    launch 18, 18 and 13 times per step in the replica."""
+    launch 18, 18 and 13 times per step in the replica. Then, on
+    ``[cuda:0, cuda:0]`` (two replica threads on the one card), the bf16
+    UNet and milesial as one CUDA graph of GS_K steps against their eager
+    steps (``_dp_graph_run``), and milesial under ``--remat`` against the
+    plain DP step (``_dp_remat_run``)."""
     import numpy as np
     import torch
 
@@ -3060,7 +3078,167 @@ def phase_train_dp(tmp: str, train: dict) -> dict:
         check(m_launches[name] == count,
               f"milesial DP: {name} launched {m_launches[name]} times, "
               f"expected {count}")
+    dev0 = torch.device("cuda", 0)
+    out["graphs"] = {arch: _dp_graph_run(arch, b, [dev0, dev0])
+                     for arch, b in DP_GRAPH_BATCH.items()}
+    out["remat"] = _dp_remat_run([dev0, dev0])
     return out
+
+
+# -t DP as one CUDA graph of GS_K steps and under --remat: the bf16 UNet
+# and milesial with --wgrad-taps (DPT_WGRAD_BACKEND=pallas), full width,
+# on [cuda:0, cuda:0] in train_dp (two replica threads on the one card,
+# which the strategy's default of every visible card never runs there)
+# and across every card in dp_cards (DP_CARDS_BATCH)
+DP_GRAPH_BATCH = {"unet": 8, "milesial": 4}
+# through the multi-step: its eager warm-up, the capture's, one replay
+DP_GRAPH_STACKS = 3
+
+
+def _dp_config(arch: str, batch_size: int, **kw):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+
+    return TrainConfig(train_method="DP", model_arch=arch, dtype="bf16",
+                       kernels="cuda", device="cuda", batch_size=batch_size,
+                       wgrad_taps=arch == "milesial", **kw)
+
+
+def _dp_expected_per_replay(arch: str, replicas: int) -> dict:
+    """The kernels one replay of GS_K DP steps runs: K1 and K1-bwd once
+    per step on the first card; milesial's K2, K3 and K5 18, 18 and 13
+    times per step in every replica."""
+    want = {"loss_stats": GS_K, "loss_stats_bwd": GS_K}
+    if arch == "milesial":
+        want.update(bn_act=GS_K * 18 * replicas,
+                    bn_act_bwd=GS_K * 18 * replicas,
+                    wgrad_9tap=GS_K * 13 * replicas)
+    return want
+
+
+def _dp_graph_run(arch: str, batch_size: int, devices) -> dict:
+    """``-t DP`` of ``arch`` over ``devices`` at K = GS_K against its eager
+    steps from the seed's weights, with the same capturable Adam
+    (``_graph_and_eager``: cuDNN deterministic, the losses and a digest
+    of the weights and buffers after every stack, guards on every card),
+    a replay's kernels counted by name in the profiler's trace, then both
+    timed (``_timed_sides``: step and host ms per step, each card's busy
+    ms, the idle share, ``cudaGraphLaunch``'s host ms). Emits the row and
+    fails unless the graph is bitwise its eager steps, the guards are
+    intact and a replay ran ``_dp_expected_per_replay``."""
+    import torch
+
+    want = _dp_expected_per_replay(arch, len(devices))
+
+    def run():
+        stacks = _rolled_stacks(_synthetic_batch(GS_K * batch_size,
+                                                 devices[0]),
+                                GS_K, DP_GRAPH_STACKS)
+        sides = _graph_and_eager(
+            _graph_build(_dp_config(arch, batch_size), devices), stacks,
+            GS_K)
+        multi = sides["graph"]["multi"]
+        row = {"phase": "dp_graph", "arch": arch, "batch": batch_size,
+               "devices": [str(d) for d in devices], "k": GS_K,
+               "cudnn_deterministic": True,
+               "bitwise_equal_to_eager": sides["bitwise_equal"],
+               "guards_intact": all(sides[m]["guards_intact"]
+                                    for m in ("eager", "graph")),
+               "graph_launches_per_replay": _traced_launches(
+                   lambda: multi(stacks[0]), tuple(want)),
+               "expected_per_replay": want,
+               **_timed_sides(sides, stacks[0], GS_K, devices),
+               "device": torch.cuda.get_device_name(0)}
+        del sides, stacks, multi
+        torch.cuda.empty_cache()
+        return row
+
+    row = _with_wgrad_backend(run)
+    emit(row)
+    what = f"DP {arch} graph on {row['devices']}"
+    check(row["bitwise_equal_to_eager"] and row["guards_intact"],
+          f"{what}: off its eager steps, or wrote into eager memory")
+    check(row["graph_launches_per_replay"] == want,
+          f"{what}: a replay ran {row['graph_launches_per_replay']}, not "
+          f"{want}")
+    return row
+
+
+def _dp_remat_run(devices) -> dict:
+    """milesial ``--wgrad-taps`` under ``-t DP --remat`` over ``devices``
+    against the plain DP step, bf16, full width, batch
+    DP_GRAPH_BATCH["milesial"], SGD at lr 0 (the weights stay, the
+    gradients are kept), cuDNN deterministic: the loss, every gradient
+    and the running statistics bitwise equal, K2 twice per BatchNorm and
+    replica (the recompute) and K3 once, the peak memory above the
+    step's start below the plain step's, and both steps' ms."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    b = DP_GRAPH_BATCH["milesial"]
+
+    def one(remat: bool) -> dict:
+        cfg = _dp_config("milesial", b, remat=remat)
+        strategy = build_strategy(cfg, devices=devices)
+        model = strategy.place_model(create_model(
+            cfg, generator=torch.Generator().manual_seed(SEED)))
+        step = strategy.build_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=0.0),
+            get_kernel_policy("cuda"))
+        batch = _synthetic_batch(b, devices[0])
+        kernels.reset_launches()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        out = {"loss": loss, "launches": dict(kernels.LAUNCHES),
+               "grads": _grads(model),
+               "stats": {n: t.clone() for n, t in model.named_buffers()
+                         if "running" in n}}
+        out.update(_peak_step_bytes(step, batch))
+        out["step_ms"] = cuda_ms(lambda: step(batch), 3, warmup=1)
+        del model, step
+        torch.cuda.empty_cache()
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, remat = _with_wgrad_backend(
+            lambda: (one(False), one(True)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n = len(devices)
+    row = {"phase": "dp_remat", "arch": "milesial", "batch": b,
+           "devices": [str(d) for d in devices],
+           "cudnn_deterministic": True,
+           "loss_bitwise_equal": remat["loss"] == plain["loss"],
+           "grads_bitwise_equal": all(
+               torch.equal(remat["grads"][k], g)
+               for k, g in plain["grads"].items()),
+           "running_stats_bitwise_equal": all(
+               torch.equal(remat["stats"][k], t)
+               for k, t in plain["stats"].items()),
+           "launches_per_step": {"plain": plain["launches"],
+                                 "remat": remat["launches"]},
+           "expected_remat_per_step": {"bn_act": 36 * n,
+                                       "bn_act_bwd": 18 * n,
+                                       "wgrad_9tap": 13 * n},
+           **{key: {"plain": plain[key], "remat": remat[key]}
+              for key in ("peak_bytes", "step_bytes", "step_ms")},
+           "device": torch.cuda.get_device_name(0)}
+    emit(row)
+    check(row["loss_bitwise_equal"] and row["grads_bitwise_equal"]
+          and row["running_stats_bitwise_equal"],
+          f"DP remat against the plain DP step: {row}")
+    got = row["launches_per_step"]["remat"]
+    check(all(got[k] == v for k, v in row["expected_remat_per_step"].items()),
+          f"DP remat launched {got}, expected "
+          f"{row['expected_remat_per_step']}")
+    check(row["step_bytes"]["remat"] < row["step_bytes"]["plain"],
+          f"DP remat does not lower the step's memory: {row['step_bytes']}")
+    return row
 
 
 def _sync_all(devices=None) -> None:
@@ -3265,7 +3443,11 @@ def phase_dp_cards(world: int) -> dict:
     within DP_CARDS_STATS_RTOL. Then the bf16 UNet step at batch 16 over
     the cards and on one card, by wall time, with each card's busy time
     and the host's operators: the per-step cost of replicating the
-    weights and gathering the predictions against the split compute."""
+    weights and gathering the predictions against the split compute.
+    Then the bf16 UNet at batch 16 and milesial ``--wgrad-taps`` at batch
+    8 over the cards as one CUDA graph of GS_K steps against their eager
+    steps (``_dp_graph_run``: bitwise, guards on every card, step, host,
+    each card's busy and ``cudaGraphLaunch``'s ms per step)."""
     import torch
 
     from distributedpytorch_tpu_torch.config import TrainConfig
@@ -3333,6 +3515,8 @@ def phase_dp_cards(world: int) -> dict:
     out["bf16_unet_speedup"] = (out["bf16_unet_step_ms_one_card"]
                                 / out["bf16_unet_step_ms_cards"])
     emit(out)
+    out["graphs"] = {arch: _dp_graph_run(arch, b, cards)
+                     for arch, b in DP_CARDS_BATCH.items()}
     for arch in DP_CARDS_BATCH:
         row = out[arch]
         check(row["loss_rel_err"] <= DP_CARDS_LOSS_RTOL,
@@ -4925,6 +5109,70 @@ def main_cards(world: int) -> int:
     return 0
 
 
+def dp_eager_step(root: str) -> int:
+    """``--dp-eager-step ROOT``: the eager ``-t DP`` step of the package in
+    the checkout at ``ROOT``, timed by this file's helpers: the bf16 UNet
+    at batch 16 and milesial ``--wgrad-taps`` at batch 8 across every
+    card, and the UNet at batch 8 on ``[cuda:0, cuda:0]``; wall ms per
+    step with every card drained, three rounds of 10 steps after 2
+    warm-up steps. One JSON line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    os.environ["DPT_WGRAD_BACKEND"] = "pallas"
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    import distributedpytorch_tpu_torch as package
+
+    check(os.path.dirname(os.path.dirname(package.__file__)) == root,
+          f"the package of {root} imported")
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    dev0 = cards[0]
+    out = {"phase": "dp_eager", "root": root, "cards": len(cards)}
+    for label, arch, b, devices in (
+            ("unet_cards", "unet", 16, cards),
+            ("milesial_cards", "milesial", 8, cards),
+            ("unet_one_card_x2", "unet", 8, [dev0, dev0])):
+        cfg = TrainConfig(train_method="DP", model_arch=arch, dtype="bf16",
+                          kernels="cuda", device="cuda", batch_size=b,
+                          wgrad_taps=arch == "milesial")
+        strategy = build_strategy(cfg, devices=devices)
+        model = strategy.place_model(create_model(
+            cfg, generator=torch.Generator().manual_seed(SEED)))
+        step = strategy.build_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=1e-4),
+            get_kernel_policy("cuda"))
+        batch = _synthetic_batch(b, dev0)
+        out[label] = [_wall_ms(lambda: step(batch), 10,
+                               warmup=2 if r == 0 else 0, devices=devices)
+                      for r in range(3)]
+        del model, step, batch
+        torch.cuda.empty_cache()
+    emit(out)
+    return 0
+
+
+def main_dp_eager_ab(other: str) -> int:
+    """``python3 chip_smoke.py --dp-eager-ab OTHER``: ``dp_eager_step`` of
+    the checkout at ``OTHER`` (a parent commit, unpacked) and of this one
+    in turns (other, this, this, other), each in a process of its own, so
+    that one call compares two trees on the same cards."""
+    device = phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in (other, here, here, other):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--dp-eager-step", root], check=False)
+        check(proc.returncode == 0, f"--dp-eager-step {root} exited "
+              f"{proc.returncode}")
+    _finish(device)
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -4938,6 +5186,10 @@ def main(argv) -> int:
         return ddp_mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
+    if argv[:1] == ["--dp-eager-step"]:
+        return dp_eager_step(argv[1])
+    if argv[:1] == ["--dp-eager-ab"]:
+        return main_dp_eager_ab(argv[1])
     device = phase_device()
     kernel = phase_kernel()
     loss = phase_loss_kernels()
@@ -4971,16 +5223,25 @@ def main(argv) -> int:
 
     def replay_launches(name):
         """Per replay of a CUDA graph of 4 steps, counted by name in the
-        profiler's trace: singleGPU (train_run_control run 1) and each
-        run of train_graph_strategies; K2, K3 and K5 per milesial
-        --remat step (train_run_control run 2) beside milesial's MP
-        replay."""
+        profiler's trace: singleGPU (train_run_control run 1), each run
+        of train_graph_strategies and -t DP's on [cuda:0, cuda:0]
+        (train_dp); K2, K3 and K5 per milesial --remat step
+        (train_run_control run 2, and under DP) beside the MP and DP
+        replays."""
         out = {"single_gpu": run_control[name]}
         if name in ("bn_act", "bn_act_bwd", "wgrad_9tap"):
             out = {"milesial_remat_step": run_control[name]}
         out.update({label: row["graph_launches_per_replay"][name]
                     for label, row in graphs.items()
                     if name in row["graph_launches_per_replay"]})
+        # -t DP on [cuda:0, cuda:0], per replay, and milesial's --remat
+        # step there (train_dp)
+        out.update({f"dp_{arch}": row["graph_launches_per_replay"][name]
+                    for arch, row in train_dp["graphs"].items()
+                    if name in row["graph_launches_per_replay"]})
+        if name in train_dp["remat"]["expected_remat_per_step"]:
+            out["dp_milesial_remat_step"] = train_dp["remat"][
+                "launches_per_step"]["remat"][name]
         return out
 
     def serve_replay_launches(name):

@@ -161,9 +161,9 @@ def get_args(argv=None):
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="Optimizer steps per dispatch: one CUDA graph "
                              "of K steps on the card, across every card of "
-                             "the step, under -t singleGPU, DDP (NCCL), MP "
-                             "and DDP_MP (NCCL); K plain steps on the CPU; "
-                             "refused under -t DP and under gloo on a card")
+                             "the step, under every -t (DDP and DDP_MP over "
+                             "NCCL); K plain steps on the CPU; refused under "
+                             "gloo on a card")
     parser.add_argument("--nonfinite-policy", type=str, default="abort",
                         choices=["abort", "rollback", "skip"],
                         help="On a non-finite train loss: abort (raise), "

@@ -7,7 +7,7 @@ from torch.utils.checkpoint import checkpoint
 
 from distributedpytorch_tpu_torch.models.milesial import (  # noqa: F401
     MilesialUNet,
-    frozen_running_stats,
+    recomputing,
 )
 from distributedpytorch_tpu_torch.models.unet import (  # noqa: F401
     ConvBlock,
@@ -32,18 +32,20 @@ class Rematerialized(torch.nn.Module):
     around the whole forward would rebuild every activation at once at the
     start of the backward, and the step's peak memory would not move. A
     pipeline ``Stage`` is recomputed as one region, as the JAX stage
-    functions are. The recompute runs under ``frozen_running_stats``, so a
+    functions are. The recompute runs under ``recomputing``, so a
     BatchNorm's running averages move once per step, in the first
-    forward, as the functional JAX forward moves them. Without grad (eval)
-    it is ``module`` itself. The forward draws no random numbers, so no
-    RNG state is saved."""
+    forward, as the functional JAX forward moves them, and a DP replica's
+    BatchNorm normalizes with the moments the replicas met on in the first
+    forward instead of meeting again. Without grad (eval) it is ``module``
+    itself. The forward draws no random numbers, so no RNG state is
+    saved."""
 
     def __init__(self, module: torch.nn.Module):
         super().__init__()
         self.module = module
 
     def _contexts(self):
-        return contextlib.nullcontext(), frozen_running_stats(self.module)
+        return contextlib.nullcontext(), recomputing(self.module)
 
     def _checkpoint(self, fn, *args):
         return checkpoint(fn, *args, use_reentrant=False,

@@ -74,7 +74,11 @@ class BatchNormAct(nn.Module):
       variance;
     * with ``replicas`` (set by the DP strategy for the forward of one
       step, ``parallel/replicas.py``) the replicas' threads meet here and
-      every replica normalizes with the moments of the whole batch;
+      every replica normalizes with the moments of the whole batch, which
+      it keeps (``kept_moments``); a recompute under ``recomputing``
+      (``--remat``) normalizes with the kept moments and does not meet
+      again. They are what a second meeting would return, bit for bit:
+      the recompute sees the same x;
     * ``update_running_stats`` False (``frozen_running_stats``) leaves the
       running averages where they are: 1f1b's phase B re-runs forwards
       whose statistics phase A already recorded;
@@ -93,6 +97,8 @@ class BatchNormAct(nn.Module):
         self.global_stats = False
         self.replicas = None
         self.update_running_stats = True
+        self.reuse_kept_moments = False
+        self.kept_moments: Optional[torch.Tensor] = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -109,8 +115,16 @@ class BatchNormAct(nn.Module):
         if self.global_stats:
             moments = all_reduce_sum(torch.stack([mean, mean2]))
             mean, mean2 = moments / dist.get_world_size()
-        if self.replicas is not None:
-            mean, mean2 = self.replicas.mean(torch.stack([mean, mean2]))
+        if not self.reuse_kept_moments:
+            self.kept_moments = None
+            if self.replicas is not None:
+                moments = self.replicas.mean(torch.stack([mean, mean2]))
+                self.kept_moments = moments.detach()
+                mean, mean2 = moments
+        elif self.kept_moments is not None:
+            # a leaf that requires grad, as the meeting's moments do, so
+            # that the recompute saves for backward what the forward saved
+            mean, mean2 = self.kept_moments.detach().requires_grad_()
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         if self.update_running_stats:
             with torch.no_grad():
@@ -149,19 +163,36 @@ class BatchNormAct(nn.Module):
 
 
 @contextlib.contextmanager
-def frozen_running_stats(model: nn.Module) -> Iterator[None]:
-    """Within the block no ``BatchNormAct`` of ``model`` moves its running
-    averages; training-mode forwards still normalize with the batch's
-    moments."""
+def _batchnorms_set(model: nn.Module, **flags) -> Iterator[None]:
+    """Within the block every ``BatchNormAct`` of ``model`` has ``flags``
+    as its attributes."""
     bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
-    saved = [m.update_running_stats for m in bns]
+    saved = [{k: getattr(m, k) for k in flags} for m in bns]
     for m in bns:
-        m.update_running_stats = False
+        for key, value in flags.items():
+            setattr(m, key, value)
     try:
         yield
     finally:
-        for m, flag in zip(bns, saved):
-            m.update_running_stats = flag
+        for m, old in zip(bns, saved):
+            for key, value in old.items():
+                setattr(m, key, value)
+
+
+def frozen_running_stats(model: nn.Module):
+    """Within the block no ``BatchNormAct`` of ``model`` moves its running
+    averages; training-mode forwards still normalize with the batch's
+    moments."""
+    return _batchnorms_set(model, update_running_stats=False)
+
+
+def recomputing(model: nn.Module):
+    """The recompute of a forward (``models.Rematerialized``): the running
+    averages frozen, as the first forward moved them, and each
+    ``BatchNormAct`` that kept the replicas' moments in that forward
+    normalizes with them."""
+    return _batchnorms_set(model, update_running_stats=False,
+                           reuse_kept_moments=True)
 
 
 class DoubleConv(nn.Module):

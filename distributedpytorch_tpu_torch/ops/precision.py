@@ -224,10 +224,13 @@ class PerUseCasts:
                       for name, p in module.named_parameters()]
         self._leaf = {p: m for _, p, m in self.named}
 
-    def of(self, p: torch.nn.Parameter,
-           device: Optional[torch.device] = None) -> torch.Tensor:
-        """``p``'s cast for one use on ``device`` (default: ``p``'s)."""
-        return self._leaf[p].to(device=device or p.device, dtype=p.dtype)
+    def master(self, p: torch.nn.Parameter) -> torch.Tensor:
+        """``p``'s f32 master, the leaf its uses' gradients add at."""
+        return self._leaf[p]
+
+    def of(self, p: torch.nn.Parameter) -> torch.Tensor:
+        """``p``'s cast for one use, on ``p``'s device."""
+        return self._leaf[p].to(device=p.device, dtype=p.dtype)
 
     def named_casts(self) -> Dict[str, torch.Tensor]:
         """``{name: cast}`` of every parameter, each on its own device:

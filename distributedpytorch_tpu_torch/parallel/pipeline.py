@@ -17,8 +17,9 @@ JAX package does:
 * **Stages.** ``Stage`` holds its segments' layers on its own device, the
   reference's layout: each stage's parameters live on its card (the JAX
   package replicates them over the stage axis; the function is the same).
-  The carry ``(x, skips)`` moves to the next stage's device with
-  ``.to(device, non_blocking=True)`` on the current stream. A device may
+  The carry ``(x, skips)`` moves to the next stage's device on the
+  current stream (``utils/device.copy_to``, whose backward a CUDA graph
+  captures). A device may
   repeat: the CPU tests put every stage on the CPU and a one-card run
   every stage on ``cuda:0``.
 * **gpipe.** Fill-drain: microbatch m runs at stage s on tick s+m, issued
@@ -118,6 +119,7 @@ from distributedpytorch_tpu_torch.train.steps import (
     prep_mask,
     scaled,
 )
+from distributedpytorch_tpu_torch.utils.device import copy_to
 
 PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 
@@ -174,34 +176,9 @@ def _microbatch_size(batch_size: int, num_microbatches: int) -> int:
     return batch_size // num_microbatches
 
 
-class _CopyTo(torch.autograd.Function):
-    """``x.to(device)`` across cards, whose backward copies the gradient
-    back with the source card's stream of the forward current. Autograd
-    runs the backward on the thread of the gradient's card, where the
-    other card's current stream is its default one: a plain ``.to``
-    there would order the copy after that stream, outside a CUDA graph's
-    capture, which CUDA refuses."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, device: torch.device) -> torch.Tensor:
-        ctx.source = x.device
-        ctx.stream = (torch.cuda.current_stream(x.device) if x.is_cuda
-                      else None)
-        return x.to(device, non_blocking=True)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        with torch.cuda.stream(ctx.stream):
-            return grad.to(ctx.source, non_blocking=True), None
-
-
-def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return x if x.device == device else _CopyTo.apply(x, device)
-
-
 def _carry_to(carry: Carry, device: torch.device) -> Carry:
     x, skips = carry
-    return _to(x, device), tuple(_to(t, device) for t in skips)
+    return copy_to(x, device), tuple(copy_to(t, device) for t in skips)
 
 
 class Stage(nn.Module):

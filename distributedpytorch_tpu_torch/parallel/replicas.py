@@ -7,75 +7,113 @@ milesial's BatchNorm moments over the whole batch. The port does not use
 BatchNorm is per replica, with only replica 0's running averages kept.
 Instead, ``Replicated`` runs, per forward:
 
-* replica 0 is the model itself on the first device; replica i > 0 is a
-  copy of its modules on device i whose parameters are ``p.to(device)``,
-  autograd-visible, so every replica's gradient sums back into the one
-  parameter set, and whose buffers are copies; under master weights
-  every replica computes with its own cast of the f32 masters
-  (``ops/precision.PerUseCasts``), so the sum is in f32;
+* replica 0 is the model itself on the first device (under master
+  weights a copy of its modules that computes with its own cast of each
+  f32 master and keeps the model's buffers); replica i > 0 is a copy of
+  its modules on device i whose buffers are copies and whose parameters
+  are views of one autograd-visible copy of all the parameters (of their
+  masters, cast, so the sum is in f32): one ``torch.cat`` on the first
+  device and one copy per device. Every replica's gradient sums back
+  into the one parameter set: the copies' gradients add in replica order
+  in one node (``_Uses``), whatever order the cards' autograd threads
+  finish in, so a step across cards is repeatable bit for bit;
 * the batch is split in equal slices, replica i computes slice i on its
-  device in a thread of its own (replica 0 in the caller's), and the
-  predictions are gathered on the first device;
+  device in a thread of its own (replica 0 in the caller's), on the
+  caller's current stream of every card, and the predictions are
+  gathered on the first device;
 * in training each ``BatchNormAct`` is a meeting point (``Meeting``): the
-  replicas' threads hand in their slice's ``E[x]`` and ``E[x²]``, one
-  autograd node (``_MeanOverReplicas``) averages them into the moments of
-  the whole batch and hands each replica its copy. Its backward needs no
-  meeting of its own: autograd runs a node once the gradients of all its
-  outputs are in, which is the synchronised BatchNorm of DataParallel.
-  Every replica then moves its running averages by the same global
-  moments; only replica 0's, the model's own, are kept.
+  replicas' threads hand in their slice's ``E[x]`` and ``E[x²]``, which
+  are gathered on the first device, averaged into the moments of the
+  whole batch by one autograd node (``_MeanOverReplicas``), and handed
+  back, one copy per replica. Its backward needs no meeting of its own:
+  autograd runs a node once the gradients of all its outputs are in,
+  which is the synchronised BatchNorm of DataParallel. Every replica
+  then moves its running averages by the same global moments; only
+  replica 0's, the model's own, are kept. Each replica's BatchNorm also
+  keeps the moments it got, so that a recompute under ``--remat``
+  (``remat``: each replica ``models.Rematerialized``) normalizes with
+  them and never meets again: autograd recomputes the replicas of one
+  card one after another on one thread.
 
-The devices may repeat (``[cpu, cpu]`` in the CPU tests).
+Every copy between cards is ``utils/device.copy_all_to``, whose
+backward runs on the forward's streams, so one CUDA graph captures K
+whole steps (``train/steps.MultiStep``). Each node's outputs lie on one
+device. The weights move in one copy per device and dtype, and the
+predictions in one node: a step makes few copies between cards and few
+Python calls in autograd's threads, which take the interpreter lock.
+The devices may repeat (``[cpu, cpu]`` in the CPU tests, ``[cuda:0,
+cuda:0]`` on one card).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
+from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
 from distributedpytorch_tpu_torch.ops.precision import PerUseCasts
+from distributedpytorch_tpu_torch.utils.device import (
+    copy_all_to,
+    copy_to,
+    current_streams,
+    on_streams,
+)
 
 
-class _MeanOverReplicas(torch.autograd.Function):
-    """The mean of the replicas' (2, C) moments, one copy per replica on
-    its device; the backward sends each replica the mean of the
-    outputs' gradients."""
+class _Uses(torch.autograd.Function):
+    """``n`` uses of ``x``, each a view of it, in one node; the backward
+    adds the uses' gradients in use order. Autograd would add them in the
+    order they arrive, which across cards is the order the cards' threads
+    finish in."""
 
     @staticmethod
-    def forward(ctx, *moments):
-        ctx.devices = [m.device for m in moments]
-        home = moments[0].device
-        total = moments[0]
-        for m in moments[1:]:
-            total = total + m.to(home)
-        mean = total / len(moments)
-        return (mean,) + tuple(mean.to(d, copy=True) for d in ctx.devices[1:])
+    def forward(ctx, n: int, x: torch.Tensor):
+        return tuple(x.view_as(x) for _ in range(n))
 
     @staticmethod
     def backward(ctx, *grads):
-        home = ctx.devices[0]
-        total = None
-        for g in grads:
-            if g is not None:
-                total = g.to(home) if total is None else total + g.to(home)
-        g = total / len(grads)
-        return tuple(g.to(d) for d in ctx.devices)
+        return None, _sum_in_order(grads)
+
+
+def _sum_in_order(tensors) -> Optional[torch.Tensor]:
+    total = None
+    for t in tensors:
+        if t is not None:
+            total = t if total is None else total + t
+    return total
+
+
+class _MeanOverReplicas(torch.autograd.Function):
+    """The mean of the replicas' (2, C) moments, gathered on the first
+    device, one copy per replica there; the backward sends each replica
+    the mean of the copies' gradients, added in replica order."""
+
+    @staticmethod
+    def forward(ctx, *moments):
+        mean = _sum_in_order(moments) / len(moments)
+        return (mean,) + tuple(mean.clone() for _ in moments[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = _sum_in_order(grads) / len(grads)
+        return (g,) * len(grads)
 
 
 class Meeting:
     """Where the replicas' threads meet at each BatchNorm of one forward,
     in the order the layers run (the same in every replica)."""
 
-    def __init__(self, n: int):
-        self._barrier = threading.Barrier(n)
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        self._barrier = threading.Barrier(len(self.devices))
         self._local = threading.local()
-        self._moments: List = [None] * n
-        self._means = ()
+        self._moments: List = [None] * len(self.devices)
+        self._means: List = []
 
     def run(self, index: int, fn, *args):
         """``fn(*args)`` as replica ``index``; a failure breaks the
@@ -88,36 +126,82 @@ class Meeting:
             raise
 
     def mean(self, moments: torch.Tensor) -> torch.Tensor:
-        """This replica's copy of the replicas' mean of ``moments``."""
+        """This replica's copy of the replicas' mean of ``moments``.
+        Replica 0 gathers, averages and hands out, after every replica
+        has enqueued its moments on its card's stream, which the copies
+        then follow."""
         i = self._local.index
         self._moments[i] = moments
         self._barrier.wait()
         if i == 0:
-            self._means = _MeanOverReplicas.apply(*self._moments)
+            means = _MeanOverReplicas.apply(
+                *copy_all_to(self._moments, self.devices[0]))
+            self._means = [copy_to(m, d)
+                           for m, d in zip(means, self.devices)]
         self._barrier.wait()
         return self._means[i]
 
 
-def replicate(module: nn.Module, device: torch.device,
-              casts: Optional[PerUseCasts] = None) -> nn.Module:
-    """A copy of ``module``'s module tree on ``device``: parameters
-    ``p.to(device)`` (the parameter itself on its own device, else a copy
-    autograd sends the gradient back through), or under master weights
-    this replica's cast of each f32 master (``casts``); buffers copied."""
-    copies: Dict[nn.Module, nn.Module] = {
-        m: m._replicate_for_data_parallel() for m in module.modules()}
-    for m, r in copies.items():
-        for key, child in m._modules.items():
-            r._modules[key] = None if child is None else copies[child]
-        for key, p in m._parameters.items():
-            if p is None:
-                r._parameters[key] = None
-            else:
-                setattr(r, key, p.to(device) if casts is None
-                        else casts.of(p, device))
-        for key, b in m._buffers.items():
-            r._buffers[key] = None if b is None else b.to(device, copy=True)
-    return copies[module]
+def _replica_uses(sources: Sequence[torch.Tensor],
+                  dtypes: Sequence[torch.dtype],
+                  devices: Sequence[torch.device]) -> List[list]:
+    """``uses[i][k]``: ``sources[k]`` cast to ``dtypes[k]`` on
+    ``devices[i]``. The sources of one dtype move as one flat tensor: one
+    ``torch.cat``, a use of it per device (``_Uses``), cast and copied
+    there in one copy (``utils/device.copy_to``); each use of a source is
+    a view of its device's copy."""
+    uses: List[list] = [[None] * len(sources) for _ in devices]
+    for dtype in dict.fromkeys(dtypes):
+        ks = [k for k, d in enumerate(dtypes) if d == dtype]
+        flat = torch.cat([sources[k].reshape(-1) for k in ks])
+        sizes = [sources[k].numel() for k in ks]
+        for i, (use, device) in enumerate(
+                zip(_Uses.apply(len(devices), flat), devices)):
+            copy = copy_to(use.to(dtype), device)
+            for k, piece in zip(ks, copy.split(sizes)):
+                uses[i][k] = piece.view(sources[k].shape)
+    return uses
+
+
+def replicate(module: nn.Module, devices: Sequence[torch.device],
+              casts: Optional[PerUseCasts] = None) -> List[nn.Module]:
+    """``module``'s replicas on ``devices``, as the module docstring says:
+    replica 0 is ``module`` itself, or under master weights (``casts``) a
+    copy with its own cast of each master and ``module``'s buffers;
+    replica i > 0 a copy on ``devices[i]`` whose parameters are views of
+    one copy of the parameters (of their masters, cast) and whose buffers
+    are copies."""
+    params = list(module.parameters())
+    if casts is None:
+        uses = [params]
+        sources = params
+    else:
+        uses = [[casts.of(p) for p in params]]
+        sources = [casts.master(p) for p in params]
+    if len(devices) > 1:
+        uses += _replica_uses(sources, [p.dtype for p in params],
+                              devices[1:])
+    index = {p: k for k, p in enumerate(params)}
+    replicas: List[nn.Module] = []
+    for i, device in enumerate(devices):
+        if i == 0 and casts is None:
+            replicas.append(module)
+            continue
+        copies = {m: m._replicate_for_data_parallel()
+                  for m in module.modules()}
+        for m, r in copies.items():
+            for key, child in m._modules.items():
+                r._modules[key] = None if child is None else copies[child]
+            for key, p in m._parameters.items():
+                if p is None:
+                    r._parameters[key] = None
+                else:
+                    setattr(r, key, uses[i][index[p]])
+            for key, b in m._buffers.items():
+                r._buffers[key] = (b if i == 0 or b is None
+                                   else b.to(device, copy=True))
+        replicas.append(copies[module])
+    return replicas
 
 
 class Replicated(nn.Module):
@@ -125,62 +209,63 @@ class Replicated(nn.Module):
     module, takes the batch and gets the predictions back). Under master
     weights (``casts``) every replica, the first too, computes with its
     own cast of the f32 masters, so autograd adds the replicas' gradients
-    in f32, where the GSPMD DP step of the JAX package sums them."""
+    in f32, where the GSPMD DP step of the JAX package sums them. Under
+    ``remat`` each replica recomputes its forward segment by segment in
+    its backward (``models.Rematerialized``)."""
 
     def __init__(self, module: nn.Module, devices: Sequence[torch.device],
-                 casts: Optional[PerUseCasts] = None):
+                 casts: Optional[PerUseCasts] = None, remat: bool = False):
         super().__init__()
         self.module = module
         self.devices = [torch.device(d) for d in devices]
         self.is_stateful = bool(getattr(module, "is_stateful", False))
+        self.remat = remat
         self._casts = casts
-
-    def _first(self, images: torch.Tensor) -> torch.Tensor:
-        """Replica 0: the module itself, its own buffers kept."""
-        if self._casts is None:
-            return self.module(images)
-        return torch.func.functional_call(
-            self.module, self._casts.named_casts(), (images,))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         n = len(self.devices)
-        if n == 1:
-            return self._first(images)
         if images.shape[0] % n:
             raise ValueError(f"DP: a batch of {images.shape[0]} does not "
                              f"split over {n} replicas")
-        meeting = Meeting(n)
+        meeting = Meeting(self.devices)
         # the replicas copy the meeting point with the modules
-        bns = [m for m in self.module.modules()
-               if isinstance(m, BatchNormAct)] if self.training else []
+        bns = ([m for m in self.module.modules()
+                if isinstance(m, BatchNormAct)]
+               if self.training and n > 1 else [])
         for bn in bns:
             bn.replicas = meeting
         try:
-            replicas = [self._first] + [
-                replicate(self.module, d, self._casts)
-                for d in self.devices[1:]]
+            replicas = [rematerialized(r, self.remat) for r in
+                        replicate(self.module, self.devices, self._casts)]
+            if n == 1:
+                return replicas[0](images)
             slices = [x.to(d, non_blocking=True)
                       for x, d in zip(images.chunk(n), self.devices)]
             outs = self._run(replicas, slices, meeting)
         finally:
             for bn in bns:
                 bn.replicas = None
-        return torch.cat([y.to(self.devices[0]) for y in outs])
+        return torch.cat(copy_all_to(outs, self.devices[0]))
 
     def _run(self, replicas, slices, meeting: Meeting) -> list:
         """Replica i on slice i, each in a thread of its own (replica 0 in
-        this one), under the caller's grad mode and its device's guard."""
+        this one), under the caller's grad mode, the caller's current
+        stream of every card (a thread starts on each card's default
+        stream, which is outside a CUDA graph's capture and unordered
+        with the caller's work) and its device's guard."""
         n = len(replicas)
         outs: List = [None] * n
         errors: List = [None] * n
         grad_mode = torch.is_grad_enabled()
+        streams = current_streams(self.devices)
 
         def work(i: int) -> None:
             dev = self.devices[i]
             guard = (torch.cuda.device(dev) if dev.type == "cuda"
                      else contextlib.nullcontext())
             try:
-                with guard, torch.set_grad_enabled(grad_mode):
+                with on_streams(streams), guard, \
+                        torch.set_grad_enabled(grad_mode):
                     outs[i] = meeting.run(i, replicas[i], slices[i])
             except BaseException as exc:  # re-raised below, in the caller
                 errors[i] = exc

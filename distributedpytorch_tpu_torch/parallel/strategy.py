@@ -34,13 +34,14 @@ as MP does, K1 and K1-bwd per microbatch inside the data ranks' sum of
 the statistics, and K2 and K3 fed each microbatch's local moments.
 
 The run control (``check_run_control``): ``--remat`` recomputes the
-forward of the step (singleGPU, DDP, ``--grad-accum``) or of each stage
-(MP, DDP_MP, both schedules) in its backward, and is refused under DP,
-whose recompute would enter the replicas' BatchNorm meeting a second time
-on the autograd threads. ``--steps-per-dispatch K > 1`` (one CUDA graph
-of K steps, ``build_multi_train_step``, from the trainer's own train
-step) runs under singleGPU, DDP, MP and DDP_MP; it is refused under DP
-and under a gloo group on a card. ``--dtype bf16_params`` runs under
+forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
+(MP, DDP_MP, both schedules) or of each DP replica in its backward; a
+replica's recompute normalizes with the BatchNorm moments the replicas
+met on in its forward, and does not meet again. ``--steps-per-dispatch
+K > 1`` (one CUDA graph of K steps, ``build_multi_train_step``, from the
+trainer's own train step) runs under every strategy, DP's replica
+threads included, and is refused under a gloo group on a card.
+``--dtype bf16_params`` runs under
 every strategy; under DDP the gradients are averaged over the ranks in
 ``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
 which is where the compiled JAX DDP step sums them too (its gradient
@@ -56,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -202,11 +203,22 @@ class Strategy:
             loss_impl=self.train_loss(kernels.train_loss_fused))
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
-        """One optimizer step over ``config.grad_accum`` batches."""
+        """One optimizer step over ``config.grad_accum`` batches of
+        ``accum_module``'s chunks."""
+        module, remat = self.accum_module(model, optimizer)
         return make_accum_train_step(
-            model, optimizer, self.config.batch_size, self.config.grad_accum,
-            self.config.faithful_loss_scaling, kernels.train_loss_fused,
-            sum_over_ranks=self.sum_over_ranks, remat=self.config.remat)
+            module, optimizer, self.config.batch_size,
+            self.config.grad_accum, self.config.faithful_loss_scaling,
+            kernels.train_loss_fused, sum_over_ranks=self.sum_over_ranks,
+            remat=remat)
+
+    def accum_module(self, model: torch.nn.Module, optimizer
+                     ) -> Tuple[torch.nn.Module, bool]:
+        """The module gradient accumulation runs each chunk through, and
+        whether the step recomputes that chunk's forward in its backward:
+        the model itself under ``--remat`` (its ranks' sum is
+        ``sum_over_ranks``)."""
+        return model, self.config.remat
 
     #: eager steps ``MultiStep`` runs before it captures K steps
     capture_warmup_steps = 1
@@ -230,7 +242,7 @@ class Strategy:
         (``train/steps.MultiStep``). ``train_step`` is the one the
         trainer holds and runs the epoch's tail with, so both drive one
         DDP wrapper and one pipeline step (``check_run_control`` keeps
-        ``-t DP`` and gloo on a card out)."""
+        gloo on a card out)."""
         return make_multi_train_step(
             train_step, self.config.steps_per_dispatch, self.step_devices,
             warmup_steps=self.capture_warmup_steps,
@@ -258,7 +270,13 @@ class DataParallel(Strategy):
     the global batch on the first device (K1 and K1-bwd there under
     ``--kernels cuda``); each replica's forward runs its own epilogue
     kernels, and milesial's BatchNorm normalizes with the moments of the
-    whole batch, as GSPMD computes them for the JAX DP."""
+    whole batch, as GSPMD computes them for the JAX DP. ``--remat``
+    recomputes each replica's forward, and ``--steps-per-dispatch K``
+    captures K steps, the replica threads' launches on every card
+    included, with the defaults of ``MultiStep``: one eager stack before
+    the capture builds Adam's moments, K1's workspace and the cuDNN
+    handles the replica threads take from the pool, and the replicas
+    run on the multi-step's streams, which the caller makes current."""
 
     name = "DP"
 
@@ -281,14 +299,16 @@ class DataParallel(Strategy):
 
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
-        """The replicas; under master weights each computes with its own
-        cast of ``optimizer``'s f32 masters."""
+        """The replicas, each recomputed in the backward under
+        ``--remat``; under master weights each computes with its own cast
+        of ``optimizer``'s f32 masters."""
         return Replicated(model, self.devices,
-                          per_use_casts(optimizer, model))
+                          per_use_casts(optimizer, model),
+                          remat=self.config.remat)
 
-    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
-        return super().build_accum_train_step(
-            self.wrap_model(model, optimizer), optimizer, kernels)
+    def accum_module(self, model, optimizer):
+        """The replicas, which recompute themselves under ``--remat``."""
+        return self.wrap_model(model, optimizer), False
 
     def build_eval_step(self, model, kernels) -> Callable:
         return make_eval_step(self.wrap_model(model),
@@ -576,18 +596,11 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
 
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
-    """The run control's limits of the port, with their ROADMAP pointer:
-    ``--steps-per-dispatch K > 1`` is refused under DP and, once the
-    strategy knows its ``device`` and its group's ``backend``, under gloo
-    on a card; ``--remat`` is refused under DP."""
+    """The run control's limit of the port, with its ROADMAP pointer:
+    once the strategy knows its ``device`` and its group's ``backend``,
+    ``--steps-per-dispatch K > 1`` is refused under gloo on a card."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
-    if k > 1 and method == DataParallel.name:
-        raise ValueError(
-            f"--steps-per-dispatch {k} under -t DP is not ported: the "
-            f"replicas run on threads of their own and meet at every "
-            f"BatchNorm, which a CUDA graph of K steps does not capture "
-            f"yet (ROADMAP.md, Queue A)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -596,11 +609,6 @@ def check_run_control(config, device: Optional[torch.device] = None,
             f"host, which a CUDA graph of K steps cannot capture — use "
             f"the NCCL group torchrun makes on cards (ROADMAP.md, "
             f"Queue A)")
-    if config.remat and method == DataParallel.name:
-        raise ValueError(
-            "--remat under -t DP is not ported: the recompute would enter "
-            "the replicas' BatchNorm meeting a second time on the autograd "
-            "threads (ROADMAP.md, Queue A)")
 
 
 STRATEGIES = {cls.name: cls for cls in (

@@ -220,9 +220,12 @@ class MultiStep:
     under DDP). The next call captures, reading static input buffers on
     the first card; every call from then on copies its stack into them on
     the current stream and replays the graph there, ordered after each
-    card's current stream and before its next work. The first card's
-    allocations during the capture go to the graph's private pool
-    (``torch.cuda.graph``, which routes one card only); every other
+    card's current stream and before its next work. Threads the step
+    starts (DP's replicas) launch on these streams, which the step hands
+    them. The first card's allocations during the capture go to the
+    graph's private pool (``torch.cuda.graph``, which routes one card
+    only, by the allocating stream's capture: a replica thread's on the
+    capturing stream go there too); every other
     card's go to a ``torch.cuda.MemPool`` of its own for the capture,
     from any thread (autograd runs each card's backward on a thread of
     its own), and the pool lives as long as the graph. Otherwise blocks

@@ -13,6 +13,7 @@ of JAX, so the card's machine runs it as it is:
 """
 
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -1045,19 +1046,20 @@ def _mp_parts(devices, schedule, dtype="f32"):
     return model, opt, step, strategy
 
 
-def _graph_against_eager(devices, schedule):
-    """Three calls of the K = 3 multi-step over ``devices`` against nine
-    eager steps from the same weights, after each call every card's cache
-    emptied and a guard tensor allocated on it that the next replay must
-    leave alone: (eager losses, graph losses, weights equal, guards
-    intact)."""
+def _graph_against_eager(devices, parts):
+    """Three calls of the K = 3 multi-step of ``parts()``'s step (``(model,
+    opt, step, strategy)``: ``_mp_parts``, ``_dp_parts``) over
+    ``devices`` against nine eager steps from the same weights, after
+    each call every card's cache emptied and a guard tensor allocated on
+    it that the next replay must leave alone: (eager losses, graph
+    losses, weights and buffers equal, guards intact)."""
     from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
 
     stacks = _stacks(devices[0], 3)
-    model_e, _opt, step, _s = _mp_parts(devices, schedule)
+    model_e, _opt, step, _s = parts()
     eager = [float(step({k: v[i] for k, v in s.items()}))
              for s in stacks for i in range(3)]
-    model_g, _opt, step, strategy = _mp_parts(devices, schedule)
+    model_g, _opt, step, strategy = parts()
     multi = make_multi_train_step(step, 3, strategy.step_devices)
     graphed, intact, guards = [], True, []
     for s in stacks:
@@ -1068,8 +1070,8 @@ def _graph_against_eager(devices, schedule):
         torch.cuda.empty_cache()
         guards = [torch.full((1 << 22,), 7.0, device=d)
                   for d in dict.fromkeys(devices)]
-    same = all(torch.equal(a, b) for a, b in zip(model_e.parameters(),
-                                                 model_g.parameters()))
+    same = all(torch.equal(a, b) for a, b in zip(
+        model_e.state_dict().values(), model_g.state_dict().values()))
     return eager, graphed, same, intact
 
 
@@ -1082,8 +1084,9 @@ def test_mp_k_step_graph_on_one_card_equals_eager_bitwise(
     allocated between replays left alone."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [cuda_device, cuda_device]
     eager, graphed, same, intact = _graph_against_eager(
-        [cuda_device, cuda_device], schedule)
+        devices, lambda: _mp_parts(devices, schedule))
     assert graphed == eager and same and intact
 
 
@@ -1098,9 +1101,130 @@ def test_mp_k_step_graph_across_two_cards_equals_eager_bitwise(
         pytest.skip("needs two NVIDIA cards")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
     eager, graphed, same, intact = _graph_against_eager(
-        [torch.device("cuda", 0), torch.device("cuda", 1)], schedule)
+        devices, lambda: _mp_parts(devices, schedule))
     assert graphed == eager and same and intact
+
+
+# -- -t DP: the K-step graph and --remat ---------------------------------------------
+
+
+def _dp_parts(devices, arch="unet", remat=False):
+    """A small float32 model through the DP strategy's replicas on
+    ``devices`` (batch 2: one sample per replica on two), under kernels
+    cuda, with capturable Adam."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="DP", model_arch=arch, dtype="f32",
+                      kernels="cuda", device="cuda", model_widths=(8, 16),
+                      batch_size=2, steps_per_dispatch=3, remat=remat)
+    strategy = build_strategy(cfg, devices=devices)
+    assert strategy.devices == list(devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = strategy.place_model(model)
+    opt = make_optimizer(model.parameters(), 1e-3, capturable=True)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, opt, step, strategy
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_dp_k_step_graph_on_one_card_equals_eager_bitwise(
+        cuda_device, monkeypatch, arch):
+    """``-t DP`` on ``[cuda:0, cuda:0]`` (two replica threads on one card,
+    meeting at milesial's BatchNorms), K = 3: the graph's nine losses,
+    the weights and the running statistics bitwise equal to nine eager
+    steps of the same capturable Adam (cuDNN's deterministic
+    algorithms), and guard tensors allocated between replays left alone:
+    the replica thread's allocations went to the graph's pool."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [cuda_device, cuda_device]
+    eager, graphed, same, intact = _graph_against_eager(
+        devices, lambda: _dp_parts(devices, arch))
+    assert graphed == eager and same and intact
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_dp_k_step_graph_across_two_cards_equals_eager_bitwise(
+        monkeypatch, arch):
+    """The same with the replicas on cuda:0 and cuda:1: the parameters,
+    the BatchNorm moments and the predictions cross cards through copies
+    whose backward the capture holds, and the second card's allocations
+    go to a pool of the graph's own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    eager, graphed, same, intact = _graph_against_eager(
+        devices, lambda: _dp_parts(devices, arch))
+    assert graphed == eager and same and intact
+
+
+def test_dp_replica_threads_launch_on_the_callers_stream(cuda_device):
+    """A DP step with a side stream current in the caller: every
+    BatchNorm forward, replica 0's in the caller and replica 1's in its
+    own thread, runs with that stream current, and the step's loss
+    equals the same step's on the default stream."""
+    model, _opt, step, _s = _dp_parts([cuda_device, cuda_device],
+                                      "milesial")
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+
+    seen = []
+
+    def hook(_bn, _args):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream(cuda_device)))
+
+    for m in model.modules():
+        if isinstance(m, BatchNormAct):
+            m.register_forward_pre_hook(hook)
+    batch = {k: v[0] for k, v in _stacks(cuda_device, 1)[0].items()}
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        float(step(batch))
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    threads = {name for name, _ in seen}
+    assert "dpt-dp-replica-1" in threads and len(threads) == 2
+    assert all(stream == side for _, stream in seen)
+
+
+def test_dp_remat_step_equals_the_plain_step_on_one_card(cuda_device,
+                                                          monkeypatch):
+    """milesial under ``-t DP --remat`` on ``[cuda:0, cuda:0]`` against
+    the plain DP step, cuDNN deterministic: it completes (autograd
+    recomputes both replicas on the card's one thread, which a second
+    meeting would hang), K2 launches twice per BatchNorm and replica,
+    K3 once, and the loss, every gradient and the running statistics
+    are bitwise equal."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batch = {k: v[0] for k, v in _stacks(cuda_device, 1)[0].items()}
+    out = {}
+    for remat in (False, True):
+        model, opt, step, _s = _dp_parts([cuda_device, cuda_device],
+                                         "milesial", remat=remat)
+        opt.step = lambda: None  # keep the gradients and the weights
+        kernels.reset_launches()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        out[remat] = (loss, dict(kernels.LAUNCHES),
+                      [p.grad.clone() for p in model.parameters()],
+                      [b.clone() for n, b in model.named_buffers()
+                       if "running" in n])
+    (l0, n0, g0, s0), (l1, n1, g1, s1) = out[False], out[True]
+    # 6 BatchNorms at widths (8, 16), in each of the two replicas
+    assert n1["bn_act"] == 2 * n0["bn_act"] == 24
+    assert n1["bn_act_bwd"] == n0["bn_act_bwd"] == 12
+    assert l1 == l0
+    for a, b in zip(g1 + s1, g0 + s0):
+        assert torch.equal(a, b)
 
 
 def test_capturable_adam_over_two_groups_reads_each_lr_at_replay(

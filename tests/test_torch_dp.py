@@ -58,14 +58,14 @@ ARCHS = ["unet", "milesial"]
 
 @pytest.fixture(scope="module")
 def jax_dp():
-    """``jax_dp(arch)``: the JAX DP strategy's Adam step on 2 devices from
-    the seeded weights on ``make_batch()`` (memoized), as ``jax_mp`` gives the
-    MP step's."""
+    """``jax_dp(arch, remat=False)``: the JAX DP strategy's Adam step on 2
+    devices from the seeded weights on ``make_batch()`` (memoized), as
+    ``jax_mp`` gives the MP step's."""
     cache = {}
 
-    def run(arch):
-        if arch not in cache:
-            cfg = jax_config(arch, train_method="DP")
+    def run(arch, remat=False):
+        if (arch, remat) not in cache:
+            cfg = jax_config(arch, train_method="DP", remat=remat)
             strategy = jax_strategy.build_strategy(
                 cfg, devices=jax.devices()[:2])
             assert strategy.mesh.shape["data"] == 2
@@ -76,13 +76,13 @@ def jax_dp():
                 step=jnp.zeros((), jnp.int32), model_state=model_state))
             new, loss = strategy.build_train_step(model, tx)(
                 state, strategy.place_batch(make_batch()))
-            cache[arch] = {
+            cache[arch, remat] = {
                 "initial": to_port(params, model_state),
                 "loss": float(loss),
                 "grads": to_port(new.opt_state[0], model_state),
                 "final": to_port(new.params, new.model_state),
             }
-        return cache[arch]
+        return cache[arch, remat]
 
     return run
 
@@ -205,6 +205,93 @@ def test_a_failing_replica_raises_and_leaves_no_replica_waiting():
     assert model.module.bn.replicas is None
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("dpt-dp-replica")]
+
+
+# -- --remat under DP ------------------------------------------------------------
+
+
+def _within(seconds, fn):
+    """``fn()`` on a thread of its own, joined with a timeout: a replica
+    waiting on a meeting that never completes fails the test instead of
+    hanging it."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as exc:  # re-raised in the test
+            out["error"] = exc
+
+    thread = threading.Thread(target=run, name="dp-step-under-test")
+    thread.start()
+    thread.join(timeout=seconds)
+    assert not thread.is_alive(), f"the step did not end in {seconds} s"
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _counting_batchnorms(model):
+    """``counts["calls"]``: forwards of ``model``'s BatchNorms, the
+    replicas' copies included (they share the hooks), and
+    ``counts["meetings"]``, how many of those met the other replicas."""
+    counts = {"calls": 0, "meetings": 0}
+
+    def hook(bn, _args):
+        counts["calls"] += 1
+        counts["meetings"] += (bn.replicas is not None
+                               and not bn.reuse_kept_moments)
+
+    for m in model.modules():
+        if isinstance(m, BatchNormAct):
+            m.register_forward_pre_hook(hook)
+    return counts
+
+
+@pytest.mark.parametrize("policy", ["torch", "cuda"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dp_remat_step_is_bitwise_the_plain_dp_step(arch, policy):
+    """One Adam step on ``[cpu, cpu]`` with and without ``--remat``, each
+    on a thread joined within 60 s: the loss, every gradient and the state
+    after the step (running statistics moved once) bitwise equal. Under
+    remat every replica's BatchNorm runs once more, in the recompute, on
+    the moments it kept, and meets the other replica only in the first
+    forward: autograd recomputes both replicas on one thread, where a
+    second meeting would wait for ever."""
+    initial = create_model(port_config(arch), generator=torch.Generator(
+        ).manual_seed(0)).state_dict()
+    runs = {}
+    for remat in (False, True):
+        cfg = port_config(arch, train_method="DP", kernels=policy,
+                          remat=remat)
+        _s, model, opt, step = port_step(cfg, initial, devices=[CPU, CPU])
+        counts = _counting_batchnorms(model)
+        loss = _within(60, lambda: step(torch_batch(make_batch())))
+        runs[remat] = (float(loss), opt.grads, model.state_dict(), counts)
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = runs[False], runs[True]
+    assert l1 == l0
+    for name, g in g0.items():
+        assert torch.equal(g1[name], g), name
+    for key, value in s0.items():
+        assert torch.equal(s1[key], value), key
+    assert c1["meetings"] == c0["meetings"] == c0["calls"]
+    assert c1["calls"] == 2 * c0["calls"]
+    # each BatchNorm once per replica: 6 in milesial at widths (8, 16)
+    assert c0["calls"] == (2 * 6 if arch == "milesial" else 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dp_remat_step_matches_the_jax_dp_remat_step(jax_dp, arch):
+    """One ``--remat`` Adam step on ``[cpu, cpu]`` against the JAX DP step
+    with ``remat=True`` on two devices, within PERF.md §2's bounds: loss
+    1e-5, gradients 1e-4 of each tensor's largest, running statistics
+    1e-5 (``assert_step_matches``, weights after Adam within 1e-5)."""
+    want = jax_dp(arch, remat=True)
+    cfg = port_config(arch, train_method="DP", remat=True)
+    _s, model, opt, step = port_step(cfg, want["initial"],
+                                     devices=[CPU, CPU])
+    loss = _within(60, lambda: step(torch_batch(make_batch())))
+    assert_step_matches(model, opt, loss, want, weights_tol=1e-5)
 
 
 def test_one_epoch_through_the_trainer_matches_the_jax_dp_trainer(tmp_path):

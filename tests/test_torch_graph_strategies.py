@@ -498,16 +498,61 @@ def test_mp_k2_epoch_equals_k1_and_matches_the_jax_trainer(tmp_path,
         np.testing.assert_allclose(r2[key], jresult[key], rtol=1e-4)
 
 
+def test_dp_k2_epoch_equals_k1_and_matches_the_jax_dp(tmp_path):
+    """``Trainer`` under ``-t DP`` on ``[cpu, cpu]`` for milesial, so the
+    replicas meet at every BatchNorm, at ``--steps-per-dispatch 2``, 5
+    steps (two stacks and a tail of one): the per-step losses and the
+    final weights and running statistics bitwise equal to K = 1 from the
+    same weights, and the losses and the val metrics within 1e-4 of the
+    JAX trainer's DP at ``steps_per_dispatch=2`` (its multi-step over the
+    data mesh, which the batch of 4 shrinks to 4 devices: the moments and
+    the loss are the global batch's at any replica count)."""
+    common = dict(MP_EPOCH, train_method="DP", model_arch="milesial")
+    for key in ("num_stages", "num_microbatches"):
+        common.pop(key)
+    jtrainer = JaxTrainer(JaxTrainConfig(
+        async_checkpoint=False, kernels="xla", steps_per_dispatch=K,
+        checkpoint_dir=str(tmp_path / "jax" / "checkpoints"),
+        log_dir=str(tmp_path / "jax" / "logs"),
+        loss_dir=str(tmp_path / "jax" / "loss"), **common))
+    initial = params_from_jax(jax.device_get(jtrainer.state.params),
+                              jax.device_get(jtrainer.state.model_state))
+    jresult = jtrainer.train()
+    runs = {}
+    for k in (K, 1):
+        trainer = Trainer(TrainConfig(
+            device="cpu", kernels="torch", steps_per_dispatch=k,
+            checkpoint_dir=str(tmp_path / f"k{k}" / "checkpoints"),
+            log_dir=str(tmp_path / f"k{k}" / "logs"),
+            loss_dir=str(tmp_path / f"k{k}" / "loss"), **common),
+            initial_state=initial, devices=[CPU, CPU])
+        runs[k] = (trainer, trainer.train())
+    (t2, r2), (t1, r1) = runs[K], runs[1]
+    assert r2["steps"] == r1["steps"] == jresult["steps"] == 5
+    assert t2.multi_step is not None and t1.multi_step is None
+    losses = [float(x) for x in t2.records.losses]
+    assert losses == [float(x) for x in t1.records.losses]
+    for (key, a), b in zip(t2.model.state_dict().items(),
+                           t1.model.state_dict().values()):
+        assert torch.equal(a, b), key
+    np.testing.assert_allclose(losses,
+                               [r[2] for r in jtrainer.records.train_rows],
+                               rtol=1e-4)
+    for key in ("val_loss", "val_dice"):
+        np.testing.assert_allclose(r2[key], jresult[key], rtol=1e-4)
+
+
 @pytest.mark.parametrize("argv", [
     ["-t", "MP", "--stages", "2", "--microbatches", "2"],
     ["-t", "MP", "--stages", "2", "--microbatches", "2",
      "--pipeline-schedule", "1f1b"],
     ["-t", "DDP"],
+    ["-t", "DP"],
 ])
 def test_cli_trains_k_steps_outside_single_gpu(tmp_path, monkeypatch, argv):
-    """The training CLI accepts ``--steps-per-dispatch 2`` under ``-t MP``
-    (both schedules) and ``-t DDP`` (world 1 without a launcher) on the
-    CPU and trains its epoch."""
+    """The training CLI accepts ``--steps-per-dispatch 2`` under ``-t DP``,
+    ``-t MP`` (both schedules) and ``-t DDP`` (world 1 without a
+    launcher) on the CPU and trains its epoch."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     monkeypatch.chdir(tmp_path)

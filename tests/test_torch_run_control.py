@@ -32,6 +32,7 @@ from distributedpytorch_tpu_torch import checkpoint, cli
 from distributedpytorch_tpu_torch.config import TrainConfig
 from distributedpytorch_tpu_torch.dist.runtime import RuntimeInfo
 from distributedpytorch_tpu_torch.models import create_model
+from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
 from distributedpytorch_tpu_torch.ops.optim import make_optimizer
 from distributedpytorch_tpu_torch.parallel.strategy import (
     SingleDevice,
@@ -53,6 +54,7 @@ from torch_parallel_parity import (
     jax_init,
     make_batch,
     port_mp,
+    run_cli,
     to_port,
     torch_batch,
 )
@@ -288,12 +290,33 @@ def test_milesial_mp_remat_is_bitwise_the_plain_mp_step(schedule):
         assert torch.equal(value, runs[1][2][key]), key
 
 
-def test_remat_under_dp_raises(tmp_path):
-    cfg = _port_config(tmp_path, train_method="DP", remat=True)
-    with pytest.raises(ValueError, match="--remat under -t DP.*ROADMAP"):
-        build_strategy(cfg, devices=[CPU, CPU])
-    with pytest.raises(SystemExit, match="--remat under -t DP.*ROADMAP"):
-        cli.main(["-t", "DP", "--remat", "--device", "cpu"])
+def _dp_cli(tmp_path, monkeypatch, *flags):
+    """The training CLI under ``-t DP`` with ``flags`` on the CPU, one
+    epoch of --synthetic 16 -b 4 (3 steps), in ``tmp_path``."""
+    monkeypatch.chdir(tmp_path)
+    return run_cli(["-t", "DP", *flags, "--synthetic", "16", "--image-size",
+                    str(W), str(H), "--model-widths", "8", "16", "-b", "4",
+                    "-v", "25", "-e", "1", "--device", "cpu",
+                    "--num-workers", "0", "--dtype", "f32"])
+
+
+def test_remat_under_dp_raises(tmp_path, monkeypatch):
+    """``-t DP --remat``, refused before the replicas' recompute kept the
+    meeting's moments, now builds through ``build_strategy`` on ``[cpu,
+    cpu]`` and steps (a finite loss, every BatchNorm's running averages
+    moved once), and the CLI trains its epoch with it."""
+    cfg = _port_config(tmp_path, train_method="DP", remat=True,
+                       model_arch="milesial", batch_size=4)
+    strategy = build_strategy(cfg, devices=[CPU, CPU])
+    model = strategy.place_model(create_model(cfg))
+    step = strategy.build_train_step(model, make_optimizer(
+        model.parameters(), LR), get_kernel_policy("torch"))
+    assert np.isfinite(float(step(_tb(_batch(b=4)))))
+    tracked = [v for k, v in model.state_dict().items()
+               if k.endswith("num_batches_tracked")]
+    assert tracked and all(int(v) == 1 for v in tracked)
+    assert _dp_cli(tmp_path, monkeypatch, "--remat") == 0
+    assert (tmp_path / "checkpoints" / "DP.pt").exists()
 
 
 # -- K steps per dispatch --------------------------------------------------------
@@ -356,22 +379,23 @@ def test_the_jax_refusals_carry_over_word_for_word(tmp_path, kw, message):
 
 
 @pytest.mark.parametrize("method", ["DDP", "DP", "DDP_MP"])
-def test_k_steps_outside_single_gpu_raise(tmp_path, method):
+def test_k_steps_outside_single_gpu_raise(tmp_path, monkeypatch, method):
     """What stays refused of K > 1 outside singleGPU, with the ROADMAP
-    pointer: ``-t DP`` (its replica threads are not captured yet), through
-    ``build_strategy`` and the CLI; and a gloo group on a card under the
-    multi-process methods, through the check with the strategy's device
-    and backend (gloo moves CUDA tensors through the host). Gloo on the
-    CPU and NCCL on a card pass the check."""
+    pointer: a gloo group on a card under the multi-process methods,
+    through the check with the strategy's device and backend (gloo moves
+    CUDA tensors through the host). Gloo on the CPU and NCCL on a card
+    pass the check. ``-t DP``, refused before its replica threads ran on
+    the caller's streams, builds through ``build_strategy`` and its
+    multi-step, passes the check on a card, and the CLI trains its epoch
+    at K = 2 (a stack of two steps and a tail of one)."""
     cfg = _port_config(tmp_path, train_method=method, steps_per_dispatch=2)
     if method == "DP":
-        with pytest.raises(ValueError,
-                           match="--steps-per-dispatch 2 under -t DP is "
-                                 "not ported.*ROADMAP"):
-            build_strategy(cfg)
-        with pytest.raises(SystemExit, match="-t DP is not ported.*ROADMAP"):
-            cli.main(["-t", method, "--steps-per-dispatch", "2",
-                      "--device", "cpu"])
+        strategy = build_strategy(cfg, devices=[CPU, CPU])
+        assert strategy.build_multi_train_step(lambda batch: None).steps == 2
+        check_run_control(cfg, torch.device("cuda", 0), None)
+        assert _dp_cli(tmp_path, monkeypatch, "--steps-per-dispatch",
+                       "2") == 0
+        assert (tmp_path / "checkpoints" / "DP.pt").exists()
         return
     with pytest.raises(ValueError,
                        match=f"under -t {method} over a gloo group on "
