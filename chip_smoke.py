@@ -73,7 +73,20 @@ replays, then resumed with ``-c``) and 1f1b, and milesial ``--wgrad-taps``
 under MP gpipe, each against K = 1 with the same capturable Adam, bitwise,
 a replay's kernels counted by name in the profiler's trace, step, host
 enqueue and idle share of both; the gloo DDP_MP ranks check that K = 4
-over gloo on a card is refused. Each path's kernel launches are counted
+over gloo on a card is refused. Then the slice of the probes, the
+profiler window, the checkpoint interchange and the preemption stop:
+``ops/probes.run_probes`` on the card, each kernel built, launched in a
+child process and held against its plain version, and a priors file
+that rejects the BatchNorm epilogue given to a full-width milesial step
+through ``--kernel-priors`` (``probes``: K2 and K3 not launched, one
+warning); the UNet with ``--profile-steps 2:4`` at K = 1 and K = 2, the
+chrome trace holding K1 and K1-bwd by name, the losses bitwise those
+without the window, the step timed with and without a profiler
+(``profile_window``); a child trainer sent SIGTERM once step 3 has run,
+exiting 0 with its checkpoint, resumed here to the end (``preempt``);
+full-width milesial states, bf16 and bf16_params, through a JAX-format
+``.ckpt`` and back, and resumed onto the card with ``-c``, bitwise
+(``ckpt_roundtrip``). Each path's kernel launches are counted
 from zero over its run (a CUDA graph's at each replay). It fails
 (non-zero exit, no result line) without a card, outside a checkout, or
 when any phase disagrees.
@@ -273,6 +286,7 @@ def phase_device() -> dict:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    profiler_tries = _warm_profiler()
     t0 = time.perf_counter()
     libs = _build.build()
     info = {
@@ -285,6 +299,7 @@ def phase_device() -> dict:
         "tf32": False,
         "build_s": round(time.perf_counter() - t0, 3),
         "libraries": sorted(p.name for p in libs.values()),
+        "profiler_warm_up_sessions": profiler_tries,
     }
     emit(info)
     return info
@@ -372,20 +387,55 @@ def _loss_inputs(shape, gen, dev):
     return p, t
 
 
-def _device_kernels(fn) -> list:
-    """Names of the kernels one call of ``fn`` runs on the card, by the
-    profiler's device activity (after a warm call)."""
+#: profiler sessions tried before one that records no device activity
+#: for work that surely ran on the card counts as a failure
+PROFILER_TRIES = 3
+
+
+def _profiled_kernels(fn) -> list:
+    """Names of the kernels the card ran during one call of ``fn``, by the
+    profiler's device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return [evt.name for evt in prof.events()
             if evt.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _warm_profiler() -> int:
+    """Start the profiler's device tracing (CUPTI) once in this process,
+    before any session whose trace is read: the first session of a
+    process can come back without device activity. Profiles a small
+    kernel on the current card until the trace holds it; returns the
+    sessions that took, and fails after PROFILER_TRIES."""
+    import torch
+
+    x = torch.ones(1024, device="cuda")
+    for tries in range(1, PROFILER_TRIES + 1):
+        if _profiled_kernels(lambda: x.mul_(1.0)):
+            return tries
+    check(False, f"the profiler saw no kernel on the card in "
+          f"{PROFILER_TRIES} sessions")
+
+
+def _device_kernels(fn) -> list:
+    """Names of the kernels one call of ``fn`` runs on the card, by the
+    profiler's device activity (after a warm call). ``fn`` has no side
+    effects, so a session that saw nothing on the card at all is run
+    again, up to PROFILER_TRIES times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        kernels = _profiled_kernels(fn)
+        if kernels:
+            break
+    return kernels
 
 
 def phase_loss_kernels() -> dict:
@@ -2251,6 +2301,7 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
     torch.cuda.set_device(torch.device(device))
+    _warm_profiler()
     torch.distributed.init_process_group(
         backend, init_method=f"file://{os.path.join(job, 'store')}",
         rank=rank, world_size=world)
@@ -3679,6 +3730,7 @@ def ddp_mp_rank(rank: int, world: int, backend: str, job: str) -> int:
         devices = [torch.device("cuda", rank * MP_STAGES + s)
                    for s in range(MP_STAGES)]
     torch.cuda.set_device(devices[0])
+    _warm_profiler()
     torch.distributed.init_process_group(
         backend, init_method=f"file://{os.path.join(job, 'store')}",
         rank=rank, world_size=world)
@@ -5048,6 +5100,386 @@ def _rank_graph_run(cfg, rank: int, world: int, devices, stacks_n: int
     return row
 
 
+# the kernel probes, the profiler window, the preemption stop and the
+# .ckpt round trip (phase_probes .. phase_ckpt_roundtrip)
+PROBE_NAMES = ("conv_epilogue", "eval_stats", "fused_loss", "serve_mask",
+               "wgrad_9tap")
+# the profiler window's runs: --synthetic 30 -v 20 -b 4 -e 1, 24 train
+# samples (6 steps) and one eval batch, steps [2, 4) at K = 1 and K = 2
+PW_SAMPLES = 30
+PW_STEPS = (2, 4)
+PW_TIMED = 10
+# the preempted run: --synthetic 30 -v 20 -b 4 -e 2 (6 steps an epoch),
+# SIGTERM from this process once step 3 has run
+PREEMPT_SAMPLES = 30
+PREEMPT_AT = 3
+PREEMPT_TIMEOUT_S = 300
+
+
+def _kernel_warnings():
+    """``(messages, close)``: the warnings ``ops/kernels.py`` logs until
+    ``close()``."""
+    messages = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Collect(logging.WARNING)
+    log = logging.getLogger("distributedpytorch_tpu_torch.ops.kernels")
+    log.addHandler(handler)
+    return messages, lambda: log.removeHandler(handler)
+
+
+def phase_probes(tmp: str) -> dict:
+    """``ops/probes.run_probes`` on the card: each kernel built, launched
+    once in a child process of its own and held against its plain
+    version, all five accepted; the priors file written and read back;
+    then a file that rejects ``conv_epilogue`` given to the training CLI
+    (``--kernel-priors``) for a full-width milesial step: K2 and K3 launch
+    0 times, K1, K1-bwd and K5 as before, with the warning logged."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels, probes
+
+    t0 = time.perf_counter()
+    payload = probes.run_probes(device="cuda")
+    probe_s = time.perf_counter() - t0
+    rows = payload["kernels"]
+    check(sorted(rows) == list(PROBE_NAMES), f"probed {sorted(rows)}")
+    for name, row in rows.items():
+        check(row["accepted"], f"probe {name} rejected on the card: "
+              f"{row.get('reason')}")
+    check(payload["platform"] == "gpu"
+          and payload["device_kind"] == torch.cuda.get_device_name(0),
+          f"priors platform {payload['platform']}, {payload['device_kind']}")
+    path = os.path.join(tmp, "kernel_priors.json")
+    kernels.save_priors(payload, path)
+    check(kernels.load_priors(path) == payload, "the priors file round trip")
+
+    rejecting = os.path.join(tmp, "kernel_priors_rejecting.json")
+    kernels.save_priors({**payload, "kernels": {**rows, "conv_epilogue": {
+        "accepted": False, "reason": "rejected by chip_smoke.py",
+        "compile_s": 0.0}}}, rejecting)
+    run = os.path.join(tmp, "probes_milesial")
+    warnings, stop_collecting = _kernel_warnings()
+
+    def step():
+        trainer, close = _cli_trainer(run, _rc_argv(
+            run, "-e", "1", "--model", "milesial", "--wgrad-taps",
+            "--kernel-priors", rejecting, samples=10))
+        try:
+            batch = _first_batch(trainer)
+            kernels.reset_launches()
+            loss = float(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            return loss, dict(kernels.LAUNCHES), trainer.kernels
+        finally:
+            close()
+
+    try:
+        loss, launches, policy = _with_wgrad_backend(step)
+    finally:
+        stop_collecting()
+    out = {"phase": "probes", "kernels": rows, "probe_wall_s": probe_s,
+           "rejecting_file": {"policy": dataclasses.asdict(policy),
+                              "launches_one_step": launches, "loss": loss,
+                              "warnings": warnings},
+           "device": torch.cuda.get_device_name(0)}
+    emit(out)
+    check(not policy.conv_epilogue and policy.train_loss_fused
+          and policy.wgrad_cuda, f"policy under the rejecting file {policy}")
+    check(launches["bn_act"] == 0 and launches["bn_act_bwd"] == 0
+          and launches["wgrad_9tap"] == 13 and launches["loss_stats"] == 1
+          and launches["loss_stats_bwd"] == 1,
+          f"one milesial step under the rejecting file launched {launches}")
+    check(sum("conv_epilogue" in w and "rejected" in w
+              for w in warnings) == 1, f"warnings {warnings}")
+    return out
+
+
+def _trace_launches(path: str) -> dict:
+    """Kernel launches by counter name in a chrome trace the profiler
+    window wrote."""
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {key: sum(bool(re.search(rf"\b{sym}\b", n)) for n in names)
+            for key, sym in KERNEL_SYMBOLS.items()}
+
+
+def _pw_run(tmp: str, k: int, window: bool) -> dict:
+    """One ``--steps-per-dispatch k`` run of the full-width UNet, with or
+    without ``--profile-steps 2:4``; its losses, what the window wrote,
+    and the step (or K-step dispatch) timed with and without a profiler,
+    in turns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = os.path.join(tmp, f"pw_k{k}_{'window' if window else 'plain'}")
+    extra = ["-e", "1", "--steps-per-dispatch", str(k)]
+    if window:
+        extra += ["--profile-steps", f"{PW_STEPS[0]}:{PW_STEPS[1]}",
+                  "--profile-dir", os.path.join(run, "profile")]
+    trainer, close = _cli_trainer(run, _rc_argv(run, *extra,
+                                                samples=PW_SAMPLES))
+    try:
+        trainer.train()
+        out = {"losses": [float(x) for x in trainer.records.losses]}
+        if not window:
+            return out
+        out["trace"] = os.path.relpath(trainer.profile_window.path, run)
+        out["trace_bytes"] = os.path.getsize(trainer.profile_window.path)
+        out["traced_launches"] = _trace_launches(trainer.profile_window.path)
+        out["profiler_left_running"] = torch.autograd._profiler_enabled()
+        batches = _placed_batches(trainer, k)
+        if k == 1:
+            def fn():
+                return trainer.train_step(batches[0])
+        else:
+            stacked = {key: torch.stack([b[key] for b in batches])
+                       for key in batches[0]}
+
+            def fn():
+                return trainer.multi_step(stacked)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        timed = {"plain": [], "profiled": []}
+        for turn in ("plain", "profiled", "profiled", "plain"):
+            if turn == "plain":
+                timed[turn].append(_wall_ms(fn, PW_TIMED, 2) / k)
+            else:
+                with profile(activities=acts):
+                    timed[turn].append(_wall_ms(fn, PW_TIMED, 2) / k)
+        out["step_wall_ms"] = {key: sum(v) / len(v)
+                               for key, v in timed.items()}
+        out["step_wall_ms_turns"] = timed
+        return out
+    finally:
+        close()
+
+
+def phase_profile_window(tmp: str) -> dict:
+    """The profiler window on the card: the full-width bf16 UNet, -b 4,
+    ``--profile-steps 2:4`` at K = 1 and K = 2 (one CUDA graph of 2 steps,
+    the window rounded out to whole replays), each against the same run
+    without the window under cuDNN's deterministic algorithms: the losses
+    bitwise equal, the chrome trace written with K1 and K1-bwd by name
+    (2 and 2: steps 3 and 4), no profiler left running, and the step's
+    wall time with and without a profiler."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"phase": "profile_window", "steps": list(PW_STEPS)}
+    try:
+        for k in (1, 2):
+            plain = _pw_run(tmp, k, window=False)
+            windowed = _pw_run(tmp, k, window=True)
+            windowed["losses_bitwise_equal"] = (windowed["losses"]
+                                                == plain["losses"])
+            out[f"k{k}"] = windowed
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["device"] = torch.cuda.get_device_name(0)
+    emit(out)
+    for k in (1, 2):
+        row = out[f"k{k}"]
+        check(row["losses_bitwise_equal"],
+              f"K = {k}: the window changed the losses")
+        check(row["trace"] == f"profile/singleGPU.rank0.steps"
+              f"{PW_STEPS[0]}-{PW_STEPS[1]}.pt.trace.json",
+              f"K = {k}: trace {row['trace']}")
+        n = row["traced_launches"]
+        check(n["loss_stats"] == 2 and n["loss_stats_bwd"] == 2,
+              f"K = {k}: the window's trace holds K1 / K1-bwd {n}")
+        check(not row["profiler_left_running"], "a profiler left running")
+    return out
+
+
+def preempt_child(run: str, argv_json: str) -> int:
+    """``--preempt-child RUN ARGV``: the training CLI's trainer for
+    ``ARGV`` in ``RUN``; once step PREEMPT_AT has run it writes
+    ``RUN/step<N>`` and waits for the signal this script's parent sends.
+    Exits 0 when the run stops and its checkpoint is on disk."""
+    import torch
+
+    trainer, close = _cli_trainer(run, json.loads(argv_json))
+    real = trainer.train_step
+    marker = os.path.join(run, f"step{PREEMPT_AT}")
+
+    def step(batch):
+        loss = real(batch)
+        if trainer.step + 1 == PREEMPT_AT:
+            torch.cuda.synchronize()
+            open(marker, "w").close()
+            deadline = time.monotonic() + PREEMPT_TIMEOUT_S
+            while not trainer._stop_requested:
+                check(time.monotonic() < deadline, "no signal came")
+                time.sleep(0.01)
+        return loss
+
+    trainer.train_step = step
+    try:
+        result = trainer.train()
+    finally:
+        close()
+    emit({"preempt_child": result})
+    return 0
+
+
+def phase_preempt(tmp: str) -> dict:
+    """The preemption stop on the card: a child process trains the
+    full-width UNet through the CLI's functions (``--synthetic 30 -v 20
+    -b 4 -e 2``, 6 steps an epoch), gets SIGTERM from this process once
+    step 3 has run, and exits 0 with ``singleGPU.pt`` at epoch index 0,
+    step 3; then ``-c`` resumes it here, redoing the epoch, to the end
+    (3 + 12 steps)."""
+    import signal
+
+    import torch
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+
+    run = os.path.join(tmp, "preempt")
+    argv = _rc_argv(run, "-e", "2", samples=PREEMPT_SAMPLES)
+    marker = os.path.join(run, f"step{PREEMPT_AT}")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--preempt-child", run,
+         json.dumps(argv)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        while not os.path.exists(marker):
+            check(child.poll() is None, f"the child exited {child.returncode}"
+                  f" before step {PREEMPT_AT}")
+            check(time.perf_counter() - t0 < PREEMPT_TIMEOUT_S,
+                  "the child did not reach its step")
+            time.sleep(0.05)
+        signalled_s = time.perf_counter() - t0
+        child.send_signal(signal.SIGTERM)
+        log, _ = child.communicate(timeout=PREEMPT_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    stopped_s = time.perf_counter() - t0
+    path = os.path.join(run, "checkpoints", "singleGPU.pt")
+    check(child.returncode == 0, f"the signalled child exited "
+          f"{child.returncode}:\n{log[-3000:]}")
+    saved = load_native(path)
+    resumed_run = run + "_resumed"
+    trainer, close = _cli_trainer(resumed_run, _rc_argv(
+        resumed_run, "-e", "2", "-c", path, samples=PREEMPT_SAMPLES))
+    try:
+        start = (trainer.start_epoch, trainer.step)
+        result = trainer.train()
+    finally:
+        close()
+    out = {"phase": "preempt", "saved": {"epoch": saved["epoch"],
+                                         "step": saved["step"]},
+           "child_exit": child.returncode, "signalled_after_s": signalled_s,
+           "child_stopped_after_s": stopped_s, "resumed_at": list(start),
+           "resumed_result": result,
+           "stopped_by_signal": "Stopped by signal at epoch 1 step 3" in log,
+           "device": torch.cuda.get_device_name(0)}
+    emit(out)
+    check((saved["epoch"], saved["step"]) == (0, PREEMPT_AT)
+          and out["stopped_by_signal"], f"the stop saved {out['saved']}")
+    check(start == (0, PREEMPT_AT) and result["steps"] == PREEMPT_AT + 12,
+          f"the resume ran from {start} to {result['steps']} steps")
+    return out
+
+
+def _payloads_equal(a, b) -> bool:
+    """Two checkpoint payloads hold the same values, tensors bit for bit
+    and in the same dtypes."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_payloads_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_payloads_equal(x, y) for x, y in zip(a, b)))
+    return a == b or (a != a and b != b)
+
+
+def _optimizer_states_equal(a: dict, b: dict) -> bool:
+    """Two optimizer state dicts hold the same Adam state (the f32 master
+    under bf16_params), tensors bit for bit, and the same lr; the other
+    group settings are each run's own."""
+    if "master" in a:
+        if not ("master" in b and _payloads_equal(a["master"],
+                                                  b["master"])):
+            return False
+        a, b = a["inner"], b["inner"]
+    return (_payloads_equal(a["state"], b["state"])
+            and float(a["param_groups"][0]["lr"])
+            == float(b["param_groups"][0]["lr"]))
+
+
+def phase_ckpt_roundtrip(tmp: str) -> dict:
+    """Full-width milesial states (``train_milesial``'s bf16 checkpoint
+    after 4 steps, ``train_run_control``'s bf16_params one after 2)
+    through ``save_jax_ckpt`` and ``load_jax_ckpt``: the model, Adam's
+    state (and the f32 master), scheduler, step, epoch, records and
+    trainer state bitwise; then the training CLI's trainer resumes the
+    ``.ckpt`` (``-c``) and holds the same model and optimizer state on
+    the card, bit for bit. The card's machine has no JAX: the checks
+    against the JAX package are the CPU tests'."""
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint
+
+    out = {"phase": "ckpt_roundtrip"}
+    for label, src in (
+            ("milesial_bf16", os.path.join(tmp, "train_milesial",
+                                           "checkpoints", "singleGPU.pt")),
+            ("milesial_bf16_params", os.path.join(
+                tmp, "rc_bf16p_milesial_bf16_params", "checkpoints",
+                "singleGPU.pt"))):
+        saved = checkpoint.load_native(src)
+        dst = os.path.join(tmp, f"roundtrip_{label}.ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save_jax_ckpt(saved, dst)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load_jax_ckpt(dst)
+        load_s = time.perf_counter() - t0
+        same = {key: _payloads_equal(saved[key], back[key])
+                for key in ("model", "scheduler", "step", "epoch",
+                            "records", "train_meta")}
+        same["optimizer"] = _optimizer_states_equal(saved["optimizer"],
+                                                    back["optimizer"])
+        run = os.path.join(tmp, f"roundtrip_{label}_resumed")
+        trainer, close = _cli_trainer(run, _rc_argv(
+            run, "-e", "2", "--model", "milesial", "--dtype",
+            saved["manifest"]["dtype"], "-c", dst, samples=10))
+        try:
+            on_card = next(trainer.model.parameters()).device.type
+            same["model_on_the_card"] = _payloads_equal(
+                saved["model"], trainer.model.state_dict())
+            same["optimizer_on_the_card"] = _optimizer_states_equal(
+                saved["optimizer"], trainer.optimizer.state_dict())
+            same["step_resumed"] = trainer.step == saved["step"]
+        finally:
+            close()
+        out[label] = {"bytes": os.path.getsize(dst), "save_s": save_s,
+                      "load_s": load_s, "resumed_on": on_card, "equal": same}
+    out["device"] = torch.cuda.get_device_name(0)
+    emit(out)
+    for label in ("milesial_bf16", "milesial_bf16_params"):
+        row = out[label]
+        check(row["resumed_on"] == "cuda" and all(row["equal"].values()),
+              f"{label}: {row}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -5190,6 +5622,8 @@ def main(argv) -> int:
         return dp_eager_step(argv[1])
     if argv[:1] == ["--dp-eager-ab"]:
         return main_dp_eager_ab(argv[1])
+    if argv[:1] == ["--preempt-child"]:
+        return preempt_child(argv[1], argv[2])
     device = phase_device()
     kernel = phase_kernel()
     loss = phase_loss_kernels()
@@ -5212,6 +5646,10 @@ def main(argv) -> int:
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
         run_control = phase_train_run_control(tmp)["launches"]
         graphs = phase_train_graph_strategies(tmp)
+        phase_probes(tmp)
+        phase_profile_window(tmp)
+        phase_preempt(tmp)
+        phase_ckpt_roundtrip(tmp)
     phase_train_parity()
     phase_train_milesial_parity()
     phase_bounds()

@@ -2,8 +2,9 @@
 the card (cli.py), as the JAX package's entry point does;
 ``python -m distributedpytorch_tpu_torch serve ...`` serves
 (serve/cli.py), ``predict ...`` writes masks for a directory of images
-(predict.py) and ``quantize ...`` converts a checkpoint to int8 weights
-(quantize.py)."""
+(predict.py), ``quantize ...`` converts a checkpoint to int8 weights
+(quantize.py) and ``probe ...`` builds, launches and checks every kernel
+on the card and writes the priors file (ops/probes.py)."""
 
 import sys
 
@@ -22,6 +23,10 @@ def main(argv=None) -> int:
         from distributedpytorch_tpu_torch.quantize import main as quant_main
 
         return quant_main(argv[1:])
+    if argv and argv[0] == "probe":
+        from distributedpytorch_tpu_torch.ops.probes import main as probe_main
+
+        return probe_main(argv[1:])
     from distributedpytorch_tpu_torch.cli import main as train_main
 
     return train_main(argv)

@@ -37,9 +37,31 @@ records the world, stages, microbatches and schedule), and under ``-t DP`` the
 model itself sits on the first device: a checkpoint of any method loads
 under any other, at any stage count, with nothing to reshard
 (``load_state_dict`` copies each tensor to its parameter's device, and
-the optimizer's state follows its parameter's). A JAX
-``.ckpt`` is flax msgpack, which the port does not read yet: a resolved
-``.ckpt`` raises and names the export that gives a ``.pth``.
+the optimizer's state follows its parameter's). The manifest's
+``topology`` holds the JAX package's keys (``process_count``,
+``device_count``, ``strategy``, ``mesh``, ``mesh_spec``, ``precision``).
+
+A JAX ``.ckpt`` is one flax msgpack payload behind the JAX footer
+(``DPT-SHA256:``), read and written here without flax or msgpack
+(``ops/msgpack.py``). ``load_jax_ckpt`` turns it into the port's payload
+and ``save_jax_ckpt`` a port payload into it, in both directions:
+
+* the params through ``params_from_jax`` / ``params_to_jax`` (NHWC ↔
+  NCHW kernels, the ConvTranspose flip), milesial's ``batch_stats`` as
+  its running statistics;
+* optax's ``inject_hyperparams(chain(add_decayed_weights,
+  scale_by_adam, scale))`` state, ``count``, ``hyperparams.lr`` and
+  ``inner_state."1".mu/nu``, as torch Adam's ``step``, ``exp_avg`` and
+  ``exp_avg_sq`` of each parameter, each moment transformed as its
+  parameter; under ``bf16_params`` (``topology.precision``) the
+  ``MasterWeightsState`` ``{master, inner}`` as ``MasterWeights``'s
+  ``{"master", "inner"}``;
+* the scheduler, step, epoch, records and ``train_meta`` as they are
+  (milesial's ``num_batches_tracked``, which flax does not keep, rides
+  in ``train_meta``, so a round trip through a ``.ckpt`` is bitwise).
+
+A JAX ``.int8.ckpt`` (``ops/quant.py``'s kind, msgpack) reads through the
+same reader; ``quant_from_jax`` gives its weights under the port's names.
 """
 
 from __future__ import annotations
@@ -57,6 +79,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from distributedpytorch_tpu_torch.ops import msgpack
+
 logger = logging.getLogger(__name__)
 
 # ConvBlock map: JAX path prefix → reference tensor stem; the two convs
@@ -68,10 +92,11 @@ _BLOCK_MAPS: Tuple[Tuple[Tuple[str, ...], str], ...] = tuple(
 )
 
 
-#: The native checkpoint's extension (``torch.save``), and the formats the
-#: trainer's ``-c`` resolves, in order.
+#: The native checkpoint's extension (``torch.save``), the JAX package's
+#: (flax msgpack), and the formats the trainer's ``-c`` resolves, in order.
 NATIVE_EXT = ".pt"
-TRAIN_EXTS = (NATIVE_EXT, ".pth")
+JAX_EXT = ".ckpt"
+TRAIN_EXTS = (NATIVE_EXT, JAX_EXT, ".pth")
 #: The native checkpoint's layout version, in its manifest.
 NATIVE_FORMAT = "distributedpytorch_tpu_torch/native/1"
 
@@ -81,8 +106,9 @@ def resolve_checkpoint(name: str, checkpoint_dir: str = "./checkpoints",
     """A checkpoint reference → an existing file path.
 
     Accepts an explicit path, a bare method name (``DP`` →
-    ``<dir>/DP<ext>`` for each of ``exts`` in turn: ``.ckpt`` then
-    ``.pth`` for serving, ``.pt`` then ``.pth`` for the trainer), or a
+    ``<dir>/DP<ext>`` for each of ``exts`` in turn: ``.ckpt``, ``.pth``
+    then ``.pt`` for serving, ``.pt``, ``.ckpt`` then ``.pth`` for the
+    trainer), or a
     name with one of ``exts``, which tries only that format. Raises
     FileNotFoundError naming the primary candidate."""
     if os.path.isfile(name):  # a same-named DIRECTORY must not shadow
@@ -97,7 +123,7 @@ def resolve_checkpoint(name: str, checkpoint_dir: str = "./checkpoints",
         cand = os.path.join(checkpoint_dir, f"{base}{ext}")
         if os.path.isfile(cand):
             return cand
-        if ext == NATIVE_EXT and retained_checkpoints(cand):
+        if ext in (NATIVE_EXT, JAX_EXT) and retained_checkpoints(cand):
             # the live slot is empty but the chain survives: the restore
             # walks it from the primary path
             return cand
@@ -115,12 +141,11 @@ def strip_module_prefix(state_dict: Mapping[str, torch.Tensor]
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """A reference-format ``.pth`` state dict on the CPU, prefix stripped.
-    A ``.ckpt`` raises: the port cannot read flax msgpack yet."""
+    Another file raises: a JAX ``.ckpt`` loads with ``load_jax_ckpt``."""
     if not path.endswith(".pth"):
         raise ValueError(
-            f"{path} is not a .pth file — the port reads reference-format "
-            f".pth weights only; export one from the JAX package with "
-            f"distributedpytorch_tpu.checkpoint.export_reference_pth"
+            f"{path} is not a .pth file — reference-format weights only; "
+            f"a JAX .ckpt loads with checkpoint.load_jax_ckpt"
         )
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return strip_module_prefix(
@@ -155,26 +180,56 @@ def _name_map() -> Dict[Tuple[str, ...], str]:
     return m
 
 
-def _kernel_to_torch(arr: np.ndarray, transposed: bool) -> np.ndarray:
+def _kernel_to_torch(arr, transposed: bool):
     """JAX ``(kh, kw, I, O)`` → torch conv ``(O, I, kh, kw)``, or for a
     ConvTranspose ``(I, O, kh, kw)`` with a spatial flip: lax's transposed
     conv correlates with the mirrored kernel relative to torch's scatter
     form. Dropping the flip leaves every shape right and every output
-    wrong."""
+    wrong. A numpy array or a tensor (a view)."""
+    if isinstance(arr, torch.Tensor):
+        if transposed:
+            return arr.flip(0, 1).permute(2, 3, 0, 1)
+        return arr.permute(3, 2, 0, 1)
     if transposed:
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     return arr.transpose(3, 2, 0, 1)
 
 
-def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
-    """Path tuple → array; a key may itself be a path tuple."""
+def _kernel_from_torch(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """The inverse of ``_kernel_to_torch`` on a tensor (a view)."""
+    if transposed:
+        return t.permute(2, 3, 0, 1).flip(0, 1)
+    return t.permute(2, 3, 1, 0)
+
+
+def _is_transposed(path: Tuple[str, ...]) -> bool:
+    """A ConvTranspose's kernel: the UNet's ``upconv<i>``, milesial's
+    ``up``."""
+    return path[-2] == "up" or path[-2].startswith("upconv")
+
+
+def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
+    """Path tuple → array (a tensor stays one); a key may itself be a path
+    tuple."""
     if isinstance(tree, Mapping):
         flat = {}
         for k, v in tree.items():
             flat.update(_flatten(v, prefix + (k if isinstance(k, tuple)
                                               else (k,))))
         return flat
-    return {prefix: np.asarray(tree)}
+    return {prefix: tree if isinstance(tree, torch.Tensor)
+            else np.asarray(tree)}
+
+
+def _nest(flat: Mapping[Tuple[str, ...], Any]) -> dict:
+    """Path tuple → value, as the nested mapping flax writes."""
+    out: dict = {}
+    for path, value in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
 
 
 def _milesial_maps(n_levels: int):
@@ -209,34 +264,58 @@ def _milesial_maps(n_levels: int):
 
 
 def _tensor(arr) -> torch.Tensor:
-    # np.array copies: a device_get result may be read-only
+    """An owned CPU tensor: a tensor keeps its dtype, numpy becomes
+    float32 (np.array copies: a device_get result may be read-only)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().contiguous().clone()
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
 
+def _maps_of(paths) -> Tuple[Dict[Tuple[str, ...], str],
+                             Dict[Tuple[str, ...], str]]:
+    """(params map, batch_stats map) of the model whose JAX param paths
+    are ``paths``: milesial's when it has an ``inc`` block, the UNet's
+    (no statistics) otherwise."""
+    paths = list(paths)
+    if not any(path[0] == "inc" for path in paths):
+        return _name_map(), {}
+    levels = 1 + len({path[0] for path in paths if path[0].startswith("down")})
+    return _milesial_maps(levels)
+
+
+def _named_from_jax(tree, pmap) -> Dict[str, torch.Tensor]:
+    """A JAX params-shaped tree (the params, Adam's moments, the master)
+    → ``{port name: tensor}``, every kernel in torch's layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(tree).items():
+        if path[-1] == "kernel":
+            arr = _kernel_to_torch(arr, _is_transposed(path))
+        out[pmap[path]] = _tensor(arr)
+    return out
+
+
 def params_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
-    """JAX weights as numpy — the nested mapping ``jax.device_get`` gives,
-    or a flat one keyed by path tuples — → the port's state dict: UNet
-    params → ``UNet`` names; milesial params and ``batch_stats`` →
+    """JAX weights — the nested mapping ``jax.device_get`` gives (numpy,
+    made float32) or ``load_jax_ckpt``'s reader gives (tensors, dtypes
+    kept), or a flat one keyed by path tuples — → the port's state dict:
+    UNet params → ``UNet`` names; milesial params and ``batch_stats`` →
     upstream milesial names, the running statistics included and
     ``num_batches_tracked`` 0, as the JAX package's
     ``export_milesial_state_dict`` writes them."""
-    flat = _flatten(params)
-    out: Dict[str, torch.Tensor] = {}
-    if not any(path[0] == "inc" for path in flat):
-        names = _name_map()
-        for path, arr in flat.items():
-            if path[-1] == "kernel":
-                arr = _kernel_to_torch(arr, "upconv" in path[-2])
-            out[names[path]] = _tensor(arr)
+    pmap, smap = _maps_of(_flatten(params))
+    out = _named_from_jax(params, pmap)
+    if not smap:
         return out
     if batch_stats is None:
         raise ValueError("milesial params need their batch_stats")
-    levels = 1 + len({path[0] for path in flat if path[0].startswith("down")})
-    pmap, smap = _milesial_maps(levels)
-    for path, arr in flat.items():
-        if path[-1] == "kernel":
-            arr = _kernel_to_torch(arr, path[-2] == "up")
-        out[pmap[path]] = _tensor(arr)
+    out.update(_stats_from_jax(batch_stats, smap))
+    return out
+
+
+def _stats_from_jax(batch_stats, smap) -> Dict[str, torch.Tensor]:
+    """milesial's ``batch_stats`` → its running statistics under upstream
+    names, ``num_batches_tracked`` 0 (flax keeps no count)."""
+    out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(batch_stats).items():
         name = smap[path]
         out[name] = _tensor(arr)
@@ -245,10 +324,45 @@ def params_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _maps_of_state(state: Mapping[str, Any]):
+    """(params map, batch_stats map) of the model whose port state dict
+    is ``state``."""
+    if any(k.startswith("inc.") for k in state):
+        return _milesial_maps(1 + len({k.split(".")[0] for k in state
+                                       if k.startswith("down")}))
+    return _name_map(), {}
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]):
+    """The inverse of ``params_from_jax``: the port's state dict → ``(params,
+    batch_stats)`` as the JAX package's trees, each kernel in flax's
+    layout and every tensor in its own dtype on the CPU; ``batch_stats``
+    is None for the UNet. Raises on a name that maps to no JAX path."""
+    state = strip_module_prefix(state_dict)
+    pmap, smap = _maps_of_state(state)
+    by_name = {name: path for table in (pmap, smap)
+               for path, name in table.items()}
+    params, stats = {}, {}
+    for name, value in state.items():
+        if name.endswith(".num_batches_tracked"):
+            continue
+        path = by_name.get(name)
+        if path is None:
+            raise ValueError(f"{name!r} has no JAX counterpart")
+        value = value.detach().cpu()
+        if path[-1] == "kernel":
+            value = _kernel_from_torch(value, _is_transposed(path))
+        (stats if path in smap else params)[path] = value.contiguous()
+    return _nest(params), (_nest(stats) if smap else None)
+
+
 # -- native save/resume --------------------------------------------------------
 
 _HASH_MAGIC = b"DPTSHA256"
-_FOOTER_LEN = len(_HASH_MAGIC) + 32
+#: the JAX package's footer (its checkpoint.py ``_HASH_MAGIC``)
+_JAX_HASH_MAGIC = b"DPT-SHA256:"
+#: what a ``torch.save`` archive starts with
+_ZIP_MAGIC = b"PK\x03\x04"
 _TMP_COUNTER = itertools.count()
 # one lock around every rotate, rename and prune of a retention chain: the
 # writer thread and a synchronous save may share a chain
@@ -320,26 +434,31 @@ def host_snapshot(model: torch.nn.Module, optimizer, scheduler_state: dict,
     }
 
 
-def write_payload(path: str, payload: Mapping[str, Any], keep: int = 1
-                  ) -> str:
-    """Serialize ``payload``, append the hash footer and write ``path``
+def _write_blob(path: str, blob: bytes, magic: bytes, keep: int) -> str:
+    """``blob``, a footer of ``magic`` and its SHA-256, written to ``path``
     atomically (a uniquely named temporary file renamed into place),
-    rotating the chain first so the previous file survives as
-    ``path.1`` and pruning it to ``keep`` files."""
+    rotating the chain first so the previous file survives as ``path.1``
+    and pruning it to ``keep`` files."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    buf = io.BytesIO()
-    torch.save(dict(payload), buf)
-    blob = buf.getvalue()
     tmp = f"{path}.tmp.{os.getpid()}.{next(_TMP_COUNTER)}"
     with open(tmp, "wb") as f:
         f.write(blob)
-        f.write(_HASH_MAGIC)
+        f.write(magic)
         f.write(hashlib.sha256(blob).digest())
     with _RETENTION_LOCK:
         _rotate_retained(path, keep)
         os.replace(tmp, path)
         _prune_retained(path, keep)
     return path
+
+
+def write_payload(path: str, payload: Mapping[str, Any], keep: int = 1
+                  ) -> str:
+    """Serialize ``payload`` with ``torch.save`` and write it with its hash
+    footer (``_write_blob``), keeping ``keep`` files of the chain."""
+    buf = io.BytesIO()
+    torch.save(dict(payload), buf)
+    return _write_blob(path, buf.getvalue(), _HASH_MAGIC, keep)
 
 
 _writer_lock = threading.Lock()
@@ -374,19 +493,35 @@ def save_native_async(path: str, payload: Mapping[str, Any],
     return fut
 
 
-def _read_verified(path: str) -> Dict[str, Any]:
-    """One file's payload, its hash verified when it has a footer (a file
-    without one loads unverified); a mismatch or an unreadable payload
-    raises ``CheckpointCorruptError``."""
+def _read_verified(path: str) -> Any:
+    """One file's payload, its hash verified when it has a footer (the
+    port's or the JAX package's; a file without one loads unverified):
+    a ``torch.save`` archive (the port's files) or flax msgpack (a JAX
+    ``.ckpt``, read by ``ops/msgpack.py``). A mismatch, an unreadable
+    payload or msgpack that is not a map raises
+    ``CheckpointCorruptError``."""
     with open(path, "rb") as f:
         blob = f.read()
-    if (len(blob) > _FOOTER_LEN
-            and blob[-_FOOTER_LEN:-32] == _HASH_MAGIC):
-        body, digest = blob[:-_FOOTER_LEN], blob[-32:]
-        if hashlib.sha256(body).digest() != digest:
+    for magic in (_HASH_MAGIC, _JAX_HASH_MAGIC):
+        n = len(magic) + 32
+        if len(blob) > n and blob[-n:-32] == magic:
+            body, digest = blob[:-n], blob[-32:]
+            if hashlib.sha256(body).digest() != digest:
+                raise CheckpointCorruptError(
+                    f"{path}: content hash mismatch (torn write or bit rot)")
+            blob = body
+            break
+    if blob[:4] != _ZIP_MAGIC:
+        try:
+            payload = msgpack.unpackb(blob)
+        except msgpack.MsgpackError as exc:
             raise CheckpointCorruptError(
-                f"{path}: content hash mismatch (torn write or bit rot)")
-        blob = body
+                f"{path}: unreadable payload: {exc}") from exc
+        if not isinstance(payload, dict):
+            raise CheckpointCorruptError(
+                f"{path}: unreadable payload: msgpack "
+                f"{type(payload).__name__}, not a map")
+        return payload
     try:
         return torch.load(io.BytesIO(blob), map_location="cpu",
                           weights_only=True)
@@ -429,3 +564,263 @@ def load_native(path: str) -> Dict[str, Any]:
             f"{fmt!r}, expected {NATIVE_FORMAT!r})"
         )
     return payload
+
+
+# -- JAX .ckpt interchange -------------------------------------------------------
+
+#: The JAX package's checkpoint layout version (its ``CKPT_VERSION``).
+JAX_CKPT_VERSION = 1
+_ADAM_BETAS = (0.9, 0.999)
+_ADAM_EPS = 1e-8
+
+
+def jax_topology(strategy: str, mesh: Mapping[str, int], precision: str
+                 ) -> Dict[str, Any]:
+    """The JAX manifest's ``topology`` of a run: ``save_topology``'s
+    process and device counts and the strategy's name, ``mesh`` axes,
+    ``mesh_spec`` (``DxMxS``) and ``precision``. ``process_count`` is the
+    mesh's data axis where each data row is a process (DDP, DDP_MP)."""
+    mesh = {str(k): int(v) for k, v in mesh.items()}
+    devices = int(np.prod(list(mesh.values()))) if mesh else 1
+    processes = mesh.get("data", 1) if strategy in ("DDP", "DDP_MP") else 1
+    return {
+        "process_count": processes,
+        "device_count": devices,
+        "strategy": strategy,
+        "mesh": mesh,
+        "mesh_spec": f"{mesh.get('data', 1)}x{mesh.get('model', 1)}x"
+                     f"{mesh.get('stage', 1)}",
+        "precision": precision,
+    }
+
+
+def _model_state_order(arch: str, params) -> Tuple[List[str], List[str]]:
+    """``(state_dict keys, named_parameters names)`` of the port's model
+    whose JAX params are ``params`` (widths read from the kernels), in the
+    model's order, from a model built on the meta device."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+
+    if arch == "milesial":
+        widths = [params["inc"]["conv1"]["kernel"].shape[-1]]
+        i = 1
+        while f"down{i}" in params:
+            widths.append(params[f"down{i}"]["conv"]["conv1"]["kernel"]
+                          .shape[-1])
+            i += 1
+    else:
+        widths, i = [], 1
+        while f"block{i}" in params["encoder"]:
+            widths.append(params["encoder"][f"block{i}"]["conv1"]["kernel"]
+                          .shape[-1])
+            i += 1
+    with torch.device("meta"):
+        model = create_model(TrainConfig(
+            model_arch=arch, model_widths=tuple(int(w) for w in widths),
+            s2d_levels=0, device="cpu", kernels="torch"))
+    return (list(model.state_dict()),
+            [name for name, _ in model.named_parameters()])
+
+
+def _adam_from_jax(inject: Mapping[str, Any], pmap, names: Sequence[str],
+                   lr: float, weight_decay: float) -> Dict[str, Any]:
+    """optax's inject_hyperparams state → a torch Adam state dict over
+    ``names`` (one param group; ``ops/optim.load_optimizer_state`` cuts
+    it as the optimizer's groups)."""
+    adam = inject["inner_state"]["1"]
+    count = int(adam["count"])
+    mu = _named_from_jax(adam["mu"], pmap)
+    nu = _named_from_jax(adam["nu"], pmap)
+    state = {} if count == 0 else {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in enumerate(names)}
+    return {"state": state, "param_groups": [{
+        "lr": lr, "betas": _ADAM_BETAS, "eps": _ADAM_EPS,
+        "weight_decay": weight_decay, "amsgrad": False, "maximize": False,
+        "capturable": False, "differentiable": False,
+        "params": list(range(len(names)))}]}
+
+
+def _adam_to_jax(opt: Mapping[str, Any], names: Sequence[str],
+                 like: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``_adam_from_jax``; a parameter without Adam state
+    yet has zero moments, shaped as its entry of ``like``."""
+    state = opt["state"]
+    steps = [float(st["step"]) for st in state.values() if "step" in st]
+    count = int(steps[0]) if steps else 0
+    moments = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        moments[key] = {
+            name: (state[i][key] if i in state else
+                   torch.zeros(like[name].shape, dtype=torch.float32))
+            for i, name in enumerate(names)}
+    lr = opt["param_groups"][0]["lr"]
+    counter = torch.tensor(count, dtype=torch.int32)
+    return {
+        "count": counter,
+        "hyperparams": {"lr": torch.tensor(float(lr), dtype=torch.float32)},
+        "hyperparams_states": {},
+        "inner_state": {
+            "0": {},
+            "1": {"count": counter.clone(),
+                  "mu": params_to_jax(moments["exp_avg"])[0],
+                  "nu": params_to_jax(moments["exp_avg_sq"])[0]},
+            "2": {},
+        },
+    }
+
+
+def is_jax_payload(payload) -> bool:
+    """Whether a decoded payload is a JAX checkpoint's (params, no port
+    manifest)."""
+    return (isinstance(payload, dict) and "params" in payload
+            and "manifest" not in payload)
+
+
+def payload_from_jax(raw: Mapping[str, Any], where: str = "checkpoint",
+                     weight_decay: float = 1e-8) -> Dict[str, Any]:
+    """A JAX checkpoint's payload (as the reader decodes it) → the port's
+    native payload, tensors on the CPU in the saved dtypes, the model's
+    state in its ``state_dict()`` order and Adam's state indexed in its
+    ``named_parameters()`` order. The JAX file keeps no weight decay; the
+    param groups carry ``weight_decay``."""
+    if not is_jax_payload(raw) or not isinstance(raw["params"], dict):
+        raise CheckpointCorruptError(
+            f"{where}: not a JAX checkpoint payload (no params tree)")
+    params = raw["params"]
+    arch = "milesial" if "inc" in params else "unet"
+    topology = dict(raw.get("topology") or {})
+    # pre-policy checkpoints carried f32 params and a plain Adam state:
+    # structurally the bf16 policy (JAX train/loop.py _restore)
+    precision = topology.get("precision") or "bf16"
+    meta = dict(raw.get("train_meta") or {})
+    tracked = meta.pop("num_batches_tracked", None) or {}
+    model = params_from_jax(params, raw.get("model_state"))
+    for name, count in tracked.items():
+        model[name] = torch.tensor(int(count), dtype=torch.long)
+    order, names = _model_state_order(arch, params)
+    ordered = {name: model[name] for name in order}
+    pmap, _ = _maps_of(_flatten(params))
+    scheduler = dict(raw.get("scheduler") or {})
+    opt = raw.get("opt_state")
+    optimizer = None
+    if opt is not None:
+        master = "master" in opt
+        inject = opt["inner"] if master else opt
+        lr = float(scheduler.get("lr", float(inject["hyperparams"]["lr"])))
+        optimizer = _adam_from_jax(inject, pmap, names, lr, weight_decay)
+        if master:
+            masters = _named_from_jax(opt["master"], pmap)
+            optimizer = {"master": [masters[n] for n in names],
+                         "inner": optimizer}
+    return {
+        "model": ordered,
+        "optimizer": optimizer,
+        "scheduler": scheduler,
+        "step": int(raw.get("step", 0)),
+        "epoch": int(raw.get("epoch", 0)),
+        "records": raw.get("records"),
+        "train_meta": meta,
+        "manifest": {
+            "format": NATIVE_FORMAT,
+            "model_arch": arch,
+            "dtype": precision,
+            "strategy": topology.get("strategy"),
+            "world": int(topology.get("process_count", 1)),
+            "topology": topology,
+        },
+    }
+
+
+def payload_to_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``payload_from_jax``: the port's native payload → the
+    JAX package's checkpoint payload (what its ``_build_payload`` writes),
+    the topology from the manifest's ``topology`` (or its strategy and
+    world) with ``precision`` its ``dtype``."""
+    manifest = dict(payload.get("manifest") or {})
+    model = strip_module_prefix(payload["model"])
+    params, stats = params_to_jax(model)
+    param_names = set(_maps_of_state(model)[0].values())
+    names = [n for n in model if n in param_names]
+    precision = manifest.get("dtype") or "bf16"
+    topology = dict(manifest.get("topology") or jax_topology(
+        manifest.get("strategy") or "singleGPU",
+        {"data": int(manifest["world"])} if manifest.get("world", 1) > 1
+        else {}, precision))
+    topology["precision"] = precision
+    opt = payload.get("optimizer")
+    opt_state = None
+    if opt is not None:
+        if "master" in opt:
+            masters = dict(zip(names, opt["master"]))
+            opt_state = {"master": params_to_jax(masters)[0],
+                         "inner": _adam_to_jax(opt["inner"], names, masters)}
+        else:
+            opt_state = _adam_to_jax(opt, names, model)
+    meta = dict(payload.get("train_meta") or {})
+    tracked = {n: int(v) for n, v in model.items()
+               if n.endswith(".num_batches_tracked")}
+    if tracked:
+        meta["num_batches_tracked"] = tracked
+    return {
+        "version": JAX_CKPT_VERSION,
+        "topology": topology,
+        "train_meta": meta,
+        "params": params,
+        "opt_state": opt_state,
+        "scheduler": payload.get("scheduler"),
+        "step": int(payload.get("step", 0)),
+        "epoch": int(payload.get("epoch", 0)),
+        "records": payload.get("records"),
+        "model_state": stats,
+    }
+
+
+def load_jax_ckpt(path: str, weight_decay: float = 1e-8) -> Dict[str, Any]:
+    """A JAX ``.ckpt`` → the port's payload (``payload_from_jax``), from
+    the newest intact file of its chain (``x.ckpt``, ``x.ckpt.1``, …),
+    each file's ``DPT-SHA256:`` footer verified as the JAX
+    ``_read_verified`` does. Raises ``CheckpointCorruptError`` naming the
+    path for a file that is not one."""
+    return payload_from_jax(read_payload(path), where=path,
+                            weight_decay=weight_decay)
+
+
+def save_jax_ckpt(payload: Mapping[str, Any], path: str, keep: int = 1
+                  ) -> str:
+    """Write the port's payload as a JAX ``.ckpt`` (``payload_to_jax``,
+    flax msgpack behind the JAX footer), rotating ``path``'s chain to
+    ``keep`` files as the JAX writer does; the JAX ``Trainer`` resumes
+    from it."""
+    blob = msgpack.packb(payload_to_jax(payload))
+    return _write_blob(path, blob, _JAX_HASH_MAGIC, keep)
+
+
+def quant_from_jax(params: Mapping[str, Any], model_state=None):
+    """A JAX int8 weights payload's ``params`` (flax tree, each quantized
+    kernel ``{"q", "scale"}`` with the scale on the last axis) and
+    ``model_state`` → ``(params, model_state)`` under the port's names as
+    ``ops/quant.quantized_state`` gives them: ``q`` and ``scale`` each in
+    torch's layout (the ConvTranspose's scale on axis 1), the running
+    statistics with ``num_batches_tracked`` 0."""
+    flat = _flatten(params)
+    # a quantized kernel is a {"q", "scale"} map; BatchNorm's own "scale"
+    # is a leaf with no "q" beside it
+    quantized = {path[:-1] for path in flat if path[-1] == "q"}
+    pmap, smap = _maps_of({path[:-1] if path[:-1] in quantized else path
+                           for path in flat})
+    out: Dict[str, Any] = {}
+    for path, arr in flat.items():
+        part = None
+        if path[:-1] in quantized:
+            path, part = path[:-1], path[-1]
+        if path[-1] == "kernel":
+            arr = _kernel_to_torch(arr, _is_transposed(path))
+        value = _tensor(arr)
+        if part is None:
+            out[pmap[path]] = value
+        else:
+            out.setdefault(pmap[path], {})[part] = value
+    return out, (None if model_state is None
+                 else _stats_from_jax(model_state, smap))

@@ -9,14 +9,18 @@ implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
 --host-cache-mb --checkpoint-dir`` and the run control's ``--remat
 --steps-per-dispatch --nonfinite-policy --rollback-retries --save-best
 --early-stop --keep-checkpoints --sync-checkpoint --trace-timeline
---export-pth``.
+--export-pth``, the profiler window's ``--profile-steps N:M
+--profile-dir`` and the probe priors' ``--kernel-priors``.
 ``--s2d-levels`` is accepted and has no effect (the port runs the pixel
 path), and so is ``--export-pth``: the port writes ``<method>.pth`` at the
 end of every run. A flag the port does not implement is not defined, so
 argparse rejects it. The run writes ``./logs/<method>.log`` (message-only),
 ``./loss/<method>/``, ``<checkpoint-dir>/<method>.pt`` (resume with
-``-c <method>``) and ``<checkpoint-dir>/<method>.pth`` (serve with
-``python -m distributedpytorch_tpu_torch serve -c <method>``).
+``-c <method>``; ``-c`` also resumes a JAX ``<method>.ckpt``) and
+``<checkpoint-dir>/<method>.pth`` (serve with ``python -m
+distributedpytorch_tpu_torch serve -c <method>``). SIGTERM or SIGINT
+stops the run after the dispatch in flight (several processes at the
+epoch's end, when they agree), with a checkpoint that ``-c`` resumes.
 
 ``-t DDP`` runs one process per card under torchrun (NCCL; gloo with
 ``--device cpu``), ``-b`` per process; without a launcher it runs as one
@@ -135,6 +139,11 @@ def get_args(argv=None):
                              "milesial's BatchNorm + ReLU through the "
                              "epilogue kernels; torch runs plain PyTorch. "
                              "Default: cuda on a card, torch on the CPU")
+    parser.add_argument("--kernel-priors", type=str, default=None,
+                        help="Per-card probe priors file (python -m "
+                             "distributedpytorch_tpu_torch probe): kernels "
+                             "the probe rejected disengage loudly "
+                             "(default: $DPT_KERNEL_PRIORS)")
     parser.add_argument("--device", type=str, default=None,
                         choices=["cuda", "cpu"],
                         help="cuda (default; raises without a card) or cpu")
@@ -194,10 +203,37 @@ def get_args(argv=None):
                              "JSONL file (rank R of a multi-process run "
                              "writes PATH.rankR); read it with "
                              "utils.trace.summarize_timeline")
+    parser.add_argument("--profile-steps", type=str, default=None,
+                        metavar="N:M",
+                        help="Capture a torch.profiler trace (CPU and CUDA) "
+                             "from global step N until step M into "
+                             "--profile-dir (default <log-dir>/profile), "
+                             "as a chrome trace; rounded out to whole "
+                             "dispatches under --steps-per-dispatch")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Where the profiler's trace goes; without "
+                             "--profile-steps the whole run is captured")
     parser.add_argument("--export-pth", action="store_true",
                         help="Accepted for parity: the port writes "
                              "<method>.pth at the end of every run")
     return parser.parse_args(argv)
+
+
+def parse_profile_steps(text):
+    """``--profile-steps N:M`` → ``(N, M)`` with 0 <= N < M; None for
+    none (JAX cli.py:227-241)."""
+    if not text:
+        return None
+    try:
+        lo, _, hi = str(text).partition(":")
+        lo, hi = int(lo), int(hi)
+    except ValueError:
+        raise ValueError(
+            f"--profile-steps expects N:M (global steps), got {text!r}"
+        ) from None
+    if lo < 0 or hi <= lo:
+        raise ValueError(f"--profile-steps needs 0 <= N < M, got {text!r}")
+    return (lo, hi)
 
 
 def to_config(args):
@@ -227,6 +263,7 @@ def to_config(args):
         s2d_levels=args.s2d_levels,
         dtype=args.dtype,
         kernels=args.kernels,
+        kernel_priors=args.kernel_priors,
         device=args.device,
         checkpoint_name=args.checkpoint or args.load or None,
         synthetic_samples=args.synthetic,
@@ -241,6 +278,8 @@ def to_config(args):
         keep_checkpoints=args.keep_checkpoints,
         async_checkpoint=not args.sync_checkpoint,
         timeline_path=args.trace_timeline,
+        profile_steps=parse_profile_steps(args.profile_steps),
+        profile_dir=args.profile_dir,
     )
 
 

@@ -117,6 +117,13 @@ class TrainConfig:
     # this JSONL path; rank R of a multi-process run writes <path>.rankR.
     # None = off
     timeline_path: Optional[str] = None
+    # torch.profiler over the steps [N, M) (CPU and CUDA activities), on
+    # the main rank, written as a chrome trace into profile_dir (default
+    # <log_dir>/profile); K steps per dispatch round it out to whole
+    # dispatches. None = off
+    profile_steps: Optional[Tuple[int, int]] = None
+    # with profile_steps None: the whole run captured here
+    profile_dir: Optional[str] = None
 
     # -- model --------------------------------------------------------------
     # "unet" = the reference course model (7,760,097 params); "milesial" =
@@ -143,6 +150,9 @@ class TrainConfig:
     # and lets the taps conv use the 9-tap kernel; "torch" runs plain
     # PyTorch. None = "cuda" on a CUDA device, "torch" on the CPU.
     kernels: Optional[str] = None
+    # the per-card probe priors file (ops/probes.py): a kernel it marks
+    # rejected disengages before the run, loudly; None = $DPT_KERNEL_PRIORS
+    kernel_priors: Optional[str] = None
     # "cuda" or "cpu"; None = "cuda", which raises without a card
     device: Optional[str] = None
 
@@ -173,6 +183,8 @@ class ServeConfig:
     # "torch" returns probabilities and thresholds on the host. None =
     # "cuda" on a CUDA device, "torch" on the CPU.
     kernels: Optional[str] = None
+    # the per-card probe priors file, as TrainConfig.kernel_priors
+    kernel_priors: Optional[str] = None
     # "cuda" (every visible card, one replica each) or "cpu"; None =
     # "cuda", which raises on a machine without a card.
     device: Optional[str] = None

@@ -6,6 +6,15 @@ run there) and launches its CUDA kernel for a tensor on the card — it
 never falls back from one to the other. ``LAUNCHES`` counts kernel
 launches by name, so a run can show its main path went through them.
 
+The per-card priors file (``python -m distributedpytorch_tpu_torch
+probe``, ``ops/probes.py``) records which kernels built, launched and
+agreed with their plain versions on a card; ``apply_priors`` disengages
+every kernel it marks rejected before a run starts, one warning per
+verdict, so a rejected kernel's plain version is the policy's choice,
+never a fallback from a CUDA tensor. ``--kernel-priors`` (a config's
+``kernel_priors``) or ``$DPT_KERNEL_PRIORS`` names the file; a missing,
+corrupt or stale one is ignored with a note.
+
 Counterpart of ``distributedpytorch_tpu/ops/kernels.py``.
 """
 
@@ -13,8 +22,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import json
+import logging
+import os
 import struct
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -23,6 +35,8 @@ from distributedpytorch_tpu_torch.ops.precision import (
     NORM_DTYPE,
     WGRAD_DTYPE,
 )
+
+logger = logging.getLogger(__name__)
 
 #: Kernel launches by kernel name since the last reset. Only launches of
 #: the CUDA kernel count — a CPU tensor's plain-version call does not.
@@ -79,30 +93,153 @@ KERNEL_POLICIES: Dict[str, KernelPolicy] = {
 }
 
 
-def get_kernel_policy(name=None, device: Optional[torch.device] = None
-                      ) -> KernelPolicy:
-    """A policy by name, or an already-resolved one. ``None`` resolves to
-    ``cuda`` on a CUDA device and to ``torch`` elsewhere."""
+#: Probe name (the JAX registry's) → the policy field(s) it gates: a
+#: priors file marking a kernel rejected turns exactly these off.
+KERNEL_GATES: Dict[str, Tuple[str, ...]] = {
+    "fused_loss": ("train_loss_fused",),
+    "eval_stats": ("eval_stats_fused",),
+    "conv_epilogue": ("conv_epilogue",),
+    "serve_mask": ("serve_mask",),
+    "wgrad_9tap": ("wgrad_cuda",),
+}
+
+
+def get_kernel_policy(name=None, device: Optional[torch.device] = None,
+                      priors: Optional[Mapping] = None) -> KernelPolicy:
+    """A policy by name, or an already-resolved one (passed through as it
+    is). ``None`` resolves to ``cuda`` on a CUDA device and to ``torch``
+    elsewhere. The priors' rejections apply to a policy resolved by name:
+    ``priors``, else ``$DPT_KERNEL_PRIORS``'s file."""
     if isinstance(name, KernelPolicy):
         return name
     if name is None:
         cuda = device is not None and torch.device(device).type == "cuda"
         name = "cuda" if cuda else "torch"
     try:
-        return KERNEL_POLICIES[name]
+        policy = KERNEL_POLICIES[name]
     except KeyError:
         raise ValueError(
             f"unknown kernel policy {name!r} (expected one of "
             f"{sorted(KERNEL_POLICIES)})"
         ) from None
+    if priors is None:
+        priors = _env_priors()
+    return apply_priors(policy, priors) if priors else policy
+
+
+def config_priors(config) -> Optional[dict]:
+    """The priors a config names (``kernel_priors``), else
+    ``$DPT_KERNEL_PRIORS``'s; None when neither loads."""
+    path = getattr(config, "kernel_priors", None)
+    return load_priors(path) if path else _env_priors()
 
 
 def config_kernel_policy(config) -> KernelPolicy:
     """The policy a config resolves to: its ``kernels`` field, with
-    ``None`` resolved against its ``device`` (``None`` meaning the card)."""
+    ``None`` resolved against its ``device`` (``None`` meaning the card),
+    and its priors applied."""
     device = getattr(config, "device", None) or "cuda"
     return get_kernel_policy(getattr(config, "kernels", None),
-                             torch.device(device))
+                             torch.device(device),
+                             priors=config_priors(config) or {})
+
+
+def _env_priors() -> Optional[dict]:
+    path = os.environ.get("DPT_KERNEL_PRIORS")
+    return load_priors(path) if path else None
+
+
+#: (policy, kernel, field) verdicts already warned about: the policy
+#: resolves in several layers (trainer, model factory, serve engine), and
+#: one rejection should read as one line
+_WARNED_REJECTIONS: set = set()
+
+
+def apply_priors(policy: KernelPolicy, priors: Mapping) -> KernelPolicy:
+    """``policy`` with every kernel the priors mark rejected disengaged,
+    one warning per verdict. A kernel absent from the file stays as the
+    policy says (unprobed is not rejected)."""
+    kernels = priors.get("kernels") if isinstance(priors, Mapping) else None
+    if not isinstance(kernels, Mapping):
+        return policy
+    changes: Dict[str, bool] = {}
+    for kernel, row in kernels.items():
+        if not isinstance(row, Mapping) or row.get("accepted", True):
+            continue
+        for field in KERNEL_GATES.get(kernel, ()):
+            if getattr(policy, field, False):
+                changes[field] = False
+                mark = (policy.name, kernel, field)
+                if mark not in _WARNED_REJECTIONS:
+                    _WARNED_REJECTIONS.add(mark)
+                    logger.warning(
+                        "kernel policy %r: the probe rejected %s on this "
+                        "card (%s) — %s disengaged, the plain PyTorch "
+                        "version kept", policy.name, kernel,
+                        row.get("reason", "no reason recorded"), field)
+    if not changes:
+        return policy
+    return dataclasses.replace(policy, **changes)
+
+
+# ---------------------------------------------------------------------------
+# The priors file
+# ---------------------------------------------------------------------------
+
+PRIORS_KIND = "dpt_kernel_priors"
+#: Any other version is ignored with a note: a stale file must never flip
+#: a kernel silently.
+PRIORS_VERSION = 1
+
+
+def save_priors(payload: dict, path: str) -> None:
+    """Write the priors file atomically (a temporary file renamed)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=2)
+    os.replace(tmp, path)
+
+
+#: path → (mtime, payload): each layer resolving the policy reads the file
+#: once; a rewritten file has another mtime
+_PRIORS_CACHE: Dict[str, Tuple[float, Optional[dict]]] = {}
+
+
+def load_priors(path: str) -> Optional[dict]:
+    """The priors payload, or None — with a logged note — for a missing,
+    unreadable, corrupt or stale file."""
+    try:
+        mtime = os.path.getmtime(path)
+    except OSError:
+        logger.info("kernel priors %s not found — ignored; kernels stay "
+                    "unprobed", path)
+        return None
+    cached = _PRIORS_CACHE.get(path)
+    if cached is not None and cached[0] == mtime:
+        return cached[1]
+    payload = _read_priors(path)
+    _PRIORS_CACHE[path] = (mtime, payload)
+    return payload
+
+
+def _read_priors(path: str) -> Optional[dict]:
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError) as exc:
+        logger.warning("kernel priors %s unreadable (%s) — ignored; kernels "
+                       "stay unprobed", path, exc)
+        return None
+    if (not isinstance(payload, dict)
+            or payload.get("kind") != PRIORS_KIND
+            or payload.get("version") != PRIORS_VERSION
+            or not isinstance(payload.get("kernels"), dict)):
+        logger.warning("kernel priors %s stale or malformed (want kind=%r "
+                       "version=%d) — ignored; kernels stay unprobed", path,
+                       PRIORS_KIND, PRIORS_VERSION)
+        return None
+    return payload
 
 
 def conv_epilogue_engaged(config) -> bool:

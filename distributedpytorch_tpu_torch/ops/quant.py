@@ -30,7 +30,10 @@ identity), ``params`` under reference names (each quantized weight as
 ``{"q", "scale"}``, biases and BatchNorm affine as float32) and
 ``model_state`` (milesial's running statistics; None for the UNet). Only
 tensors, dicts, lists and strings, so ``torch.load(weights_only=True)``
-reads it. A JAX msgpack ``.int8.ckpt`` is not read.
+reads it. A JAX ``.int8.ckpt`` (the same kind and manifest, flax msgpack
+behind the JAX footer, flax trees) loads too: the checkpoints' reader
+decodes it and ``checkpoint.quant_from_jax`` renames and transposes its
+``q`` and ``scale``.
 """
 
 from __future__ import annotations
@@ -239,7 +242,13 @@ def load_quantized(path: str, payload: Optional[Dict[str, Any]] = None
         "loaded int8 weights %s (source %s, sha256 %.12s…)",
         path, manifest.get("source"), manifest.get("source_sha256", ""),
     )
-    return payload["params"], payload.get("model_state"), manifest
+    params, model_state = payload["params"], payload.get("model_state")
+    if not any("." in name for name in params):
+        # the JAX package's file: flax trees, flax layouts
+        from distributedpytorch_tpu_torch.checkpoint import quant_from_jax
+
+        params, model_state = quant_from_jax(params, model_state)
+    return params, model_state, manifest
 
 
 def load_quantized_model(model: nn.Module, params: Dict[str, Any],

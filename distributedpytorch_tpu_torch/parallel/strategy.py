@@ -175,6 +175,12 @@ class Strategy:
         """What the checkpoint manifest records of the saving run."""
         return {"strategy": self.name, "world": self.world}
 
+    def mesh_shape(self) -> dict:
+        """The JAX strategy's mesh axes for this run (``data``, ``stage``),
+        as the manifest's ``topology.mesh`` records them; none for one
+        device."""
+        return {}
+
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
         """The module the train step of ``optimizer`` drives: the model
@@ -297,6 +303,9 @@ class DataParallel(Strategy):
         return {"strategy": self.name, "world": self.world,
                 "devices": len(self.devices)}
 
+    def mesh_shape(self) -> dict:
+        return {"data": len(self.devices)}
+
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
         """The replicas, each recomputed in the backward under
@@ -368,6 +377,9 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
     @property
     def drop_last_train(self) -> bool:
         return True
+
+    def mesh_shape(self) -> dict:
+        return {"data": self.world}
 
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
@@ -480,6 +492,11 @@ class Pipeline(Strategy):
                 "stages": cfg.num_stages,
                 "microbatches": cfg.num_microbatches,
                 "schedule": cfg.pipeline_schedule}
+
+    def mesh_shape(self) -> dict:
+        # DDP_MP's ranks are its data axis
+        return ({"data": self.world} if self.data_parallel else {}) | {
+            "stage": self.config.num_stages}
 
     def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
         """Each stage's layers on its device."""

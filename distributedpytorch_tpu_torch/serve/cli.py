@@ -73,6 +73,11 @@ def get_args(argv=None):
                              "in the serve-mask kernel (uint8 masks come "
                              "back from the card); torch thresholds on the "
                              "host. Default: cuda on a card, torch on CPU")
+    parser.add_argument("--kernel-priors", type=str, default=None,
+                        help="Per-card probe priors file (python -m "
+                             "distributedpytorch_tpu_torch probe): kernels "
+                             "the probe rejected disengage loudly "
+                             "(default: $DPT_KERNEL_PRIORS)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default; every visible card) or cpu")
     parser.add_argument("--buckets", type=int, nargs="+", default=(1, 2, 4, 8),
@@ -123,6 +128,7 @@ def to_config(args):
         quantize=args.quantize,
         threshold=args.threshold,
         kernels=args.kernels,
+        kernel_priors=args.kernel_priors,
         device=args.device,
         bucket_sizes=tuple(args.buckets),
         slo_ms=args.slo_ms,

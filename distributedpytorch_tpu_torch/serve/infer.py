@@ -81,8 +81,8 @@ class InferenceBundle:
 
 
 #: What a bare checkpoint name resolves to for inference, in order: a JAX
-#: ``.ckpt`` (which raises, naming the export), a reference ``.pth``, the
-#: port's own ``.pt``.
+#: ``.ckpt`` (its weights, ``checkpoint.payload_from_jax``), a reference
+#: ``.pth``, the port's own ``.pt``.
 INFERENCE_EXTS = (".ckpt", ".pth", ".pt")
 
 
@@ -98,8 +98,10 @@ def load_inference_bundle(
 ) -> InferenceBundle:
     """Resolve a checkpoint name/path and build the model with its weights
     for inference, on the CPU: a reference-format ``.pth``, the port's
-    native ``.pt`` (its ``model`` state dict), or an int8 weights file
-    (ops/quant.py), which one read of the file tells apart.
+    native ``.pt`` (its ``model`` state dict), a JAX ``.ckpt`` (its
+    params and running statistics), or an int8 weights file, the port's
+    or the JAX package's (ops/quant.py), which one read of the file tells
+    apart.
 
     ``quantize="int8"`` serves weights-only int8: an int8 file loads as
     it is, a float checkpoint is quantized on load. An int8 file is also
@@ -126,7 +128,7 @@ def load_inference_bundle(
     )
     # one read of the file decides its kind and feeds the loader
     payload = None
-    if not path.endswith((".pth", ".ckpt")):
+    if not path.endswith(".pth"):
         payload = read_payload(path)
     if isinstance(payload, dict) and payload.get("kind") == quant.QUANT_KIND:
         if quantize is None:
@@ -156,19 +158,23 @@ def load_inference_bundle(
 
 
 def _float_weights(path: str, payload) -> dict:
-    """The float state dict of a ``.pth`` (``payload`` None) or of a
-    native checkpoint's payload, floating tensors promoted to float32
-    with a warning where they are not (a checkpoint trained under
-    ``--dtype bf16_params`` stores bf16 weights), as the JAX
-    ``ensure_restored_dtypes`` does for inference."""
+    """The float state dict of a ``.pth`` (``payload`` None), of a JAX
+    ``.ckpt``'s payload or of a native checkpoint's, floating tensors
+    promoted to float32 with a warning where they are not (a checkpoint
+    trained under ``--dtype bf16_params`` stores bf16 weights), as the
+    JAX ``ensure_restored_dtypes`` does for inference."""
     from distributedpytorch_tpu_torch.checkpoint import (
         NATIVE_FORMAT,
+        is_jax_payload,
         load_pth,
+        payload_from_jax,
         strip_module_prefix,
     )
 
     if payload is None:
         state = load_pth(path)
+    elif is_jax_payload(payload):
+        state = payload_from_jax(payload, where=path)["model"]
     else:
         fmt = (payload.get("manifest") or {}).get("format") \
             if isinstance(payload, dict) else None

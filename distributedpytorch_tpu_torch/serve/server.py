@@ -468,10 +468,20 @@ class Server:
         """Build from a :class:`~distributedpytorch_tpu_torch.config.
         ServeConfig`: the checkpoint fields drive
         ``engine_from_checkpoint``, the rest the server."""
+        from distributedpytorch_tpu_torch.ops.kernels import (
+            config_priors,
+            get_kernel_policy,
+        )
         from distributedpytorch_tpu_torch.serve.engine import (
             engine_from_checkpoint,
         )
+        from distributedpytorch_tpu_torch.utils.device import resolve_device
 
+        kernels = cfg.kernels
+        if cfg.kernel_priors:
+            # --kernel-priors: the policy resolved with the file's verdicts
+            kernels = get_kernel_policy(kernels, resolve_device(cfg.device),
+                                        priors=config_priors(cfg) or {})
         engine = engine_from_checkpoint(
             cfg.checkpoint,
             checkpoint_dir=cfg.checkpoint_dir,
@@ -484,7 +494,7 @@ class Server:
             replicas=cfg.replicas,
             threshold=cfg.threshold,
             host_cache_mb=cfg.host_cache_mb,
-            kernels=cfg.kernels,
+            kernels=kernels,
             device=cfg.device,
         )
         server = cls(

@@ -70,6 +70,26 @@ loss is the global batch's. The split is the JAX package's
 (``seeded_split`` with seed 0, one split for every strategy), and the
 train order per epoch comes from ``(seed, epoch)``, so a port run and a
 JAX run from the same weights see the same batches.
+
+The preemption stop (loop.py:753-837): SIGTERM and SIGINT set a flag
+while ``train()`` runs (off the main thread the handler cannot be
+installed and the feature is off, as in JAX). A single process stops
+before its next dispatch, so the dispatch in flight (a K-step graph's
+replay included) finishes; several processes decide at each epoch's end,
+by one all-gather of ``[flag, step]`` over the world group, and stop
+together when any rank saw a signal, or with the JAX "desynced at step
+agreement" error when their steps differ. The stop saves the full state
+at the interrupted epoch's index (a resume redoes it), writes the loss
+tables and the ``.pth``, and returns once the checkpoint is on disk.
+
+The profiler window (loop.py:706-727, :910-918): ``profile_steps (N,
+M)`` wraps the dispatches that touch steps [N, M) in one
+``torch.profiler.profile`` (CPU and CUDA activities) on the main rank,
+rounded out to whole dispatches; ``profile_dir`` alone captures the
+whole run. It writes torch's chrome trace,
+``<dir>/<method>.rank0.steps<a>-<b>.pt.trace.json`` with the steps it
+covered, not the JAX XPlane, and stops in ``train()``'s ``finally``. It
+raises, rather than nest, where another profiler is running.
 """
 
 from __future__ import annotations
@@ -79,15 +99,19 @@ import copy
 import dataclasses
 import logging
 import os
-from typing import Dict, List, Optional, Sequence
+import signal
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from distributedpytorch_tpu_torch.checkpoint import (
+    JAX_EXT,
     NATIVE_EXT,
     TRAIN_EXTS,
     host_snapshot,
+    jax_topology,
+    load_jax_ckpt,
     load_native,
     load_pth,
     resolve_checkpoint,
@@ -105,7 +129,10 @@ from distributedpytorch_tpu_torch.data.dataset import (
 from distributedpytorch_tpu_torch.data.loader import DataLoader, seeded_split
 from distributedpytorch_tpu_torch.evaluate import evaluate_sharded
 from distributedpytorch_tpu_torch.models import create_model
-from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+from distributedpytorch_tpu_torch.ops.kernels import (
+    config_priors,
+    get_kernel_policy,
+)
 from distributedpytorch_tpu_torch.ops.optim import (
     get_learning_rate,
     load_optimizer_state,
@@ -180,6 +207,73 @@ def check_config(config: TrainConfig) -> None:
         )
 
 
+class ProfileWindow:
+    """One ``torch.profiler.profile`` over the dispatches that touch the
+    steps ``[lo, hi)`` (``steps`` None: every dispatch of the run), CPU
+    and CUDA activities, written as a chrome trace into ``out_dir`` when
+    it stops. ``tick(step, size)`` comes before each dispatch of ``size``
+    steps after ``step`` completed ones; ``stop(step)`` ends a window
+    still open (at the end of the run)."""
+
+    def __init__(self, steps: Optional[Tuple[int, int]], out_dir: str,
+                 method: str, device: torch.device):
+        self.steps = steps
+        self.out_dir = out_dir
+        self.method = method
+        self.device = device
+        self.prof = None
+        self.first: Optional[int] = None
+        self.done = False
+        self.path: Optional[str] = None
+
+    def tick(self, step: int, size: int) -> None:
+        if self.prof is None:
+            if self.done:
+                return
+            if self.steps is None or (step < self.steps[1]
+                                      and step + size > self.steps[0]):
+                self._start(step)
+        elif self.steps is not None and step >= self.steps[1]:
+            self.stop(step)
+
+    def _start(self, step: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if torch.autograd._profiler_enabled():
+            raise RuntimeError(
+                "profiler window: another torch.profiler is running — one "
+                "profiler at a time; the window does not nest")
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        logger.info("profiler: capturing a trace from step %d%s → %s", step,
+                    "" if self.steps is None
+                    else f" (steps [{self.steps[0]}, {self.steps[1]}) asked)",
+                    self.out_dir)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        self.first = step
+
+    def stop(self, step: int) -> None:
+        """End the capture after ``step`` completed steps and write it."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        self.done = True
+        if self.device.type == "cuda":
+            # every card of the step: the window's kernels end inside it
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.out_dir,
+            f"{self.method}.rank0.steps{self.first}-{step}.pt.trace.json")
+        prof.export_chrome_trace(self.path)
+        logger.info("profiler: steps [%d, %d) captured → %s", self.first,
+                    step, self.path)
+
+
 class _Snapshot:
     """A copy on the device of everything a step changes (policy
     ``skip``): the model's parameters and buffers, and the optimizer's
@@ -222,7 +316,10 @@ class Trainer:
         check_run_control(config, self.strategy.device,
                           self.strategy.backend)
         self.device = self.strategy.device
-        self.kernels = get_kernel_policy(config.kernels, self.device)
+        # the probe priors' rejections disengage their kernels here, before
+        # the model and the steps are built
+        self.kernels = get_kernel_policy(config.kernels, self.device,
+                                         priors=config_priors(config) or {})
         self.policy = get_policy(config)
         self.dataset = dataset if dataset is not None else self._build_dataset()
         # the step timeline: rank R of a multi-process run writes
@@ -272,6 +369,15 @@ class Trainer:
         # futures of async checkpoint writes, drained before train()
         # returns
         self._ckpt_futures: List = []
+        self._stop_requested = False
+        self._prev_handlers: Dict = {}
+        self.profile_window: Optional[ProfileWindow] = None
+        if self.strategy.is_main and (config.profile_steps is not None
+                                      or config.profile_dir):
+            self.profile_window = ProfileWindow(
+                config.profile_steps,
+                config.profile_dir or os.path.join(config.log_dir, "profile"),
+                config.train_method, self.device)
         self.multi_step = None
         if config.checkpoint_name:
             self._restore(config.checkpoint_name)
@@ -352,6 +458,12 @@ class Trainer:
         return os.path.join(self.config.checkpoint_dir,
                             f"{self.config.train_method}.pth")
 
+    def topology(self) -> dict:
+        """The JAX manifest's ``topology`` of this run (JAX
+        checkpoint.save_topology and strategy.topology)."""
+        return jax_topology(self.strategy.name, self.strategy.mesh_shape(),
+                            self.policy.name)
+
     def _manifest(self) -> dict:
         return {
             "dtype": self.config.dtype,
@@ -359,6 +471,7 @@ class Trainer:
             "kernels": self.kernels.name,
             "train_method": self.config.train_method,
             **self.strategy.topology(),
+            "topology": self.topology(),
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
         }
@@ -367,12 +480,14 @@ class Trainer:
         return [name for name, _ in self.model.named_parameters()]
 
     def _restore(self, name: str) -> None:
-        """``-c``: resume the full state from a native checkpoint (the
-        newest intact file of its chain), converted from the policy it
-        was saved under to this run's; or load the weights alone from a
-        reference ``.pth`` (under master weights the master is seeded
-        from them, or the fresh init's master would win at the first
-        update)."""
+        """``-c``: resume the full state from a native checkpoint or a JAX
+        ``.ckpt`` (the newest intact file of its chain), converted from
+        the policy it was saved under to this run's; or load the weights
+        alone from a reference ``.pth`` (under master weights the master
+        is seeded from them, or the fresh init's master would win at the
+        first update). A checkpoint saved under another topology logs
+        the JAX "mesh-resharding restore" warning (loop.py:418-440): its
+        tensors are whole and load under any layout."""
         path = resolve_checkpoint(name, self.config.checkpoint_dir,
                                   exts=TRAIN_EXTS)
         if path.endswith(".pth"):
@@ -383,7 +498,8 @@ class Trainer:
                     [weights[n] for n in self._param_names()])
             logger.info("Loaded reference .pth weights from %s", path)
             return
-        payload = load_native(path)
+        payload = (load_jax_ckpt(path, self.config.weight_decay)
+                   if path.endswith(JAX_EXT) else load_native(path))
         saved = payload["manifest"]
         arch = saved.get("model_arch", "unet")
         if arch != self.config.model_arch:
@@ -399,7 +515,15 @@ class Trainer:
             payload["optimizer"], self._param_names(),
             where=f"restore {path}")
         self.model.load_state_dict(model_state)
-        load_optimizer_state(self.optimizer, opt_state)
+        if opt_state is not None:
+            load_optimizer_state(self.optimizer, opt_state)
+        elif has_master_weights(self.optimizer):
+            # weights only: the master is the restored weights
+            logger.warning("restore %s: checkpoint carries no optimizer "
+                           "state — re-seeding the %r master weights from "
+                           "the restored params", path, self.policy.name)
+            self.optimizer.reseed_(
+                [payload["model"][n] for n in self._param_names()])
         self.scheduler.load_state_dict(payload["scheduler"])
         set_learning_rate(self.optimizer, self.scheduler.lr)
         self.step = int(payload["step"])
@@ -417,16 +541,16 @@ class Trainer:
             self.multi_step.reset()
         logger.info("Resumed from %s at epoch %d (step %d)", path,
                     self.start_epoch, self.step)
-        saved_world = saved.get("world", 1)
-        if saved_world != self.strategy.world:
-            logger.info("checkpoint written at world %d, resumed at world "
-                        "%d: the parameters are replicated, nothing "
-                        "reshards", saved_world, self.strategy.world)
-        if saved.get("strategy") != self.strategy.name:
-            logger.info("checkpoint written under -t %s, resumed under -t "
-                        "%s: the parameters are whole under every method, "
-                        "nothing reshards", saved.get("strategy"),
-                        self.strategy.name)
+        saved_topo = saved.get("topology")
+        if saved_topo is not None:
+            current = self.topology()
+            # a --dtype change is a precision conversion, logged above
+            current.pop("precision")
+            if {k: saved_topo.get(k) for k in current} != current:
+                logger.warning(
+                    "mesh-resharding restore: checkpoint saved under %s, "
+                    "restoring onto %s — gathered host arrays re-placed "
+                    "under the current mesh", saved_topo, current)
 
     # -- placement --------------------------------------------------------------
     def _place(self, batch) -> Placed:
@@ -621,8 +745,17 @@ class Trainer:
             depth=cfg.prefetch_batches,
             name="dpt-train-place", tracer=self.tracer,
         )
+        single_process = self.strategy.world == 1
         with contextlib.closing(source):
             for (kind, payload), placed in source:
+                # a single process stops before its next dispatch; several
+                # agree at the epoch's end (_stop_agreed)
+                if self._stop_requested and single_process:
+                    break
+                if self.profile_window is not None:
+                    self.profile_window.tick(
+                        self.step, len(payload) if kind != SINGLE
+                        and self.multi_step is not None else 1)
                 if kind == SINGLE:
                     self._run_one(payload, placed)
                 else:
@@ -686,12 +819,22 @@ class Trainer:
             self.kernels.name, cfg.dtype,
         )
         self.val_loss = self.val_dice = float("nan")
-        stopped_early = False
+        stopped_early = stopped_by_signal = False
         # while, not for: a rollback rewinds the epoch
         epoch = self.start_epoch
         while epoch < cfg.epochs:
             try:
                 self._train_epoch(epoch)
+                if self._stop_agreed():
+                    # the state at the interrupted epoch's index: a resume
+                    # redoes that epoch (the dedup guard is cleared, the
+                    # state is newer than the save of the same index)
+                    self._last_saved_epoch = None
+                    self.save(epoch)
+                    logger.info("Stopped by signal at epoch %d step %d; "
+                                "checkpoint saved", epoch + 1, self.step)
+                    stopped_by_signal = True
+                    break
                 if self._end_epoch(epoch):
                     stopped_early = True
                     break
@@ -701,7 +844,7 @@ class Trainer:
                 epoch = self.start_epoch  # the restore rewound it
                 continue
             epoch += 1
-        if not stopped_early:
+        if not (stopped_early or stopped_by_signal):
             self.save(cfg.epochs)
         if (cfg.save_best and self.strategy.is_main
                 and self._best_dice == float("-inf")):
@@ -723,17 +866,73 @@ class Trainer:
             "rollbacks": cfg.rollback_retries - self._rollback_budget,
         }
 
+    # -- preemption ----------------------------------------------------------------
+    def _install_signal_handler(self) -> None:
+        """SIGTERM and SIGINT set the stop flag for the rest of
+        ``train()``. Off the main thread ``signal.signal`` raises, and the
+        feature is off (the signals keep their default action)."""
+        self._stop_requested = False
+        self._prev_handlers = {}
+
+        def request_stop(signum, frame):
+            self._stop_requested = True
+            logger.info("Signal %d: will checkpoint and stop at the next "
+                        "step", signum)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev_handlers[sig] = signal.signal(sig, request_stop)
+            except ValueError:  # not the main thread
+                pass
+
+    def _restore_signal_handler(self) -> None:
+        for sig, handler in self._prev_handlers.items():
+            signal.signal(sig, handler)
+        self._prev_handlers = {}
+
+    def _stop_agreed(self) -> bool:
+        """Whether to stop at this epoch's end: the flag of a single
+        process (or of a strategy with no process group); across
+        processes one all-gather of ``[flag, step]`` over the world group (on the rank's card under NCCL, the CPU under
+        gloo), True when any rank saw a signal, or when the ranks' steps
+        differ, with the JAX desync error (loop.py:793-837)."""
+        import torch.distributed as dist
+
+        if self.strategy.world == 1 or not dist.is_initialized():
+            return self._stop_requested
+        device = (self.device if self.strategy.backend == "nccl"
+                  else torch.device("cpu"))
+        mine = torch.tensor([int(self._stop_requested), self.step],
+                            dtype=torch.int64, device=device)
+        rows = [torch.empty_like(mine) for _ in range(self.strategy.world)]
+        dist.all_gather(rows, mine)
+        flags = torch.stack(rows).cpu()
+        steps = [int(s) for s in flags[:, 1]]
+        if len(set(steps)) > 1:
+            logger.error("rank %d: desynced at step agreement — per-rank "
+                         "steps %s", self.strategy.rank, steps)
+            return True
+        return bool(flags[:, 0].any())
+
     def train(self) -> dict:
         """Run the epochs; returns once every checkpoint write is on disk
-        (a write's error raises here on a clean run)."""
+        (a write's error raises here on a clean run). The signal handlers
+        and the profiler window live for the call, also when it raises."""
+        self._install_signal_handler()
         ok = False
         try:
             result = self._run()
             ok = True
             return result
         finally:
-            self.tracer.flush()
-            self._drain_checkpoint_futures(raise_errors=ok)
+            self._restore_signal_handler()
+            try:
+                if self.profile_window is not None:
+                    # the run ended inside the window, or a whole-run one
+                    self.profile_window.stop(self.step)
+            finally:
+                self.tracer.flush()
+                self._drain_checkpoint_futures(raise_errors=ok)
 
 
 def fit(config: TrainConfig, dataset=None) -> dict:

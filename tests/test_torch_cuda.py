@@ -5,7 +5,10 @@ engine's streams, masks and bucket graphs (replay against the eager
 forward, two replays of one bucket in flight, int8 bytes on the card,
 quantization on the card against the host), UNet and milesial train
 steps under both kernel policies, the DDP loss and step at world 1 under
-NCCL, and the DDP_MP pipeline's seams at world 1. Every test carries
+NCCL, the DDP_MP pipeline's seams at world 1, the kernel probes and a
+priors file's effect, the profiler window's trace of the loss kernels
+(eager and in a CUDA graph), and a ``.ckpt`` round trip resumed on the
+card. Every test carries
 the ``cuda`` marker and skips without a card; this file imports nothing
 of JAX, so the card's machine runs it as it is:
 
@@ -1268,3 +1271,108 @@ def test_capturable_adam_over_two_groups_reads_each_lr_at_replay(
     graph.replay()
     torch.cuda.synchronize()
     assert not torch.equal(a, before[0]) and not torch.equal(b, before[1])
+
+
+def _small_config(cuda_device, tmp_path, **kw):
+    from distributedpytorch_tpu_torch.config import TrainConfig
+
+    return TrainConfig(**{
+        **dict(epochs=1, batch_size=2, val_percent=25.0, seed=0,
+               image_size=(48, 32), model_widths=(8, 16),
+               synthetic_samples=16, metric_every_steps=1, num_workers=0,
+               s2d_levels=0, dtype="f32", kernels="cuda",
+               device=str(cuda_device),
+               checkpoint_dir=str(tmp_path / "checkpoints"),
+               log_dir=str(tmp_path / "logs"),
+               loss_dir=str(tmp_path / "loss")), **kw})
+
+
+def test_every_probe_accepts_its_kernel_on_the_card(cuda_device, tmp_path):
+    """``run_probes`` on the card: each kernel built, launched in a child
+    process and held against its plain version; the file reads back and
+    a rejection in it disengages its field before a trainer's run."""
+    from distributedpytorch_tpu_torch.ops import probes
+
+    payload = probes.run_probes(device=cuda_device)
+    assert payload["platform"] == "gpu"
+    for name, row in payload["kernels"].items():
+        assert row["accepted"], (name, row)
+        assert row["launch_s"] > 0
+    path = str(tmp_path / "priors.json")
+    payload["kernels"]["fused_loss"] = {"accepted": False, "reason": "test",
+                                        "compile_s": 0.0}
+    kernels.save_priors(payload, path)
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(_small_config(cuda_device, tmp_path,
+                                    kernel_priors=path))
+    assert not trainer.kernels.train_loss_fused
+    assert trainer.kernels.eval_stats_fused
+    kernels.reset_launches()
+    trainer.train()
+    # 6 steps through the plain loss, the 2 eval batches through K1
+    assert kernels.LAUNCHES["loss_stats_bwd"] == 0
+    assert kernels.LAUNCHES["loss_stats"] == 2
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_the_profiler_window_traces_the_loss_kernels(cuda_device, tmp_path,
+                                                     monkeypatch, k):
+    """``profile_steps (2, 4)`` at K = 1 and as a CUDA graph of 2 steps:
+    the chrome trace holds K1 and K1-bwd twice each (steps 3 and 4), no
+    profiler is left running, and the losses are bitwise those of the run
+    without the window (cuDNN deterministic)."""
+    import json
+
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = {}
+    for window in (False, True):
+        kw = {"profile_steps": (2, 4)} if window else {}
+        trainer = Trainer(_small_config(cuda_device, tmp_path / str(window),
+                                        steps_per_dispatch=k, **kw))
+        trainer.train()
+        runs[window] = [float(x) for x in trainer.records.losses]
+    assert runs[True] == runs[False]
+    assert not torch.autograd._profiler_enabled()
+    path = trainer.profile_window.path
+    assert path.endswith("singleGPU.rank0.steps2-4.pt.trace.json")
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert sum(bool(re.search(r"\bstats_kernel\b", n)) for n in names) == 2
+    assert sum(bool(re.search(r"\bstats_bwd_kernel\b", n))
+               for n in names) == 2
+
+
+def test_a_ckpt_round_trip_resumes_on_the_card_bitwise(cuda_device,
+                                                       tmp_path):
+    """A milesial bf16_params run on the card, its checkpoint through
+    ``save_jax_ckpt`` and ``load_jax_ckpt``, resumed with ``-c``: the
+    weights, the f32 master and Adam's state on the card bit for bit."""
+    from distributedpytorch_tpu_torch import checkpoint
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    cfg = _small_config(cuda_device, tmp_path, model_arch="milesial",
+                        dtype="bf16_params")
+    trainer = Trainer(cfg)
+    trainer.train()
+    saved = checkpoint.load_native(trainer.checkpoint_path)
+    path = str(tmp_path / "x.ckpt")
+    checkpoint.save_jax_ckpt(saved, path)
+    import dataclasses
+
+    again = Trainer(dataclasses.replace(cfg, epochs=2, checkpoint_name=path))
+    for name, value in again.model.state_dict().items():
+        assert value.device.type == "cuda"
+        assert value.dtype == saved["model"][name].dtype
+        assert torch.equal(value.cpu(), saved["model"][name]), name
+    state = again.optimizer.state_dict()
+    for a, b in zip(state["master"], saved["optimizer"]["master"]):
+        assert torch.equal(a.cpu(), b)
+    inner = saved["optimizer"]["inner"]["state"]
+    for i, st in inner.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(state["inner"]["state"][i][key].cpu(), st[key])
+    assert np.isfinite(again.train()["val_loss"])

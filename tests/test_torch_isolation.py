@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: importing every module of it loads
-neither jax nor the JAX package, a DDP rank it spawns loads neither, nor
-does a ``-t MP`` or ``-t DP`` run of the training CLI, nor a ``quantize``
-and ``predict`` run, and its entry points (the serve engine, the trainer
-and the training CLI) refuse to fall back to the CPU on a machine
-without a card unless asked."""
+neither jax, flax, msgpack nor the JAX package, a DDP rank it spawns
+loads none of them, nor does a ``-t MP`` or ``-t DP`` run of the training
+CLI, nor a ``quantize`` and ``predict`` run, and its entry points (the
+serve engine, the trainer and the training CLI) refuse to fall back to
+the CPU on a machine without a card unless asked."""
 
 import json
 import os
@@ -22,8 +22,9 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     modules.append(info.name)
 leaked = sorted(
     name for name in sys.modules
-    if name in ("jax", "flax", "distributedpytorch_tpu")
-    or name.startswith(("jax.", "jaxlib", "flax.", "distributedpytorch_tpu."))
+    if name in ("jax", "flax", "msgpack", "distributedpytorch_tpu")
+    or name.startswith(("jax.", "jaxlib", "flax.", "msgpack.",
+                        "distributedpytorch_tpu."))
 )
 refusals = {}
 import torch
@@ -77,7 +78,7 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
                            "parallel", "parallel.strategy",
                            "parallel.pipeline", "parallel.replicas",
                            "predict", "quantize", "ops.quant",
-                           "utils.plotting"):
+                           "utils.plotting", "ops.msgpack", "ops.probes"):
         assert (f"distributedpytorch_tpu_torch.{trainer_module}"
                 in report["modules"])
     refusals = report["refusals"]
@@ -95,7 +96,8 @@ def test_no_source_of_the_port_imports_jax():
     import re
 
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|distributedpytorch_tpu)(\.|\s|$)"
+        r"^\s*(import|from)\s+(jax|flax|msgpack|distributedpytorch_tpu)"
+        r"(\.|\s|$)"
     )
     roots = [os.path.join(REPO, "distributedpytorch_tpu_torch"),
              os.path.join(REPO, "chip_smoke.py")]

@@ -373,6 +373,6 @@ def test_cli_refuses_what_it_does_not_run(capsys):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
             cli.main(["-t", method])
     with pytest.raises(SystemExit):
-        cli.get_args(["--profile-steps", "2:4"])  # not defined
+        cli.get_args(["--step-timeout", "5"])  # not defined (the watchdog)
     with pytest.raises(SystemExit):
         cli.get_args(["--kernels", "pallas"])

@@ -17,6 +17,8 @@ from distributedpytorch_tpu.checkpoint import (
 from distributedpytorch_tpu.models.unet import UNet as JaxUNet
 from distributedpytorch_tpu.models.unet import init_unet_params
 from distributedpytorch_tpu_torch.checkpoint import (
+    CheckpointCorruptError,
+    load_jax_ckpt,
     load_pth,
     params_from_jax,
     resolve_checkpoint,
@@ -180,8 +182,8 @@ def test_resolve_checkpoint_rules(tmp_path):
     with pytest.raises(FileNotFoundError, match="DP.ckpt"):
         resolve_checkpoint("DP.ckpt", str(tmp_path))
     (tmp_path / "MP.ckpt").write_bytes(b"\x00")
-    # a native .ckpt resolves first, and loading it names the way out
+    # a JAX .ckpt resolves first; a file that is not one raises, naming it
     path = resolve_checkpoint("MP", str(tmp_path))
     assert path.endswith("MP.ckpt")
-    with pytest.raises(ValueError, match="export_reference_pth"):
-        load_pth(path)
+    with pytest.raises(CheckpointCorruptError, match="MP.ckpt"):
+        load_jax_ckpt(path)

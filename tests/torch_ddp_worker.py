@@ -26,7 +26,13 @@ modules this process loaded. Scenarios:
   its epochs; the losses, the val metrics, the lr, the final state dict
   and what each rank wrote into a directory of its own; how many
   ``DistributedDataParallel`` wrappers it built and how many forwards
-  they ran; and whether its K-step dispatch drives its own train step.
+  they ran; and whether its K-step dispatch drives its own train step;
+* ``preempt``: ``Trainer`` under ``-t DDP`` whose train step raises
+  SIGTERM on the ranks and after the global steps ``job["signal"]``
+  names, or adds one to a rank's step count (``job["skew"]``); what each
+  rank ran, the errors it logged, whether the handler was put back, and
+  what rank 0 saved; the ranks meet at a barrier before the next
+  scenario reads the file.
 """
 
 import contextlib
@@ -263,8 +269,60 @@ def run_trainer(job, rank, world):
     }
 
 
+def run_preempt(job, rank, world):
+    import logging
+    import signal
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    out = os.path.join(job["dir"], f"rank{rank}")
+    ckpt_dir = os.path.join(job["dir"], "checkpoints")
+    cfg = TrainConfig(train_method="DDP", device="cpu",
+                      checkpoint_dir=ckpt_dir,
+                      log_dir=os.path.join(out, "logs"),
+                      loss_dir=os.path.join(out, "loss"), **job["config"])
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(record.getMessage())
+
+    handler = Errors(logging.ERROR)
+    logging.getLogger().addHandler(handler)
+    trainer = Trainer(cfg)
+    real = trainer.train_step
+    signal_at = job.get("signal", {}).get(rank)
+    skew_at = job.get("skew", {}).get(rank)
+
+    def step(batch):
+        loss = real(batch)
+        if trainer.step + 1 == signal_at:
+            signal.raise_signal(signal.SIGTERM)
+        if trainer.step + 1 == skew_at:
+            trainer.step += 1
+        return loss
+
+    trainer.train_step = step
+    try:
+        result = trainer.train()
+    finally:
+        logging.getLogger().removeHandler(handler)
+    saved = None
+    if trainer.strategy.is_main:
+        payload = load_native(trainer.checkpoint_path)
+        saved = {"epoch": payload["epoch"], "step": payload["step"],
+                 "files": sorted(os.listdir(ckpt_dir))}
+    torch.distributed.barrier()
+    return {"result": result, "errors": errors, "saved": saved,
+            "handler_restored": signal.getsignal(signal.SIGTERM)
+            == signal.SIG_DFL}
+
+
 SCENARIOS = {"loss": run_loss, "steps": run_steps, "accum": run_accum,
-             "pipeline_steps": run_pipeline_steps, "trainer": run_trainer}
+             "pipeline_steps": run_pipeline_steps, "trainer": run_trainer,
+             "preempt": run_preempt}
 
 
 def main():
