@@ -56,7 +56,19 @@ processes this script spawns (``--ddp-mp-rank R 2 gloo DIR``) over a gloo
 group, each with both of its stages on cuda:0: the bf16 UNet under gpipe
 and 1f1b and milesial with ``--wgrad-taps`` under both, held against one
 ``-t MP`` step on their joint batch and against kernels torch
-(``train_ddp_mp_gloo2``). Then the trainer's run control
+(``train_ddp_mp_gloo2``). ``-t SP`` runs on ``[cuda:0, cuda:0]``, two
+row-shard threads on the one card meeting at every 3x3 conv for their
+halo rows: the bf16 UNet and milesial ``--wgrad-taps`` at ``-b 4``, step 1
+against a singleGPU step from the same weights in bf16 and float32, K1,
+K1-bwd, K2, K3 and K5 per shard counted by name in the trace, the float32
+step against its plain versions in place, each kernel against its plain
+version on a shard's shapes, the step's ms, host enqueue and idle share
+beside one shard and singleGPU, and a short CLI run whose manifest says
+``1x2x1@sp`` (``train_sp``); ``-t DDP_SP`` as two ranks on the one card,
+two processes this script spawns (``--ddp-sp-rank R 2 gloo DIR``), each
+row-sharding its ``-b 4`` over ``[cuda:0, cuda:0]``: weights bitwise equal
+after every step, step 1 against one SP step of the joint batch
+(``train_ddp_sp_gloo2``). Then the trainer's run control
 (``train_run_control``): the UNet with ``--steps-per-dispatch 4`` (one
 CUDA graph of 4 whole steps, K1 and K1-bwd inside it) against the same 16
 steps at K = 1, bitwise; milesial and the UNet with ``--remat`` against
@@ -99,7 +111,10 @@ the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
 launch of the training CLI; ``-t DDP_MP`` as two NCCL ranks of two cards
 each, checked as the gloo ranks are, their step, busy cards and bubble
 beside the one-card pipeline, and a ``torchrun --nproc_per_node 2``
-launch of the training CLI (``ddp_mp_cards``); then ``-t MP`` across 2
+launch of the training CLI (``ddp_mp_cards``); ``-t SP`` across the four
+cards (the halo rows cross NVLink) against one card, and ``-t DDP_SP`` as
+two NCCL ranks of two cards each plus a ``torchrun --nproc_per_node 2``
+launch of the training CLI (``sp_cards``); then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
 one-card step (``dp_cards``). Every one of them also runs its path as
@@ -409,17 +424,14 @@ def _profiled_kernels(fn) -> list:
 def _warm_profiler() -> int:
     """Start the profiler's device tracing (CUPTI) once in this process,
     before any session whose trace is read: the first session of a
-    process can come back without device activity. Profiles a small
-    kernel on the current card until the trace holds it; returns the
-    sessions that took, and fails after PROFILER_TRIES."""
+    process can come back without device activity. The port's own
+    warm-up, which its profiler window runs too
+    (``train/loop.warm_profiler``); the sessions it took."""
     import torch
 
-    x = torch.ones(1024, device="cuda")
-    for tries in range(1, PROFILER_TRIES + 1):
-        if _profiled_kernels(lambda: x.mul_(1.0)):
-            return tries
-    check(False, f"the profiler saw no kernel on the card in "
-          f"{PROFILER_TRIES} sessions")
+    from distributedpytorch_tpu_torch.train.loop import warm_profiler
+
+    return warm_profiler(torch.device("cuda", torch.cuda.current_device()))
 
 
 def _device_kernels(fn) -> list:
@@ -5480,6 +5492,689 @@ def phase_ckpt_roundtrip(tmp: str) -> dict:
     return out
 
 
+# -- -t SP and -t DDP_SP --------------------------------------------------------
+
+# the row shards of train_sp and of each train_ddp_sp_gloo2 rank: two shard
+# threads on the one card ([cuda:0, cuda:0])
+SP_SHARDS = 2
+# SP step 1 against a singleGPU step from the same weights and batch: the
+# loss's relative error, each UNet gradient's largest error relative to
+# its tensor's largest and each milesial gradient's relative L2. float32
+# at PERF.md §2's card bounds for a step laid out otherwise (MP against
+# singleGPU: 1e-5, 1e-3; milesial 1e-5, 2e-2 as kernels cuda vs torch).
+# bf16: each shard's weight gradient comes out of cuDNN (or the taps)
+# rounded to bf16, and the shards' are added after it, where the whole
+# image's is rounded once: an element moves by up to a bf16 step, 2^-8 of
+# itself, more where it nearly cancels (measured on an H100: 5.2e-3 of a
+# tensor's largest, the mid block's bias), so the UNet's is held within
+# two bf16 steps, 2^-7; milesial's by its bf16 bound for two paths that
+# round differently (MILESIAL_PARITY: a random-init bf16 milesial step
+# moves its gradients by tens of percent for a bf16 ulp, ROADMAP trap 3)
+SP_BOUNDS = {
+    "bf16": {"unet_loss": 1e-5, "unet_grad": 2.0 ** -7,
+             "milesial_loss": MILESIAL_PARITY["bf16"]["loss"],
+             "milesial_grad_rel_l2": MILESIAL_PARITY["bf16"]["grad_rel_l2"]},
+    "f32": {"unet_loss": 1e-5, "unet_grad": STEP_GRAD_RTOL,
+            "milesial_loss": MILESIAL_PARITY["f32"]["loss"],
+            "milesial_grad_rel_l2": MILESIAL_PARITY["f32"]["grad_rel_l2"]},
+}
+# milesial's BatchNorms and the 3x3 convs that engage K5 (both sides >= 128
+# channels), each once per shard and step
+MILESIAL_BATCHNORMS = 18
+MILESIAL_K5_CONVS = 13
+SP_KERNELS = ("loss_stats", "loss_stats_bwd", "bn_act", "bn_act_bwd",
+              "wgrad_9tap")
+SP_TIMED_STEPS = 5
+# the DDP_SP ranks: model and steps, -b 4 per rank over two shards, bf16,
+# milesial with --wgrad-taps under DPT_WGRAD_BACKEND=pallas
+DDP_SP_RUNS = (("unet", 2), ("milesial", 2))
+
+
+def _sp_expected_per_step(arch: str, shards: int) -> dict:
+    """A step's launches under SP: K1 and K1-bwd once per shard; for
+    milesial K2 and K3 once per BatchNorm and shard, K5 once per engaged
+    conv and shard."""
+    want = {"loss_stats": shards, "loss_stats_bwd": shards}
+    if arch == "milesial":
+        want.update(bn_act=MILESIAL_BATCHNORMS * shards,
+                    bn_act_bwd=MILESIAL_BATCHNORMS * shards,
+                    wgrad_9tap=MILESIAL_K5_CONVS * shards)
+    return want
+
+
+def _sp_model_step(method: str, arch: str, devices, dtype: str,
+                   kernels_name: str = "cuda",
+                   batch_size: int = TRAIN_BATCH, lr: float = 0.0):
+    """``(model, step, strategy)``: ``method``'s (SP, DDP_SP or
+    singleGPU) train step over ``devices`` for the full-width ``arch``
+    (milesial with ``--wgrad-taps``) from the seed's weights; SGD at
+    ``lr``, 0 by default, so the step keeps the gradients and leaves the
+    weights."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=method, model_arch=arch, dtype=dtype,
+                      kernels=kernels_name, device="cuda",
+                      batch_size=batch_size, wgrad_taps=arch == "milesial")
+    strategy = build_strategy(cfg, devices=devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = strategy.place_model(model)
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    step = strategy.build_train_step(model, opt,
+                                     get_kernel_policy(kernels_name))
+    return model, step, strategy
+
+
+def _running_stats(model) -> dict:
+    return {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+
+
+def _step_against(a: dict, ref: dict) -> dict:
+    """One step's loss, gradients and running statistics against another's
+    (``{"loss", "grads", "stats"}``)."""
+    rel_l2 = {n: float((a["grads"][n] - g).norm() / g.norm())
+              for n, g in ref["grads"].items()}
+    worst = max(rel_l2, key=rel_l2.get)
+    row = {"loss": a["loss"], "ref_loss": ref["loss"],
+           "loss_rel_err": abs(a["loss"] - ref["loss"]) / ref["loss"],
+           "grad_max_err_rel_to_tensor_max": _max_err_rel(a["grads"],
+                                                          ref["grads"]),
+           "grad_max_rel_l2": rel_l2[worst], "grad_worst_tensor": worst,
+           "grad_median_rel_l2": sorted(rel_l2.values())[len(rel_l2) // 2]}
+    if ref["stats"]:
+        row["running_stats_max_err_rel_to_tensor_max"] = _max_err_rel(
+            a["stats"], ref["stats"])
+    return row
+
+
+def _within_sp_bounds(arch: str, dtype: str, row: dict) -> bool:
+    """Whether a step's row (``_step_against``) holds SP_BOUNDS."""
+    bound = SP_BOUNDS[dtype]
+    if arch == "unet":
+        return (row["loss_rel_err"] <= bound["unet_loss"]
+                and row["grad_max_err_rel_to_tensor_max"]
+                <= bound["unet_grad"])
+    return (row["loss_rel_err"] <= bound["milesial_loss"]
+            and row["grad_max_rel_l2"] <= bound["milesial_grad_rel_l2"])
+
+
+def _sp_step_rows(arch: str, devices, batch) -> dict:
+    """Per dtype: one SP step over ``devices`` against one singleGPU step
+    on the first of them, from the seed's weights on ``batch``, with
+    SP_BOUNDS' verdict."""
+    import torch
+
+    rows = {}
+    for dtype in ("bf16", "f32"):
+        runs = {}
+        for method, devs in (("SP", devices), ("singleGPU", devices[:1])):
+            model, step, _ = _sp_model_step(method, arch, devs, dtype)
+            runs[method] = {"loss": float(step(batch)),
+                            "grads": _grads(model),
+                            "stats": _running_stats(model)}
+            del model, step
+            torch.cuda.empty_cache()
+        row = _step_against(runs["SP"], runs["singleGPU"])
+        row["ok"] = _within_sp_bounds(arch, dtype, row)
+        rows[dtype] = row
+        del runs
+    return rows
+
+
+def _sp_in_place(arch: str, devices, batch) -> dict:
+    """One float32 SP step with the kernels against the same step with
+    every kernel swapped for its plain version on the card
+    (``_PlainVersions``): the kernels on the shards' shapes."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    runs = {}
+    for plain in (False, True):
+        model, step, _ = _sp_model_step("SP", arch, devices, "f32")
+        kernels.reset_launches()
+        with (_PlainVersions() if plain else contextlib.nullcontext()):
+            loss = float(step(batch))
+        runs[plain] = {"loss": loss, "launches": dict(kernels.LAUNCHES),
+                       "grads": _grads(model), "stats": _running_stats(model)}
+        del model, step
+        torch.cuda.empty_cache()
+    check(not any(runs[True]["launches"].values()),
+          f"plain versions launched {runs[True]['launches']}")
+    a, b = runs[False], runs[True]
+    row = _step_against(a, b)
+    diff = torch.cat([(a["grads"][n] - g).flatten()
+                      for n, g in b["grads"].items()])
+    whole = torch.cat([g.flatten() for g in b["grads"].values()])
+    row.update(launches=a["launches"],
+               grad_global_rel_l2=float(diff.norm() / whole.norm()),
+               running_stats_bitwise_equal=all(
+                   torch.equal(a["stats"][n], t)
+                   for n, t in b["stats"].items()))
+    row["ok"] = (row["running_stats_bitwise_equal"]
+                 and row["loss_rel_err"] <= IN_PLACE_LOSS_RTOL
+                 and row["grad_global_rel_l2"] <= IN_PLACE_GRAD_GLOBAL_REL_L2
+                 and row["grad_max_rel_l2"] <= IN_PLACE_GRAD_REL_L2)
+    return row
+
+
+def _sp_shard_kernels(devices) -> dict:
+    """Each kernel of the SP path against its plain version on the shapes
+    one of two shards gives it at full width, batch 4: K1 and K1-bwd on a
+    shard's (4, 320, 960, 1) predictions, K2 and K3 on milesial's widest
+    BatchNorm input of a shard (4, 64, 320, 960) float32, K5 on its first
+    engaged conv's halo'd input (4, 162, 480, 128) bf16 with the dy padded
+    by a zero row each side. The largest error relative to the plain
+    version's largest element, and the largest absolute error."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels as kn
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+    from distributedpytorch_tpu_torch.ops import wgrad_kernels as wk
+
+    dev = devices[0]
+    w, h = IMAGE_WH
+    rows = h // len(devices)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+
+    def err(got, want):
+        scale = float(want.abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        return {"max_abs_err": diff,
+                "max_err_rel_to_max": diff / scale if scale else diff}
+
+    shape = (TRAIN_BATCH, rows, w, 1)
+    p = torch.rand(shape, generator=gen, device=dev)
+    t = (torch.rand(shape, generator=gen, device=dev) > 0.6).float()
+    out["loss_stats"] = err(lk.eval_stats(p, t),
+                            lk.eval_stats_reference(p, t))
+    ct = torch.tensor([1e-6, 0.0, -0.3, 0.1], device=dev)
+    out["loss_stats_bwd"] = err(lk.stats_bwd(p, t, ct),
+                                lk.stats_bwd_reference(p, t, ct))
+    x, a, b, mean = _bn_inputs((TRAIN_BATCH, 64, rows, w), gen, dev,
+                               torch.float32)
+    out["bn_act"] = err(kn.bn_act(x, a, b), kn.bn_act_reference(x, a, b))
+    g = torch.randn(x.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    got = kn.bn_act_bwd(x, g, a, b, mean)
+    want = kn.bn_act_bwd_reference(x, g, a, b, mean)
+    out["bn_act_bwd"] = max((err(u, v) for u, v in zip(got, want)),
+                            key=lambda e: e["max_err_rel_to_max"])
+    del x, g, got, want
+    xh = torch.randn((TRAIN_BATCH, rows // 2 + 2, w // 2, 128),
+                     generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.nn.functional.pad(
+        torch.randn((TRAIN_BATCH, rows // 2, w // 2, 128), generator=gen,
+                    device=dev).to(torch.bfloat16), (0, 0, 0, 0, 1, 1))
+    out["wgrad_9tap"] = err(wk.wgrad_9tap(xh, dy),
+                            wk.wgrad_9tap_reference(xh, dy))
+    out["shapes"] = {"loss": list(shape), "bn": [TRAIN_BATCH, 64, rows, w],
+                     "wgrad_x_halo": list(xh.shape)}
+    return out
+
+
+# each shard-shape kernel against its plain version, relative to the plain
+# version's largest element: K1's float sums in two orders, K1-bwd and K2
+# elementwise, K3's channel sums and K5's float32 sums in two orders
+SP_SHARD_KERNEL_RTOL = {"loss_stats": STATS_RTOL, "loss_stats_bwd": GRAD_RTOL,
+                        "bn_act": 1e-6, "bn_act_bwd": BN_SUMS_RTOL,
+                        "wgrad_9tap": WGRAD_RTOL}
+
+
+def _sp_timing(arch: str, devices, batch) -> dict:
+    """The bf16 step of ``arch`` at the given row shards on the one card,
+    beside the same step through SP at one shard (the row-sharded module
+    without halos) and the singleGPU step: CUDA-event ms, host enqueue
+    ms, the card's busy ms by the profiler and its idle share."""
+    import torch
+
+    dev = devices[0]
+    out = {}
+    for label, method, devs in (("sp", "SP", devices),
+                                ("sp_one_shard", "SP", devices[:1]),
+                                ("single_gpu", "singleGPU", devices[:1])):
+        _, step, _ = _sp_model_step(method, arch, devs, "bf16", lr=1e-4)
+        ms = cuda_ms(lambda: step(batch), SP_TIMED_STEPS, warmup=2)
+        busy = _busy_ms_by_device(lambda: step(batch), 2, devices=[dev])
+        out[label] = {"step_ms": ms,
+                      "host_enqueue_ms": _host_enqueue_ms(lambda: step(batch)),
+                      "busy_ms": busy.get(dev.index),
+                      "idle_share": 1.0 - busy.get(dev.index, 0.0) / ms,
+                      "images_per_s": TRAIN_BATCH * 1e3 / ms}
+        if label == "sp":
+            out[label]["top_host_ops"] = _top_host_ops(
+                lambda: step(batch), 2)[:8]
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sp(tmp: str, train: dict) -> dict:
+    """``-t SP`` on ``[cuda:0, cuda:0]``, two row-shard threads on the one
+    card, under kernels cuda with cuDNN's deterministic algorithms: for
+    the full-width bf16 UNet (``-b 4``) and milesial ``--wgrad-taps``
+    (DPT_WGRAD_BACKEND=pallas), step 1 against a singleGPU step from the
+    same weights, in bf16 and float32 (SP_BOUNDS); each kernel's launches
+    per step counted by name in the profiler's trace and by the wrappers
+    (``_sp_expected_per_step``: once per shard and site); the float32
+    step with the kernels against the same step with their plain versions
+    in place (``_sp_in_place``), and each kernel against its plain version
+    on a shard's shapes (``_sp_shard_kernels``); the bf16 step's ms, host
+    enqueue and idle share beside one shard and singleGPU
+    (``_sp_timing``; train's step beside them). Then a short run of the
+    training CLI's own functions with ``-t SP`` writes the ``.pth`` and a
+    checkpoint whose manifest says ``1x2x1@sp``."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    devices = [dev] * SP_SHARDS
+    w, h = IMAGE_WH
+    out = {"phase": "train_sp", "shards": SP_SHARDS,
+           "devices": [str(d) for d in devices], "batch": TRAIN_BATCH,
+           "cudnn_deterministic": True,
+           "device": torch.cuda.get_device_name(0)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    problems = []
+    try:
+        batch = _synthetic_batch(TRAIN_BATCH, dev)
+        out["shard_kernels"] = _sp_shard_kernels(devices)
+        for name, rtol in SP_SHARD_KERNEL_RTOL.items():
+            if out["shard_kernels"][name]["max_err_rel_to_max"] > rtol:
+                problems.append(f"{name} on the shard shape: "
+                                f"{out['shard_kernels'][name]}")
+        for arch in ("unet", "milesial"):
+            def run(arch=arch):
+                row = {"against_single_gpu": _sp_step_rows(arch, devices,
+                                                           batch)}
+                _, step, _ = _sp_model_step("SP", arch, devices, "bf16",
+                                            lr=1e-4)
+                names = tuple(_sp_expected_per_step(arch, SP_SHARDS))
+                step(batch)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                loss, traced = _traced_call(lambda: float(step(batch)),
+                                            names)
+                row["step_loss"] = loss
+                row["counted"] = {n: kernels.LAUNCHES[n] for n in names}
+                row["traced_per_step"] = traced
+                row["expected_per_step"] = _sp_expected_per_step(arch,
+                                                                 SP_SHARDS)
+                del step
+                torch.cuda.empty_cache()
+                row["in_place_f32"] = _sp_in_place(arch, devices, batch)
+                row["timing"] = _sp_timing(arch, devices, batch)
+                return row
+
+            row = _with_wgrad_backend(run) if arch == "milesial" else run()
+            out[arch] = row
+            for dtype, r in row["against_single_gpu"].items():
+                if not r["ok"]:
+                    problems.append(f"{arch} {dtype} SP vs singleGPU: {r}")
+            if not row["in_place_f32"]["ok"]:
+                problems.append(f"{arch} f32 kernels vs plain versions: "
+                                f"{row['in_place_f32']}")
+            if not np.isfinite(row["step_loss"]):
+                problems.append(f"{arch} SP loss {row['step_loss']}")
+            for what in ("counted", "traced_per_step"):
+                if row[what] != row["expected_per_step"]:
+                    problems.append(f"{arch} {what} {row[what]}, expected "
+                                    f"{row['expected_per_step']}")
+        out["train_step_ms"] = train["step_ms"]
+
+        # the training CLI's own functions: one step and one eval batch
+        run = os.path.join(tmp, "train_sp")
+        argv = ["-t", "SP", "--synthetic", "8", "-v", "50",
+                "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w),
+                str(h), "--dtype", "bf16", "--kernels", "cuda"]
+        trainer, close = _cli_trainer(run, argv, devices=devices)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            launches = {n: kernels.LAUNCHES[n] for n in LOSS_KERNELS}
+        finally:
+            close()
+        topology = load_native(os.path.join(
+            run, "checkpoints", "SP.pt"))["manifest"]["topology"]
+        out["cli"] = {"result": result, "launches": launches,
+                      "wrote": _files(run), "topology": topology}
+        want = {"loss_stats": SP_SHARDS * 2, "loss_stats_bwd": SP_SHARDS}
+        if launches != want:
+            problems.append(f"SP CLI run launched {launches}, expected {want}")
+        if topology["mesh_spec"] != f"1x{SP_SHARDS}x1@sp":
+            problems.append(f"SP manifest {topology}")
+        if "checkpoints/SP.pth" not in out["cli"]["wrote"]:
+            problems.append(f"SP CLI run wrote {out['cli']['wrote']}")
+        if not (np.isfinite(result["val_loss"])
+                and np.isfinite(result["val_dice"])):
+            problems.append(f"SP CLI eval {result}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["problems"] = problems
+    emit(out)
+    check(not problems, f"train_sp: {problems}")
+    return out
+
+
+def _ddp_sp_run(rank: int, world: int, devices, arch: str,
+                steps: int, timed: bool) -> dict:
+    """One run of a DDP_SP rank: ``steps`` bf16 steps under kernels cuda
+    with Adam on its rows of the global batches, the launches counted
+    from zero over them and the weights' digest after each; rank 0 keeps
+    its first gradients; with ``timed`` the steady step by wall time and
+    each card's busy time."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="DDP_SP", model_arch=arch, dtype="bf16",
+                      kernels="cuda", device="cuda", batch_size=TRAIN_BATCH,
+                      wgrad_taps=arch == "milesial")
+    strategy = build_strategy(cfg, devices=devices)
+    check(strategy.name == "DDP_SP" and strategy.devices == list(devices),
+          f"DDP_SP strategy on {strategy.devices}")
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED)))
+    opt = _FirstGrads(make_optimizer(
+        model.parameters(), strategy.lr_for(cfg.learning_rate),
+        cfg.weight_decay), list(model.named_parameters()))
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    rows = slice(rank * TRAIN_BATCH, (rank + 1) * TRAIN_BATCH)
+    placed = [{k: torch.from_numpy(v[rows]).to(devices[0])
+               for k, v in batch.items()}
+              for batch in _ddp_batches(world, TRAIN_BATCH, steps)]
+    _sync_all(devices)
+    kernels.reset_launches()
+    losses, digests = [], []
+    for batch in placed:
+        losses.append(float(step(batch)))
+        digests.append(_digest(model.state_dict().values()))
+    _sync_all(devices)
+    out = {"losses": losses, "weights_digests": digests,
+           "launches": dict(kernels.LAUNCHES),
+           "mesh": strategy.mesh_shape(),
+           "grads_digest": _digest(opt.grads.values())}
+    if rank == 0:
+        out["grads"] = opt.grads
+    if timed:
+        out["step_ms"] = _wall_ms(lambda: step(placed[0]), SP_TIMED_STEPS,
+                                  warmup=2, devices=devices)
+        out["busy_ms_by_card"] = _busy_ms_by_device(
+            lambda: step(placed[0]), 2, devices=devices)
+    del model, step, opt, strategy
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of a multi-process DDP_SP phase (``chip_smoke.py
+    --ddp-sp-rank R WORLD BACKEND DIR``): joins a ``backend`` group over a
+    file store in ``DIR`` with its SP_SHARDS row shards on cuda:0 under
+    gloo (``train_ddp_sp_gloo2``) and on ``cuda:(R·n + s)`` under nccl
+    (``--cards``: the layout ``runtime.stage_devices`` gives a torchrun
+    rank), runs DDP_SP_RUNS (``_ddp_sp_run``) and writes its results to
+    ``DIR/result_R.pt``."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if backend == "gloo":
+        devices = [torch.device("cuda", 0)] * SP_SHARDS
+    else:
+        devices = [torch.device("cuda", rank * SP_SHARDS + s)
+                   for s in range(SP_SHARDS)]
+    torch.cuda.set_device(devices[0])
+    _warm_profiler()
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        runs = {}
+        for arch, steps in DDP_SP_RUNS:
+            def run(arch=arch, steps=steps):
+                return _ddp_sp_run(rank, world, devices, arch, steps,
+                                   timed=backend == "nccl")
+            runs[arch] = (_with_wgrad_backend(run) if arch == "milesial"
+                          else run())
+        torch.save({"runs": runs, "devices": [str(d) for d in devices]},
+                   os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _check_ddp_sp_ranks(ranks, world: int) -> tuple:
+    """Per run: the ranks' losses, weights after every step and first
+    gradients bitwise equal; each rank's launches once per shard and site
+    and step; and rank 0's first step against one SP step of the same
+    weights on the joint batch over ``[cuda:0] * SP_SHARDS`` (the
+    per-process faithful scale), within SP_BOUNDS' bf16 bounds: each rank's
+    shards round their weight gradients to bf16 over other rows than the
+    joint batch's shards do. Returns the rows and the disagreements."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    out, problems = {}, []
+    for arch, steps in DDP_SP_RUNS:
+        rs = [r["runs"][arch] for r in ranks]
+        r0 = rs[0]
+        want = {n: c * steps for n, c in
+                _sp_expected_per_step(arch, SP_SHARDS).items()}
+
+        def sp_step(arch=arch):
+            model, step, _ = _sp_model_step("SP", arch, [dev] * SP_SHARDS,
+                                            "bf16")
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     _ddp_batches(world, TRAIN_BATCH, 1)[0].items()}
+            loss = float(step(batch))
+            grads = {n: p.grad.float().cpu()
+                     for n, p in model.named_parameters()}
+            del model, step
+            torch.cuda.empty_cache()
+            return loss, grads
+
+        with _deterministic_cudnn():
+            sp_loss, sp_grads = (_with_wgrad_backend(sp_step)
+                                 if arch == "milesial" else sp_step())
+        row = {
+            "steps": steps, "losses": [r["losses"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "launches_expected": want, "mesh": r0["mesh"],
+            "weights_bitwise_equal_every_step": all(
+                r["weights_digests"] == r0["weights_digests"] for r in rs),
+            "first_grads_bitwise_equal": all(
+                r["grads_digest"] == r0["grads_digest"] for r in rs),
+            "sp_step_loss": sp_loss,
+            "sp_loss_rel_err": abs(r0["losses"][0] - sp_loss) / sp_loss,
+            "sp_grad_max_err_rel_to_tensor_max": max(
+                float((r0["grads"][n] - g).abs().max() / g.abs().max())
+                for n, g in sp_grads.items()),
+            "sp_grad_max_rel_l2": max(
+                float((r0["grads"][n] - g).norm() / g.norm())
+                for n, g in sp_grads.items()),
+        }
+        for name in ("step_ms", "busy_ms_by_card"):
+            if name in r0:
+                row[name] = [r[name] for r in rs]
+        out[arch] = row
+        if not row["weights_bitwise_equal_every_step"]:
+            problems.append(f"{arch}: the ranks' weights differ")
+        if not row["first_grads_bitwise_equal"]:
+            problems.append(f"{arch}: the ranks' gradients differ")
+        if any(l != row["losses"][0] for l in row["losses"]):
+            problems.append(f"{arch}: the ranks' losses differ")
+        for counts in row["launches"]:
+            if any(counts[n] != c for n, c in want.items()):
+                problems.append(f"{arch}: launched {counts}, expected {want}")
+        if row["mesh"] != {"data": world, "spatial": SP_SHARDS}:
+            problems.append(f"{arch}: mesh {row['mesh']}")
+        if not _within_sp_bounds(arch, "bf16", {
+                "loss_rel_err": row["sp_loss_rel_err"],
+                "grad_max_err_rel_to_tensor_max":
+                    row["sp_grad_max_err_rel_to_tensor_max"],
+                "grad_max_rel_l2": row["sp_grad_max_rel_l2"]}):
+            problems.append(f"{arch}: step 1 off the SP step: {row}")
+    return out, problems
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase_train_ddp_sp_gloo2(tmp: str) -> dict:
+    """``-t DDP_SP`` on the one card: two ranks (``ddp_sp_rank``, two
+    processes this script spawns) in a gloo group, each row-sharding its
+    ``-b 4`` over ``[cuda:0, cuda:0]``, through DDP_SP_RUNS: the bf16
+    UNet and milesial ``--wgrad-taps`` under DPT_WGRAD_BACKEND=pallas.
+    Checked as ``_check_ddp_sp_ranks`` says, K1, K1-bwd, K2, K3 and K5
+    counted per rank from zero over each run. A correctness phase: the
+    ranks share the card and their gradients cross the host."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ranks, wall_s = _run_ddp_ranks(
+        os.path.join(tmp, "train_ddp_sp_gloo2"), 2, "gloo", "--ddp-sp-rank")
+    runs, problems = _check_ddp_sp_ranks(ranks, 2)
+    out = {"phase": "train_ddp_sp_gloo2", "world": 2, "backend": "gloo",
+           "shards": SP_SHARDS, "devices": [r["devices"] for r in ranks],
+           "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
+           "runs": runs, "problems": problems}
+    emit(out)
+    check(not problems, f"train_ddp_sp_gloo2: {problems}")
+    return out
+
+
+def phase_sp_cards(tmp: str, world: int) -> dict:
+    """``-t SP`` and ``-t DDP_SP`` across four cards (``--cards 4``), where
+    the halo rows cross NVLink. SP over the ``world`` cards: one float32
+    step of the full-width UNet against a one-card singleGPU step
+    (SP_BOUNDS' f32 bounds), then the bf16 UNet and milesial
+    ``--wgrad-taps`` at ``-b 4`` by wall time with each card's busy time,
+    beside the singleGPU step on one card, and images / s. DDP_SP as two
+    NCCL ranks of two cards each (``ddp_sp_rank``, cuda:2r and cuda:2r+1),
+    checked as ``train_ddp_sp_gloo2`` and timed; then ``torchrun
+    --standalone --nproc_per_node 2`` of the training CLI with ``-t
+    DDP_SP``, which must exit 0 with the DDP_SP artifacts, both ranks in
+    its log and a manifest that says ``2x2x1@sp``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+
+    dev0 = torch.device("cuda", 0)
+    cards = [torch.device("cuda", i) for i in range(world)]
+    out = {"phase": "sp_cards", "world": world,
+           "cards": [torch.cuda.get_device_name(i) for i in range(world)]}
+    problems = []
+    batch = _synthetic_batch(TRAIN_BATCH, dev0)
+    with _deterministic_cudnn():
+        runs = {}
+        for method, devs in (("SP", cards), ("singleGPU", [dev0])):
+            model, step, _ = _sp_model_step(method, "unet", devs, "f32")
+            runs[method] = {"loss": float(step(batch)),
+                            "grads": _grads(model), "stats": {}}
+            del model, step
+            torch.cuda.empty_cache()
+    row = _step_against(runs["SP"], runs["singleGPU"])
+    if not _within_sp_bounds("unet", "f32", row):
+        problems.append(f"SP over {world} cards, f32 UNet: {row}")
+    out["f32_unet_against_single_gpu"] = row
+    del runs
+    for arch in ("unet", "milesial"):
+        def timed(arch=arch):
+            rows = {}
+            for label, method, devs in (("cards", "SP", cards),
+                                        ("one_card", "singleGPU", [dev0])):
+                _, step, strategy = _sp_model_step(method, arch, devs,
+                                                   "bf16", lr=1e-4)
+                ms = _wall_ms(lambda: step(batch), SP_TIMED_STEPS, warmup=2)
+                rows[label] = {
+                    "step_ms": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+                    "busy_ms_by_card": _busy_ms_by_device(
+                        lambda: step(batch), 2)}
+                del step, strategy
+                torch.cuda.empty_cache()
+            rows["speedup"] = (rows["one_card"]["step_ms"]
+                               / rows["cards"]["step_ms"])
+            return rows
+
+        out[f"bf16_{arch}"] = (_with_wgrad_backend(timed)
+                               if arch == "milesial" else timed())
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "sp_cards_ddp_sp"), 2,
+                                   "nccl", "--ddp-sp-rank")
+    out["ddp_sp"], rank_problems = _check_ddp_sp_ranks(ranks, 2)
+    out["ddp_sp_devices"] = [r["devices"] for r in ranks]
+    out["ddp_sp_wall_s"] = wall_s
+    problems += rank_problems
+    for arch, r in out["ddp_sp"].items():
+        r["images_per_s"] = 2 * TRAIN_BATCH * 1e3 / max(r["step_ms"])
+
+    sub = os.path.join(tmp, "ddp_sp_torchrun")
+    os.makedirs(sub)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for key in TORCHRUN_ENV:
+        env.pop(key, None)
+    w, h = IMAGE_WH
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "distributedpytorch_tpu_torch",
+           "-t", "DDP_SP", "--synthetic", "24", "-v", "34",
+           "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w), str(h),
+           "--kernels", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=sub, env=env, capture_output=True,
+                          text=True, timeout=600)
+    out["torchrun_s"] = time.perf_counter() - t0
+    out["torchrun_rc"] = proc.returncode
+    out["torchrun_wrote"] = wrote = _files(sub)
+    log = ""
+    if "logs/DDP_SP.log" in wrote:
+        with open(os.path.join(sub, "logs", "DDP_SP.log")) as f:
+            log = f.read()
+    out["torchrun_ranks_logged"] = sum(f"(rank {r} of 2)" in log
+                                       for r in range(2))
+    if proc.returncode != 0:
+        problems.append(f"torchrun -t DDP_SP exited {proc.returncode}: "
+                        f"{proc.stderr[-3000:]}")
+    elif "checkpoints/DDP_SP.pth" not in wrote:
+        problems.append(f"torchrun -t DDP_SP wrote {wrote}")
+    else:
+        out["torchrun_topology"] = load_native(os.path.join(
+            sub, "checkpoints", "DDP_SP.pt"))["manifest"]["topology"]
+        if out["torchrun_topology"]["mesh_spec"] != "2x2x1@sp":
+            problems.append(f"DDP_SP manifest {out['torchrun_topology']}")
+    if out["torchrun_ranks_logged"] != 2:
+        problems.append(f"{out['torchrun_ranks_logged']} of 2 ranks logged")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, f"sp_cards: {problems}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -5524,9 +6219,10 @@ def _finish(device: dict) -> None:
 def main_cards(world: int) -> int:
     """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
     across N cards (``phase_ddp_cards``), ``-t DDP_MP`` as two ranks of
-    two cards (``phase_ddp_mp_cards``), ``-t MP`` across 2 and 4 of them
-    (``phase_mp_cards``) and ``-t DP`` across all N (``phase_dp_cards``),
-    and no other phase."""
+    two cards (``phase_ddp_mp_cards``), ``-t SP`` across N and ``-t
+    DDP_SP`` as two ranks of two cards (``phase_sp_cards``), ``-t MP``
+    across 2 and 4 of them (``phase_mp_cards``) and ``-t DP`` across all N
+    (``phase_dp_cards``), and no other phase."""
     import torch
 
     check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
@@ -5535,6 +6231,7 @@ def main_cards(world: int) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_ddp_cards(tmp, world)
         phase_ddp_mp_cards(tmp)
+        phase_sp_cards(tmp, world)
     phase_mp_cards(world)
     phase_dp_cards(world)
     _finish(device)
@@ -5616,6 +6313,8 @@ def main(argv) -> int:
         return ddp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--ddp-mp-rank"]:
         return ddp_mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--ddp-sp-rank"]:
+        return ddp_sp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
     if argv[:1] == ["--dp-eager-step"]:
@@ -5644,6 +6343,8 @@ def main(argv) -> int:
         milesial_mp = phase_train_milesial_mp(tmp)
         train_dp = phase_train_dp(tmp, train)
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
+        train_sp = phase_train_sp(tmp, train)
+        ddp_sp = phase_train_ddp_sp_gloo2(tmp)
         run_control = phase_train_run_control(tmp)["launches"]
         graphs = phase_train_graph_strategies(tmp)
         phase_probes(tmp)
@@ -5701,6 +6402,24 @@ def main(argv) -> int:
         return {key: row["launches"][0][name]
                 for key, row in ddp_mp["runs"].items()
                 if name in row["launches_expected"]}
+
+    def sp_launches(name):
+        """-t SP on [cuda:0, cuda:0] (train_sp): per step of each model,
+        counted by name in the profiler's trace, and the wrappers' count
+        over the short CLI run (one step and one eval batch)."""
+        out = {f"{arch}_step": train_sp[arch]["traced_per_step"][name]
+               for arch in ("unet", "milesial")
+               if name in train_sp[arch]["traced_per_step"]}
+        if name in train_sp["cli"]["launches"]:
+            out["cli_run"] = train_sp["cli"]["launches"][name]
+        return out
+
+    def ddp_sp_launches(name):
+        """Rank 0's launches over each run of train_ddp_sp_gloo2 (two
+        steps of -b 4 over two row shards)."""
+        return {arch: row["launches"][0][name]
+                for arch, row in ddp_sp["runs"].items()
+                if name in row["launches_expected"]}
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -5715,6 +6434,8 @@ def main(argv) -> int:
             "mp_launches": None,
             "dp_launches": None,
             "ddp_mp_launches": None,
+            "sp_launches": None,
+            "ddp_sp_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -5738,6 +6459,9 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats"),
+            # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
+            "sp_launches": sp_launches("loss_stats"),
+            "ddp_sp_launches": ddp_sp_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -5758,6 +6482,9 @@ def main(argv) -> int:
             "dp_launches": train_dp["launches"]["loss_stats_bwd"],
             # per rank and run of -t DDP_MP (train_ddp_mp_gloo2)
             "ddp_mp_launches": ddp_mp_launches("loss_stats_bwd"),
+            # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
+            "sp_launches": sp_launches("loss_stats_bwd"),
+            "ddp_sp_launches": ddp_sp_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -5779,6 +6506,9 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act"),
             "dp_launches": train_dp["milesial_launches"]["bn_act"],
             "ddp_mp_launches": ddp_mp_launches("bn_act"),
+            # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
+            "sp_launches": sp_launches("bn_act"),
+            "ddp_sp_launches": ddp_sp_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -5803,6 +6533,9 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "bn_act_bwd"),
             "dp_launches": train_dp["milesial_launches"]["bn_act_bwd"],
             "ddp_mp_launches": ddp_mp_launches("bn_act_bwd"),
+            # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
+            "sp_launches": sp_launches("bn_act_bwd"),
+            "ddp_sp_launches": ddp_sp_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -5823,6 +6556,9 @@ def main(argv) -> int:
             "mp_launches": by_schedule(milesial_mp, "wgrad_9tap"),
             "dp_launches": train_dp["milesial_launches"]["wgrad_9tap"],
             "ddp_mp_launches": ddp_mp_launches("wgrad_9tap"),
+            # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
+            "sp_launches": sp_launches("wgrad_9tap"),
+            "ddp_sp_launches": ddp_sp_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -578,18 +578,25 @@ def jax_topology(strategy: str, mesh: Mapping[str, int], precision: str
                  ) -> Dict[str, Any]:
     """The JAX manifest's ``topology`` of a run: ``save_topology``'s
     process and device counts and the strategy's name, ``mesh`` axes,
-    ``mesh_spec`` (``DxMxS``) and ``precision``. ``process_count`` is the
-    mesh's data axis where each data row is a process (DDP, DDP_MP)."""
+    ``mesh_spec`` and ``precision``. ``mesh_spec`` is JAX's
+    ``canonical_spec``, ``DxMxS``, the model axis being a ``spatial`` one
+    under SP and DDP_SP, marked ``@sp`` (JAX mesh.py:257-267).
+    ``process_count`` is the mesh's data axis where each data row is a
+    process (DDP, DDP_MP, DDP_SP)."""
     mesh = {str(k): int(v) for k, v in mesh.items()}
     devices = int(np.prod(list(mesh.values()))) if mesh else 1
-    processes = mesh.get("data", 1) if strategy in ("DDP", "DDP_MP") else 1
+    processes = (mesh.get("data", 1)
+                 if strategy in ("DDP", "DDP_MP", "DDP_SP") else 1)
+    spatial = mesh.get("spatial", 1)
+    model = spatial if spatial > 1 else mesh.get("model", 1)
     return {
         "process_count": processes,
         "device_count": devices,
         "strategy": strategy,
         "mesh": mesh,
-        "mesh_spec": f"{mesh.get('data', 1)}x{mesh.get('model', 1)}x"
-                     f"{mesh.get('stage', 1)}",
+        "mesh_spec": f"{mesh.get('data', 1)}x{model}x"
+                     f"{mesh.get('stage', 1)}" + ("@sp" if spatial > 1
+                                                   else ""),
         "precision": precision,
     }
 

@@ -21,8 +21,9 @@ class TrainConfig:
     JAX package's (reference train.py:18-24 for the optimization ones)."""
 
     # -- strategy -----------------------------------------------------------
-    # "singleGPU", "DP", "DDP", "MP" or "DDP_MP" (parallel/strategy.py);
-    # the mesh specs, SP, DDP_SP, TP and FSDP are not ported yet
+    # "singleGPU", "DP", "DDP", "MP", "DDP_MP", "SP" or "DDP_SP"
+    # (parallel/strategy.py); the mesh specs, TP and FSDP are not ported
+    # yet
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------
@@ -35,7 +36,8 @@ class TrainConfig:
     # the reference's `(batch_size * loss).backward()` while recording the
     # unscaled loss
     faithful_loss_scaling: bool = True
-    # reference quirk 2: DDP (and DDP_MP) multiplies the lr by the world size
+    # reference quirk 2: DDP (and DDP_MP, DDP_SP) multiplies the lr by the
+    # world size
     # (train_utils.py:199)
     ddp_lr_world_size_scaling: bool = True
     # ReduceLROnPlateau(mode='min') on the val loss
@@ -155,6 +157,15 @@ class TrainConfig:
     kernel_priors: Optional[str] = None
     # "cuda" or "cpu"; None = "cuda", which raises without a card
     device: Optional[str] = None
+
+    @property
+    def model_levels(self) -> int:
+        """The model's 2x downsamplings, which the spatial strategies
+        divide H by (JAX config.py:140-149): one pool per width for the
+        UNet, one fewer for milesial, whose first width is the stem."""
+        if self.model_arch == "milesial":
+            return (len(self.model_widths) if self.model_widths else 5) - 1
+        return len(self.model_widths) if self.model_widths else 4
 
     @property
     def val_fraction(self) -> float:

@@ -38,8 +38,8 @@ from distributedpytorch_tpu_torch.dist.collectives import all_reduce_sum
 from distributedpytorch_tpu_torch.models.unet import (
     Conv2d,
     ConvTranspose2d,
-    center_crop,
     conv3x3,
+    crop_skip,
     init_convs_,
 )
 from distributedpytorch_tpu_torch.ops.kernels import fused_bn_act
@@ -244,7 +244,7 @@ class Up(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = self.up(x)
-        skip = center_crop(skip, (x.shape[2], x.shape[3]))
+        skip = crop_skip(skip, x, self.conv.double_conv[0].halo is not None)
         return self.conv(torch.cat([skip, x], dim=1))
 
 

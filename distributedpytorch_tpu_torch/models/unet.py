@@ -50,6 +50,20 @@ def center_crop(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
     return x[:, :, dh : dh + th, dw : dw + tw]
 
 
+def crop_skip(skip: torch.Tensor, x: torch.Tensor,
+              row_shard: bool) -> torch.Tensor:
+    """``skip`` center-cropped to ``x``'s (H, W). On a row shard
+    (``row_shard``: the block after it takes a halo) the crop must be a
+    no-op, since a crop would take each shard's rows apart: equal shards
+    of whole 2×2 pools give the skip and the upsampled ``x`` equal rows,
+    and anything else raises."""
+    if row_shard and skip.shape[2:] != x.shape[2:]:
+        raise ValueError(
+            f"row shard: a skip of {tuple(skip.shape[2:])} against "
+            f"{tuple(x.shape[2:])} upsampled would be cropped per shard")
+    return center_crop(skip, (x.shape[2], x.shape[3]))
+
+
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator]) -> None:
     """flax's ``lecun_normal``: a normal truncated at two standard
@@ -79,19 +93,32 @@ def init_convs_(model: nn.Module,
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose float32 weights are cast to the input's dtype."""
+    """``nn.Conv2d`` whose float32 weights are cast to the input's dtype.
+
+    ``halo`` is set on a 3×3 conv for the forward of a row shard
+    (``parallel/spatial.py``): the shard's rows then come with one
+    neighbour row above and below (``halo.with_halo``), and the conv runs
+    VALID in H and SAME in W, the whole image's conv on this shard's
+    rows. Unset (None) nothing changes."""
+
+    halo = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        padding = self.padding
+        if self.halo is not None:
+            x = self.halo.with_halo(x)
+            padding = (0, self.padding[1])
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+                        padding, self.dilation, self.groups)
 
 
 class TapsConv2d(Conv2d):
     """A 3×3, padding-1 ``Conv2d`` with the same parameters whose weight
     gradient runs through the 9-tap backward (``conv3x3_same_taps``); the
-    forward is the same convolution. ``wgrad_cuda`` is the kernel policy's
-    leave for K5 there."""
+    forward is the same convolution, on a row shard's halo'd rows with
+    ``halo`` set. ``wgrad_cuda`` is the kernel policy's leave for K5
+    there."""
 
     def __init__(self, *args, wgrad_cuda: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -100,7 +127,11 @@ class TapsConv2d(Conv2d):
         self.wgrad_cuda = wgrad_cuda
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv3x3_same_taps(x, self.weight.to(x.dtype), self.wgrad_cuda)
+        halo = self.halo is not None
+        if halo:
+            x = self.halo.with_halo(x)
+        y = conv3x3_same_taps(x, self.weight.to(x.dtype), self.wgrad_cuda,
+                              halo=halo)
         if self.bias is None:
             return y
         return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
@@ -179,9 +210,9 @@ class Decoder(nn.Module):
     def level(self, x: torch.Tensor, skip: torch.Tensor, i: int
               ) -> torch.Tensor:
         x = getattr(self, f"deconv{i + 1}")(x)
-        skip = center_crop(skip, (x.shape[2], x.shape[3]))
-        x = torch.cat([skip, x], dim=1)
-        return getattr(self, f"conv{i + 1}")(x)
+        block = getattr(self, f"conv{i + 1}")
+        skip = crop_skip(skip, x, block.conv_block[0].halo is not None)
+        return block(torch.cat([skip, x], dim=1))
 
 
 class UNet(nn.Module):

@@ -75,22 +75,35 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 class Conv3x3SameTaps(torch.autograd.Function):
     """``F.conv2d(x, weight, padding=1)`` for an NCHW ``x`` and an OIHW
-    3×3 ``weight``, with the backward described in the module docstring."""
+    3×3 ``weight``, with the backward described in the module docstring.
+
+    With ``halo`` ``x`` is a row shard's rows with one neighbour row above
+    and below (B, C, h + 2, W) and the conv is VALID in H, SAME in W
+    (``padding=(0, 1)``), h rows out. Its input gradient is that conv's
+    own, h + 2 rows (the halo rows' part flows back to the neighbours
+    through the halo's node). The weight gradient needs no other kernel:
+    ``dy`` padded by one zero row at the top and the bottom (B, h + 2, W,
+    Co) makes the taps' one-pixel zero pad give
+    Σ_y x_halo[y + ky] · dy[y], the shard's exact share of dW, from K5 or
+    the einsums alike."""
 
     @staticmethod
-    def forward(ctx, x, weight, wgrad_cuda):
+    def forward(ctx, x, weight, wgrad_cuda, halo=False):
         ctx.save_for_backward(x, weight)
         ctx.wgrad_cuda = bool(wgrad_cuda)
-        return F.conv2d(x, weight, padding=1)
+        ctx.halo = bool(halo)
+        return F.conv2d(x, weight, padding=(0 if halo else 1, 1))
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
-            # kt[ci, co, ky, kx] = k[co, ci, 2 − ky, 2 − kx]
+            # kt[ci, co, ky, kx] = k[co, ci, 2 − ky, 2 − kx]; a VALID-in-H
+            # forward has a FULL-in-H input gradient
             kt = weight.flip(2, 3).transpose(0, 1)
-            dx = F.conv2d(dy, kt, padding=1).to(x.dtype)
+            dx = F.conv2d(dy, kt, padding=(2 if ctx.halo else 1, 1)
+                          ).to(x.dtype)
         dw = None
         if ctx.needs_input_grad[1]:
             cin, cout = x.shape[1], weight.shape[0]
@@ -98,17 +111,24 @@ class Conv3x3SameTaps(torch.autograd.Function):
                       if wgrad_uses_kernel(cin, cout, x.device,
                                            ctx.wgrad_cuda)
                       else wgrad_9tap_reference)
-            taps = tap_fn(_nhwc(x), _nhwc(dy))  # (3, 3, Cin, Cout)
+            dy_taps = _nhwc(dy)
+            if ctx.halo:
+                # (B, h, W, Co) -> (B, h + 2, W, Co), zero first and last row
+                dy_taps = F.pad(dy_taps, (0, 0, 0, 0, 1, 1))
+            taps = tap_fn(_nhwc(x), dy_taps)  # (3, 3, Cin, Cout)
             # HWIO → OIHW: a permute, no flip
             dw = taps.permute(3, 2, 0, 1).to(weight.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def conv3x3_same_taps(x: torch.Tensor, weight: torch.Tensor,
-                      wgrad_cuda: bool = False) -> torch.Tensor:
+                      wgrad_cuda: bool = False,
+                      halo: bool = False) -> torch.Tensor:
     """The public taps conv: every model call site comes here, so the
-    ``DPT_WGRAD_TAPS_MIN_HW`` gate applies uniformly. Below the gate the
-    conv is the plain one, forward and backward."""
-    if x.shape[2] * x.shape[3] >= _taps_min_hw():
-        return Conv3x3SameTaps.apply(x, weight, wgrad_cuda)
-    return F.conv2d(x, weight, padding=1)
+    ``DPT_WGRAD_TAPS_MIN_HW`` gate applies uniformly (to a row shard's
+    own plane with ``halo``, whose ``x`` carries two halo rows). Below the
+    gate the conv is the plain one, forward and backward."""
+    rows = x.shape[2] - (2 if halo else 0)
+    if rows * x.shape[3] >= _taps_min_hw():
+        return Conv3x3SameTaps.apply(x, weight, wgrad_cuda, halo)
+    return F.conv2d(x, weight, padding=(0 if halo else 1, 1))

@@ -12,6 +12,12 @@ global cotangent, DDP's sum over ranks) is ordinary autograd.
 ``make_sharded_fused_loss`` (fused_loss.py:91-117): the statistics of
 each rank's shard, summed over ranks, then ``loss_from_stats``.
 
+``make_row_sharded_loss`` is the loss of row shards on several devices
+of one process (``-t SP``, and each rank of ``-t DDP_SP``,
+``parallel/spatial.py``): K1 per shard, the sums added in shard order on
+the first device (and over the ranks under DDP_SP), the loss once, and
+K1-bwd per shard on the cotangent copied back.
+
 ``stats_function`` and ``loss_and_cotangent`` serve the paths that sum
 the statistics of several slices of the batch before one loss: gradient
 accumulation's chunks and the pipeline's microbatches (under ``-t
@@ -24,7 +30,7 @@ four sums.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -37,6 +43,7 @@ from distributedpytorch_tpu_torch.ops.losses import (
     bce_dice_stats,
     loss_from_stats,
 )
+from distributedpytorch_tpu_torch.utils.device import copy_all_to
 
 
 class BCEDiceStatsFused(torch.autograd.Function):
@@ -96,5 +103,51 @@ def make_sharded_loss(fused: bool) -> Callable:
 
     def loss(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         return loss_from_stats(all_reduce_sum(stats_fn(outputs, targets)))
+
+    return loss
+
+
+def shard_targets(shards: Sequence[torch.Tensor],
+                  targets: torch.Tensor) -> List[torch.Tensor]:
+    """``targets`` (B, H, W, 1) cut into the shards' rows, each contiguous
+    on its shard's device."""
+    return [t.contiguous().to(p.device, non_blocking=True)
+            for p, t in zip(shards, targets.chunk(len(shards), dim=1))]
+
+
+def sum_on_first(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``parts`` copied to the first one's device and added in order, one
+    node a copy (``copy_all_to``), so the sum is the same whatever order
+    the devices finish in."""
+    parts = copy_all_to(list(parts), parts[0].device)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def make_row_sharded_loss(fused: bool, over_ranks: bool = False
+                          ) -> Callable:
+    """``loss(shards, targets)`` of row shards (``parallel/spatial.py``):
+    ``shards`` the NHWC predictions, shard by shard, each on its device,
+    ``targets`` the whole batch's on the first. Each shard's four
+    statistics come from ``BCEDiceStatsFused`` when ``fused`` (K1 forward
+    and K1-bwd backward on each shard's card) and from the plain
+    ``bce_dice_stats`` otherwise; they add in shard order on the first
+    device, with ``over_ranks`` (``-t DDP_SP``) then over the ranks
+    (``all_reduce_sum``), before one ``loss_from_stats``. Autograd copies
+    the cotangent back to every shard. Under ``over_ranks`` each rank's
+    gradient comes out ``world ×`` its share, as ``make_sharded_loss``'s
+    does, and the strategy's mean of the gradients over the ranks takes
+    the factor out."""
+    stats_fn = stats_function(fused)
+
+    def loss(shards: Sequence[torch.Tensor],
+             targets: torch.Tensor) -> torch.Tensor:
+        stats = sum_on_first([stats_fn(p, t) for p, t in
+                              zip(shards, shard_targets(shards, targets))])
+        if over_ranks:
+            stats = all_reduce_sum(stats)
+        return loss_from_stats(stats)
 
     return loss

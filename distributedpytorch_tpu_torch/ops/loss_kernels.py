@@ -285,6 +285,12 @@ def eval_metrics(p: torch.Tensor, t: torch.Tensor,
     """``{'loss', 'dice'}`` of the eval step from one K1 pass: BCE −
     log(soft Dice) and the hard Dice at threshold 0.5. Both stay 0-d
     tensors on the device."""
-    stats = eval_stats(p, t)
+    return metrics_from_stats(eval_stats(p, t), dice_eps)
+
+
+def metrics_from_stats(stats: torch.Tensor, dice_eps: float = DICE_EPS
+                       ) -> Dict[str, torch.Tensor]:
+    """``eval_metrics`` of the six K1 sums, which add up over slices of the
+    batch (a row shard's, ``train/steps.shard_metrics``)."""
     dice = (2.0 * stats[4] + dice_eps) / (stats[5] + dice_eps)
     return {"loss": loss_from_stats(stats[:4]), "dice": dice}

@@ -55,7 +55,7 @@ SCHEME = "symmetric-per-out-channel"
 # the hyperparameters a conv's forward reads besides its weight and bias
 _CONV_ATTRS = ("in_channels", "out_channels", "kernel_size", "stride",
                "padding", "dilation", "groups", "output_padding",
-               "padding_mode", "transposed", "wgrad_cuda")
+               "padding_mode", "transposed", "wgrad_cuda", "halo")
 
 
 def out_channel_axis(conv: nn.Module) -> int:

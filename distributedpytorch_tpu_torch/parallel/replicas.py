@@ -52,8 +52,10 @@ import threading
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from distributedpytorch_tpu_torch.dist.collectives import all_reduce_sum
 from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
 from distributedpytorch_tpu_torch.ops.precision import PerUseCasts
@@ -106,14 +108,20 @@ class _MeanOverReplicas(torch.autograd.Function):
 
 class Meeting:
     """Where the replicas' threads meet at each BatchNorm of one forward,
-    in the order the layers run (the same in every replica)."""
+    in the order the layers run (the same in every replica). With
+    ``over_ranks`` (``-t DDP_SP``, ``parallel/spatial.py``) the replicas'
+    mean is then summed over the process group's ranks, through the
+    all-reduce that DDP's BatchNorm runs, divided by the world size:
+    the moments of the global batch, on every rank alike."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device],
+                 over_ranks: bool = False):
         self.devices = list(devices)
+        self.over_ranks = over_ranks
         self._barrier = threading.Barrier(len(self.devices))
         self._local = threading.local()
-        self._moments: List = [None] * len(self.devices)
-        self._means: List = []
+        self._handed: List = [None] * len(self.devices)
+        self._results: List = []
 
     def run(self, index: int, fn, *args):
         """``fn(*args)`` as replica ``index``; a failure breaks the
@@ -125,21 +133,31 @@ class Meeting:
             self._barrier.abort()
             raise
 
-    def mean(self, moments: torch.Tensor) -> torch.Tensor:
-        """This replica's copy of the replicas' mean of ``moments``.
-        Replica 0 gathers, averages and hands out, after every replica
-        has enqueued its moments on its card's stream, which the copies
-        then follow."""
+    def meet(self, value, combine):
+        """This replica's share of ``combine(values)``, where ``values``
+        are what every replica handed in, in replica order. Replica 0
+        combines, after every replica has enqueued its value on its
+        card's stream, which the copies then follow; ``combine`` returns
+        one result per replica."""
         i = self._local.index
-        self._moments[i] = moments
+        self._handed[i] = value
         self._barrier.wait()
         if i == 0:
-            means = _MeanOverReplicas.apply(
-                *copy_all_to(self._moments, self.devices[0]))
-            self._means = [copy_to(m, d)
-                           for m, d in zip(means, self.devices)]
+            self._results = combine(list(self._handed))
         self._barrier.wait()
-        return self._means[i]
+        return self._results[i]
+
+    def mean(self, moments: torch.Tensor) -> torch.Tensor:
+        """This replica's copy of the replicas' mean of ``moments``."""
+        return self.meet(moments, self._mean_of)
+
+    def _mean_of(self, moments: list) -> list:
+        means = _MeanOverReplicas.apply(
+            *copy_all_to(moments, self.devices[0]))
+        if self.over_ranks:
+            total = all_reduce_sum(means[0]) / dist.get_world_size()
+            means = _Uses.apply(len(means), total)
+        return [copy_to(m, d) for m, d in zip(means, self.devices)]
 
 
 def _replica_uses(sources: Sequence[torch.Tensor],
@@ -213,6 +231,9 @@ class Replicated(nn.Module):
     ``remat`` each replica recomputes its forward segment by segment in
     its backward (``models.Rematerialized``)."""
 
+    #: the name of each replica's thread past the first, and its index
+    thread_name = "dpt-dp-replica"
+
     def __init__(self, module: nn.Module, devices: Sequence[torch.device],
                  casts: Optional[PerUseCasts] = None, remat: bool = False):
         super().__init__()
@@ -271,7 +292,7 @@ class Replicated(nn.Module):
                 errors[i] = exc
 
         threads = [threading.Thread(target=work, args=(i,),
-                                    name=f"dpt-dp-replica-{i}")
+                                    name=f"{self.thread_name}-{i}")
                    for i in range(1, n)]
         for t in threads:
             t.start()

@@ -1,10 +1,11 @@
 """Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``,
-``MP`` and ``DDP_MP``.
+``MP``, ``DDP_MP``, ``SP`` and ``DDP_SP``.
 
 Counterpart of ``Strategy``, ``SingleDevice``, ``DataParallel``
 (strategy.py:542-555), ``MultiProcessMixin`` (:558-693),
 ``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736),
-``HybridDataPipeline`` (:739-780) and ``build_strategy`` (:1046) of
+``HybridDataPipeline`` (:739-780), ``SpatialParallel`` (:783-808),
+``HybridDataSpatial`` (:811-843) and ``build_strategy`` (:1046) of
 ``distributedpytorch_tpu/parallel/strategy.py``.
 A strategy answers: which devices a process computes on, which samples it
 loads, the global batch, the lr, which process writes, where the model's
@@ -16,8 +17,9 @@ assignment (``_compute_batch_replica_shard``, for meshes whose data rows
 span processes) collapses to ``ShardSpec(rank, world)``. DP and MP are
 one process over a list of devices (``devices``, which may repeat one:
 the CPU tests run ``[cpu, cpu]``, a one-card check ``[cuda:0,
-cuda:0]``); so is each DDP_MP rank. The mesh specs, SP, DDP_SP, TP and
-FSDP are not ported (ROADMAP.md, Queue A).
+cuda:0]``); so is each DDP_MP rank, and SP over its shards' devices,
+and each DDP_SP rank. The mesh specs, TP and FSDP are not ported
+(ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -31,7 +33,11 @@ stage and K2, K3, K5 inside the stages, as the JAX MP does; under DP each
 replica's forward is local to its device (the JAX DP keeps XLA BatchNorm
 and XLA eval metrics there). Under DDP_MP each rank's pipeline runs them
 as MP does, K1 and K1-bwd per microbatch inside the data ranks' sum of
-the statistics, and K2 and K3 fed each microbatch's local moments.
+the statistics, and K2 and K3 fed each microbatch's local moments. Under
+SP and DDP_SP each row shard runs K1 and K1-bwd on its card, inside the
+shards' (and the ranks') sum of the statistics, K1 in eval, and
+milesial's K2, K3 and K5 fed the whole batch's moments (the JAX SP keeps
+XLA eval metrics and XLA BatchNorm there).
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
@@ -41,13 +47,16 @@ met on in its forward, and does not meet again. ``--steps-per-dispatch
 K > 1`` (one CUDA graph of K steps, ``build_multi_train_step``, from the
 trainer's own train step) runs under every strategy, DP's replica
 threads included, and is refused under a gloo group on a card.
+Under SP and DDP_SP ``--steps-per-dispatch K > 1``, ``--remat`` and
+``--grad-accum`` are refused (ROADMAP.md, Queue A item 1a′).
 ``--dtype bf16_params`` runs under
 every strategy; under DDP the gradients are averaged over the ranks in
 ``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
 which is where the compiled JAX DDP step sums them too (its gradient
 all-reduce is float32 on the CPU mesh), and DDP_MP's stage gradients are
 reduced as the f32 master gradients. Where one backward adds several uses
-of a parameter (gpipe's microbatches, DP's replicas) each use computes
+of a parameter (gpipe's microbatches, DP's replicas, SP's shards) each
+use computes
 with its own cast of the f32 master (``ops/precision.PerUseCasts``), so
 the uses add in f32.
 """
@@ -57,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -68,6 +78,7 @@ from distributedpytorch_tpu_torch.dist.collectives import sum_over_ranks_
 from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     fused_bce_dice_loss,
+    make_row_sharded_loss,
     make_sharded_loss,
 )
 from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
@@ -75,6 +86,7 @@ from distributedpytorch_tpu_torch.ops.precision import (
     REDUCE_DTYPE,
     get_policy,
     has_master_weights,
+    optimizer_grads,
     per_use_casts,
 )
 from distributedpytorch_tpu_torch.parallel.pipeline import (
@@ -84,6 +96,7 @@ from distributedpytorch_tpu_torch.parallel.pipeline import (
     make_pipeline_train_step,
 )
 from distributedpytorch_tpu_torch.parallel.replicas import Replicated
+from distributedpytorch_tpu_torch.parallel.spatial import RowSharded
 from distributedpytorch_tpu_torch.train.steps import (
     make_accum_train_step,
     make_eval_step,
@@ -611,13 +624,228 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
         return True
 
 
+#: the row shards a process puts on one device that is not the list of
+#: every visible card (the CPU, or a card named by its index)
+REPEATED_SHARDS = 2
+
+
+def _shard_devices(device) -> List[torch.device]:
+    """The devices ``-t SP`` shards over by default: every visible card
+    for ``cuda``, else ``REPEATED_SHARDS`` shards of the one device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return local_devices(dev)
+    return [dev] * REPEATED_SHARDS
+
+
+def _spatial_degree(deep_rows: int, n: int) -> int:
+    """The JAX ``SpatialParallel._mesh_layout`` rule (strategy.py:
+    797-808): n shrinks until it divides the deepest level's rows."""
+    while n > 1 and deep_rows % n:
+        n -= 1
+    return n
+
+
+def _deep_rows(config) -> int:
+    """The rows at the model's deepest level, ``H / 2^model_levels``
+    (``image_size`` is (W, H))."""
+    return config.image_size[1] // 2 ** config.model_levels
+
+
+class SpatialParallel(Strategy):
+    """``-t SP`` (JAX strategy.py:783-808): one process, each image's rows
+    split over ``devices`` (``parallel/spatial.RowSharded``), by default
+    every visible card, or two shards of the CPU (``REPEATED_SHARDS``).
+    The shard count shrinks, as the JAX mesh does, until it divides the
+    deepest level's rows, ``H / 2^model_levels``. The parameters are
+    replicated; ``config.batch_size`` is the whole batch, the lr is not
+    scaled and the ragged batch is kept. The loss runs per shard, K1 and
+    K1-bwd on each shard's card under ``--kernels cuda``, the statistics
+    added on the first device (``make_row_sharded_loss``); eval runs the
+    sharded forward with K1 per shard; milesial's BatchNorm normalizes
+    with the whole batch's moments."""
+
+    name = "SP"
+    #: whether the BatchNorm moments and the loss statistics are summed
+    #: over the ranks too (DDP_SP)
+    over_ranks = False
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        devs = ([torch.device(d) for d in devices] if devices is not None
+                else _shard_devices(config.device))
+        self.devices = devs[:_spatial_degree(_deep_rows(config), len(devs))]
+        # one process: its device is the first of the list
+        super().__init__(config, None, self.devices)
+
+    def topology(self) -> dict:
+        return {"strategy": self.name, "world": self.world,
+                "devices": len(self.devices)}
+
+    def mesh_shape(self) -> dict:
+        """The JAX mesh: its ``spatial`` axis, left out at one shard as
+        JAX drops an axis of size 1."""
+        n = len(self.devices)
+        return {"spatial": n} if n > 1 else {}
+
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The row shards; under master weights each computes with its own
+        cast of ``optimizer``'s f32 masters."""
+        return RowSharded(model, self.devices,
+                          per_use_casts(optimizer, model),
+                          over_ranks=self.over_ranks)
+
+    def train_loss(self, fused: bool) -> Callable:
+        return make_row_sharded_loss(fused, self.over_ranks)
+
+    def reduce_grads(self, model, optimizer) -> Optional[Callable]:
+        """What runs between the backward and Adam: nothing in one
+        process."""
+        return None
+
+    def build_train_step(self, model, optimizer, kernels) -> Callable:
+        return make_train_step(
+            self.wrap_model(model, optimizer), optimizer,
+            self.config.batch_size, self.config.faithful_loss_scaling,
+            loss_impl=self.train_loss(kernels.train_loss_fused),
+            reduce_grads=self.reduce_grads(model, optimizer))
+
+    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
+        raise ValueError(f"-t {self.name} does not run --grad-accum yet "
+                         f"(ROADMAP.md, Queue A item 1a′)")
+
+    def build_eval_step(self, model, kernels) -> Callable:
+        return make_eval_step(self.wrap_model(model),
+                              kernels.eval_stats_fused, sharded=True)
+
+
+def rank_shards(device) -> int:
+    """The devices each ``-t DDP_SP`` process shards over: the visible
+    cards split evenly over the node's processes (torchrun's
+    ``LOCAL_WORLD_SIZE``) for ``cuda``, else ``REPEATED_SHARDS``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return REPEATED_SHARDS
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    return max(1, torch.cuda.device_count() // max(1, local_world))
+
+
+def check_spatial_data_degree(config, world: int, per_process: int) -> int:
+    """The JAX ``HybridDataSpatial._mesh_layout`` rule (strategy.py:
+    823-843) over ``world`` processes of ``per_process`` devices each:
+    the largest spatial degree that divides the deepest rows and leaves a
+    data axis >= 2 dividing the batch, with the JAX error where there is
+    none (world 1 has none: each port process is one data row). A data
+    degree other than ``world`` raises too. Returns the spatial degree."""
+    total = world * per_process
+    best = None
+    if world > 1:
+        for sp in range(total, 0, -1):
+            if _deep_rows(config) % sp:
+                continue
+            dp = total // sp
+            while dp > 1 and config.batch_size % dp:
+                dp -= 1
+            if dp >= 2:
+                best = (dp, sp)
+                break
+    if best is None:
+        raise ValueError(
+            f"DDP_SP degenerates to plain SP: batch_size "
+            f"{config.batch_size} leaves no data axis ≥ 2 over "
+            f"{total} devices — use -t SP or raise the batch size")
+    dp, sp = best
+    if dp != world:
+        raise ValueError(
+            f"DDP_SP: batch_size {config.batch_size} over {world} processes "
+            f"of {per_process} devices gives a data degree of {dp}, not "
+            f"the {world} processes launched — launch {dp} processes, or "
+            f"use a batch size and image height that leave {world}")
+    return sp
+
+
+class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
+    """``-t DDP_SP`` (JAX strategy.py:811-843): data × spatial, one process
+    per data row, each row-sharding its batch over devices of its own,
+    ``cuda:(LOCAL_RANK·n + s)`` by default (``runtime.stage_devices``;
+    ``REPEATED_SHARDS`` shards of the CPU with ``--device cpu``), joined
+    by ``dist.runtime``. The torchrun contract of DDP
+    (``MultiProcessMixin``): ``-b`` per process, the lr times the world
+    size, the ragged batch dropped. The spatial degree is the JAX rule's
+    over world × n devices, and its data degree must be the world size
+    (``check_spatial_data_degree``): without a launcher (world 1) it
+    degenerates to plain SP and raises, before joining any group.
+
+    The loss statistics and milesial's BatchNorm moments are summed over
+    the shards, then over the ranks (``over_ranks``). Each rank's
+    gradient then comes out ``world ×`` its share (the all-reduce's
+    backward sums the cotangent over the ranks, DDP difference 4 of the
+    ROADMAP), and the ranks' mean of the gradients, after the shards'
+    sum, takes the factor out: the global loss's gradient, on every rank
+    (``reduce_grads``; under master weights the f32 master gradients, in
+    ``REDUCE_DTYPE``)."""
+
+    name = "DDP_SP"
+    over_ranks = True
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        per_process = (len(devices) if devices is not None
+                       else rank_shards(config.device))
+        sp = check_spatial_data_degree(
+            config, info.num_processes if info is not None
+            else runtime.planned_world(), per_process)
+        if info is None:
+            info = runtime.initialize_from_env(
+                devices[0] if devices else config.device, per_process)
+        devs = ([torch.device(d) for d in devices] if devices is not None
+                else runtime.stage_devices(config.device, info.local_rank,
+                                           per_process))
+        self.devices = devs[:sp]
+        Strategy.__init__(self, config, dataclasses.replace(
+            info, device=self.devices[0]))
+
+    @property
+    def drop_last_train(self) -> bool:
+        return True
+
+    def mesh_shape(self) -> dict:
+        return {"data": self.world} | super().mesh_shape()
+
+    def reduce_grads(self, model, optimizer) -> Callable:
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def reduce() -> None:
+            sum_over_ranks_(optimizer_grads(optimizer, params), mean=True)
+
+        return reduce
+
+
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
-    """The run control's limit of the port, with its ROADMAP pointer:
-    once the strategy knows its ``device`` and its group's ``backend``,
+    """The run control's limits of the port, with their ROADMAP pointers:
+    under SP and DDP_SP ``--steps-per-dispatch K > 1``, ``--remat`` and
+    ``--grad-accum`` (ROADMAP.md, Queue A item 1a′); once the strategy
+    knows its ``device`` and its group's ``backend``,
     ``--steps-per-dispatch K > 1`` is refused under gloo on a card."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
+    if method in SPATIAL_METHODS:
+        refused = []
+        if k > 1:
+            refused.append(f"--steps-per-dispatch {k} (one CUDA graph of "
+                           f"K steps over the shards' threads)")
+        if config.remat:
+            refused.append("--remat (a shard's recompute would meet its "
+                           "neighbours again: it needs the halos and "
+                           "moments it kept, as DP's kept_moments)")
+        if int(config.grad_accum) > 1:
+            refused.append(f"--grad-accum {config.grad_accum}")
+        if refused:
+            raise ValueError(
+                f"-t {method} does not run {' or '.join(refused)} yet "
+                f"(ROADMAP.md, Queue A item 1a′)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -630,15 +858,17 @@ def check_run_control(config, device: Optional[torch.device] = None,
 
 STRATEGIES = {cls.name: cls for cls in (
     SingleDevice, DataParallel, DistributedDataParallel, Pipeline,
-    HybridDataPipeline)}
+    HybridDataPipeline, SpatialParallel, HybridDataSpatial)}
+#: the methods that shard image rows, whose run control is limited
+SPATIAL_METHODS = ("SP", "DDP_SP")
 
 
 def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
                    devices: Optional[Sequence[torch.device]] = None
                    ) -> Strategy:
     """``config.train_method`` → its strategy, on ``devices`` where one is
-    given (DP, MP and each DDP_MP rank; every method takes its first as
-    its device). The mesh specs, SP, DDP_SP, TP and FSDP raise with the
+    given (DP, MP, SP and each DDP_MP and DDP_SP rank; every method takes
+    its first as its device). The mesh specs, TP and FSDP raise with the
     ROADMAP pointer, and so do the limits of ``check_run_control``."""
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
@@ -652,6 +882,6 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
 def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{', '.join(sorted(STRATEGIES))}; the mesh specs, SP, DDP_SP, "
-        f"TP and FSDP are still to port (ROADMAP.md, Queue A)"
+        f"{', '.join(sorted(STRATEGIES))}; the mesh specs, TP and FSDP "
+        f"are still to port (ROADMAP.md, Queue A)"
     )

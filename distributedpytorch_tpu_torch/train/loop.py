@@ -1,7 +1,8 @@
 """The trainer: epoch loop, eval, scheduler, checkpoints and run control.
 
 Counterpart of ``distributedpytorch_tpu/train/loop.py`` (``Trainer``,
-``fit``) for ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` / ``DDP_MP``. A
+``fit``) for ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` / ``DDP_MP`` /
+``SP`` / ``DDP_SP``. A
 strategy (``parallel/strategy.py``) says what differs between them, and
 builds the train and eval steps:
 
@@ -33,7 +34,10 @@ builds the train and eval steps:
   under any other and at any stage count;
 * under DDP_MP: DDP's contract with MP's layout, one pipeline per rank:
   each rank places its batch on its stage 0's device, and rank 0 writes,
-  its state dict gathering every stage's parameters.
+  its state dict gathering every stage's parameters;
+* under SP: one process, the batch placed on the first shard's device,
+  the model there, the rows split over the shards in each step; under
+  DDP_SP DDP's contract with one SP per rank.
 
 A stateful model's running statistics (milesial's BatchNorm) are buffers
 of its state dict, so the native checkpoint saves and restores them; the
@@ -207,13 +211,47 @@ def check_config(config: TrainConfig) -> None:
         )
 
 
+#: profiler sessions ``warm_profiler`` tries before one that records no
+#: device activity for work that surely ran on the card counts as a fault
+PROFILER_TRIES = 3
+_profiler_warm = False
+
+
+def warm_profiler(device: torch.device) -> int:
+    """Start the profiler's device tracing (CUPTI) once in this process,
+    before a session whose trace is kept: a process's first session on the
+    card can come back without any device activity. Profiles a small
+    kernel on ``device`` until the trace holds it and returns the
+    sessions that took (0 once the process is warm); raises after
+    ``PROFILER_TRIES``."""
+    global _profiler_warm
+    from torch.profiler import ProfilerActivity, profile
+
+    if _profiler_warm:
+        return 0
+    x = torch.ones(1024, device=device)
+    for tries in range(1, PROFILER_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            x.mul_(1.0)
+            torch.cuda.synchronize(device)
+        if any(evt.device_type == torch.autograd.DeviceType.CUDA
+               for evt in prof.events()):
+            _profiler_warm = True
+            return tries
+    raise RuntimeError(f"the profiler saw no kernel on {device} in "
+                       f"{PROFILER_TRIES} sessions")
+
+
 class ProfileWindow:
     """One ``torch.profiler.profile`` over the dispatches that touch the
     steps ``[lo, hi)`` (``steps`` None: every dispatch of the run), CPU
     and CUDA activities, written as a chrome trace into ``out_dir`` when
     it stops. ``tick(step, size)`` comes before each dispatch of ``size``
     steps after ``step`` completed ones; ``stop(step)`` ends a window
-    still open (at the end of the run)."""
+    still open (at the end of the run). On the card the process's
+    profiler is warmed up first (``warm_profiler``), so the window's
+    trace holds the card's kernels in a fresh process too."""
 
     def __init__(self, steps: Optional[Tuple[int, int]], out_dir: str,
                  method: str, device: torch.device):
@@ -245,6 +283,7 @@ class ProfileWindow:
                 "profiler at a time; the window does not nest")
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
+            warm_profiler(self.device)
             activities.append(ProfilerActivity.CUDA)
         logger.info("profiler: capturing a trace from step %d%s → %s", step,
                     "" if self.steps is None

@@ -28,6 +28,11 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
   ``backward_scale`` gives (``batch_size`` with float32 parameters, 1
   under master weights, whose step widens and then scales), and
   ``optimizer_grads`` are what the step reads;
+* under ``-t SP`` and ``-t DDP_SP`` the strategy's module returns the
+  predictions as row shards, one per device (``parallel/spatial.py``):
+  the loss and the eval metrics run per shard (``shard_metrics``), and
+  under DDP_SP the gradients are averaged over the ranks between the
+  backward and Adam (``reduce_grads``);
 * ``make_multi_train_step`` runs K whole steps per call: on the card one
   CUDA graph of them, over every card the strategy's step computes on,
   on the CPU K plain steps.
@@ -47,9 +52,15 @@ from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     fused_bce_dice_loss,
     loss_and_cotangent,
+    shard_targets,
     stats_function,
+    sum_on_first,
 )
-from distributedpytorch_tpu_torch.ops.loss_kernels import eval_metrics
+from distributedpytorch_tpu_torch.ops.loss_kernels import (
+    eval_metrics,
+    eval_stats,
+    metrics_from_stats,
+)
 from distributedpytorch_tpu_torch.ops.losses import (
     bce_dice_loss,
     dice_coefficient,
@@ -59,6 +70,7 @@ from distributedpytorch_tpu_torch.ops.precision import (
     backward_scale,
     optimizer_grads,
 )
+from distributedpytorch_tpu_torch.parallel.spatial import gather_rows
 
 Batch = Dict[str, torch.Tensor]
 
@@ -87,6 +99,7 @@ def make_train_step(
     train_loss_fused: bool = False,
     loss_impl: Optional[Callable] = None,
     remat: bool = False,
+    reduce_grads: Optional[Callable[[], None]] = None,
 ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> unscaled loss``: forward, loss, backward, Adam.
 
@@ -96,7 +109,8 @@ def make_train_step(
     ``model`` is the DDP-wrapped module, whose backward all-reduces the
     gradients (the strategy wraps the rematerialized model there); the
     faithful scale stays the per-process ``batch_size``
-    (strategy.py:303-314)."""
+    (strategy.py:303-314). ``reduce_grads()`` runs between the backward
+    and Adam (``-t DDP_SP``'s mean over the ranks)."""
     grad_scale = float(batch_size) if faithful_loss_scaling else 1.0
     if loss_impl is None:
         loss_impl = fused_bce_dice_loss if train_loss_fused else bce_dice_loss
@@ -108,6 +122,8 @@ def make_train_step(
         preds = forward(batch["image"])
         loss = loss_impl(preds, prep_mask(batch["mask"]))
         scaled(loss, backward_scale(optimizer, grad_scale)).backward()
+        if reduce_grads is not None:
+            reduce_grads()
         optimizer.step()
         return loss.detach()
 
@@ -388,15 +404,34 @@ def batch_metrics(preds: torch.Tensor, target: torch.Tensor,
             "dice": dice_coefficient(preds, target)}
 
 
-def make_eval_step(model: torch.nn.Module, eval_stats_fused: bool = False
+def shard_metrics(shards: List[torch.Tensor], target: torch.Tensor,
+                  eval_stats_fused: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """``batch_metrics`` of row shards' predictions (``parallel/spatial``)
+    against the whole batch's ``target``, on the first shard's device:
+    with ``eval_stats_fused`` K1 per shard on its card, its six sums (the
+    hard Dice counts among them) added in shard order, then the metrics
+    once; otherwise the plain metrics of the predictions put together."""
+    if eval_stats_fused:
+        stats = sum_on_first([eval_stats(p, t) for p, t in
+                              zip(shards, shard_targets(shards, target))])
+        return metrics_from_stats(stats)
+    return batch_metrics(gather_rows(shards, shards[0].device), target,
+                         False)
+
+
+def make_eval_step(model: torch.nn.Module, eval_stats_fused: bool = False,
+                   sharded: bool = False
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """``step(batch) -> batch_metrics`` of the model in eval mode."""
+    """``step(batch) -> batch_metrics`` of the model in eval mode; with
+    ``sharded`` ``model`` returns row shards, and ``shard_metrics`` reads
+    them."""
+    metrics = shard_metrics if sharded else batch_metrics
 
     @torch.no_grad()
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         preds = model(batch["image"])
-        return batch_metrics(preds, prep_mask(batch["mask"]),
-                             eval_stats_fused)
+        return metrics(preds, prep_mask(batch["mask"]), eval_stats_fused)
 
     return eval_step

@@ -340,3 +340,38 @@ def test_the_trainer_resolves_pt_then_ckpt_then_pth(tmp_path):
         (tmp_path / f"run{ext}").write_bytes(b"")
         assert checkpoint.resolve_checkpoint(
             "run", str(tmp_path), exts=checkpoint.TRAIN_EXTS).endswith(ext)
+
+
+def test_a_jax_ckpt_resumes_with_the_runs_weight_decay(tmp_path):
+    """optax keeps no weight decay in its state, so a JAX ``.ckpt``
+    resumed by the port's trainer takes the resuming run's
+    ``TrainConfig.weight_decay`` (``checkpoint.payload_from_jax``), which
+    no CLI flag carries: resumed under 0.5 every param group of Adam holds
+    0.5, under the default 1e-8. The port's own checkpoint of that state
+    carries its 0.5 (torch's optimizer state keeps the param groups), so a
+    native resume under the default config steps bit for bit as the JAX
+    file's resume under 0.5, and the default's step differs."""
+    jcfg = _jax_config(str(tmp_path / "jax"), "unet", "f32")
+    JaxTrainer(jcfg).train()
+    pcfg = _port_config(str(tmp_path / "port"), "unet", "f32", epochs=2)
+    os.makedirs(pcfg.checkpoint_dir)
+    os.replace(os.path.join(jcfg.checkpoint_dir, "singleGPU.ckpt"),
+               os.path.join(pcfg.checkpoint_dir, "singleGPU.ckpt"))
+    default = Trainer(dataclasses.replace(pcfg, checkpoint_name="singleGPU"))
+    assert {g["weight_decay"] for g in default.optimizer.param_groups} == {
+        1e-8}
+    decayed = Trainer(dataclasses.replace(pcfg, checkpoint_name="singleGPU",
+                                          weight_decay=0.5))
+    assert {g["weight_decay"] for g in decayed.optimizer.param_groups} == {
+        0.5}
+    decayed.save(1)
+    native = Trainer(dataclasses.replace(
+        pcfg, checkpoint_name=decayed.checkpoint_path))
+    assert {g["weight_decay"] for g in native.optimizer.param_groups} == {
+        0.5}
+    _, got = _port_step(decayed)
+    _, want = _port_step(native)
+    for name, value in want.items():
+        assert torch.equal(got[name], value), name
+    _, plain = _port_step(default)
+    assert not all(torch.equal(plain[n], v) for n, v in want.items())

@@ -1346,6 +1346,38 @@ def test_the_profiler_window_traces_the_loss_kernels(cuda_device, tmp_path,
                for n in names) == 2
 
 
+def test_the_profiler_window_traces_the_loss_kernels_in_a_fresh_process(
+        cuda_device, tmp_path):
+    """The training CLI as a child process, whose first profiler session is
+    the window's (``python -m distributedpytorch_tpu_torch --synthetic 16
+    -b 4 -e 1 --kernels cuda --profile-steps 2:4 --profile-dir D``): its
+    chrome trace holds K1 and K1-bwd twice each, steps 3 and 4. A
+    process's first session once traced no kernel at all; the window
+    warms the profiler up first (``train/loop.warm_profiler``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "profile"
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedpytorch_tpu_torch",
+         "--synthetic", "16", "-b", "4", "-e", "1", "--kernels", "cuda",
+         "--profile-steps", "2:4", "--profile-dir", str(out)],
+        cwd=tmp_path, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (path,) = out.iterdir()
+    assert path.name == "singleGPU.rank0.steps2-4.pt.trace.json"
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert sum(bool(re.search(r"\bstats_kernel\b", n)) for n in names) == 2
+    assert sum(bool(re.search(r"\bstats_bwd_kernel\b", n))
+               for n in names) == 2
+
+
 def test_a_ckpt_round_trip_resumes_on_the_card_bitwise(cuda_device,
                                                        tmp_path):
     """A milesial bf16_params run on the card, its checkpoint through

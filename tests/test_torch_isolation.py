@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither jax, flax, msgpack nor the JAX package, a DDP rank it spawns
-loads none of them, nor does a ``-t MP`` or ``-t DP`` run of the training
-CLI, nor a ``quantize`` and ``predict`` run, and its entry points (the
+loads none of them, nor does a ``-t MP``, ``-t DP`` or ``-t SP`` run of
+the training CLI, nor a ``quantize`` and ``predict`` run, and its entry points (the
 serve engine, the trainer and the training CLI) refuse to fall back to
 the CPU on a machine without a card unless asked."""
 
@@ -77,6 +77,7 @@ def test_port_imports_no_jax_and_refuses_a_silent_cpu_fallback():
                            "dist", "dist.runtime", "dist.collectives",
                            "parallel", "parallel.strategy",
                            "parallel.pipeline", "parallel.replicas",
+                           "parallel.spatial",
                            "predict", "quantize", "ops.quant",
                            "utils.plotting", "ops.msgpack", "ops.probes"):
         assert (f"distributedpytorch_tpu_torch.{trainer_module}"
@@ -164,6 +165,34 @@ def test_mp_and_dp_runs_never_load_jax(tmp_path):
     assert "LEAKED []" in out.stdout
     for method in ("MP", "DP"):
         assert (tmp_path / "checkpoints" / f"{method}.pth").exists()
+
+
+def test_sp_runs_never_load_jax(tmp_path):
+    """``-t SP`` (two row shards of the CPU) of the UNet and of milesial
+    with ``--wgrad-taps`` through the training CLI with ``--device cpu``,
+    in a process of their own: both train, write their weights, and load
+    no module of the jax family."""
+    common = ["-t", "SP", "--synthetic", "16", "--image-size", "24", "16",
+              "--model-widths", "8", "16", "-b", "4", "-v", "25", "-e", "1",
+              "--device", "cpu", "--num-workers", "0"]
+    milesial = ["--model", "milesial", "--wgrad-taps", "--checkpoint-dir",
+                "m", *common]
+    probe = (
+        "import sys\n"
+        "from distributedpytorch_tpu_torch import cli\n"
+        f"cli.main({common!r})\n"
+        f"cli.main({milesial!r})\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu')]\n"
+        "print('LEAKED', leaked)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout
+    assert (tmp_path / "checkpoints" / "SP.pth").exists()
+    assert (tmp_path / "m" / "SP.pth").exists()
 
 
 def test_quantize_and_predict_runs_never_load_jax(tmp_path):

@@ -18,10 +18,11 @@ modules this process loaded. Scenarios:
   ``--dtype bf16_params``, the f32 master weights);
 * ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
   and the gradients the optimizer receives;
-* ``pipeline_steps``: train steps of ``-t DDP_MP``, the rank's S stages
-  all on the CPU, from given weights: as ``steps``, with the state after
-  every step, each BatchNorm's ``global_stats`` flag and the stages'
-  devices;
+* ``pipeline_steps``: train steps of ``-t DDP_MP`` (or the job's
+  ``method``, ``DDP_SP``), the rank's S stages (or row shards) all on the
+  CPU, from given weights: as ``steps``, with the state after every step,
+  each BatchNorm's ``global_stats`` flag, the strategy's devices and its
+  mesh;
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
   its epochs; the losses, the val metrics, the lr, the final state dict
   and what each rank wrote into a directory of its own; how many
@@ -153,7 +154,8 @@ def run_pipeline_steps(job, rank, world):
     )
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
 
-    cfg = TrainConfig(train_method="DDP_MP", device="cpu", **job["config"])
+    cfg = TrainConfig(train_method=job.get("method", "DDP_MP"), device="cpu",
+                      **job["config"])
     strategy = build_strategy(cfg)
     policy = get_policy(cfg)
     # as run_steps: the master seeded from the f32 weights, then the
@@ -180,7 +182,8 @@ def run_pipeline_steps(job, rank, world):
                        for m in getattr(optimizer, "master", ())],
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
-            "devices": [str(d) for d in strategy.devices]}
+            "devices": [str(d) for d in strategy.devices],
+            "mesh": strategy.mesh_shape()}
 
 
 @contextlib.contextmanager
