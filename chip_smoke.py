@@ -64,11 +64,18 @@ K1-bwd, K2, K3 and K5 per shard counted by name in the trace, the float32
 step against its plain versions in place, each kernel against its plain
 version on a shard's shapes, the step's ms, host enqueue and idle share
 beside one shard and singleGPU, and a short CLI run whose manifest says
-``1x2x1@sp`` (``train_sp``); ``-t DDP_SP`` as two ranks on the one card,
-two processes this script spawns (``--ddp-sp-rank R 2 gloo DIR``), each
-row-sharding its ``-b 4`` over ``[cuda:0, cuda:0]``: weights bitwise equal
-after every step, step 1 against one SP step of the joint batch
-(``train_ddp_sp_gloo2``). Then the trainer's run control
+``1x2x1@sp`` (``train_sp``); SP's run control there: both models as one
+CUDA graph of 4 steps against their eager steps, bitwise, each kernel
+counted per replay in the graph's nodes and in the trace, eager against
+graph step, host and
+idle share; both under ``--remat`` against the plain SP step, bitwise,
+with their step memory; the float32 UNet's ``--grad-accum 2`` against
+singleGPU's (``sp_run_control``); ``-t DDP_SP`` as two ranks on the one
+card, two processes this script spawns (``--ddp-sp-rank R 2 gloo DIR``),
+each row-sharding its ``-b 4`` over ``[cuda:0, cuda:0]``: weights bitwise
+equal after every step, step 1 against one SP step of the joint batch,
+each run again under ``--remat`` bitwise the plain run, and K = 2
+refused over gloo (``train_ddp_sp_gloo2``). Then the trainer's run control
 (``train_run_control``): the UNet with ``--steps-per-dispatch 4`` (one
 CUDA graph of 4 whole steps, K1 and K1-bwd inside it) against the same 16
 steps at K = 1, bitwise; milesial and the UNet with ``--remat`` against
@@ -83,8 +90,8 @@ under ``-t DDP`` at world 1 (NCCL) in bf16 and bf16_params, under ``-t
 MP`` on ``[cuda:0, cuda:0]`` with gpipe (two epochs, an eval between the
 replays, then resumed with ``-c``) and 1f1b, and milesial ``--wgrad-taps``
 under MP gpipe, each against K = 1 with the same capturable Adam, bitwise,
-a replay's kernels counted by name in the profiler's trace, step, host
-enqueue and idle share of both; the gloo DDP_MP ranks check that K = 4
+a replay's kernels counted by name in the graph's nodes and in the
+profiler's trace, step, host enqueue and idle share of both; the gloo DDP_MP ranks check that K = 4
 over gloo on a card is refused. Then the slice of the probes, the
 profiler window, the checkpoint interchange and the preemption stop:
 ``ops/probes.run_probes`` on the card, each kernel built, launched in a
@@ -114,7 +121,8 @@ beside the one-card pipeline, and a ``torchrun --nproc_per_node 2``
 launch of the training CLI (``ddp_mp_cards``); ``-t SP`` across the four
 cards (the halo rows cross NVLink) against one card, and ``-t DDP_SP`` as
 two NCCL ranks of two cards each plus a ``torchrun --nproc_per_node 2``
-launch of the training CLI (``sp_cards``); then ``-t MP`` across 2
+launch of the training CLI (``sp_cards``), both also as CUDA graphs of 4
+steps against their eager steps; then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
 one-card step (``dp_cards``). Every one of them also runs its path as
@@ -142,6 +150,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import http.client
 import json
@@ -3158,10 +3167,13 @@ DP_GRAPH_BATCH = {"unet": 8, "milesial": 4}
 DP_GRAPH_STACKS = 3
 
 
-def _dp_config(arch: str, batch_size: int, **kw):
+def _strategy_config(method: str, arch: str, batch_size: int = TRAIN_BATCH,
+                     dtype: str = "bf16", **kw):
+    """``method``'s config of the full-width ``arch`` under kernels cuda on
+    the card, milesial with ``--wgrad-taps``."""
     from distributedpytorch_tpu_torch.config import TrainConfig
 
-    return TrainConfig(train_method="DP", model_arch=arch, dtype="bf16",
+    return TrainConfig(train_method=method, model_arch=arch, dtype=dtype,
                        kernels="cuda", device="cuda", batch_size=batch_size,
                        wgrad_taps=arch == "milesial", **kw)
 
@@ -3178,36 +3190,41 @@ def _dp_expected_per_replay(arch: str, replicas: int) -> dict:
     return want
 
 
-def _dp_graph_run(arch: str, batch_size: int, devices) -> dict:
-    """``-t DP`` of ``arch`` over ``devices`` at K = GS_K against its eager
-    steps from the seed's weights, with the same capturable Adam
-    (``_graph_and_eager``: cuDNN deterministic, the losses and a digest
-    of the weights and buffers after every stack, guards on every card),
-    a replay's kernels counted by name in the profiler's trace, then both
-    timed (``_timed_sides``: step and host ms per step, each card's busy
-    ms, the idle share, ``cudaGraphLaunch``'s host ms). Emits the row and
-    fails unless the graph is bitwise its eager steps, the guards are
-    intact and a replay ran ``_dp_expected_per_replay``."""
+def _graph_run(cfg, devices, want: dict) -> dict:
+    """``cfg``'s strategy (``-t DP`` or ``-t SP``) over ``devices`` at K =
+    GS_K against its eager steps from the seed's weights, with the same
+    capturable Adam (``_graph_and_eager``: cuDNN deterministic, the
+    losses and a digest of the weights and buffers after every stack,
+    guards on every card), a replay's kernels counted by name in the
+    graph's nodes and in the profiler's trace (``_replay_launches``), then
+    both timed (``_timed_sides``: step and host ms per step, each card's
+    busy ms, the idle share as ``bubble``, ``cudaGraphLaunch``'s host
+    ms). Emits the row and fails unless the graph is bitwise its eager
+    steps, the guards are intact and a replay launches ``want``
+    (``_check_replay``)."""
     import torch
 
-    want = _dp_expected_per_replay(arch, len(devices))
+    arch = cfg.model_arch
 
     def run():
-        stacks = _rolled_stacks(_synthetic_batch(GS_K * batch_size,
+        stacks = _rolled_stacks(_synthetic_batch(GS_K * cfg.batch_size,
                                                  devices[0]),
                                 GS_K, DP_GRAPH_STACKS)
-        sides = _graph_and_eager(
-            _graph_build(_dp_config(arch, batch_size), devices), stacks,
-            GS_K)
+        with _keeping_graphs():
+            sides = _graph_and_eager(_graph_build(cfg, devices), stacks,
+                                     GS_K)
         multi = sides["graph"]["multi"]
-        row = {"phase": "dp_graph", "arch": arch, "batch": batch_size,
+        launches = _replay_launches(multi, lambda: multi(stacks[0]),
+                                    tuple(want))
+        row = {"phase": f"{cfg.train_method.lower()}_graph", "arch": arch,
+               "batch": cfg.batch_size,
                "devices": [str(d) for d in devices], "k": GS_K,
                "cudnn_deterministic": True,
                "bitwise_equal_to_eager": sides["bitwise_equal"],
                "guards_intact": all(sides[m]["guards_intact"]
                                     for m in ("eager", "graph")),
-               "graph_launches_per_replay": _traced_launches(
-                   lambda: multi(stacks[0]), tuple(want)),
+               "graph_launches_per_replay": launches["nodes"],
+               "traced_launches_per_replay": launches["traced"],
                "expected_per_replay": want,
                **_timed_sides(sides, stacks[0], GS_K, devices),
                "device": torch.cuda.get_device_name(0)}
@@ -3215,25 +3232,31 @@ def _dp_graph_run(arch: str, batch_size: int, devices) -> dict:
         torch.cuda.empty_cache()
         return row
 
-    row = _with_wgrad_backend(run)
+    row = _with_wgrad_backend(run) if arch == "milesial" else run()
     emit(row)
-    what = f"DP {arch} graph on {row['devices']}"
+    what = f"{cfg.train_method} {arch} graph on {row['devices']}"
     check(row["bitwise_equal_to_eager"] and row["guards_intact"],
           f"{what}: off its eager steps, or wrote into eager memory")
-    check(row["graph_launches_per_replay"] == want,
-          f"{what}: a replay ran {row['graph_launches_per_replay']}, not "
-          f"{want}")
+    _check_replay(what, {"nodes": row["graph_launches_per_replay"],
+                         "traced": row["traced_launches_per_replay"]}, want)
     return row
 
 
-def _dp_remat_run(devices) -> dict:
-    """milesial ``--wgrad-taps`` under ``-t DP --remat`` over ``devices``
-    against the plain DP step, bf16, full width, batch
-    DP_GRAPH_BATCH["milesial"], SGD at lr 0 (the weights stay, the
-    gradients are kept), cuDNN deterministic: the loss, every gradient
-    and the running statistics bitwise equal, K2 twice per BatchNorm and
-    replica (the recompute) and K3 once, the peak memory above the
-    step's start below the plain step's, and both steps' ms."""
+def _dp_graph_run(arch: str, batch_size: int, devices) -> dict:
+    """``-t DP`` of ``arch`` over ``devices`` as one CUDA graph of GS_K
+    steps against its eager steps (``_graph_run``)."""
+    return _graph_run(_strategy_config("DP", arch, batch_size), devices,
+                      _dp_expected_per_replay(arch, len(devices)))
+
+
+def _remat_run(method: str, arch: str, devices, want: dict) -> dict:
+    """``arch`` under ``-t {method} --remat`` over ``devices`` against the
+    plain step of ``method``, bf16, full width, ``-b 4``, SGD at lr 0 (the
+    weights stay, the gradients are kept), cuDNN deterministic: the loss,
+    every gradient and the running statistics bitwise equal, the remat
+    step's launches ``want`` (milesial's K2 twice per BatchNorm, the
+    recompute's, K3 and K5 once), the peak memory above the step's start
+    below the plain step's, and both steps' ms."""
     import torch
 
     from distributedpytorch_tpu_torch.models import create_model
@@ -3241,40 +3264,33 @@ def _dp_remat_run(devices) -> dict:
     from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
 
-    b = DP_GRAPH_BATCH["milesial"]
-
     def one(remat: bool) -> dict:
-        cfg = _dp_config("milesial", b, remat=remat)
+        cfg = _strategy_config(method, arch, remat=remat)
         strategy = build_strategy(cfg, devices=devices)
         model = strategy.place_model(create_model(
             cfg, generator=torch.Generator().manual_seed(SEED)))
         step = strategy.build_train_step(
             model, torch.optim.SGD(model.parameters(), lr=0.0),
             get_kernel_policy("cuda"))
-        batch = _synthetic_batch(b, devices[0])
+        batch = _synthetic_batch(TRAIN_BATCH, devices[0])
         kernels.reset_launches()
         loss = float(step(batch))
         torch.cuda.synchronize()
         out = {"loss": loss, "launches": dict(kernels.LAUNCHES),
-               "grads": _grads(model),
-               "stats": {n: t.clone() for n, t in model.named_buffers()
-                         if "running" in n}}
+               "grads": _grads(model), "stats": _running_stats(model)}
         out.update(_peak_step_bytes(step, batch))
         out["step_ms"] = cuda_ms(lambda: step(batch), 3, warmup=1)
         del model, step
         torch.cuda.empty_cache()
         return out
 
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        plain, remat = _with_wgrad_backend(
-            lambda: (one(False), one(True)))
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    n = len(devices)
-    row = {"phase": "dp_remat", "arch": "milesial", "batch": b,
-           "devices": [str(d) for d in devices],
+    def both():
+        with _deterministic_cudnn():
+            return one(False), one(True)
+
+    plain, remat = _with_wgrad_backend(both) if arch == "milesial" else both()
+    row = {"phase": f"{method.lower()}_remat", "arch": arch,
+           "batch": TRAIN_BATCH, "devices": [str(d) for d in devices],
            "cudnn_deterministic": True,
            "loss_bitwise_equal": remat["loss"] == plain["loss"],
            "grads_bitwise_equal": all(
@@ -3285,23 +3301,33 @@ def _dp_remat_run(devices) -> dict:
                for k, t in plain["stats"].items()),
            "launches_per_step": {"plain": plain["launches"],
                                  "remat": remat["launches"]},
-           "expected_remat_per_step": {"bn_act": 36 * n,
-                                       "bn_act_bwd": 18 * n,
-                                       "wgrad_9tap": 13 * n},
+           "expected_remat_per_step": want,
            **{key: {"plain": plain[key], "remat": remat[key]}
               for key in ("peak_bytes", "step_bytes", "step_ms")},
            "device": torch.cuda.get_device_name(0)}
+    row["step_bytes_share"] = (row["step_bytes"]["remat"]
+                               / row["step_bytes"]["plain"])
     emit(row)
+    what = f"{method} {arch} remat"
     check(row["loss_bitwise_equal"] and row["grads_bitwise_equal"]
           and row["running_stats_bitwise_equal"],
-          f"DP remat against the plain DP step: {row}")
+          f"{what} against the plain {method} step: {row}")
     got = row["launches_per_step"]["remat"]
-    check(all(got[k] == v for k, v in row["expected_remat_per_step"].items()),
-          f"DP remat launched {got}, expected "
-          f"{row['expected_remat_per_step']}")
+    check(all(got[k] == v for k, v in want.items()),
+          f"{what} launched {got}, expected {want}")
     check(row["step_bytes"]["remat"] < row["step_bytes"]["plain"],
-          f"DP remat does not lower the step's memory: {row['step_bytes']}")
+          f"{what} does not lower the step's memory: {row['step_bytes']}")
     return row
+
+
+def _dp_remat_run(devices) -> dict:
+    """milesial ``--wgrad-taps`` under ``-t DP --remat`` over ``devices``
+    against the plain DP step (``_remat_run``): K2 twice per BatchNorm
+    and replica, K3 and K5 once."""
+    n = len(devices)
+    return _remat_run("DP", "milesial", devices,
+                      {"bn_act": 36 * n, "bn_act_bwd": 18 * n,
+                       "wgrad_9tap": 13 * n})
 
 
 def _sync_all(devices=None) -> None:
@@ -3357,11 +3383,136 @@ KERNEL_SYMBOLS = {"serve_mask": "serve_mask_kernel",
 LOSS_KERNELS = ("loss_stats", "loss_stats_bwd")
 
 
+#: traces ``_traced_launches`` takes of one call: the profiler can drop a
+#: kernel's record from a busy trace (a replay of a graph of thousands of
+#: kernels lost one or two of them on an H100, late in a long process,
+#: while its results stayed bitwise its eager steps'), and never adds
+#: one; so a replay's exact count is its graph's nodes (``_graph_kernels``)
+TRACES_PER_COUNT = 3
+
+
 def _traced_launches(fn, names=LOSS_KERNELS) -> dict:
     """``{counter name: n}``: the kernels of ``names`` that the card ran
     during one call of ``fn``, counted by function name in the profiler's
-    trace, not by the wrappers' counters."""
-    return _traced_call(fn, names)[1]
+    trace, not by the wrappers' counters: each name's largest count over
+    TRACES_PER_COUNT traces, one call of ``fn`` each."""
+    counts = [_traced_call(fn, names)[1] for _ in range(TRACES_PER_COUNT)]
+    return {name: max(c[name] for c in counts) for name in names}
+
+
+@contextlib.contextmanager
+def _keeping_graphs():
+    """Within the block every ``torch.cuda.CUDAGraph()`` is made with
+    ``keep_graph=True``: it keeps its cudaGraph_t, whose nodes
+    ``_graph_kernels`` reads, and is instantiated at its first replay."""
+    import torch
+
+    made = torch.cuda.CUDAGraph
+
+    def keeping(keep_graph: bool = False):
+        return made(keep_graph=True)
+
+    torch.cuda.CUDAGraph = keeping
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def _kernel_identifier(symbol: str) -> str:
+    """The kernel's own name in a mangled symbol, without its namespaces,
+    template arguments or parameters
+    (``_ZN12_GLOBAL__N_113bn_act_kernelI13__nv_bfloat16EEv...`` →
+    ``bn_act_kernel``); a symbol that is not mangled as it is."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    i = 3 if symbol[2:3] in ("N", "L") else 2
+    ident = symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while j < len(symbol) and symbol[j].isdigit():
+            j += 1
+        ident, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+    return ident
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of the CUDA driver API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _graph_kernels(graph, names=LOSS_KERNELS) -> dict:
+    """``{counter name: n}``: the kernel nodes of ``names`` in ``graph``
+    (a ``torch.cuda.CUDAGraph`` made under ``_keeping_graphs``), by
+    function name through the CUDA driver: what each replay launches,
+    since a replay runs every node of its graph."""
+    import re
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    for fn, args in (
+            ("cuGraphGetNodes", [ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_size_t)]),
+            ("cuGraphNodeGetType", [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_int)]),
+            ("cuGraphKernelNodeGetParams_v2", [
+                ctypes.c_void_p, ctypes.POINTER(_KernelNodeParams)]),
+            ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p),
+                               ctypes.c_void_p]),
+            ("cuKernelGetName", [ctypes.POINTER(ctypes.c_char_p),
+                                 ctypes.c_void_p])):
+        getattr(cu, fn).argtypes = args
+
+    def call(fn, *args):
+        err = getattr(cu, fn)(*args)
+        check(err == 0, f"{fn}: CUDA driver error {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(n))
+    symbols = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", node, ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", node, ctypes.byref(params))
+        name = ctypes.c_char_p()
+        # a node holds a function, or else a library's kernel
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name), params.func)
+        else:
+            call("cuKernelGetName", ctypes.byref(name), params.kern)
+        symbols.append(_kernel_identifier(name.value.decode()))
+    return {name: sum(bool(re.fullmatch(KERNEL_SYMBOLS[name], s))
+                      for s in symbols)
+            for name in names}
+
+
+def _replay_launches(multi, fn, names) -> dict:
+    """A replay's kernels of ``names``, twice: ``nodes``, the kernel nodes
+    of the graph ``multi`` (a ``MultiStep`` captured under
+    ``_keeping_graphs``) replays, and ``traced``, what the card ran during
+    one call of ``fn`` by the profiler's trace (``_traced_launches``)."""
+    return {"nodes": _graph_kernels(multi._graph, names),
+            "traced": _traced_launches(fn, names)}
+
+
+def _check_replay(what: str, launches: dict, want: dict) -> None:
+    """A replay launches exactly ``want``: its graph holds those kernel
+    nodes, and the trace saw each of them run, never more than the graph
+    holds (a trace of a large replay can lose a record, never add one)."""
+    nodes, traced = launches["nodes"], launches["traced"]
+    check(nodes == want,
+          f"{what}: a replay's graph holds {nodes}, not {want}")
+    check(all(0 < traced[name] <= nodes[name] for name in want),
+          f"{what}: the trace of a replay saw {traced} of the graph's "
+          f"{nodes}")
 
 
 def _traced_call(fn, names) -> tuple:
@@ -4083,7 +4234,8 @@ def _rc_graph_run(tmp: str, name: str, k: int, capturable: bool, dev
                   ) -> dict:
     """One run of ``_rc_graph``: 16 steps at K = ``k``, the losses, the
     weights, the launches, and (but for the plain Adam) the step's
-    timings."""
+    timings; a replay's kernels from its kept graph and the trace
+    (``_replay_launches``), an eager step's from the trace."""
     import numpy as np
     import torch
 
@@ -4097,7 +4249,8 @@ def _rc_graph_run(tmp: str, name: str, k: int, capturable: bool, dev
         if k == 1 and capturable:
             _capturable_(trainer.optimizer)
         kernels.reset_launches()
-        result = trainer.train()
+        with _keeping_graphs():
+            result = trainer.train()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         out = {
@@ -4120,9 +4273,12 @@ def _rc_graph_run(tmp: str, name: str, k: int, capturable: bool, dev
 
             def fn():
                 return trainer.train_step(batch)
-        if name != "k1_plain_adam":
-            # one replay of the graph (K = 4), one eager step (K = 1)
+        if name == "k4":
+            out["replay_launches"] = _replay_launches(trainer.multi_step,
+                                                      fn, LOSS_KERNELS)
+        elif name == "k1":
             out["traced_launches_per_call"] = _traced_launches(fn)
+        if name != "k1_plain_adam":
             out["step_ms"] = cuda_ms(fn, 4, warmup=2) / k
             out["host_enqueue_ms_per_step"] = _host_enqueue_ms(fn) / k
             wall = _wall_ms(fn, 4, 1) / k
@@ -4164,8 +4320,10 @@ def _rc_graph_report(runs: dict) -> dict:
             for a, b in zip(k4["losses"], plain["losses"])),
         "weights_max_err_rel_to_tensor_max_vs_k1_plain_adam": weight_err(
             k4["weights"], plain["weights"]),
-        # counted by name in the profiler's trace of one call
-        "graph_launches_per_replay": k4["traced_launches_per_call"],
+        # a replay's: the graph's kernel nodes and the profiler's trace of
+        # one call; an eager step's: the trace
+        "graph_launches_per_replay": k4["replay_launches"]["nodes"],
+        "traced_launches_per_replay": k4["replay_launches"]["traced"],
         "k1_step_launches_traced": ref["traced_launches_per_call"],
         "cudnn_deterministic": True,
         # the wrappers' counts over the run: K = 4 counts its warm-up's
@@ -4180,12 +4338,11 @@ def _rc_graph_report(runs: dict) -> dict:
     }
     emit(report)
     check(k4["steps"] == ref["steps"] == 16, f"{k4['steps']} steps")
-    check(report["graph_launches_per_replay"] == {"loss_stats": RC_K,
-                                                  "loss_stats_bwd": RC_K}
-          and report["k1_step_launches_traced"] == {"loss_stats": 1,
-                                                    "loss_stats_bwd": 1},
-          f"traced: a replay ran {report['graph_launches_per_replay']}, "
-          f"an eager step {report['k1_step_launches_traced']}")
+    _check_replay("K = 4 graph", k4["replay_launches"],
+                  {"loss_stats": RC_K, "loss_stats_bwd": RC_K})
+    check(report["k1_step_launches_traced"] == {"loss_stats": 1,
+                                                "loss_stats_bwd": 1},
+          f"traced: an eager step ran {report['k1_step_launches_traced']}")
     # K = 1: 16 steps and 4 eval batches; K = 4: the first stack's eager
     # warm-up, the capture of the second, and the eval batches
     check(ref["launches"]["loss_stats"] == 16 + 4
@@ -4702,7 +4859,9 @@ def _gs_measure(trainer, k: int, names) -> dict:
     """The steady step of ``trainer`` at K = ``k`` (one graph replay of
     ``k`` steps, or one eager step): step ms by CUDA events, host enqueue
     ms, wall and busy ms per step, the card's idle share, and the
-    kernels of ``names`` one call ran, counted by name in the trace."""
+    kernels of ``names`` one call ran: counted by name in the trace of
+    an eager step, and in the graph's nodes and the trace of a replay
+    (``_replay_launches``)."""
     import numpy as np
 
     if k > 1:
@@ -4718,9 +4877,11 @@ def _gs_measure(trainer, k: int, names) -> dict:
 
         def fn():
             return trainer.train_step(batch)
-    out = {"traced_launches_per_call": _traced_launches(fn, names),
-           "step_ms": cuda_ms(fn, 4, warmup=2) / k,
-           "host_enqueue_ms_per_step": _host_enqueue_ms(fn) / k}
+    out = ({"replay_launches": _replay_launches(trainer.multi_step, fn,
+                                                names)} if k > 1 else
+           {"traced_launches_per_call": _traced_launches(fn, names)})
+    out.update(step_ms=cuda_ms(fn, 4, warmup=2) / k,
+               host_enqueue_ms_per_step=_host_enqueue_ms(fn) / k)
     wall = _wall_ms(fn, 4, 1) / k
     busy = _busy_ms_by_device(fn, 2).get(0, 0.0) / k
     out.update(wall_ms_per_step=wall, device_busy_ms_per_step=busy or None,
@@ -4732,7 +4893,8 @@ def _gs_trainer_run(run: str, argv, k: int, names, measure: bool,
                     devices=None) -> dict:
     """One trainer of a graph-strategies run: built from ``argv`` at K =
     ``k`` (K = 1 with capturable Adam), trained, its losses, weights,
-    buffers and launches kept; then measured (``_gs_measure``)."""
+    buffers and launches kept; then measured (``_gs_measure``). Its graph
+    is kept (``_keeping_graphs``) for ``_graph_kernels``."""
     import torch
 
     from distributedpytorch_tpu_torch.ops import kernels
@@ -4745,7 +4907,8 @@ def _gs_trainer_run(run: str, argv, k: int, names, measure: bool,
         if k == 1:
             _capturable_(trainer.optimizer)
         kernels.reset_launches()
-        result = trainer.train()
+        with _keeping_graphs():
+            result = trainer.train()
         torch.cuda.synchronize()
         out = {"steps": result["steps"], "launches": dict(kernels.LAUNCHES),
                "losses": [float(x) for x in trainer.records.losses],
@@ -4819,7 +4982,8 @@ def _gs_run(tmp: str, label: str, extra, samples: int, epochs: int,
            "loss_max_rel_err_vs_k1": max(
                abs(a - b) / abs(b)
                for a, b in zip(graph["losses"], eager["losses"])),
-           "graph_launches_per_replay": graph["traced_launches_per_call"],
+           "graph_launches_per_replay": graph["replay_launches"]["nodes"],
+           "traced_launches_per_replay": graph["replay_launches"]["traced"],
            "k1_step_launches_traced": eager["traced_launches_per_call"],
            "expected_per_replay": _gs_expected_per_replay(label),
            "launches": {"k4": graph["launches"], "k1": eager["launches"]},
@@ -4864,10 +5028,10 @@ def phase_train_graph_strategies(tmp: str) -> dict:
         check(row["bitwise_equal_to_k1"],
               f"graph {label}: losses or weights off K = 1 (loss rel "
               f"{row['loss_max_rel_err_vs_k1']})")
-        check(row["graph_launches_per_replay"] == row["expected_per_replay"],
-              f"graph {label}: a replay ran "
-              f"{row['graph_launches_per_replay']}, not "
-              f"{row['expected_per_replay']}")
+        _check_replay(f"graph {label}",
+                      {"nodes": row["graph_launches_per_replay"],
+                       "traced": row["traced_launches_per_replay"]},
+                      row["expected_per_replay"])
         if label.startswith("ddp"):
             check(row["ddp_wrappers"] == [1, 1],
                   f"graph {label}: {row['ddp_wrappers']} DDP wrappers")
@@ -5867,25 +6031,123 @@ def phase_train_sp(tmp: str, train: dict) -> dict:
     return out
 
 
-def _ddp_sp_run(rank: int, world: int, devices, arch: str,
-                steps: int, timed: bool) -> dict:
-    """One run of a DDP_SP rank: ``steps`` bf16 steps under kernels cuda
-    with Adam on its rows of the global batches, the launches counted
-    from zero over them and the weights' digest after each; rank 0 keeps
-    its first gradients; with ``timed`` the steady step by wall time and
-    each card's busy time."""
+# -t SP's run control on [cuda:0, cuda:0] (sp_run_control), full width:
+# one CUDA graph of GS_K steps (bf16, DP_GRAPH_STACKS stacks), --remat
+# (bf16, SGD at lr 0) and the UNet's --grad-accum SP_ACCUM (float32,
+# against the singleGPU accumulation step at SP_BOUNDS' f32 bounds)
+SP_ACCUM = 2
+
+
+def _sp_graph_run(arch: str, devices) -> dict:
+    """``-t SP`` of ``arch`` over ``devices`` as one CUDA graph of GS_K
+    steps against its eager steps (``_graph_run``): each kernel of
+    ``_sp_expected_per_step`` GS_K times per replay."""
+    want = {name: GS_K * count for name, count in
+            _sp_expected_per_step(arch, len(devices)).items()}
+    return _graph_run(_strategy_config("SP", arch), devices, want)
+
+
+def _sp_remat_run(arch: str, devices) -> dict:
+    """``arch`` under ``-t SP --remat`` over ``devices`` against the plain
+    SP step (``_remat_run``): ``_sp_expected_per_step``, milesial's K2
+    twice (the recompute's)."""
+    want = _sp_expected_per_step(arch, len(devices))
+    if arch == "milesial":
+        want["bn_act"] *= 2
+    return _remat_run("SP", arch, devices, want)
+
+
+def _sp_accum_run(devices) -> dict:
+    """The float32 UNet's ``--grad-accum SP_ACCUM`` under ``-t SP`` over
+    ``devices`` against the singleGPU accumulation step on the first,
+    from the seed's weights over the same chunks of ``-b 4``, SGD at lr
+    0, cuDNN deterministic: SP_BOUNDS' f32 bounds and the launches per
+    step (K1 in both passes of every chunk on every shard, K1-bwd in the
+    second)."""
     import torch
 
-    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    batch = _synthetic_batch(SP_ACCUM * TRAIN_BATCH, devices[0])
+    chunks = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+               for k, v in batch.items()} for i in range(SP_ACCUM)]
+    runs = {}
+    with _deterministic_cudnn():
+        for method, devs in (("SP", devices), ("singleGPU", devices[:1])):
+            cfg = _strategy_config(method, "unet", dtype="f32",
+                                   grad_accum=SP_ACCUM)
+            strategy = build_strategy(cfg, devices=devs)
+            model = strategy.place_model(create_model(
+                cfg, generator=torch.Generator().manual_seed(SEED)))
+            step = strategy.build_accum_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.0),
+                get_kernel_policy("cuda"))
+            kernels.reset_launches()
+            loss = float(step(chunks))
+            torch.cuda.synchronize()
+            runs[method] = {"loss": loss, "grads": _grads(model),
+                            "stats": {},
+                            "launches": {n: kernels.LAUNCHES[n]
+                                         for n in LOSS_KERNELS}}
+            del model, step
+            torch.cuda.empty_cache()
+    n = len(devices)
+    want = {"loss_stats": 2 * SP_ACCUM * n, "loss_stats_bwd": SP_ACCUM * n}
+    row = {"phase": "sp_accum", "arch": "unet", "dtype": "f32",
+           "chunks": SP_ACCUM, "batch": TRAIN_BATCH,
+           "devices": [str(d) for d in devices],
+           **_step_against(runs["SP"], runs["singleGPU"]),
+           "launches_per_step": runs["SP"]["launches"],
+           "expected_per_step": want,
+           "device": torch.cuda.get_device_name(0)}
+    row["ok"] = _within_sp_bounds("unet", "f32", row)
+    emit(row)
+    check(row["ok"], f"SP accumulation against singleGPU's: {row}")
+    check(row["launches_per_step"] == want,
+          f"SP accumulation launched {row['launches_per_step']}, expected "
+          f"{want}")
+    return row
+
+
+def phase_sp_run_control() -> dict:
+    """``-t SP``'s run control on ``[cuda:0, cuda:0]`` at full width: the
+    bf16 UNet and milesial ``--wgrad-taps`` (DPT_WGRAD_BACKEND=pallas) as
+    one CUDA graph of GS_K steps against their eager steps
+    (``_sp_graph_run``), each under ``--remat`` against the plain SP step
+    (``_sp_remat_run``), and the float32 UNet's ``--grad-accum`` against
+    singleGPU's (``_sp_accum_run``)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    devices = [dev] * SP_SHARDS
+    out = {"phase": "sp_run_control", "devices": [str(d) for d in devices],
+           "graphs": {arch: _sp_graph_run(arch, devices)
+                      for arch in ("unet", "milesial")},
+           "remat": {arch: _sp_remat_run(arch, devices)
+                     for arch in ("unet", "milesial")},
+           "accum": _sp_accum_run(devices)}
+    return out
+
+
+def _ddp_sp_run(rank: int, world: int, devices, arch: str,
+                steps: int, timed: bool, remat: bool = False) -> dict:
+    """One run of a DDP_SP rank: ``steps`` bf16 steps under kernels cuda
+    with Adam on its rows of the global batches (under ``--remat`` with
+    ``remat``), the launches counted from zero over them and the weights'
+    digest after each; rank 0 keeps its first gradients; with ``timed``
+    the steady step by wall time and each card's busy time."""
+    import torch
+
     from distributedpytorch_tpu_torch.models import create_model
     from distributedpytorch_tpu_torch.ops import kernels
     from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
     from distributedpytorch_tpu_torch.ops.optim import make_optimizer
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
 
-    cfg = TrainConfig(train_method="DDP_SP", model_arch=arch, dtype="bf16",
-                      kernels="cuda", device="cuda", batch_size=TRAIN_BATCH,
-                      wgrad_taps=arch == "milesial")
+    cfg = _strategy_config("DDP_SP", arch, remat=remat)
     strategy = build_strategy(cfg, devices=devices)
     check(strategy.name == "DDP_SP" and strategy.devices == list(devices),
           f"DDP_SP strategy on {strategy.devices}")
@@ -5928,7 +6190,10 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
     file store in ``DIR`` with its SP_SHARDS row shards on cuda:0 under
     gloo (``train_ddp_sp_gloo2``) and on ``cuda:(R·n + s)`` under nccl
     (``--cards``: the layout ``runtime.stage_devices`` gives a torchrun
-    rank), runs DDP_SP_RUNS (``_ddp_sp_run``) and writes its results to
+    rank), runs DDP_SP_RUNS (``_ddp_sp_run``), under gloo each again with
+    ``--remat`` and the refusal of K > 1, under nccl each model as one
+    CUDA graph of GS_K steps against its eager steps
+    (``_rank_graph_run``), and writes its results to
     ``DIR/result_R.pt``."""
     import torch
 
@@ -5948,13 +6213,29 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
     try:
         runs = {}
         for arch, steps in DDP_SP_RUNS:
-            def run(arch=arch, steps=steps):
-                return _ddp_sp_run(rank, world, devices, arch, steps,
-                                   timed=backend == "nccl")
-            runs[arch] = (_with_wgrad_backend(run) if arch == "milesial"
-                          else run())
-        torch.save({"runs": runs, "devices": [str(d) for d in devices]},
-                   os.path.join(job, f"result_{rank}.pt"))
+            for remat in (False, True) if backend == "gloo" else (False,):
+                def run(arch=arch, steps=steps, remat=remat):
+                    return _ddp_sp_run(rank, world, devices, arch, steps,
+                                       timed=backend == "nccl", remat=remat)
+                runs[arch + ("_remat" if remat else "")] = (
+                    _with_wgrad_backend(run) if arch == "milesial"
+                    else run())
+        result = {"runs": runs, "devices": [str(d) for d in devices]}
+        if backend == "gloo":
+            result["k_refusal"] = _refusal(
+                _strategy_config("DDP_SP", "unet", steps_per_dispatch=2),
+                devices)
+        else:
+            result["graph"] = {}
+            for arch, _steps in DDP_SP_RUNS:
+                def graph(arch=arch):
+                    return _rank_graph_run(
+                        _strategy_config("DDP_SP", arch,
+                                         steps_per_dispatch=GS_K),
+                        rank, world, devices, 3)
+                result["graph"][arch] = (_with_wgrad_backend(graph)
+                                         if arch == "milesial" else graph())
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -5963,20 +6244,59 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
 def _check_ddp_sp_ranks(ranks, world: int) -> tuple:
     """Per run: the ranks' losses, weights after every step and first
     gradients bitwise equal; each rank's launches once per shard and site
-    and step; and rank 0's first step against one SP step of the same
-    weights on the joint batch over ``[cuda:0] * SP_SHARDS`` (the
-    per-process faithful scale), within SP_BOUNDS' bf16 bounds: each rank's
-    shards round their weight gradients to bf16 over other rows than the
-    joint batch's shards do. Returns the rows and the disagreements."""
+    and step (milesial's K2 twice under ``--remat``); rank 0's first step
+    of a plain run against one SP step of the same weights on the joint
+    batch over ``[cuda:0] * SP_SHARDS`` (the per-process faithful scale),
+    within SP_BOUNDS' bf16 bounds: each rank's shards round their weight
+    gradients to bf16 over other rows than the joint batch's shards do;
+    a ``--remat`` run's losses, gradients and weights after every step
+    bitwise its plain run's. Returns the rows and the disagreements."""
     import torch
 
     dev = torch.device("cuda", 0)
     out, problems = {}, []
-    for arch, steps in DDP_SP_RUNS:
-        rs = [r["runs"][arch] for r in ranks]
+    for key in ranks[0]["runs"]:
+        arch, _, remat = key.partition("_")
+        rs = [r["runs"][key] for r in ranks]
         r0 = rs[0]
+        steps = len(r0["losses"])
         want = {n: c * steps for n, c in
                 _sp_expected_per_step(arch, SP_SHARDS).items()}
+        if remat and arch == "milesial":
+            want["bn_act"] *= 2
+        row = {
+            "steps": steps, "losses": [r["losses"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "launches_expected": want, "mesh": r0["mesh"],
+            "weights_bitwise_equal_every_step": all(
+                r["weights_digests"] == r0["weights_digests"] for r in rs),
+            "first_grads_bitwise_equal": all(
+                r["grads_digest"] == r0["grads_digest"] for r in rs),
+        }
+        for name in ("step_ms", "busy_ms_by_card"):
+            if name in r0:
+                row[name] = [r[name] for r in rs]
+        out[key] = row
+        if not row["weights_bitwise_equal_every_step"]:
+            problems.append(f"{key}: the ranks' weights differ")
+        if not row["first_grads_bitwise_equal"]:
+            problems.append(f"{key}: the ranks' gradients differ")
+        if any(l != row["losses"][0] for l in row["losses"]):
+            problems.append(f"{key}: the ranks' losses differ")
+        for counts in row["launches"]:
+            if any(counts[n] != c for n, c in want.items()):
+                problems.append(f"{key}: launched {counts}, expected {want}")
+        if row["mesh"] != {"data": world, "spatial": SP_SHARDS}:
+            problems.append(f"{key}: mesh {row['mesh']}")
+        if remat:
+            plain = ranks[0]["runs"][arch]
+            row["bitwise_the_plain_run"] = (
+                r0["losses"] == plain["losses"]
+                and r0["weights_digests"] == plain["weights_digests"]
+                and r0["grads_digest"] == plain["grads_digest"])
+            if not row["bitwise_the_plain_run"]:
+                problems.append(f"{key}: off the plain DDP_SP run")
+            continue
 
         def sp_step(arch=arch):
             model, step, _ = _sp_model_step("SP", arch, [dev] * SP_SHARDS,
@@ -5993,14 +6313,7 @@ def _check_ddp_sp_ranks(ranks, world: int) -> tuple:
         with _deterministic_cudnn():
             sp_loss, sp_grads = (_with_wgrad_backend(sp_step)
                                  if arch == "milesial" else sp_step())
-        row = {
-            "steps": steps, "losses": [r["losses"] for r in rs],
-            "launches": [r["launches"] for r in rs],
-            "launches_expected": want, "mesh": r0["mesh"],
-            "weights_bitwise_equal_every_step": all(
-                r["weights_digests"] == r0["weights_digests"] for r in rs),
-            "first_grads_bitwise_equal": all(
-                r["grads_digest"] == r0["grads_digest"] for r in rs),
+        row.update({
             "sp_step_loss": sp_loss,
             "sp_loss_rel_err": abs(r0["losses"][0] - sp_loss) / sp_loss,
             "sp_grad_max_err_rel_to_tensor_max": max(
@@ -6009,28 +6322,13 @@ def _check_ddp_sp_ranks(ranks, world: int) -> tuple:
             "sp_grad_max_rel_l2": max(
                 float((r0["grads"][n] - g).norm() / g.norm())
                 for n, g in sp_grads.items()),
-        }
-        for name in ("step_ms", "busy_ms_by_card"):
-            if name in r0:
-                row[name] = [r[name] for r in rs]
-        out[arch] = row
-        if not row["weights_bitwise_equal_every_step"]:
-            problems.append(f"{arch}: the ranks' weights differ")
-        if not row["first_grads_bitwise_equal"]:
-            problems.append(f"{arch}: the ranks' gradients differ")
-        if any(l != row["losses"][0] for l in row["losses"]):
-            problems.append(f"{arch}: the ranks' losses differ")
-        for counts in row["launches"]:
-            if any(counts[n] != c for n, c in want.items()):
-                problems.append(f"{arch}: launched {counts}, expected {want}")
-        if row["mesh"] != {"data": world, "spatial": SP_SHARDS}:
-            problems.append(f"{arch}: mesh {row['mesh']}")
+        })
         if not _within_sp_bounds(arch, "bf16", {
                 "loss_rel_err": row["sp_loss_rel_err"],
                 "grad_max_err_rel_to_tensor_max":
                     row["sp_grad_max_err_rel_to_tensor_max"],
                 "grad_max_rel_l2": row["sp_grad_max_rel_l2"]}):
-            problems.append(f"{arch}: step 1 off the SP step: {row}")
+            problems.append(f"{key}: step 1 off the SP step: {row}")
     return out, problems
 
 
@@ -6052,18 +6350,23 @@ def phase_train_ddp_sp_gloo2(tmp: str) -> dict:
     ``-b 4`` over ``[cuda:0, cuda:0]``, through DDP_SP_RUNS: the bf16
     UNet and milesial ``--wgrad-taps`` under DPT_WGRAD_BACKEND=pallas.
     Checked as ``_check_ddp_sp_ranks`` says, K1, K1-bwd, K2, K3 and K5
-    counted per rank from zero over each run. A correctness phase: the
-    ranks share the card and their gradients cross the host."""
+    counted per rank from zero over each run; each run again under
+    ``--remat``, bitwise the plain run; ``--steps-per-dispatch 2``
+    refused over gloo on the card. A correctness phase: the ranks share
+    the card and their gradients cross the host."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
     ranks, wall_s = _run_ddp_ranks(
         os.path.join(tmp, "train_ddp_sp_gloo2"), 2, "gloo", "--ddp-sp-rank")
     runs, problems = _check_ddp_sp_ranks(ranks, 2)
+    refusals = [r["k_refusal"] for r in ranks]
+    if not all(GLOO_REFUSAL in (msg or "") for msg in refusals):
+        problems.append(f"K = 2 over gloo on the card: {refusals}")
     out = {"phase": "train_ddp_sp_gloo2", "world": 2, "backend": "gloo",
            "shards": SP_SHARDS, "devices": [r["devices"] for r in ranks],
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
-           "runs": runs, "problems": problems}
+           "runs": runs, "k_refusal": refusals[0], "problems": problems}
     emit(out)
     check(not problems, f"train_ddp_sp_gloo2: {problems}")
     return out
@@ -6075,9 +6378,13 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
     step of the full-width UNet against a one-card singleGPU step
     (SP_BOUNDS' f32 bounds), then the bf16 UNet and milesial
     ``--wgrad-taps`` at ``-b 4`` by wall time with each card's busy time,
-    beside the singleGPU step on one card, and images / s. DDP_SP as two
+    beside the singleGPU step on one card, and images / s; both models as
+    one CUDA graph of GS_K steps across the cards against their eager
+    steps (``_sp_graph_run``). DDP_SP as two
     NCCL ranks of two cards each (``ddp_sp_rank``, cuda:2r and cuda:2r+1),
-    checked as ``train_ddp_sp_gloo2`` and timed; then ``torchrun
+    checked as ``train_ddp_sp_gloo2`` and timed, and each model as one
+    CUDA graph of GS_K steps per rank, bitwise its eager steps with the
+    ranks' weights equal after every stack; then ``torchrun
     --standalone --nproc_per_node 2`` of the training CLI with ``-t
     DDP_SP``, which must exit 0 with the DDP_SP artifacts, both ranks in
     its log and a manifest that says ``2x2x1@sp``."""
@@ -6124,12 +6431,20 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
 
         out[f"bf16_{arch}"] = (_with_wgrad_backend(timed)
                                if arch == "milesial" else timed())
+    out["graphs"] = {arch: _sp_graph_run(arch, cards)
+                     for arch in ("unet", "milesial")}
     ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "sp_cards_ddp_sp"), 2,
                                    "nccl", "--ddp-sp-rank")
     out["ddp_sp"], rank_problems = _check_ddp_sp_ranks(ranks, 2)
     out["ddp_sp_devices"] = [r["devices"] for r in ranks]
     out["ddp_sp_wall_s"] = wall_s
     problems += rank_problems
+    out["ddp_sp_graphs"] = {}
+    for arch in ranks[0]["graph"]:
+        rows = _ranks_graph_rows([{"graph": r["graph"][arch]}
+                                  for r in ranks], 2)
+        out["ddp_sp_graphs"][arch] = rows
+        _check_ranks_graph(rows, f"DDP_SP {arch} graph, 2 ranks x 2 cards")
     for arch, r in out["ddp_sp"].items():
         r["images_per_s"] = 2 * TRAIN_BATCH * 1e3 / max(r["step_ms"])
 
@@ -6344,6 +6659,7 @@ def main(argv) -> int:
         train_dp = phase_train_dp(tmp, train)
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
         train_sp = phase_train_sp(tmp, train)
+        sp_rc = phase_sp_run_control()
         ddp_sp = phase_train_ddp_sp_gloo2(tmp)
         run_control = phase_train_run_control(tmp)["launches"]
         graphs = phase_train_graph_strategies(tmp)
@@ -6362,7 +6678,7 @@ def main(argv) -> int:
 
     def replay_launches(name):
         """Per replay of a CUDA graph of 4 steps, counted by name in the
-        profiler's trace: singleGPU (train_run_control run 1), each run
+        graph's kernel nodes: singleGPU (train_run_control run 1), each run
         of train_graph_strategies and -t DP's on [cuda:0, cuda:0]
         (train_dp); K2, K3 and K5 per milesial --remat step
         (train_run_control run 2, and under DP) beside the MP and DP
@@ -6406,12 +6722,25 @@ def main(argv) -> int:
     def sp_launches(name):
         """-t SP on [cuda:0, cuda:0] (train_sp): per step of each model,
         counted by name in the profiler's trace, and the wrappers' count
-        over the short CLI run (one step and one eval batch)."""
+        over the short CLI run (one step and one eval batch); its run
+        control (sp_run_control): per replay of a graph of 4 steps,
+        counted in the graph's nodes, per --remat step and per --grad-accum 2
+        step, counted by the wrappers."""
         out = {f"{arch}_step": train_sp[arch]["traced_per_step"][name]
                for arch in ("unet", "milesial")
                if name in train_sp[arch]["traced_per_step"]}
         if name in train_sp["cli"]["launches"]:
             out["cli_run"] = train_sp["cli"]["launches"][name]
+        for arch in ("unet", "milesial"):
+            replay = sp_rc["graphs"][arch]["graph_launches_per_replay"]
+            if name in replay:
+                out[f"{arch}_graph_per_replay"] = replay[name]
+            remat = sp_rc["remat"][arch]["launches_per_step"]["remat"]
+            if name in sp_rc["remat"][arch]["expected_remat_per_step"]:
+                out[f"{arch}_remat_step"] = remat[name]
+        if name in sp_rc["accum"]["launches_per_step"]:
+            out["unet_accum_step"] = sp_rc["accum"]["launches_per_step"][
+                name]
         return out
 
     def ddp_sp_launches(name):

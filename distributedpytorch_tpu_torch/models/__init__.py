@@ -34,11 +34,12 @@ class Rematerialized(torch.nn.Module):
     pipeline ``Stage`` is recomputed as one region, as the JAX stage
     functions are. The recompute runs under ``recomputing``, so a
     BatchNorm's running averages move once per step, in the first
-    forward, as the functional JAX forward moves them, and a DP replica's
-    BatchNorm normalizes with the moments the replicas met on in the first
-    forward instead of meeting again. Without grad (eval) it is ``module``
-    itself. The forward draws no random numbers, so no RNG state is
-    saved."""
+    forward, as the functional JAX forward moves them, a DP replica's or
+    row shard's BatchNorm normalizes with the moments the replicas met on
+    in the first forward instead of meeting again, and a row shard's 3×3
+    conv puts the halo rows it kept around its rows (``parallel/spatial``).
+    Without grad (eval) it is ``module`` itself. The forward draws no
+    random numbers, so no RNG state is saved."""
 
     def __init__(self, module: torch.nn.Module):
         super().__init__()

@@ -163,36 +163,44 @@ class BatchNormAct(nn.Module):
 
 
 @contextlib.contextmanager
-def _batchnorms_set(model: nn.Module, **flags) -> Iterator[None]:
-    """Within the block every ``BatchNormAct`` of ``model`` has ``flags``
-    as its attributes."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
-    saved = [{k: getattr(m, k) for k in flags} for m in bns]
-    for m in bns:
+def _attributes_set(modules: List[nn.Module], **flags) -> Iterator[None]:
+    """Within the block every module of ``modules`` has ``flags`` as its
+    attributes."""
+    saved = [{k: getattr(m, k) for k in flags} for m in modules]
+    for m in modules:
         for key, value in flags.items():
             setattr(m, key, value)
     try:
         yield
     finally:
-        for m, old in zip(bns, saved):
+        for m, old in zip(modules, saved):
             for key, value in old.items():
                 setattr(m, key, value)
+
+
+def _batchnorms(model: nn.Module) -> List[nn.Module]:
+    return [m for m in model.modules() if isinstance(m, BatchNormAct)]
 
 
 def frozen_running_stats(model: nn.Module):
     """Within the block no ``BatchNormAct`` of ``model`` moves its running
     averages; training-mode forwards still normalize with the batch's
     moments."""
-    return _batchnorms_set(model, update_running_stats=False)
+    return _attributes_set(_batchnorms(model), update_running_stats=False)
 
 
-def recomputing(model: nn.Module):
+@contextlib.contextmanager
+def recomputing(model: nn.Module) -> Iterator[None]:
     """The recompute of a forward (``models.Rematerialized``): the running
-    averages frozen, as the first forward moved them, and each
+    averages frozen, as the first forward moved them, each
     ``BatchNormAct`` that kept the replicas' moments in that forward
-    normalizes with them."""
-    return _batchnorms_set(model, update_running_stats=False,
-                           reuse_kept_moments=True)
+    normalizes with them, and each 3×3 conv of a row shard puts the halo
+    rows it kept around its rows (``models/unet.take_halo``)."""
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    with _attributes_set(_batchnorms(model), update_running_stats=False,
+                         reuse_kept_moments=True), \
+            _attributes_set(convs, reuse_kept_halo=True):
+        yield
 
 
 class DoubleConv(nn.Module):

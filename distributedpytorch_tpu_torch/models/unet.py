@@ -92,22 +92,48 @@ def init_convs_(model: nn.Module,
                 nn.init.zeros_(module.bias)
 
 
+def take_halo(conv: nn.Module, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, bool]:
+    """``(x, whether it carries halo rows)`` as ``conv`` runs it. In a
+    forward with ``conv.halo`` set (a row shard, ``parallel/spatial.py``)
+    the shard's rows with one neighbour row above and below
+    (``halo.with_halo``), and what the meeting keeps of them for a
+    recompute (``kept_halo``, under ``--remat``). In that recompute
+    (``reuse_kept_halo``, set by ``models.recomputing``) the kept rows
+    around the recomputed ``x``, without a meeting and whether or not
+    ``halo`` is still set; a recompute with nothing kept and ``halo`` set
+    meets, and the closed meeting raises. Otherwise ``x`` itself."""
+    if getattr(conv, "reuse_kept_halo", False):
+        kept = getattr(conv, "kept_halo", None)
+        if kept is not None:
+            return kept.around(x), True
+    elif getattr(conv, "kept_halo", None) is not None:
+        conv.kept_halo = None
+    if conv.halo is None:
+        return x, False
+    x = conv.halo.with_halo(x)
+    conv.kept_halo = conv.halo.keep(x)
+    return x, True
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 weights are cast to the input's dtype.
 
     ``halo`` is set on a 3×3 conv for the forward of a row shard
     (``parallel/spatial.py``): the shard's rows then come with one
-    neighbour row above and below (``halo.with_halo``), and the conv runs
+    neighbour row above and below (``take_halo``), and the conv runs
     VALID in H and SAME in W, the whole image's conv on this shard's
     rows. Unset (None) nothing changes."""
 
     halo = None
+    kept_halo = None
+    reuse_kept_halo = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         padding = self.padding
-        if self.halo is not None:
-            x = self.halo.with_halo(x)
+        x, halo = take_halo(self, x)
+        if halo:
             padding = (0, self.padding[1])
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         padding, self.dilation, self.groups)
@@ -127,9 +153,7 @@ class TapsConv2d(Conv2d):
         self.wgrad_cuda = wgrad_cuda
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        halo = self.halo is not None
-        if halo:
-            x = self.halo.with_halo(x)
+        x, halo = take_halo(self, x)
         y = conv3x3_same_taps(x, self.weight.to(x.dtype), self.wgrad_cuda,
                               halo=halo)
         if self.bias is None:

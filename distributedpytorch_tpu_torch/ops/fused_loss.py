@@ -15,8 +15,9 @@ each rank's shard, summed over ranks, then ``loss_from_stats``.
 ``make_row_sharded_loss`` is the loss of row shards on several devices
 of one process (``-t SP``, and each rank of ``-t DDP_SP``,
 ``parallel/spatial.py``): K1 per shard, the sums added in shard order on
-the first device (and over the ranks under DDP_SP), the loss once, and
-K1-bwd per shard on the cotangent copied back.
+the first device (``make_row_sharded_stats``, and over the ranks under
+DDP_SP), the loss once, and K1-bwd per shard on the cotangent copied
+back.
 
 ``stats_function`` and ``loss_and_cotangent`` serve the paths that sum
 the statistics of several slices of the batch before one loss: gradient
@@ -126,26 +127,40 @@ def sum_on_first(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def make_row_sharded_stats(fused: bool) -> Callable:
+    """``stats(shards, targets)``, the four sums of row shards
+    (``parallel/spatial.py``): ``shards`` the NHWC predictions, shard by
+    shard, each on its device, ``targets`` the whole batch's on the
+    first. Each shard's four statistics come from ``BCEDiceStatsFused``
+    when ``fused`` (K1 forward and K1-bwd backward on each shard's card)
+    and from the plain ``bce_dice_stats`` otherwise; they add in shard
+    order on the first device, and autograd copies their cotangent back
+    to every shard. Gradient accumulation's chunks take them as they are
+    (``train/steps.make_accum_train_step``)."""
+    stats_fn = stats_function(fused)
+
+    def stats(shards: Sequence[torch.Tensor],
+              targets: torch.Tensor) -> torch.Tensor:
+        return sum_on_first([stats_fn(p, t) for p, t in
+                             zip(shards, shard_targets(shards, targets))])
+
+    return stats
+
+
 def make_row_sharded_loss(fused: bool, over_ranks: bool = False
                           ) -> Callable:
-    """``loss(shards, targets)`` of row shards (``parallel/spatial.py``):
-    ``shards`` the NHWC predictions, shard by shard, each on its device,
-    ``targets`` the whole batch's on the first. Each shard's four
-    statistics come from ``BCEDiceStatsFused`` when ``fused`` (K1 forward
-    and K1-bwd backward on each shard's card) and from the plain
-    ``bce_dice_stats`` otherwise; they add in shard order on the first
-    device, with ``over_ranks`` (``-t DDP_SP``) then over the ranks
-    (``all_reduce_sum``), before one ``loss_from_stats``. Autograd copies
-    the cotangent back to every shard. Under ``over_ranks`` each rank's
-    gradient comes out ``world ×`` its share, as ``make_sharded_loss``'s
-    does, and the strategy's mean of the gradients over the ranks takes
-    the factor out."""
-    stats_fn = stats_function(fused)
+    """``loss(shards, targets)`` of row shards: their four statistics
+    (``make_row_sharded_stats``), with ``over_ranks`` (``-t DDP_SP``)
+    summed over the ranks (``all_reduce_sum``), then one
+    ``loss_from_stats``. Under ``over_ranks`` each rank's gradient comes
+    out ``world ×`` its share, as ``make_sharded_loss``'s does, and the
+    strategy's mean of the gradients over the ranks takes the factor
+    out."""
+    stats_fn = make_row_sharded_stats(fused)
 
     def loss(shards: Sequence[torch.Tensor],
              targets: torch.Tensor) -> torch.Tensor:
-        stats = sum_on_first([stats_fn(p, t) for p, t in
-                              zip(shards, shard_targets(shards, targets))])
+        stats = stats_fn(shards, targets)
         if over_ranks:
             stats = all_reduce_sum(stats)
         return loss_from_stats(stats)

@@ -122,6 +122,7 @@ class Meeting:
         self._local = threading.local()
         self._handed: List = [None] * len(self.devices)
         self._results: List = []
+        self._closed = False
 
     def run(self, index: int, fn, *args):
         """``fn(*args)`` as replica ``index``; a failure breaks the
@@ -138,7 +139,13 @@ class Meeting:
         are what every replica handed in, in replica order. Replica 0
         combines, after every replica has enqueued its value on its
         card's stream, which the copies then follow; ``combine`` returns
-        one result per replica."""
+        one result per replica. Once the forward is over (``close``) a
+        meeting raises: a recompute runs the replicas of a card one after
+        another on one thread, where it would wait for ever."""
+        if self._closed:
+            raise RuntimeError(
+                "a replica met the others after the forward: a recompute "
+                "under --remat must reuse what its first forward kept")
         i = self._local.index
         self._handed[i] = value
         self._barrier.wait()
@@ -146,6 +153,10 @@ class Meeting:
             self._results = combine(list(self._handed))
         self._barrier.wait()
         return self._results[i]
+
+    def close(self) -> None:
+        """The forward is over: every later ``meet`` raises."""
+        self._closed = True
 
     def mean(self, moments: torch.Tensor) -> torch.Tensor:
         """This replica's copy of the replicas' mean of ``moments``."""
@@ -301,6 +312,7 @@ class Replicated(nn.Module):
         finally:
             for t in threads:
                 t.join()
+            meeting.close()
         raised = [e for e in errors if e is not None]
         if raised:
             # the failure itself, not the broken meeting it left behind

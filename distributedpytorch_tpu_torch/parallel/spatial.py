@@ -39,6 +39,28 @@ from DP's parts (``parallel/replicas.py``). Per forward ``RowSharded``:
 A failing shard breaks the meeting, so no thread waits for ever, and the
 failure is raised in the caller. The devices may repeat (``[cpu, cpu]``,
 ``[cuda:0, cuda:0]``).
+
+The run control (``parallel/strategy.check_run_control``):
+
+* ``--steps-per-dispatch K > 1``: the shards' threads launch on the
+  caller's current streams, which ``train/steps.MultiStep`` makes the
+  graph's, and every copy between cards backs up on the forward's
+  streams (``_Halos``, ``utils/device.copy_all_to``), so one CUDA graph
+  captures K whole steps, as DP's replicas;
+* ``--remat``: each shard is ``models.Rematerialized``, recomputed
+  segment by segment in its backward. Autograd recomputes the shards of
+  one card one after another on one thread, so a recompute must never
+  meet: each 3×3 conv keeps the two halo rows its first forward took
+  (``ShardMeeting.keep``, ``KeptHalo``) and its recompute puts them
+  around the recomputed rows, the same values without a meeting, and
+  milesial's BatchNorm reuses the moments it kept (under DDP_SP no
+  all-reduce either). The halo rows' gradients still flow through the
+  first forward's ``_Halos`` node, which the non-reentrant checkpoint
+  keeps. A meeting after the forward raises (``Meeting.meet``);
+* ``--grad-accum``: each chunk's four loss statistics are the shards'
+  sums added in shard order on the first device
+  (``ops/fused_loss.make_row_sharded_stats``), without the ranks'
+  all-reduce, which accumulation runs itself (``sum_over_ranks``).
 """
 
 from __future__ import annotations
@@ -48,6 +70,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
 from distributedpytorch_tpu_torch.ops.precision import PerUseCasts
 from distributedpytorch_tpu_torch.parallel.replicas import (
@@ -60,6 +83,24 @@ from distributedpytorch_tpu_torch.utils.device import (
     current_streams,
     on_streams,
 )
+
+
+def _halo_buffer(x: torch.Tensor, above: Optional[torch.Tensor],
+                 below: Optional[torch.Tensor]) -> torch.Tensor:
+    """The NCHW ``x`` (B, C, h, W) as (B, C, h + 2, W) in channels_last
+    memory: the row ``above`` on top, ``below`` at the bottom, each a
+    (B, C, 1, W) row (from another card: the copy follows the current
+    streams) or, where None, zeros."""
+    b, c, h, w = x.shape
+    out = torch.empty((b, c, h + 2, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    out[:, :, 1:h + 1].copy_(x)
+    for rows, row in ((slice(0, 1), above), (slice(h + 1, h + 2), below)):
+        if row is None:
+            out[:, :, rows].zero_()
+        else:
+            out[:, :, rows].copy_(row, non_blocking=True)
+    return out
 
 
 class _Halos(torch.autograd.Function):
@@ -75,23 +116,9 @@ class _Halos(torch.autograd.Function):
         ctx.devices = [x.device for x in xs]
         ctx.streams = current_streams(ctx.devices)
         n = len(xs)
-        outs = []
-        for i, x in enumerate(xs):
-            b, c, h, w = x.shape
-            out = torch.empty((b, c, h + 2, w), dtype=x.dtype,
-                              device=x.device,
-                              memory_format=torch.channels_last)
-            out[:, :, 1:h + 1].copy_(x)
-            if i:
-                out[:, :, :1].copy_(xs[i - 1][:, :, -1:], non_blocking=True)
-            else:
-                out[:, :, :1].zero_()
-            if i < n - 1:
-                out[:, :, -1:].copy_(xs[i + 1][:, :, :1], non_blocking=True)
-            else:
-                out[:, :, -1:].zero_()
-            outs.append(out)
-        return tuple(outs)
+        return tuple(_halo_buffer(x, xs[i - 1][:, :, -1:] if i else None,
+                                  xs[i + 1][:, :, :1] if i < n - 1 else None)
+                     for i, x in enumerate(xs))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -111,14 +138,57 @@ class _Halos(torch.autograd.Function):
         return tuple(dxs)
 
 
+class _AroundKept(torch.autograd.Function):
+    """``x`` between two kept halo rows (``KeptHalo``), as ``_Halos`` gave
+    it in the first forward; saves nothing, so a recompute saves for
+    backward what that forward saved."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        return _halo_buffer(x, rows[:, :, :1], rows[:, :, 1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:, :, 1:-1], None
+
+
+class KeptHalo:
+    """The two halo rows a shard's 3×3 conv took in its first forward,
+    (B, C, 2, W), copied out of its halo'd input (which the recompute
+    does not keep alive). ``around(x)`` is the recompute's halo'd input:
+    the same values as the first forward's, and no meeting."""
+
+    def __init__(self, halo_input: torch.Tensor):
+        with torch.no_grad():
+            self.rows = torch.cat([halo_input[:, :, :1],
+                                   halo_input[:, :, -1:]], dim=2)
+
+    def around(self, x: torch.Tensor) -> torch.Tensor:
+        return _AroundKept.apply(x, self.rows)
+
+
 class ShardMeeting(Meeting):
     """DP's meeting (the BatchNorm moments, ``Meeting.mean``) with the row
-    shards' halo exchange."""
+    shards' halo exchange; with ``keep_halos`` (``--remat``) each conv
+    keeps the halo rows it took (``keep``)."""
+
+    def __init__(self, devices: Sequence[torch.device],
+                 over_ranks: bool = False, keep_halos: bool = False):
+        super().__init__(devices, over_ranks)
+        self.keep_halos = keep_halos
 
     def with_halo(self, x: torch.Tensor) -> torch.Tensor:
         """This shard's NCHW ``x`` with one neighbour row above and below
         (``_Halos``), for a conv that is VALID in H."""
         return self.meet(x, lambda xs: list(_Halos.apply(*xs)))
+
+    def keep(self, halo_input: torch.Tensor) -> Optional[KeptHalo]:
+        """What a conv keeps of its halo'd input for its recompute: its
+        halo rows under ``keep_halos`` in a forward that autograd records,
+        else nothing."""
+        if self.keep_halos and torch.is_grad_enabled():
+            return KeptHalo(halo_input)
+        return None
 
 
 def halo_convs(module: nn.Module) -> List[nn.Conv2d]:
@@ -153,14 +223,15 @@ class RowSharded(Replicated):
     shard order, each on its device. The first device holds the module
     and takes the batch. ``over_ranks`` (``-t DDP_SP``) sums the
     BatchNorm moments over the process group's ranks too, one shard or
-    several."""
+    several. Under ``remat`` each shard recomputes its forward in its
+    backward with the halo rows and moments it kept."""
 
     thread_name = "dpt-sp-shard"
 
     def __init__(self, module: nn.Module, devices: Sequence[torch.device],
                  casts: Optional[PerUseCasts] = None,
-                 over_ranks: bool = False):
-        super().__init__(module, devices, casts)
+                 over_ranks: bool = False, remat: bool = False):
+        super().__init__(module, devices, casts, remat)
         self.over_ranks = over_ranks
         # the pools of the model: its segments are L levels down, the
         # middle and L levels up
@@ -175,7 +246,8 @@ class RowSharded(Replicated):
                 f"SP: {rows} rows do not split over {n} shards of whole "
                 f"2x2 pools at each of {self.levels} levels (rows must be "
                 f"a multiple of {n * 2 ** self.levels})")
-        meeting = ShardMeeting(self.devices, self.over_ranks)
+        meeting = ShardMeeting(self.devices, self.over_ranks,
+                               keep_halos=self.remat)
         # the replicas copy the meeting point with the modules
         convs = self.convs if n > 1 else []
         bns = ([m for m in self.module.modules()
@@ -186,7 +258,8 @@ class RowSharded(Replicated):
         for bn in bns:
             bn.replicas = meeting
         try:
-            replicas = replicate(self.module, self.devices, self._casts)
+            replicas = [rematerialized(r, self.remat) for r in
+                        replicate(self.module, self.devices, self._casts)]
             slices = [x.to(d, non_blocking=True)
                       for x, d in zip(images.chunk(n, dim=1), self.devices)]
             return self._run(replicas, slices, meeting)

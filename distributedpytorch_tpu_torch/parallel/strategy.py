@@ -41,15 +41,18 @@ XLA eval metrics and XLA BatchNorm there).
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
-(MP, DDP_MP, both schedules) or of each DP replica in its backward; a
-replica's recompute normalizes with the BatchNorm moments the replicas
-met on in its forward, and does not meet again. ``--steps-per-dispatch
+(MP, DDP_MP, both schedules), of each DP replica or of each SP row shard
+in its backward; a replica's or shard's recompute normalizes with the
+BatchNorm moments the replicas met on in its forward and a shard's convs
+take the halo rows they kept: neither meets again. ``--steps-per-dispatch
 K > 1`` (one CUDA graph of K steps, ``build_multi_train_step``, from the
-trainer's own train step) runs under every strategy, DP's replica
-threads included, and is refused under a gloo group on a card.
-Under SP and DDP_SP ``--steps-per-dispatch K > 1``, ``--remat`` and
-``--grad-accum`` are refused (ROADMAP.md, Queue A item 1a′).
-``--dtype bf16_params`` runs under
+trainer's own train step) runs under every strategy, DP's replica and
+SP's shard threads included, and is refused under a gloo group on a
+card. ``--grad-accum`` runs outside the pipelines for the stateless
+UNet; under SP and DDP_SP each chunk's statistics are the shards' sums
+(``accum_stats``). What stays refused, with the JAX package's words:
+``--grad-accum`` of milesial and together with ``--steps-per-dispatch
+K > 1``. ``--dtype bf16_params`` runs under
 every strategy; under DDP the gradients are averaged over the ranks in
 ``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
 which is where the compiled JAX DDP step sums them too (its gradient
@@ -79,6 +82,7 @@ from distributedpytorch_tpu_torch.models import rematerialized
 from distributedpytorch_tpu_torch.ops.fused_loss import (
     fused_bce_dice_loss,
     make_row_sharded_loss,
+    make_row_sharded_stats,
     make_sharded_loss,
 )
 from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
@@ -98,6 +102,8 @@ from distributedpytorch_tpu_torch.parallel.pipeline import (
 from distributedpytorch_tpu_torch.parallel.replicas import Replicated
 from distributedpytorch_tpu_torch.parallel.spatial import RowSharded
 from distributedpytorch_tpu_torch.train.steps import (
+    STACKS_CONFLICT,
+    STATEFUL_ACCUM,
     make_accum_train_step,
     make_eval_step,
     make_multi_train_step,
@@ -223,13 +229,20 @@ class Strategy:
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
         """One optimizer step over ``config.grad_accum`` batches of
-        ``accum_module``'s chunks."""
+        ``accum_module``'s chunks, each chunk's statistics from
+        ``accum_stats``."""
         module, remat = self.accum_module(model, optimizer)
         return make_accum_train_step(
             module, optimizer, self.config.batch_size,
             self.config.grad_accum, self.config.faithful_loss_scaling,
             kernels.train_loss_fused, sum_over_ranks=self.sum_over_ranks,
-            remat=remat)
+            remat=remat,
+            stats_impl=self.accum_stats(kernels.train_loss_fused))
+
+    def accum_stats(self, fused: bool) -> Optional[Callable]:
+        """Gradient accumulation's four statistics of a chunk's predictions
+        (None: one device's, through K1 / K1-bwd when ``fused``)."""
+        return None
 
     def accum_module(self, model: torch.nn.Module, optimizer
                      ) -> Tuple[torch.nn.Module, bool]:
@@ -663,7 +676,11 @@ class SpatialParallel(Strategy):
     K1-bwd on each shard's card under ``--kernels cuda``, the statistics
     added on the first device (``make_row_sharded_loss``); eval runs the
     sharded forward with K1 per shard; milesial's BatchNorm normalizes
-    with the whole batch's moments."""
+    with the whole batch's moments. The run control runs as the module
+    docstring of ``parallel/spatial.py`` says: ``--steps-per-dispatch K``
+    as one CUDA graph over the shards' threads, ``--remat`` per shard
+    with kept halos and moments, and the UNet's ``--grad-accum`` on the
+    shards' statistics."""
 
     name = "SP"
     #: whether the BatchNorm moments and the loss statistics are summed
@@ -690,14 +707,26 @@ class SpatialParallel(Strategy):
 
     def wrap_model(self, model: torch.nn.Module,
                    optimizer=None) -> torch.nn.Module:
-        """The row shards; under master weights each computes with its own
-        cast of ``optimizer``'s f32 masters."""
+        """The row shards, each recomputed in the backward under
+        ``--remat``; under master weights each computes with its own cast
+        of ``optimizer``'s f32 masters."""
         return RowSharded(model, self.devices,
                           per_use_casts(optimizer, model),
-                          over_ranks=self.over_ranks)
+                          over_ranks=self.over_ranks,
+                          remat=self.config.remat)
 
     def train_loss(self, fused: bool) -> Callable:
         return make_row_sharded_loss(fused, self.over_ranks)
+
+    def accum_module(self, model, optimizer):
+        """The row shards, which recompute themselves under ``--remat``."""
+        return self.wrap_model(model, optimizer), False
+
+    def accum_stats(self, fused: bool) -> Callable:
+        """The shards' statistics added on the first device, not over the
+        ranks: accumulation sums pass 1's statistics and the gradients
+        over them itself (``sum_over_ranks``)."""
+        return make_row_sharded_stats(fused)
 
     def reduce_grads(self, model, optimizer) -> Optional[Callable]:
         """What runs between the backward and Adam: nothing in one
@@ -710,10 +739,6 @@ class SpatialParallel(Strategy):
             self.config.batch_size, self.config.faithful_loss_scaling,
             loss_impl=self.train_loss(kernels.train_loss_fused),
             reduce_grads=self.reduce_grads(model, optimizer))
-
-    def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
-        raise ValueError(f"-t {self.name} does not run --grad-accum yet "
-                         f"(ROADMAP.md, Queue A item 1a′)")
 
     def build_eval_step(self, model, kernels) -> Callable:
         return make_eval_step(self.wrap_model(model),
@@ -784,10 +809,16 @@ class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
     ROADMAP), and the ranks' mean of the gradients, after the shards'
     sum, takes the factor out: the global loss's gradient, on every rank
     (``reduce_grads``; under master weights the f32 master gradients, in
-    ``REDUCE_DTYPE``)."""
+    ``REDUCE_DTYPE``). Gradient accumulation sums its statistics and then
+    its gradients over the ranks (``sum_over_ranks``), as DDP's does.
+    Under NCCL a CUDA graph of K steps holds the statistics' and the
+    moments' all-reduces and ``reduce_grads``; its one eager stack
+    before the capture (``capture_warmup_steps``) makes NCCL's
+    communicators."""
 
     name = "DDP_SP"
     over_ranks = True
+    sum_over_ranks = staticmethod(sum_over_ranks_)
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
@@ -824,28 +855,19 @@ class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
 
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
-    """The run control's limits of the port, with their ROADMAP pointers:
-    under SP and DDP_SP ``--steps-per-dispatch K > 1``, ``--remat`` and
-    ``--grad-accum`` (ROADMAP.md, Queue A item 1a′); once the strategy
-    knows its ``device`` and its group's ``backend``,
-    ``--steps-per-dispatch K > 1`` is refused under gloo on a card."""
+    """The run control's limits of the port: ``--grad-accum`` together
+    with ``--steps-per-dispatch K > 1`` and ``--grad-accum`` of milesial,
+    whose BatchNorm statistics do not add up over chunks, each refused
+    with the JAX package's words; once the strategy knows its ``device``
+    and its group's ``backend``, ``--steps-per-dispatch K > 1`` under
+    gloo on a card."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
-    if method in SPATIAL_METHODS:
-        refused = []
-        if k > 1:
-            refused.append(f"--steps-per-dispatch {k} (one CUDA graph of "
-                           f"K steps over the shards' threads)")
-        if config.remat:
-            refused.append("--remat (a shard's recompute would meet its "
-                           "neighbours again: it needs the halos and "
-                           "moments it kept, as DP's kept_moments)")
-        if int(config.grad_accum) > 1:
-            refused.append(f"--grad-accum {config.grad_accum}")
-        if refused:
-            raise ValueError(
-                f"-t {method} does not run {' or '.join(refused)} yet "
-                f"(ROADMAP.md, Queue A item 1a′)")
+    grad_accum = int(config.grad_accum)
+    if k > 1 and grad_accum > 1:
+        raise ValueError(STACKS_CONFLICT)
+    if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
+        raise ValueError(STATEFUL_ACCUM)
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -859,8 +881,6 @@ def check_run_control(config, device: Optional[torch.device] = None,
 STRATEGIES = {cls.name: cls for cls in (
     SingleDevice, DataParallel, DistributedDataParallel, Pipeline,
     HybridDataPipeline, SpatialParallel, HybridDataSpatial)}
-#: the methods that shard image rows, whose run control is limited
-SPATIAL_METHODS = ("SP", "DDP_SP")
 
 
 def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,

@@ -156,6 +156,7 @@ from distributedpytorch_tpu_torch.parallel.strategy import (
     build_strategy,
     check_run_control,
 )
+from distributedpytorch_tpu_torch.train.steps import STACKS_CONFLICT
 from distributedpytorch_tpu_torch.utils.metrics import LossRecords
 from distributedpytorch_tpu_torch.utils.prefetch import (
     SINGLE,
@@ -198,10 +199,7 @@ def check_config(config: TrainConfig) -> None:
     k_dispatch = max(1, int(config.steps_per_dispatch))
     grad_accum = max(1, int(config.grad_accum))
     if k_dispatch > 1 and grad_accum > 1:
-        raise ValueError(
-            "--steps-per-dispatch and --grad-accum both stack loader "
-            "batches with conflicting step semantics — choose one"
-        )
+        raise ValueError(STACKS_CONFLICT)
     if config.nonfinite_policy == "skip" and (k_dispatch > 1
                                               or grad_accum > 1):
         raise ValueError(

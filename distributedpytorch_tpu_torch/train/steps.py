@@ -30,9 +30,10 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
   ``optimizer_grads`` are what the step reads;
 * under ``-t SP`` and ``-t DDP_SP`` the strategy's module returns the
   predictions as row shards, one per device (``parallel/spatial.py``):
-  the loss and the eval metrics run per shard (``shard_metrics``), and
-  under DDP_SP the gradients are averaged over the ranks between the
-  backward and Adam (``reduce_grads``);
+  the loss, gradient accumulation's statistics and the eval metrics run
+  per shard (``shard_metrics``), and under DDP_SP the gradients are
+  averaged over the ranks between the backward and Adam
+  (``reduce_grads``);
 * ``make_multi_train_step`` runs K whole steps per call: on the card one
   CUDA graph of them, over every card the strategy's step computes on,
   on the CPU K plain steps.
@@ -73,6 +74,16 @@ from distributedpytorch_tpu_torch.ops.precision import (
 from distributedpytorch_tpu_torch.parallel.spatial import gather_rows
 
 Batch = Dict[str, torch.Tensor]
+
+#: the JAX package's refusals of the run control, word for word: K steps
+#: per dispatch with accumulation (JAX train/loop.py:253), accumulation of
+#: a stateful model (JAX train/steps.py:264)
+STACKS_CONFLICT = ("--steps-per-dispatch and --grad-accum both stack "
+                   "loader batches with conflicting step semantics — "
+                   "choose one")
+STATEFUL_ACCUM = ("gradient accumulation supports stateless models only "
+                  "(BatchNorm statistics are not chunk-decomposable); use "
+                  "a data-parallel strategy for large effective batches")
 
 
 def prep_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -139,6 +150,7 @@ def make_accum_train_step(
     train_loss_fused: bool = False,
     sum_over_ranks: Optional[Callable[[List[torch.Tensor]], None]] = None,
     remat: bool = False,
+    stats_impl: Optional[Callable] = None,
 ) -> Callable[[List[Batch]], torch.Tensor]:
     """One optimizer step over ``chunks`` batches with one batch's
     activations alive at a time, exact for the log-Dice loss, which does
@@ -164,16 +176,21 @@ def make_accum_train_step(
     ``remat`` recomputes each chunk's forward in its backward. Under
     master weights the chunks' bf16 gradients add up in the f32 master
     gradients (``MasterWeights``, JAX steps.py:287).
+
+    ``stats_impl(preds, target)`` is the strategy's statistics of one
+    chunk (``None``: ``stats_function(train_loss_fused)``). Under SP and
+    DDP_SP ``model`` returns row shards and it is the shards' sums on the
+    first device (``make_row_sharded_stats``), never summed over the
+    ranks: pass 2 back-propagates the rank's own statistics, and
+    ``sum_over_ranks`` adds the gradients once. Through an all-reduced
+    statistic each rank's cotangent would add up over the ranks and the
+    gradients come out ``world ×`` too large.
     """
     if is_stateful_model(model):
-        raise ValueError(
-            "gradient accumulation supports stateless models only "
-            "(BatchNorm statistics are not chunk-decomposable); use a "
-            "data-parallel strategy for large effective batches"
-        )
+        raise ValueError(STATEFUL_ACCUM)
     grad_scale = (float(batch_size * chunks) if faithful_loss_scaling
                   else 1.0)
-    stats_fn = stats_function(train_loss_fused)
+    stats_fn = stats_impl or stats_function(train_loss_fused)
     params = [p for p in model.parameters() if p.requires_grad]
     forward = rematerialized(model, remat)
 

@@ -5,7 +5,8 @@ engine's streams, masks and bucket graphs (replay against the eager
 forward, two replays of one bucket in flight, int8 bytes on the card,
 quantization on the card against the host), UNet and milesial train
 steps under both kernel policies, the DDP loss and step at world 1 under
-NCCL, the DDP_MP pipeline's seams at world 1, the kernel probes and a
+NCCL, the DDP_MP pipeline's seams at world 1, SP's K-step graph and
+``--remat`` on repeated devices, the kernel probes and a
 priors file's effect, the profiler window's trace of the loss kernels
 (eager and in a CUDA graph), and a ``.ckpt`` round trip resumed on the
 card. Every test carries
@@ -1049,21 +1050,21 @@ def _mp_parts(devices, schedule, dtype="f32"):
     return model, opt, step, strategy
 
 
-def _graph_against_eager(devices, parts):
-    """Three calls of the K = 3 multi-step of ``parts()``'s step (``(model,
-    opt, step, strategy)``: ``_mp_parts``, ``_dp_parts``) over
-    ``devices`` against nine eager steps from the same weights, after
-    each call every card's cache emptied and a guard tensor allocated on
-    it that the next replay must leave alone: (eager losses, graph
-    losses, weights and buffers equal, guards intact)."""
+def _graph_against_eager(devices, parts, k=3):
+    """Three calls of the K = ``k`` multi-step of ``parts()``'s step
+    (``(model, opt, step, strategy)``: ``_mp_parts``, ``_dp_parts``,
+    ``_sp_parts``) over ``devices`` against 3·k eager steps from the same
+    weights, after each call every card's cache emptied and a guard
+    tensor allocated on it that the next replay must leave alone: (eager
+    losses, graph losses, weights and buffers equal, guards intact)."""
     from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
 
-    stacks = _stacks(devices[0], 3)
+    stacks = _stacks(devices[0], 3, k)
     model_e, _opt, step, _s = parts()
-    eager = [float(step({k: v[i] for k, v in s.items()}))
-             for s in stacks for i in range(3)]
+    eager = [float(step({key: v[i] for key, v in s.items()}))
+             for s in stacks for i in range(k)]
     model_g, _opt, step, strategy = parts()
-    multi = make_multi_train_step(step, 3, strategy.step_devices)
+    multi = make_multi_train_step(step, k, strategy.step_devices)
     graphed, intact, guards = [], True, []
     for s in stacks:
         graphed += [float(x) for x in multi(s)]
@@ -1227,6 +1228,94 @@ def test_dp_remat_step_equals_the_plain_step_on_one_card(cuda_device,
     assert n1["bn_act_bwd"] == n0["bn_act_bwd"] == 12
     assert l1 == l0
     for a, b in zip(g1 + s1, g0 + s0):
+        assert torch.equal(a, b)
+
+
+# -- -t SP: the K-step graph and --remat ---------------------------------------------
+
+
+def _sp_parts(devices, arch="unet", remat=False):
+    """A small float32 model through the SP strategy's row shards on
+    ``devices`` (batch 2 of 32 × 48 images, 16 rows a shard on two),
+    under kernels cuda, with capturable Adam."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method="SP", model_arch=arch, dtype="f32",
+                      kernels="cuda", device="cuda", model_widths=(8, 16),
+                      image_size=(48, 32), batch_size=2,
+                      steps_per_dispatch=2, remat=remat)
+    strategy = build_strategy(cfg, devices=devices)
+    assert strategy.devices == list(devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = strategy.place_model(model)
+    opt = make_optimizer(model.parameters(), 1e-3, capturable=True)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, opt, step, strategy
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_sp_k_step_graph_on_one_card_equals_eager_bitwise(
+        cuda_device, monkeypatch, arch):
+    """``-t SP`` on ``[cuda:0, cuda:0]`` (two row-shard threads on one card,
+    meeting at every 3×3 conv for their halo rows and at milesial's
+    BatchNorms), K = 2: the graph's six losses, the weights and the
+    running statistics bitwise equal to six eager steps of the same
+    capturable Adam (cuDNN's deterministic algorithms), and guard
+    tensors allocated between replays left alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [cuda_device, cuda_device]
+    eager, graphed, same, intact = _graph_against_eager(
+        devices, lambda: _sp_parts(devices, arch), k=2)
+    assert graphed == eager and same and intact
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_sp_k_step_graph_across_two_cards_equals_eager_bitwise(
+        monkeypatch, arch):
+    """The same with the shards on cuda:0 and cuda:1: each halo row crosses
+    cards in the forward and its gradient back in the backward, inside
+    the capture, and the second card's allocations go to a pool of the
+    graph's own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    eager, graphed, same, intact = _graph_against_eager(
+        devices, lambda: _sp_parts(devices, arch), k=2)
+    assert graphed == eager and same and intact
+
+
+def test_sp_remat_step_equals_the_plain_step_on_one_card(cuda_device,
+                                                          monkeypatch):
+    """The UNet under ``-t SP --remat`` on ``[cuda:0, cuda:0]`` against the
+    plain SP step, cuDNN deterministic: it completes (autograd recomputes
+    both shards on the card's one thread, where a meeting would hang),
+    K1 and K1-bwd launch once per shard, and the loss and every gradient
+    are bitwise equal."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batch = {k: v[0] for k, v in _stacks(cuda_device, 1)[0].items()}
+    out = {}
+    for remat in (False, True):
+        model, opt, step, _s = _sp_parts([cuda_device, cuda_device],
+                                         remat=remat)
+        opt.step = lambda: None  # keep the gradients and the weights
+        kernels.reset_launches()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        out[remat] = (loss, dict(kernels.LAUNCHES),
+                      [p.grad.clone() for p in model.parameters()])
+    (l0, n0, g0), (l1, n1, g1) = out[False], out[True]
+    assert n1["loss_stats"] == n0["loss_stats"] == 2
+    assert n1["loss_stats_bwd"] == n0["loss_stats_bwd"] == 2
+    assert l1 == l0
+    for a, b in zip(g1, g0):
         assert torch.equal(a, b)
 
 

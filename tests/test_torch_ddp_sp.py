@@ -141,8 +141,8 @@ def test_strategy_matches_the_jax_ddp_sp(scaling):
     """The mesh, the global batch, the lr, drop_last, the shards and the
     manifest's topology against the JAX DDP_SP on a ``{data: 2, spatial:
     2}`` mesh (the per-process values a 2-process run has); every row
-    shard on the CPU; ``--grad-accum`` refused with the ROADMAP
-    pointer."""
+    shard on the CPU; ``--grad-accum`` sums over the ranks as DDP's does,
+    and milesial's is refused with the JAX words."""
     jstrategy = _jax_strategy(_jax_config(
         "unet", ddp_lr_world_size_scaling=scaling))
     assert dict(jstrategy.mesh.shape) == {"data": WORLD, "spatial": SHARDS}
@@ -167,8 +167,12 @@ def test_strategy_matches_the_jax_ddp_sp(scaling):
             jstrategy.mesh_config) == "2x2x1@sp"
         assert topology["process_count"] == WORLD
         assert topology["device_count"] == WORLD * SHARDS
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue A item 1a′"):
-        ddp_sp.build_accum_train_step(None, None, None)
+    assert ddp_sp.sum_over_ranks is port_strategy.sum_over_ranks_
+    with pytest.raises(ValueError, match="stateless models only"):
+        port_strategy.build_strategy(TrainConfig(
+            train_method="DDP_SP", batch_size=B, device="cpu",
+            image_size=(W, H), model_widths=WIDTHS, model_arch="milesial",
+            grad_accum=2), runtime.RuntimeInfo(0, WORLD))
 
 
 @pytest.mark.parametrize("batch_size,world,widths,want", [

@@ -14,6 +14,7 @@ tensor's largest, the running statistics and the weights after Adam
 within 1e-5 (``torch_parallel_parity.assert_step_matches``)."""
 
 import functools
+import re
 import threading
 
 import jax
@@ -45,8 +46,15 @@ from distributedpytorch_tpu_torch.parallel.spatial import (
     RowSharded,
     gather_rows,
 )
-from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+from distributedpytorch_tpu_torch.parallel.strategy import (
+    build_strategy,
+    check_run_control,
+)
 from distributedpytorch_tpu_torch.train.loop import Trainer
+from distributedpytorch_tpu_torch.train.steps import (
+    STACKS_CONFLICT,
+    STATEFUL_ACCUM,
+)
 from test_torch_graph_strategies import (
     _assert_masters_match,
     _jax_bf16_config,
@@ -72,7 +80,6 @@ LR = 1e-4
 CPU = torch.device("cpu")
 ARCHS = ["unet", "milesial"]
 SHARDS = [2, 4]
-ROADMAP = "ROADMAP.md, Queue A item 1a′"
 CLI = ["--synthetic", "16", "--image-size", str(W), str(H),
        "--model-widths", "8", "16", "-b", str(B), "-v", "25", "--device",
        "cpu", "--num-workers", "0", "--s2d-levels", "0", "--dtype", "f32"]
@@ -531,21 +538,38 @@ def test_cli_trains_sp_and_resumes_across_methods(tmp_path, monkeypatch):
     assert "Resumed from" in (tmp_path / "logs" / "SP.log").read_text()
 
 
-# -- what SP does not run yet --------------------------------------------------------
+# -- what SP still refuses ----------------------------------------------------
 
 
 @pytest.mark.parametrize("method", ["SP", "DDP_SP"])
 @pytest.mark.parametrize("flag,kw", [
-    (["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2)),
-    (["--remat"], dict(remat=True)),
-    (["--grad-accum", "2"], dict(grad_accum=2))])
+    (["--model", "milesial", "--grad-accum", "2"],
+     dict(model_arch="milesial", grad_accum=2)),
+    (["--steps-per-dispatch", "2", "--grad-accum", "2"],
+     dict(steps_per_dispatch=2, grad_accum=2)),
+    (["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2))])
 def test_the_run_control_under_sp_is_refused(method, flag, kw):
-    """``--steps-per-dispatch 2``, ``--remat`` and ``--grad-accum 2`` under
-    SP and DDP_SP raise with the ROADMAP pointer: in the strategy (before
-    any group is joined) and at the CLI, before any runtime starts."""
+    """What SP and DDP_SP still refuse of the run control, each before
+    any group is joined: milesial's ``--grad-accum 2`` (its BatchNorm
+    statistics do not add up over chunks) and ``--grad-accum`` together
+    with ``--steps-per-dispatch 2``, with the JAX package's words, in the
+    strategy and at the CLI; and ``--steps-per-dispatch 2`` over a gloo
+    group on a card, as far as the CPU can show it: the check with a
+    card's device and gloo refuses it, while on the CPU, under NCCL and
+    at the CLI (which knows no group yet) it passes."""
     cfg = _port_config("unet", train_method=method, **kw)
-    with pytest.raises(ValueError, match=ROADMAP):
-        build_strategy(cfg, devices=[CPU, CPU])
-    with pytest.raises(SystemExit, match=ROADMAP):
-        cli.main(["-t", method, *flag, *CLI])
+    if "grad_accum" in kw:
+        message = (STATEFUL_ACCUM if "model_arch" in kw
+                   else STACKS_CONFLICT)
+        with pytest.raises(ValueError, match=re.escape(message)):
+            build_strategy(cfg, devices=[CPU, CPU])
+        with pytest.raises(SystemExit, match=re.escape(message)):
+            cli.main(["-t", method, *flag, *CLI])
+    else:
+        with pytest.raises(ValueError, match=f"under -t {method} over a "
+                                             "gloo group on cuda:0"):
+            check_run_control(cfg, torch.device("cuda", 0), "gloo")
+        check_run_control(cfg, CPU, "gloo")
+        check_run_control(cfg, torch.device("cuda", 0), "nccl")
+        check_run_control(cfg)
     assert not torch.distributed.is_initialized()

@@ -20,9 +20,11 @@ modules this process loaded. Scenarios:
   and the gradients the optimizer receives;
 * ``pipeline_steps``: train steps of ``-t DDP_MP`` (or the job's
   ``method``, ``DDP_SP``), the rank's S stages (or row shards) all on the
-  CPU, from given weights: as ``steps``, with the state after every step,
+  CPU, from given weights: as ``steps``, with the state after every call,
   each BatchNorm's ``global_stats`` flag, the strategy's devices and its
-  mesh;
+  mesh. With the config's ``steps_per_dispatch`` K > 1 the batches go
+  through the strategy's multi-step in stacks of K, with its
+  ``grad_accum`` N > 1 through its accumulation step in chunks of N;
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
   its epochs; the losses, the val metrics, the lr, the final state dict
   and what each rank wrote into a directory of its own; how many
@@ -169,14 +171,32 @@ def run_pipeline_steps(job, rank, world):
     cast_params_(model, policy)
     grads = _first_step_grads(optimizer, [n for n, _ in
                                           model.named_parameters()])
-    step = strategy.build_train_step(model, optimizer,
-                                     get_kernel_policy(cfg.kernels))
+    kernels = get_kernel_policy(cfg.kernels)
+    step = strategy.build_train_step(model, optimizer, kernels)
+    batches = [{k: _rows(v, rank, world) for k, v in batch.items()}
+               for batch in job["batches"]]
+    size = 1
+    if cfg.steps_per_dispatch > 1:
+        size = cfg.steps_per_dispatch
+        multi = strategy.build_multi_train_step(step)
+
+        def run(group):
+            return multi({k: torch.stack([b[k] for b in group])
+                          for k in group[0]})
+    elif cfg.grad_accum > 1:
+        size = cfg.grad_accum
+        accum = strategy.build_accum_train_step(model, optimizer, kernels)
+
+        def run(group):
+            return accum(group).reshape(1)
+    else:
+        def run(group):
+            return step(group[0]).reshape(1)
     losses, states = [], []
-    for batch in job["batches"]:
-        losses.append(step({k: _rows(v, rank, world)
-                            for k, v in batch.items()}))
+    for i in range(0, len(batches), size):
+        losses.append(run(batches[i:i + size]))
         states.append({k: v.clone() for k, v in model.state_dict().items()})
-    return {"losses": torch.stack(losses), "grads": grads,
+    return {"losses": torch.cat(losses), "grads": grads,
             "states": states,
             "master": [m.detach().clone()
                        for m in getattr(optimizer, "master", ())],
