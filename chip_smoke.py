@@ -162,6 +162,8 @@ import tempfile
 import threading
 import time
 
+#: when this process started, for its age (``_short_sessions``)
+_PROCESS_START = time.time()
 SEED = 0
 THRESHOLD = 0.5
 BUCKETS = (1, 2, 4, 8)
@@ -419,23 +421,46 @@ PROFILER_TRIES = 3
 def _profiled_kernels(fn) -> list:
     """Names of the kernels the card ran during one call of ``fn``, by the
     profiler's device activity."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.train.loop import device_kernels
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _prime()
         fn()
-        torch.cuda.synchronize()
-    return [evt.name for evt in prof.events()
-            if evt.device_type == torch.autograd.DeviceType.CUDA]
+        _settle()
+    return device_kernels(prof)
+
+
+def _prime() -> None:
+    """The port's primer (``train/loop.prime_profiler``) on every visible
+    card, at the head of a session just started: in a process older than
+    some tens of seconds a session's first device records fall out of its
+    range and are dropped, so every session here opens with it, and its
+    readers leave its kernels out (``PRIMER_KERNEL``)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.train.loop import prime_profiler
+
+    prime_profiler([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
+
+
+def _settle() -> None:
+    """The port's tail (``train/loop.settle_profiler``) on every visible
+    card, before a session stops: the profiler now and then stamps a
+    device record late, and drops one stamped after the session's end."""
+    from distributedpytorch_tpu_torch.train.loop import settle_profiler
+
+    settle_profiler()
 
 
 def _warm_profiler() -> int:
-    """Start the profiler's device tracing (CUPTI) once in this process,
-    before any session whose trace is read: the first session of a
-    process can come back without device activity. The port's own
-    warm-up, which its profiler window runs too
-    (``train/loop.warm_profiler``); the sessions it took."""
+    """Check that the profiler sees the card before any session whose
+    trace is read: the port's check, which its profiler window runs
+    before each window (``train/loop.warm_profiler``); the sessions it
+    took."""
     import torch
 
     from distributedpytorch_tpu_torch.train.loop import warm_profiler
@@ -1344,9 +1369,9 @@ def _int8_model(tmp: str, arch: str, pth: str) -> dict:
     kernels_replay = ("serve_mask", "bn_act") if arch == "milesial" \
         else ("serve_mask",)
     rows = _synthetic_rows(max(BUCKETS))
-    _, per_replay = _traced_call(lambda: q8["engine"].infer(rows[:1]),
-                                 kernels_replay)
-    _, per_replay_float = _traced_call(
+    per_replay = _traced_launches(lambda: q8["engine"].infer(rows[:1]),
+                                  kernels_replay)
+    per_replay_float = _traced_launches(
         lambda: fl["engine"].infer(rows[:1]), kernels_replay)
     want = {"serve_mask": 1, "bn_act": 18}
     check(all(per_replay[k] == per_replay_float[k] == want[k]
@@ -1564,11 +1589,14 @@ def _top_kernels(fn, runs: int, width: int = 80, by_op: bool = False
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from distributedpytorch_tpu_torch.train.loop import PRIMER_KERNEL
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _prime()
         for _ in range(runs):
             fn()
-        torch.cuda.synchronize()
+        _settle()
     cpu = torch.autograd.DeviceType.CPU
     want = cpu if by_op else torch.autograd.DeviceType.CUDA
     averages = prof.key_averages()
@@ -1577,6 +1605,8 @@ def _top_kernels(fn, runs: int, width: int = 80, by_op: bool = False
     for evt in averages:
         if evt.device_type != want or (not by_op
                                        and evt.key in host_names):
+            continue
+        if PRIMER_KERNEL in evt.key:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -2248,7 +2278,7 @@ class _FirstGrads:
 
     def step(self):
         if self.grads is None:
-            self.grads = {n: p.grad.detach().float().cpu()
+            self.grads = {n: _full(p.grad).detach().float().cpu()
                           for n, p in self.named}
         self.inner.step()
 
@@ -2270,10 +2300,11 @@ def _ddp_batches(world: int, per_rank: int, steps: int):
 
 
 def _ddp_model_step(rank: int, world: int, device: str, dtype: str,
-                    per_rank: int):
-    """The full-width UNet through the DDP strategy on ``device`` (kernels
-    cuda, seed SEED): ``(model, step, first_grads, batches)`` with the
-    rank's rows of global batches."""
+                    per_rank: int, method: str = "DDP", **cfg_kw):
+    """The full-width UNet through the DDP (or FSDP) strategy on
+    ``device`` (kernels cuda, seed SEED): ``(model, step, first_grads,
+    batches)`` with the rank's rows of global batches; the model is placed
+    by the strategy (FSDP's shards) before Adam is built."""
     import torch
 
     from distributedpytorch_tpu_torch.config import TrainConfig
@@ -2282,14 +2313,14 @@ def _ddp_model_step(rank: int, world: int, device: str, dtype: str,
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.steps import make_train_step
 
-    cfg = TrainConfig(train_method="DDP", device=device, dtype=dtype,
-                      kernels="cuda", batch_size=per_rank)
+    cfg = TrainConfig(train_method=method, device=device, dtype=dtype,
+                      kernels="cuda", batch_size=per_rank, **cfg_kw)
     strategy = build_strategy(cfg)
     check(strategy.world == world and strategy.rank == rank
           and str(strategy.device) == device,
           f"rank {rank}: {strategy.info}")
-    model = create_model(cfg, generator=torch.Generator().manual_seed(
-        SEED)).to(strategy.device)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED)))
     opt = _FirstGrads(make_optimizer(
         model.parameters(), strategy.lr_for(cfg.learning_rate),
         cfg.weight_decay), list(model.named_parameters()))
@@ -2362,8 +2393,8 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
 def _run_ddp_ranks(job: str, world: int, backend: str,
                    flag: str = "--ddp-rank"):
     """``world`` processes of ``ddp_rank`` (``ddp_mp_rank`` with
-    ``--ddp-mp-rank``), started together; their results by rank and the
-    wall seconds they took."""
+    ``--ddp-mp-rank``, ``fsdp_rank`` with ``--fsdp-rank``), started
+    together; their results by rank and the wall seconds they took."""
     import torch
 
     os.makedirs(job)
@@ -2372,7 +2403,9 @@ def _run_ddp_ranks(job: str, world: int, backend: str,
     for key in TORCHRUN_ENV:
         env.pop(key, None)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+    # a rank that dies of a signal prints its Python stack (faulthandler)
+    procs = [subprocess.Popen([sys.executable, "-X", "faulthandler",
+                               os.path.abspath(__file__),
                                flag, str(rank), str(world), backend,
                                job], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -2719,8 +2752,23 @@ def _mp_model_step(arch: str, devices, schedule: str, microbatches: int,
     return model, step, strategy
 
 
+def _full(t):
+    """``t`` whole: an FSDP shard (a ``DTensor``) gathered by the port's
+    ``parallel/strategy.gathered``, else itself."""
+    from distributedpytorch_tpu_torch.parallel.strategy import gathered
+
+    return gathered(t)
+
+
 def _grads(model) -> dict:
-    return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    """The weight gradients under the singleGPU names: a ``-t TP`` model's
+    channel slices concatenated, an FSDP shard's gathered."""
+    if hasattr(model, "whole_values"):  # parallel/channels.ChannelSharded
+        return dict(zip(model.whole_param_names(), (
+            g.float().to(model.devices[0]) for g in model.whole_values(
+                [p.grad for p in model.parameters()]))))
+    return {n: _full(p.grad).float().clone()
+            for n, p in model.named_parameters()}
 
 
 def _max_err_rel(a: dict, b: dict) -> float:
@@ -3347,14 +3395,19 @@ def _busy_ms_by_device(fn, runs: int, devices=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from distributedpytorch_tpu_torch.train.loop import PRIMER_KERNEL
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _prime()
         for _ in range(runs):
             fn()
         _sync_all(devices)
+        _settle()
     spans = {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or PRIMER_KERNEL in evt.name):
             continue
         spans.setdefault(evt.device_index, []).append(
             (evt.time_range.start, evt.time_range.end))
@@ -3520,15 +3573,16 @@ def _traced_call(fn, names) -> tuple:
     trace holds the kernels every thread of the process ran."""
     import re
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.train.loop import device_kernels
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _prime()
         out = fn()
-        torch.cuda.synchronize()
-    kernels = [evt.name for evt in prof.events()
-               if evt.device_type == torch.autograd.DeviceType.CUDA]
+        _settle()
+    kernels = device_kernels(prof)
     return out, {
         name: sum(bool(re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", k))
                   for k in kernels)
@@ -5436,6 +5490,43 @@ def _pw_run(tmp: str, k: int, window: bool) -> dict:
         close()
 
 
+#: short sessions ``_short_sessions`` takes each way
+SHORT_SESSIONS = 3
+
+
+def _short_sessions() -> dict:
+    """SHORT_SESSIONS profiler sessions of one small kernel each, without
+    the primer and then with it, and the device kernels each kept, at
+    this process's age (seconds since the interpreter started): late in a
+    process the unprimed ones come back empty (their record dropped as
+    out of the session's range), the primed ones hold their kernel. Each
+    closes through the port's tail (``train/loop.settle_profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.train.loop import (
+        device_kernels,
+        prime_profiler,
+        settle_profiler,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.ones(1024, device=dev)
+    out = {"process_age_s": time.time() - _PROCESS_START}
+    for primed in (False, True):
+        kept = []
+        for _ in range(SHORT_SESSIONS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if primed:
+                    prime_profiler(dev)
+                x.mul_(1.0)
+                settle_profiler(dev)
+            kept.append(len(device_kernels(prof)))
+        out["primed" if primed else "unprimed"] = kept
+    return out
+
+
 def phase_profile_window(tmp: str) -> dict:
     """The profiler window on the card: the full-width bf16 UNet, -b 4,
     ``--profile-steps 2:4`` at K = 1 and K = 2 (one CUDA graph of 2 steps,
@@ -5443,12 +5534,16 @@ def phase_profile_window(tmp: str) -> dict:
     without the window under cuDNN's deterministic algorithms: the losses
     bitwise equal, the chrome trace written with K1 and K1-bwd by name
     (2 and 2: steps 3 and 4), no profiler left running, and the step's
-    wall time with and without a profiler."""
+    wall time with and without a profiler. First, at this process's age,
+    the blind short session (``_short_sessions``): one small kernel
+    traced without the primer and with it (``train/loop.prime_profiler``);
+    the primed session must hold its kernel."""
     import torch
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    out = {"phase": "profile_window", "steps": list(PW_STEPS)}
+    out = {"phase": "profile_window", "steps": list(PW_STEPS),
+           "short_sessions": _short_sessions()}
     try:
         for k in (1, 2):
             plain = _pw_run(tmp, k, window=False)
@@ -5460,6 +5555,8 @@ def phase_profile_window(tmp: str) -> dict:
         torch.backends.cudnn.deterministic = deterministic
     out["device"] = torch.cuda.get_device_name(0)
     emit(out)
+    check(all(n == 1 for n in out["short_sessions"]["primed"]),
+          f"a primed session lost its kernel: {out['short_sessions']}")
     for k in (1, 2):
         row = out[f"k{k}"]
         check(row["losses_bitwise_equal"],
@@ -5734,6 +5831,9 @@ def _sp_model_step(method: str, arch: str, devices, dtype: str,
 
 
 def _running_stats(model) -> dict:
+    if hasattr(model, "whole_state"):  # parallel/channels.ChannelSharded
+        return {n: t for n, t in model.whole_state().items()
+                if "running" in n}
     return {n: b.clone() for n, b in model.named_buffers() if "running" in n}
 
 
@@ -5789,17 +5889,17 @@ def _sp_step_rows(arch: str, devices, batch) -> dict:
     return rows
 
 
-def _sp_in_place(arch: str, devices, batch) -> dict:
-    """One float32 SP step with the kernels against the same step with
-    every kernel swapped for its plain version on the card
-    (``_PlainVersions``): the kernels on the shards' shapes."""
+def _sp_in_place(arch: str, devices, batch, method: str = "SP") -> dict:
+    """One float32 ``method`` (SP, TP) step with the kernels against the
+    same step with every kernel swapped for its plain version on the card
+    (``_PlainVersions``): the kernels on the shards' (slices') shapes."""
     import torch
 
     from distributedpytorch_tpu_torch.ops import kernels
 
     runs = {}
     for plain in (False, True):
-        model, step, _ = _sp_model_step("SP", arch, devices, "f32")
+        model, step, _ = _sp_model_step(method, arch, devices, "f32")
         kernels.reset_launches()
         with (_PlainVersions() if plain else contextlib.nullcontext()):
             loss = float(step(batch))
@@ -6490,6 +6590,548 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
     return out
 
 
+# -t TP on [cuda:0, cuda:0] (train_tp): two channel slices of every layer
+# on the one card, full width, -b 4; across the cards (tp_cards)
+TP_SLICES = 2
+TP_TIMED_STEPS = 5
+
+
+def _tp_expected_per_step(arch: str, slices: int) -> dict:
+    """A step's launches under TP: K1 and K1-bwd once, on the whole
+    predictions on the first device; for milesial K2 and K3 once per
+    BatchNorm and slice (every width divides), K5 once per engaged conv
+    and slice (the whole conv's widths decide, as on one device)."""
+    want = {"loss_stats": 1, "loss_stats_bwd": 1}
+    if arch == "milesial":
+        want.update(bn_act=MILESIAL_BATCHNORMS * slices,
+                    bn_act_bwd=MILESIAL_BATCHNORMS * slices,
+                    wgrad_9tap=MILESIAL_K5_CONVS * slices)
+    return want
+
+
+def _tp_slice_kernels(dev, slices: int) -> dict:
+    """K2, K3 and K5 against their plain versions on the shapes one of
+    ``slices`` channel slices gives them at full width, batch 4: K2 and
+    K3 on milesial's widest BatchNorm input of a slice (4, 64/n, 640,
+    960) float32, K5 on its first engaged conv (128 → 128 at 320 × 480)
+    with the whole bf16 input and a slice's dy (4, 320, 480, 128/n). K1
+    and K1-bwd see the whole predictions, as on one device
+    (``loss_kernels``)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels as kn
+    from distributedpytorch_tpu_torch.ops import wgrad_kernels as wk
+
+    w, h = IMAGE_WH
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def err(got, want):
+        scale = float(want.abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        return {"max_abs_err": diff,
+                "max_err_rel_to_max": diff / scale if scale else diff}
+
+    out = {}
+    x, a, b, mean = _bn_inputs((TRAIN_BATCH, 64 // slices, h, w), gen, dev,
+                               torch.float32)
+    out["bn_act"] = err(kn.bn_act(x, a, b), kn.bn_act_reference(x, a, b))
+    g = torch.randn(x.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    got = kn.bn_act_bwd(x, g, a, b, mean)
+    want = kn.bn_act_bwd_reference(x, g, a, b, mean)
+    out["bn_act_bwd"] = max((err(u, v) for u, v in zip(got, want)),
+                            key=lambda e: e["max_err_rel_to_max"])
+    del x, g, got, want
+    xs = torch.randn((TRAIN_BATCH, h // 2, w // 2, 128), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    dy = torch.randn((TRAIN_BATCH, h // 2, w // 2, 128 // slices),
+                     generator=gen, device=dev).to(torch.bfloat16)
+    out["wgrad_9tap"] = err(wk.wgrad_9tap(xs, dy),
+                            wk.wgrad_9tap_reference(xs, dy))
+    out["shapes"] = {"bn": [TRAIN_BATCH, 64 // slices, h, w],
+                     "wgrad_x": list(xs.shape), "wgrad_dy": list(dy.shape)}
+    return out
+
+
+def _tp_state_bytes(model, optimizer) -> dict:
+    """Bytes of parameters and Adam's state by slice index of a
+    ``ChannelSharded`` model (the layers left whole count on the first),
+    and the whole's."""
+    def nbytes(p):
+        state = optimizer.state.get(p, {})
+        return p.numel() * p.element_size() + sum(
+            t.numel() * t.element_size() for t in state.values()
+            if hasattr(t, "dim") and t.dim() > 0)
+
+    slots = [0] * len(model.devices)
+    for _name, layer in model.layers():
+        for i, shard in enumerate(layer.shards):
+            slots[i] += sum(nbytes(p) for p in shard.parameters())
+    return {"per_slice": slots, "whole": sum(slots),
+            "head_bytes": sum(nbytes(p) for name, layer in model.layers()
+                              if not layer.sharded
+                              for p in layer.parameters())}
+
+
+def _tp_timing(arch: str, devices, batch) -> dict:
+    """The bf16 ``-t TP`` step over ``devices`` (Adam) beside the
+    singleGPU step on the first: CUDA-event ms (wall ms across cards),
+    host enqueue ms, each card's busy ms by the profiler and the first
+    card's idle share; the bytes of parameters and Adam's state each
+    slice holds."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    dev = devices[0]
+    distinct = list(dict.fromkeys(devices))
+    out = {}
+    for label, method, devs in (("tp", "TP", devices),
+                                ("single_gpu", "singleGPU", devices[:1])):
+        cfg = TrainConfig(train_method=method, model_arch=arch, dtype="bf16",
+                          kernels="cuda", device="cuda",
+                          batch_size=TRAIN_BATCH,
+                          wgrad_taps=arch == "milesial")
+        strategy = build_strategy(cfg, devices=devs)
+        model = strategy.place_model(create_model(
+            cfg, generator=torch.Generator().manual_seed(SEED)))
+        opt = make_optimizer(model.parameters(), 1e-4)
+        step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+        ms = (cuda_ms(lambda: step(batch), TP_TIMED_STEPS, warmup=2)
+              if len(distinct) == 1 else
+              _wall_ms(lambda: step(batch), TP_TIMED_STEPS, warmup=2,
+                       devices=distinct))
+        busy = _busy_ms_by_device(lambda: step(batch), 2, devices=distinct)
+        out[label] = {"step_ms": ms,
+                      "host_enqueue_ms": _host_enqueue_ms(lambda: step(batch)),
+                      "busy_ms": busy,
+                      "idle_share": 1.0 - busy.get(dev.index, 0.0) / ms,
+                      "images_per_s": TRAIN_BATCH * 1e3 / ms}
+        if label == "tp":
+            out[label]["state_bytes"] = _tp_state_bytes(model, opt)
+            out[label]["top_host_ops"] = _top_host_ops(
+                lambda: step(batch), 2)[:8]
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_tp(tmp: str, train: dict) -> dict:
+    """``-t TP`` on ``[cuda:0, cuda:0]``, two channel slices of every layer
+    on the one card, under kernels cuda with cuDNN's deterministic
+    algorithms, for the full-width UNet (``-b 4``) and milesial
+    ``--wgrad-taps`` (DPT_WGRAD_BACKEND=pallas): the float32 step 1
+    against a singleGPU step from the same weights (SP_BOUNDS' f32
+    bounds, PERF.md §2); the bf16 step's launches counted by name in the
+    profiler's trace and by the wrappers (``_tp_expected_per_step``: K1
+    and K1-bwd once, milesial's K2, K3 and K5 once per slice); the float32
+    step with the kernels against the same step with their plain versions
+    in place (``_sp_in_place``), and K2, K3 and K5 against their plain
+    versions on a slice's shapes (``_tp_slice_kernels``); the eager bf16
+    step's ms, host enqueue, busy and idle share beside singleGPU
+    (``_tp_timing``). Then a short run of the training CLI's own
+    functions with ``-t TP`` writes whole tensors under the reference
+    names and a manifest that says ``1x2x1``."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    devices = [dev] * TP_SLICES
+    w, h = IMAGE_WH
+    out = {"phase": "train_tp", "slices": TP_SLICES,
+           "devices": [str(d) for d in devices], "batch": TRAIN_BATCH,
+           "cudnn_deterministic": True,
+           "device": torch.cuda.get_device_name(0)}
+    problems = []
+    with _deterministic_cudnn():
+        batch = _synthetic_batch(TRAIN_BATCH, dev)
+        out["slice_kernels"] = _tp_slice_kernels(dev, TP_SLICES)
+        for name in ("bn_act", "bn_act_bwd", "wgrad_9tap"):
+            if (out["slice_kernels"][name]["max_err_rel_to_max"]
+                    > SP_SHARD_KERNEL_RTOL[name]):
+                problems.append(f"{name} on the slice shape: "
+                                f"{out['slice_kernels'][name]}")
+        for arch in ("unet", "milesial"):
+            def run(arch=arch):
+                runs = {}
+                for method, devs in (("TP", devices),
+                                     ("singleGPU", devices[:1])):
+                    model, step, _ = _sp_model_step(method, arch, devs,
+                                                    "f32")
+                    runs[method] = {"loss": float(step(batch)),
+                                    "grads": _grads(model),
+                                    "stats": _running_stats(model)}
+                    del model, step
+                    torch.cuda.empty_cache()
+                row = {"against_single_gpu_f32": _step_against(
+                    runs["TP"], runs["singleGPU"])}
+                row["against_single_gpu_f32"]["ok"] = _within_sp_bounds(
+                    arch, "f32", row["against_single_gpu_f32"])
+                del runs
+                _, step, _ = _sp_model_step("TP", arch, devices, "bf16",
+                                            lr=1e-4)
+                names = tuple(_tp_expected_per_step(arch, TP_SLICES))
+                step(batch)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                loss, traced = _traced_call(lambda: float(step(batch)),
+                                            names)
+                row["step_loss"] = loss
+                row["counted"] = {n: kernels.LAUNCHES[n] for n in names}
+                row["traced_per_step"] = traced
+                row["expected_per_step"] = _tp_expected_per_step(arch,
+                                                                 TP_SLICES)
+                del step
+                torch.cuda.empty_cache()
+                row["in_place_f32"] = _sp_in_place(arch, devices, batch,
+                                                   method="TP")
+                row["timing"] = _tp_timing(arch, devices, batch)
+                return row
+
+            row = _with_wgrad_backend(run) if arch == "milesial" else run()
+            out[arch] = row
+            if not row["against_single_gpu_f32"]["ok"]:
+                problems.append(f"{arch} f32 TP vs singleGPU: "
+                                f"{row['against_single_gpu_f32']}")
+            if not row["in_place_f32"]["ok"]:
+                problems.append(f"{arch} f32 kernels vs plain versions: "
+                                f"{row['in_place_f32']}")
+            if not np.isfinite(row["step_loss"]):
+                problems.append(f"{arch} TP loss {row['step_loss']}")
+            for what in ("counted", "traced_per_step"):
+                if row[what] != row["expected_per_step"]:
+                    problems.append(f"{arch} {what} {row[what]}, expected "
+                                    f"{row['expected_per_step']}")
+        out["train_step_ms"] = train["step_ms"]
+
+        # the training CLI's own functions: one step and one eval batch
+        run = os.path.join(tmp, "train_tp")
+        argv = ["-t", "TP", "--synthetic", "8", "-v", "50",
+                "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w),
+                str(h), "--dtype", "bf16", "--kernels", "cuda"]
+        trainer, close = _cli_trainer(run, argv, devices=devices)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            launches = {n: kernels.LAUNCHES[n] for n in LOSS_KERNELS}
+        finally:
+            close()
+        saved = load_native(os.path.join(run, "checkpoints", "TP.pt"))
+        shapes = {k: list(v.shape) for k, v in saved["model"].items()}
+        out["cli"] = {"result": result, "launches": launches,
+                      "wrote": _files(run),
+                      "topology": saved["manifest"]["topology"],
+                      "whole_tensors": shapes[
+                          "encoder.conv1.conv_block.0.weight"]}
+        want = {"loss_stats": 2, "loss_stats_bwd": 1}
+        if launches != want:
+            problems.append(f"TP CLI run launched {launches}, expected {want}")
+        if out["cli"]["topology"]["mesh_spec"] != f"1x{TP_SLICES}x1":
+            problems.append(f"TP manifest {out['cli']['topology']}")
+        if shapes["encoder.conv1.conv_block.0.weight"] != [32, 3, 3, 3]:
+            problems.append(f"TP checkpoint holds a slice: {shapes}")
+        if "checkpoints/TP.pth" not in out["cli"]["wrote"]:
+            problems.append(f"TP CLI run wrote {out['cli']['wrote']}")
+        if not (np.isfinite(result["val_loss"])
+                and np.isfinite(result["val_dice"])):
+            problems.append(f"TP CLI eval {result}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, f"train_tp: {problems}")
+    return out
+
+
+def _fsdp_world_one(arch: str, dtype: str) -> dict:
+    """One step of ``-t FSDP`` at world 1 under NCCL (torchrun's env of a
+    one-process launch) against one ``-t DDP`` step at world 1 from the
+    same weights on the same batch, SGD at lr 0: the loss, gradients and
+    running statistics, bitwise or within SP_BOUNDS' bounds, and FSDP's
+    launches per step counted by the wrappers."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+    runs = {}
+    for method in ("DDP", "FSDP"):
+        with _world_one_env():
+            try:
+                model, step, strategy = _sp_model_step(method, arch, [dev],
+                                                       dtype)
+                check(strategy.world == 1
+                      and torch.distributed.get_backend() == "nccl",
+                      f"{method} joined {torch.distributed.get_backend()}")
+                step(batch)  # the first step builds NCCL's communicator
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                loss = float(step(batch))
+                torch.cuda.synchronize()
+                runs[method] = {"loss": loss, "grads": _grads(model),
+                                "stats": _running_stats(model),
+                                "launches": dict(kernels.LAUNCHES)}
+                del model, step
+            finally:
+                runtime.shutdown()
+        torch.cuda.empty_cache()
+    a, b = runs["FSDP"], runs["DDP"]
+    row = _step_against(a, b)
+    row["bitwise"] = (a["loss"] == b["loss"] and all(
+        torch.equal(a["grads"][n], g) for n, g in b["grads"].items()))
+    row["ok"] = row["bitwise"] or _within_sp_bounds(arch, dtype, row)
+    row["launches"] = {n: a["launches"][n]
+                       for n in _tp_expected_per_step(arch, 1)}
+    row["expected_per_step"] = _tp_expected_per_step(arch, 1)
+    return row
+
+
+def fsdp_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of a multi-process FSDP phase (``chip_smoke.py
+    --fsdp-rank R WORLD BACKEND DIR``): joins a ``backend`` group over a
+    file store in ``DIR``, on cuda:0 under gloo (``train_fsdp``: both
+    ranks on the one card) and on cuda:R under nccl (``--cards``). Trains
+    the full-width float32 UNet under kernels cuda through the FSDP
+    strategy for RANK_STEPS steps on its RANK_BATCH rows of each global
+    batch and writes its losses, its first step's gradients and its final
+    weights (gathered whole), its launches and the bytes of parameters
+    and Adam's state it holds against the whole's to ``DIR/result_R.pt``.
+    Under nccl it then times the bf16 step at TRAIN_BATCH per rank (wall
+    ms across the ranks, the card's busy ms) and runs the same float32
+    steps through ``-t DDP`` without the lr quirk, for the agreement."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    torch.cuda.set_device(torch.device(device))
+    _warm_profiler()
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        model, step, opt, place = _ddp_model_step(rank, world, device, "f32",
+                                                  RANK_BATCH, "FSDP")
+        batches = _ddp_batches(world, RANK_BATCH, RANK_STEPS)
+        kernels.reset_launches()
+        losses = [float(step(place(batch))) for batch in batches]
+        mine = whole = 0
+        for p in model.parameters():
+            tensors = [p] + [t for t in opt.inner.state[p].values()
+                             if t.dim() > 0]
+            mine += sum(t.to_local().numel() * t.element_size()
+                        for t in tensors)
+            whole += sum(t.numel() * t.element_size() for t in tensors)
+        result = {"losses": losses, "grads": opt.grads,
+                  "launches": dict(kernels.LAUNCHES),
+                  "state": {k: _full(v).cpu() for k, v in
+                            model.state_dict().items()},
+                  "bytes": {"mine": mine, "whole": whole}}
+        del model, step, opt
+        if backend == "nccl":
+            model, step, ddp_opt, place = _ddp_model_step(
+                rank, world, device, "f32", RANK_BATCH, "DDP",
+                ddp_lr_world_size_scaling=False)
+            result["ddp_losses"] = [float(step(place(batch)))
+                                    for batch in batches]
+            result["ddp_grads"] = ddp_opt.grads
+            result["ddp_state"] = {k: v.cpu() for k, v in
+                                   model.state_dict().items()}
+            del model, step, ddp_opt
+            _, step, _, place = _ddp_model_step(rank, world, device, "bf16",
+                                                TRAIN_BATCH, "FSDP")
+            batch = place(_ddp_batches(world, TRAIN_BATCH, 1)[0])
+            result["bf16_step_ms"] = _wall_ms(lambda: step(batch), 5,
+                                              warmup=2)
+            result["busy_ms"] = _busy_ms_by_device(
+                lambda: step(batch), 2, devices=[torch.device(device)])
+            del step
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _fsdp_ranks_report(ranks, world: int) -> tuple:
+    """The ranks checked as ``train_ddp_gloo2``'s (``_assert_ranks``'s
+    rows), and each rank's bytes against the whole / world × 1.5; the
+    report and its problems."""
+    out = _check_ranks_against_one_step(ranks, world)
+    out["bytes"] = [r["bytes"] for r in ranks]
+    problems = []
+    for r in ranks:
+        if r["bytes"]["mine"] > r["bytes"]["whole"] / world * 1.5:
+            problems.append(f"a rank holds {r['bytes']}")
+    return out, problems
+
+
+def phase_train_fsdp(tmp: str) -> dict:
+    """``-t FSDP`` on the one card: at world 1 under NCCL, one float32 step
+    of the full-width UNet and milesial ``--wgrad-taps`` against one
+    ``-t DDP`` step at world 1 (no lr quirk), bitwise where it is, else
+    within SP_BOUNDS' f32 bounds, with the launches per step
+    (``_fsdp_world_one``); a short run of the training CLI's own functions
+    at world 1 (torchrun's env) that saves whole tensors with
+    ``1x1x1@fsdp``; then two gloo ranks on cuda:0 (``fsdp_rank``, two
+    processes this script spawns): their gathered weights bitwise equal,
+    step 1 against one world-1 step on the joint batch
+    (RANKS_LOSS_RTOL, RANKS_GRAD_RTOL), each rank's bytes at most the
+    whole / 2 × 1.5."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    out = {"phase": "train_fsdp", "device": torch.cuda.get_device_name(0),
+           "cudnn_deterministic": True}
+    problems = []
+    with _deterministic_cudnn():
+        for arch in ("unet", "milesial"):
+            def run(arch=arch):
+                return _fsdp_world_one(arch, "f32")
+
+            row = _with_wgrad_backend(run) if arch == "milesial" else run()
+            out[f"world_one_{arch}"] = row
+            if not row["ok"]:
+                problems.append(f"{arch} FSDP vs DDP at world 1: {row}")
+            if row["launches"] != row["expected_per_step"]:
+                problems.append(f"{arch} FSDP launched {row['launches']}")
+    w, h = IMAGE_WH
+    run = os.path.join(tmp, "train_fsdp")
+    argv = ["-t", "FSDP", "--synthetic", "8", "-v", "50",
+            "-b", str(TRAIN_BATCH), "-e", "1", "--image-size", str(w), str(h),
+            "--dtype", "bf16", "--kernels", "cuda"]
+    with _world_one_env():
+        try:
+            info = cli.start_runtime(cli.get_args(argv))
+            trainer, close = _cli_trainer(run, argv, info=info)
+            try:
+                result = trainer.train()
+            finally:
+                close()
+        finally:
+            runtime.shutdown()
+    saved = load_native(os.path.join(run, "checkpoints", "FSDP.pt"))
+    out["cli"] = {"result": result, "wrote": _files(run),
+                  "topology": saved["manifest"]["topology"]}
+    if saved["manifest"]["topology"]["mesh_spec"] != "1x1x1@fsdp":
+        problems.append(f"FSDP manifest {saved['manifest']['topology']}")
+    if list(saved["model"]["encoder.conv1.conv_block.0.weight"].shape) != [
+            32, 3, 3, 3]:
+        problems.append("the FSDP checkpoint holds a shard")
+    if not np.isfinite(result["val_loss"]):
+        problems.append(f"FSDP CLI eval {result}")
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "train_fsdp_gloo2"), 2,
+                                   "gloo", flag="--fsdp-rank")
+    gloo, gloo_problems = _fsdp_ranks_report(ranks, 2)
+    out["gloo2"] = {"wall_s": wall_s, **gloo}
+    problems += gloo_problems
+    out["problems"] = problems
+    emit(out)
+    _assert_ranks(gloo, "FSDP gloo ranks")
+    check(not problems, f"train_fsdp: {problems}")
+    return out
+
+
+def phase_tp_cards(world: int) -> dict:
+    """``-t TP`` across the ``world`` cards (``--cards 4``), where every
+    conv's input is gathered over NVLink: the bf16 UNet and milesial
+    ``--wgrad-taps`` at ``-b 4``, the step's wall ms with each card's busy
+    ms beside the singleGPU step on one card, and the bytes of parameters
+    and Adam's state each card holds against the whole (at most ¼ × 1.5 of
+    it, plus the 1-channel head on the first)."""
+    import torch
+
+    cards = [torch.device("cuda", i) for i in range(world)]
+    batch = _synthetic_batch(TRAIN_BATCH, cards[0])
+    out = {"phase": "tp_cards", "world": world,
+           "cards": [torch.cuda.get_device_name(i) for i in range(world)]}
+    problems = []
+    for arch in ("unet", "milesial"):
+        def run(arch=arch):
+            return _tp_timing(arch, cards, batch)
+
+        row = _with_wgrad_backend(run) if arch == "milesial" else run()
+        out[arch] = row
+        state = row["tp"]["state_bytes"]
+        for i, nbytes in enumerate(state["per_slice"]):
+            allowed = state["whole"] / world * 1.5 + (
+                state["head_bytes"] if i == 0 else 0)
+            if nbytes > allowed:
+                problems.append(f"{arch} card {i} holds {nbytes} of "
+                                f"{state['whole']}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, f"tp_cards: {problems}")
+    return out
+
+
+# -t FSDP's four NCCL ranks against -t DDP's on the same batches: the
+# losses within 1e-5; step 1's gradients before Adam within
+# RANKS_GRAD_RTOL of each tensor's largest (the reduce-scatter and DDP's
+# buckets sum in other orders); the weights after RANK_STEPS Adam steps
+# within 2·lr a step of each other, element by element: Adam moves an
+# element by about lr a step whatever its gradient's size, so the sum
+# order's noise on a gradient element near zero (a zero-initialized
+# bias's) can flip its step (measured on four H100s: 3.2e-3 of a
+# tensor's largest after 4 steps, the losses bitwise equal)
+FSDP_DDP_LOSS_RTOL = 1e-5
+FSDP_DDP_WEIGHT_ATOL = 2 * 1e-4 * RANK_STEPS
+
+
+def phase_fsdp_cards(tmp: str, world: int) -> dict:
+    """``-t FSDP`` as ``world`` NCCL ranks, one per card (``fsdp_rank``):
+    checked as ``train_fsdp``'s gloo ranks (gathered weights bitwise
+    equal, step 1 against a world-1 step on the joint batch), each rank's
+    bytes of parameters and Adam's state against the whole, the bf16
+    step's wall ms and each card's busy ms, and the agreement with ``-t
+    DDP`` on the same ranks at the same global batch without the lr
+    quirk (FSDP_DDP_LOSS_RTOL, RANKS_GRAD_RTOL, FSDP_DDP_WEIGHT_ATOL)."""
+    import torch
+
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "fsdp_cards"), world,
+                                   "nccl", flag="--fsdp-rank")
+    report, problems = _fsdp_ranks_report(ranks, world)
+    r0 = ranks[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(r0["losses"], r0["ddp_losses"]))
+    grad_err = _max_err_rel(r0["grads"], r0["ddp_grads"])
+    weights = {k: v for k, v in r0["ddp_state"].items()
+               if v.is_floating_point()}
+    weight_err = _max_err_rel(r0["state"], weights)
+    weight_abs = max(float((r0["state"][k] - v).abs().max())
+                     for k, v in weights.items())
+    out = {"phase": "fsdp_cards", "world": world, "wall_s": wall_s,
+           "cards": [torch.cuda.get_device_name(i) for i in range(world)],
+           **report, "bf16_step_ms": [r["bf16_step_ms"] for r in ranks],
+           "busy_ms": [r["busy_ms"] for r in ranks],
+           "against_ddp": {"loss_max_rel_err": loss_err,
+                           "step1_grad_max_err_rel_to_tensor_max": grad_err,
+                           "weights_max_abs_err": weight_abs,
+                           "weights_max_err_rel_to_tensor_max": weight_err}}
+    if (loss_err > FSDP_DDP_LOSS_RTOL or grad_err > RANKS_GRAD_RTOL
+            or weight_abs > FSDP_DDP_WEIGHT_ATOL):
+        problems.append(f"FSDP against DDP: {out['against_ddp']}")
+    out["problems"] = problems
+    emit(out)
+    _assert_ranks(report, "FSDP nccl ranks")
+    check(not problems, f"fsdp_cards: {problems}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -6535,9 +7177,11 @@ def main_cards(world: int) -> int:
     """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
     across N cards (``phase_ddp_cards``), ``-t DDP_MP`` as two ranks of
     two cards (``phase_ddp_mp_cards``), ``-t SP`` across N and ``-t
-    DDP_SP`` as two ranks of two cards (``phase_sp_cards``), ``-t MP``
-    across 2 and 4 of them (``phase_mp_cards``) and ``-t DP`` across all N
-    (``phase_dp_cards``), and no other phase."""
+    DDP_SP`` as two ranks of two cards (``phase_sp_cards``), ``-t FSDP``
+    as N NCCL ranks (``phase_fsdp_cards``), ``-t MP`` across 2 and 4 of
+    them (``phase_mp_cards``), ``-t DP`` across all N (``phase_dp_cards``)
+    and ``-t TP`` across all N (``phase_tp_cards``), and no other
+    phase."""
     import torch
 
     check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
@@ -6547,8 +7191,10 @@ def main_cards(world: int) -> int:
         phase_ddp_cards(tmp, world)
         phase_ddp_mp_cards(tmp)
         phase_sp_cards(tmp, world)
+        phase_fsdp_cards(tmp, world)
     phase_mp_cards(world)
     phase_dp_cards(world)
+    phase_tp_cards(world)
     _finish(device)
     return 0
 
@@ -6630,6 +7276,8 @@ def main(argv) -> int:
         return ddp_mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--ddp-sp-rank"]:
         return ddp_sp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--fsdp-rank"]:
+        return fsdp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
     if argv[:1] == ["--dp-eager-step"]:
@@ -6661,6 +7309,8 @@ def main(argv) -> int:
         train_sp = phase_train_sp(tmp, train)
         sp_rc = phase_sp_run_control()
         ddp_sp = phase_train_ddp_sp_gloo2(tmp)
+        train_tp = phase_train_tp(tmp, train)
+        train_fsdp = phase_train_fsdp(tmp)
         run_control = phase_train_run_control(tmp)["launches"]
         graphs = phase_train_graph_strategies(tmp)
         phase_probes(tmp)
@@ -6749,6 +7399,29 @@ def main(argv) -> int:
         return {arch: row["launches"][0][name]
                 for arch, row in ddp_sp["runs"].items()
                 if name in row["launches_expected"]}
+    def tp_launches(name):
+        """-t TP on [cuda:0, cuda:0] (train_tp): per bf16 step of each
+        model, counted by name in the profiler's trace (K1 and K1-bwd once,
+        milesial's K2, K3 and K5 per channel slice), and the wrappers'
+        count over the short CLI run (one step and one eval batch)."""
+        out = {f"{arch}_step": train_tp[arch]["traced_per_step"][name]
+               for arch in ("unet", "milesial")
+               if name in train_tp[arch]["traced_per_step"]}
+        if name in train_tp["cli"]["launches"]:
+            out["cli_run"] = train_tp["cli"]["launches"][name]
+        return out
+
+    def fsdp_launches(name):
+        """-t FSDP (train_fsdp): per float32 step at world 1 under NCCL,
+        counted by the wrappers, and rank 0's over the gloo ranks' steps
+        (the UNet)."""
+        out = {f"world_one_{arch}_step":
+               train_fsdp[f"world_one_{arch}"]["launches"][name]
+               for arch in ("unet", "milesial")
+               if name in train_fsdp[f"world_one_{arch}"]["launches"]}
+        if name in train_fsdp["gloo2"]["launches"][0]:
+            out["gloo_rank0"] = train_fsdp["gloo2"]["launches"][0][name]
+        return out
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -6765,6 +7438,8 @@ def main(argv) -> int:
             "ddp_mp_launches": None,
             "sp_launches": None,
             "ddp_sp_launches": None,
+            "tp_launches": None,
+            "fsdp_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -6791,6 +7466,10 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("loss_stats"),
             "ddp_sp_launches": ddp_sp_launches("loss_stats"),
+            # per channel slice under -t TP (train_tp), per rank under
+            # -t FSDP (train_fsdp)
+            "tp_launches": tp_launches("loss_stats"),
+            "fsdp_launches": fsdp_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -6814,6 +7493,10 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("loss_stats_bwd"),
             "ddp_sp_launches": ddp_sp_launches("loss_stats_bwd"),
+            # per channel slice under -t TP (train_tp), per rank under
+            # -t FSDP (train_fsdp)
+            "tp_launches": tp_launches("loss_stats_bwd"),
+            "fsdp_launches": fsdp_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -6838,6 +7521,10 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("bn_act"),
             "ddp_sp_launches": ddp_sp_launches("bn_act"),
+            # per channel slice under -t TP (train_tp), per rank under
+            # -t FSDP (train_fsdp)
+            "tp_launches": tp_launches("bn_act"),
+            "fsdp_launches": fsdp_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -6865,6 +7552,10 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("bn_act_bwd"),
             "ddp_sp_launches": ddp_sp_launches("bn_act_bwd"),
+            # per channel slice under -t TP (train_tp), per rank under
+            # -t FSDP (train_fsdp)
+            "tp_launches": tp_launches("bn_act_bwd"),
+            "fsdp_launches": fsdp_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -6888,6 +7579,10 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("wgrad_9tap"),
             "ddp_sp_launches": ddp_sp_launches("wgrad_9tap"),
+            # per channel slice under -t TP (train_tp), per rank under
+            # -t FSDP (train_fsdp)
+            "tp_launches": tp_launches("wgrad_9tap"),
+            "fsdp_launches": fsdp_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -37,7 +37,13 @@ records the world, stages, microbatches and schedule), and under ``-t DP`` the
 model itself sits on the first device: a checkpoint of any method loads
 under any other, at any stage count, with nothing to reshard
 (``load_state_dict`` copies each tensor to its parameter's device, and
-the optimizer's state follows its parameter's). The manifest's
+the optimizer's state follows its parameter's). Under ``-t TP`` and
+``-t FSDP`` the parameters and Adam's state are sharded; the strategy
+gives the snapshot their whole tensors (``Strategy.model_state``,
+``optimizer_state``: TP concatenates its channel slices on the host,
+FSDP gathers each shard on every rank and rank 0 writes) and cuts a
+restored whole tensor into its shards, so those files too hold the
+singleGPU layout. The manifest's
 ``topology`` holds the JAX package's keys (``process_count``,
 ``device_count``, ``strategy``, ``mesh``, ``mesh_spec``, ``precision``).
 
@@ -416,15 +422,19 @@ def _detached_copy(obj):
     return obj
 
 
-def host_snapshot(model: torch.nn.Module, optimizer, scheduler_state: dict,
+def host_snapshot(model_state: Mapping[str, torch.Tensor],
+                  optimizer_state: Mapping[str, Any], scheduler_state: dict,
                   step: int, epoch: int, records_state: Optional[dict],
                   manifest: Mapping[str, Any],
                   train_meta: Optional[dict] = None) -> Dict[str, Any]:
     """The trainer's full state as a payload of host tensors, taken now:
-    the part of a save that must happen in the step loop's thread."""
+    the part of a save that must happen in the step loop's thread. The
+    model's and the optimizer's state dicts are the singleGPU ones
+    (``Strategy.model_state``, ``optimizer_state``), whole tensors under
+    the reference names whatever the strategy sharded."""
     return {
-        "model": _detached_copy(model.state_dict()),
-        "optimizer": _detached_copy(optimizer.state_dict()),
+        "model": _detached_copy(dict(model_state)),
+        "optimizer": _detached_copy(optimizer_state),
         "scheduler": dict(scheduler_state),
         "step": int(step),
         "epoch": int(epoch),
@@ -580,23 +590,27 @@ def jax_topology(strategy: str, mesh: Mapping[str, int], precision: str
     process and device counts and the strategy's name, ``mesh`` axes,
     ``mesh_spec`` and ``precision``. ``mesh_spec`` is JAX's
     ``canonical_spec``, ``DxMxS``, the model axis being a ``spatial`` one
-    under SP and DDP_SP, marked ``@sp`` (JAX mesh.py:257-267).
+    under SP and DDP_SP, marked ``@sp``, and the parameters sharded over
+    the data axis under FSDP, marked ``@fsdp`` (JAX mesh.py:257-267).
     ``process_count`` is the mesh's data axis where each data row is a
-    process (DDP, DDP_MP, DDP_SP)."""
+    process (DDP, DDP_MP, DDP_SP, FSDP)."""
     mesh = {str(k): int(v) for k, v in mesh.items()}
     devices = int(np.prod(list(mesh.values()))) if mesh else 1
     processes = (mesh.get("data", 1)
-                 if strategy in ("DDP", "DDP_MP", "DDP_SP") else 1)
+                 if strategy in ("DDP", "DDP_MP", "DDP_SP", "FSDP") else 1)
     spatial = mesh.get("spatial", 1)
     model = spatial if spatial > 1 else mesh.get("model", 1)
+    opts = ["sp"] if spatial > 1 else []
+    if strategy == "FSDP":
+        opts.append("fsdp")
     return {
         "process_count": processes,
         "device_count": devices,
         "strategy": strategy,
         "mesh": mesh,
         "mesh_spec": f"{mesh.get('data', 1)}x{model}x"
-                     f"{mesh.get('stage', 1)}" + ("@sp" if spatial > 1
-                                                   else ""),
+                     f"{mesh.get('stage', 1)}"
+                     + ("@" + "+".join(opts) if opts else ""),
         "precision": precision,
     }
 

@@ -1,6 +1,6 @@
 """Train the UNet on images and target masks — ``python -m
-distributedpytorch_tpu_torch [-t singleGPU|DP|DDP|MP|DDP_MP|SP|DDP_SP]
-...``.
+distributedpytorch_tpu_torch [-t singleGPU|DP|DDP|MP|DDP_MP|SP|DDP_SP|TP|
+FSDP] ...``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` for the flags the port
 implements: the reference's ``-t -v -l -e --lr -b -c -s`` and
@@ -37,9 +37,12 @@ every visible card in one process (``-b`` the whole batch), the shard
 count shrunk until it divides the deepest level's rows; ``-t DDP_SP``
 runs one process per data row under torchrun, each splitting its rows
 over cards ``LOCAL_RANK·n`` … ``LOCAL_RANK·n + n − 1`` of its node (n the
-node's cards over its processes), ``-b`` per process. With ``--device
-cpu`` all of them run on the CPU, every stage there and two row shards
-of it (DDP, DDP_MP and DDP_SP under gloo).
+node's cards over its processes), ``-b`` per process. ``-t TP`` splits
+every conv's out-channels over every visible card in one process (``-b``
+the whole batch); ``-t FSDP`` runs as ``-t DDP`` does, with the
+parameters and Adam's state sharded over the ranks. With ``--device
+cpu`` all of them run on the CPU, every stage there and two row or
+channel shards of it (DDP, DDP_MP, DDP_SP and FSDP under gloo).
 
 It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t singleGPU --synthetic 40
@@ -53,6 +56,9 @@ It runs on the card unless ``--device cpu`` asks for the CPU:
     python -m distributedpytorch_tpu_torch -t SP --synthetic 40
     torchrun --standalone --nproc_per_node 2 \
         -m distributedpytorch_tpu_torch -t DDP_SP --synthetic 40
+    python -m distributedpytorch_tpu_torch -t TP --synthetic 40
+    torchrun --standalone --nproc_per_node 4 \
+        -m distributedpytorch_tpu_torch -t FSDP --synthetic 40
     DPT_WGRAD_BACKEND=pallas python -m distributedpytorch_tpu_torch \
         --model milesial --wgrad-taps --kernels cuda --synthetic 40
     python -m distributedpytorch_tpu_torch --synthetic 16 \\
@@ -75,7 +81,7 @@ def get_args(argv=None):
     )
     parser.add_argument("--train-method", "-t", type=str, default="singleGPU",
                         help="Training method: singleGPU, DP, DDP, MP, "
-                             "DDP_MP, SP or DDP_SP (mesh specs, TP, FSDP: "
+                             "DDP_MP, SP, DDP_SP, TP or FSDP (mesh specs: "
                              "ROADMAP.md)")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
@@ -295,15 +301,15 @@ def to_config(args):
 
 def start_runtime(args):
     """This process's place in the run, before anything else (reference
-    train.py:58): ``-t DDP``, ``-t DDP_MP`` and ``-t DDP_SP`` join the
-    process group from torchrun's env (world 1 without one; a DDP_MP rank
-    on the first of its ``--stages`` cards, a DDP_SP rank on the first of
-    its row shards' cards); every other method is one process (DP, MP and
-    SP over the devices their strategy lists)."""
+    train.py:58): ``-t DDP``, ``-t FSDP``, ``-t DDP_MP`` and ``-t DDP_SP``
+    join the process group from torchrun's env (world 1 without one; a
+    DDP_MP rank on the first of its ``--stages`` cards, a DDP_SP rank on
+    the first of its row shards' cards); every other method is one
+    process (DP, MP, SP and TP over the devices their strategy lists)."""
     from distributedpytorch_tpu_torch.dist import runtime
     from distributedpytorch_tpu_torch.utils.device import resolve_device
 
-    if args.train_method == "DDP":
+    if args.train_method in ("DDP", "FSDP"):
         return runtime.initialize_from_env(args.device)
     if args.train_method == "DDP_MP":
         return runtime.initialize_from_env(args.device, args.stages)
@@ -324,8 +330,8 @@ def start_runtime(args):
 def build_trainer(args, info=None, devices=None):
     """args → a :class:`Trainer` ready to ``train()``; ``info`` is
     ``start_runtime``'s, ``devices`` the device list of ``-t DP``/``MP``/
-    ``SP`` or of this ``DDP_MP`` or ``DDP_SP`` rank (default: the visible
-    cards, a DDP_MP rank's own S, a DDP_SP rank's own n)."""
+    ``SP``/``TP`` or of this ``DDP_MP`` or ``DDP_SP`` rank (default: the
+    visible cards, a DDP_MP rank's own S, a DDP_SP rank's own n)."""
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
     from distributedpytorch_tpu_torch.train.loop import Trainer
 
@@ -337,7 +343,7 @@ def configure_logging(config, to_stderr: bool = True
                       ) -> List[logging.Handler]:
     """The reference's logfile, ``<log_dir>/<method>.log`` appended
     message-only, plus stderr when ``to_stderr`` (rank 0 under DDP,
-    DDP_MP and DDP_SP);
+    FSDP, DDP_MP and DDP_SP);
     returns the handlers it added to the root logger."""
     os.makedirs(config.log_dir, exist_ok=True)
     handlers: List[logging.Handler] = [

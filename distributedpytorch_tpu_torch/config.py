@@ -21,9 +21,8 @@ class TrainConfig:
     JAX package's (reference train.py:18-24 for the optimization ones)."""
 
     # -- strategy -----------------------------------------------------------
-    # "singleGPU", "DP", "DDP", "MP", "DDP_MP", "SP" or "DDP_SP"
-    # (parallel/strategy.py); the mesh specs, TP and FSDP are not ported
-    # yet
+    # "singleGPU", "DP", "DDP", "MP", "DDP_MP", "SP", "DDP_SP", "TP" or
+    # "FSDP" (parallel/strategy.py); the mesh specs are not ported yet
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------

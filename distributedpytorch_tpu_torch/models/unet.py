@@ -144,7 +144,11 @@ class TapsConv2d(Conv2d):
     gradient runs through the 9-tap backward (``conv3x3_same_taps``); the
     forward is the same convolution, on a row shard's halo'd rows with
     ``halo`` set. ``wgrad_cuda`` is the kernel policy's leave for K5
-    there."""
+    there. ``whole_out_channels`` is set on a channel slice of a conv
+    (``parallel/channels.py``): the whole conv's out-channel count, which
+    decides K5's engagement as on one device."""
+
+    whole_out_channels = None
 
     def __init__(self, *args, wgrad_cuda: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -155,7 +159,8 @@ class TapsConv2d(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, halo = take_halo(self, x)
         y = conv3x3_same_taps(x, self.weight.to(x.dtype), self.wgrad_cuda,
-                              halo=halo)
+                              halo=halo,
+                              out_channels=self.whole_out_channels)
         if self.bias is None:
             return y
         return y + self.bias.to(y.dtype).view(1, -1, 1, 1)

@@ -85,13 +85,17 @@ class Conv3x3SameTaps(torch.autograd.Function):
     ``dy`` padded by one zero row at the top and the bottom (B, h + 2, W,
     Co) makes the taps' one-pixel zero pad give
     Σ_y x_halo[y + ky] · dy[y], the shard's exact share of dW, from K5 or
-    the einsums alike."""
+    the einsums alike.
+
+    ``out_channels`` (default ``weight``'s) is the count that decides K5's
+    engagement: a channel slice's whole conv's under ``-t TP``."""
 
     @staticmethod
-    def forward(ctx, x, weight, wgrad_cuda, halo=False):
+    def forward(ctx, x, weight, wgrad_cuda, halo=False, out_channels=None):
         ctx.save_for_backward(x, weight)
         ctx.wgrad_cuda = bool(wgrad_cuda)
         ctx.halo = bool(halo)
+        ctx.out_channels = int(out_channels or weight.shape[0])
         return F.conv2d(x, weight, padding=(0 if halo else 1, 1))
 
     @staticmethod
@@ -106,10 +110,9 @@ class Conv3x3SameTaps(torch.autograd.Function):
                           ).to(x.dtype)
         dw = None
         if ctx.needs_input_grad[1]:
-            cin, cout = x.shape[1], weight.shape[0]
             tap_fn = (wgrad_9tap
-                      if wgrad_uses_kernel(cin, cout, x.device,
-                                           ctx.wgrad_cuda)
+                      if wgrad_uses_kernel(x.shape[1], ctx.out_channels,
+                                           x.device, ctx.wgrad_cuda)
                       else wgrad_9tap_reference)
             dy_taps = _nhwc(dy)
             if ctx.halo:
@@ -118,17 +121,19 @@ class Conv3x3SameTaps(torch.autograd.Function):
             taps = tap_fn(_nhwc(x), dy_taps)  # (3, 3, Cin, Cout)
             # HWIO → OIHW: a permute, no flip
             dw = taps.permute(3, 2, 0, 1).to(weight.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def conv3x3_same_taps(x: torch.Tensor, weight: torch.Tensor,
                       wgrad_cuda: bool = False,
-                      halo: bool = False) -> torch.Tensor:
+                      halo: bool = False,
+                      out_channels=None) -> torch.Tensor:
     """The public taps conv: every model call site comes here, so the
     ``DPT_WGRAD_TAPS_MIN_HW`` gate applies uniformly (to a row shard's
     own plane with ``halo``, whose ``x`` carries two halo rows). Below the
     gate the conv is the plain one, forward and backward."""
     rows = x.shape[2] - (2 if halo else 0)
     if rows * x.shape[3] >= _taps_min_hw():
-        return Conv3x3SameTaps.apply(x, weight, wgrad_cuda, halo)
+        return Conv3x3SameTaps.apply(x, weight, wgrad_cuda, halo,
+                                     out_channels)
     return F.conv2d(x, weight, padding=(0 if halo else 1, 1))

@@ -1,11 +1,12 @@
 """Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``,
-``MP``, ``DDP_MP``, ``SP`` and ``DDP_SP``.
+``MP``, ``DDP_MP``, ``SP``, ``DDP_SP``, ``TP`` and ``FSDP``.
 
 Counterpart of ``Strategy``, ``SingleDevice``, ``DataParallel``
 (strategy.py:542-555), ``MultiProcessMixin`` (:558-693),
 ``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736),
 ``HybridDataPipeline`` (:739-780), ``SpatialParallel`` (:783-808),
-``HybridDataSpatial`` (:811-843) and ``build_strategy`` (:1046) of
+``HybridDataSpatial`` (:811-843), ``TensorParallel`` (:885-909),
+``FullyShardedDataParallel`` (:912-952) and ``build_strategy`` (:1046) of
 ``distributedpytorch_tpu/parallel/strategy.py``.
 A strategy answers: which devices a process computes on, which samples it
 loads, the global batch, the lr, which process writes, where the model's
@@ -17,9 +18,10 @@ assignment (``_compute_batch_replica_shard``, for meshes whose data rows
 span processes) collapses to ``ShardSpec(rank, world)``. DP and MP are
 one process over a list of devices (``devices``, which may repeat one:
 the CPU tests run ``[cpu, cpu]``, a one-card check ``[cuda:0,
-cuda:0]``); so is each DDP_MP rank, and SP over its shards' devices,
-and each DDP_SP rank. The mesh specs, TP and FSDP are not ported
-(ROADMAP.md, Queue A).
+cuda:0]``); so is each DDP_MP rank, SP over its shards' devices, each
+DDP_SP rank and TP over its channel slices' devices. FSDP is DDP's
+torchrun contract with the parameters and Adam's state sharded over the
+ranks. The mesh specs are not ported (ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -37,7 +39,11 @@ the statistics, and K2 and K3 fed each microbatch's local moments. Under
 SP and DDP_SP each row shard runs K1 and K1-bwd on its card, inside the
 shards' (and the ranks') sum of the statistics, K1 in eval, and
 milesial's K2, K3 and K5 fed the whole batch's moments (the JAX SP keeps
-XLA eval metrics and XLA BatchNorm there).
+XLA eval metrics and XLA BatchNorm there). Under TP K1 and K1-bwd run
+once per step on the whole predictions on the first device, K1 in eval,
+and milesial's K2, K3 and K5 per channel slice on its device; under FSDP
+each rank runs them as a DDP rank does. The JAX TP and FSDP keep XLA
+BatchNorm and XLA eval metrics (no GSPMD rule for ``pallas_call``).
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
@@ -52,8 +58,11 @@ card. ``--grad-accum`` runs outside the pipelines for the stateless
 UNet; under SP and DDP_SP each chunk's statistics are the shards' sums
 (``accum_stats``). What stays refused, with the JAX package's words:
 ``--grad-accum`` of milesial and together with ``--steps-per-dispatch
-K > 1``. ``--dtype bf16_params`` runs under
-every strategy; under DDP the gradients are averaged over the ranks in
+K > 1``. Under TP and FSDP only their plain step is ported:
+``--steps-per-dispatch K > 1``, ``--remat`` and ``--grad-accum`` raise
+there, with one message naming the strategy and the flag, and so does
+``--dtype bf16_params`` under FSDP. ``--dtype bf16_params`` runs under
+every other strategy; under DDP the gradients are averaged over the ranks in
 ``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
 which is where the compiled JAX DDP step sums them too (its gradient
 all-reduce is float32 on the CPU mesh), and DDP_MP's stage gradients are
@@ -86,6 +95,7 @@ from distributedpytorch_tpu_torch.ops.fused_loss import (
     make_sharded_loss,
 )
 from distributedpytorch_tpu_torch.ops.losses import bce_dice_loss
+from distributedpytorch_tpu_torch.ops.optim import load_optimizer_state
 from distributedpytorch_tpu_torch.ops.precision import (
     REDUCE_DTYPE,
     get_policy,
@@ -99,6 +109,7 @@ from distributedpytorch_tpu_torch.parallel.pipeline import (
     make_pipeline_eval_step,
     make_pipeline_train_step,
 )
+from distributedpytorch_tpu_torch.parallel.channels import ChannelSharded
 from distributedpytorch_tpu_torch.parallel.replicas import Replicated
 from distributedpytorch_tpu_torch.parallel.spatial import RowSharded
 from distributedpytorch_tpu_torch.train.steps import (
@@ -283,6 +294,42 @@ class Strategy:
     def build_eval_step(self, model, kernels) -> Callable:
         """``step(batch) -> {'loss', 'dice'}`` on this process's device."""
         return make_eval_step(model, kernels.eval_stats_fused)
+
+    # -- the state a checkpoint holds: whole tensors, singleGPU's layout ----
+    #: whether reading the whole state is a collective that every rank
+    #: enters (FSDP); otherwise the main process reads it alone
+    gathers_state = False
+
+    def model_state(self, model: torch.nn.Module) -> dict:
+        """The singleGPU model's state dict of the placed ``model``."""
+        return model.state_dict()
+
+    def load_model_state(self, model: torch.nn.Module, state) -> None:
+        """``model_state``'s inverse: a singleGPU state dict into
+        ``model``."""
+        model.load_state_dict(state)
+
+    def optimizer_state(self, model: torch.nn.Module, optimizer) -> dict:
+        """The singleGPU optimizer's state dict of ``optimizer``."""
+        return optimizer.state_dict()
+
+    def load_optimizer_state(self, model: torch.nn.Module, optimizer,
+                             state: dict) -> None:
+        """``optimizer_state``'s inverse, with this run's param groups
+        (``ops/optim.load_optimizer_state``)."""
+        load_optimizer_state(optimizer, state)
+
+    def param_names(self, model: torch.nn.Module) -> List[str]:
+        """The singleGPU model's parameter names, in its order: the order
+        of a saved optimizer state's parameters and masters."""
+        return [name for name, _ in model.named_parameters()]
+
+    def param_values(self, model: torch.nn.Module,
+                     values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Values of the whole parameters (``param_names`` order) → one per
+        tensor of ``model.parameters()``, as a master reseed reads
+        them."""
+        return list(values)
 
 
 class SingleDevice(Strategy):
@@ -853,17 +900,227 @@ class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
         return reduce
 
 
+class TensorParallel(Strategy):
+    """``-t TP`` (JAX strategy.py:885-909, ``MeshConfig(model=n,
+    params="channel")``): one process, every conv's out-channels split
+    over ``devices`` (``parallel/channels.ChannelSharded``), by default
+    every visible card, or two slices of the CPU or of a card named by
+    its index (``REPEATED_SHARDS``, as SP). A layer whose out-channels do
+    not divide the devices stays whole on the first; where none divides,
+    the JAX warning says so. The batch is replicated: ``config.batch_size``
+    is the whole batch, on the first device, the lr is not scaled and the
+    ragged batch is kept, exactly as singleGPU. The loss runs once on the
+    whole predictions on the first device (K1 and K1-bwd there under
+    ``--kernels cuda``), and Adam keeps each slice's state on its device
+    (``ops/optim.device_runs``). A checkpoint holds the whole tensors
+    under the reference names (``model_state``, ``optimizer_state``)."""
+
+    name = "TP"
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        self.devices = ([torch.device(d) for d in devices]
+                        if devices is not None
+                        else _shard_devices(config.device))
+        # one process: its device is the first of the list
+        super().__init__(config, None, self.devices)
+
+    def topology(self) -> dict:
+        return {"strategy": self.name, "world": self.world,
+                "devices": len(self.devices)}
+
+    def mesh_shape(self) -> dict:
+        """The JAX mesh: its ``model`` axis, left out at one device as JAX
+        drops an axis of size 1."""
+        n = len(self.devices)
+        return {"model": n} if n > 1 else {}
+
+    def place_model(self, model: torch.nn.Module) -> ChannelSharded:
+        return ChannelSharded(model, self.devices)
+
+    def model_state(self, model: ChannelSharded) -> dict:
+        return model.whole_state()
+
+    def load_model_state(self, model: ChannelSharded, state) -> None:
+        model.load_whole_state(state)
+
+    def optimizer_state(self, model: ChannelSharded, optimizer) -> dict:
+        return model.whole_optimizer_state(optimizer.state_dict())
+
+    def load_optimizer_state(self, model: ChannelSharded, optimizer,
+                             state: dict) -> None:
+        load_optimizer_state(optimizer, model.sharded_optimizer_state(state))
+
+    def param_names(self, model: ChannelSharded) -> List[str]:
+        return model.whole_param_names()
+
+    def param_values(self, model: ChannelSharded, values) -> list:
+        return model.slice_values(values)
+
+
+def gathered(value):
+    """``value`` with every ``DTensor`` in it gathered whole, a collective
+    every rank enters in the same order. A dim-0 shard over the ranks, as
+    ``fully_shard`` places every parameter and Adam's moments, is gathered
+    by one ``all_gather_into_tensor`` of the shards padded to torch.chunk's
+    size, the c10d collective FSDP itself runs: ``DTensor.full_tensor``
+    goes through the functional collectives, whose wait crashed both
+    processes of a gloo group on one H100 (torch 2.11.0+cu128). Any other
+    placement takes ``full_tensor``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(value, DTensor):
+        if tuple(value.placements) != (Shard(0),):
+            return value.full_tensor()
+        local = value.to_local()
+        group = value.device_mesh.get_group()
+        rows = value.shape[0]
+        chunk = -(-rows // dist.get_world_size(group))
+        padded = local.new_zeros((chunk, *value.shape[1:]))
+        padded[:local.shape[0]] = local
+        out = local.new_empty((dist.get_world_size(group) * chunk,
+                               *value.shape[1:]))
+        dist.all_gather_into_tensor(out, padded, group=group)
+        # the ranks short of a whole chunk are the last ones
+        return out[:rows]
+    if isinstance(value, dict):
+        return {k: gathered(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(gathered(v) for v in value)
+    return value
+
+
+def _local_shard(whole: torch.Tensor, like) -> torch.Tensor:
+    """This rank's shard of ``whole`` as ``like``'s (a ``DTensor``)
+    placements cut it, on ``like``'s device, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(whole.to(like.device, like.dtype),
+                             like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+class FullyShardedDataParallel(MultiProcessMixin, Strategy):
+    """``-t FSDP`` (JAX strategy.py:912-952, ``MeshConfig(data=world,
+    params="fsdp")``): DDP's torchrun contract (``MultiProcessMixin``: one
+    process per card joined by ``dist.runtime``, world 1 without a
+    launcher, ``-b`` per process, ``ShardSpec(rank, world)``, the ragged
+    batch dropped, rank 0 writes) with the parameters and Adam's state
+    sharded over the ranks: ``place_model`` calls
+    ``torch.distributed.fsdp.fully_shard`` on each block (a segment's
+    layers) and then on the model, before the trainer builds Adam, which
+    then steps each rank's shards (dim 0 of each tensor, where the JAX
+    FSDP cuts a leaf's largest axis that divides). Each forward and
+    backward all-gathers a block's parameters and the backward
+    reduce-scatters its gradients, averaged over the ranks. The loss is
+    one loss over the global batch (``make_sharded_loss``), whose
+    statistics' all-reduce makes each rank's gradient ``world ×`` its
+    share, which the averaging takes out, as under DDP; milesial's
+    BatchNorm normalizes with the global batch's moments
+    (``global_stats``). The lr is not scaled: FSDP is a memory layout,
+    not the reference's DDP recipe (JAX docstring). Eval runs whole val
+    batches round robin and its tail on every rank
+    (``evaluate_sharded``), so every rank runs the same number of
+    forwards and enters each block's all-gather alike. A checkpoint
+    gathers every shard whole on every rank (``gathers_state``), and
+    rank 0 writes it; a resume cuts each rank's shard from the whole
+    tensors."""
+
+    name = "FSDP"
+    gathers_state = True
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        super().__init__(config, info or runtime.initialize_from_env(
+            devices[0] if devices else config.device))
+
+    @property
+    def drop_last_train(self) -> bool:
+        return True
+
+    def lr_for(self, base_lr: float) -> float:
+        return base_lr
+
+    def mesh_shape(self) -> dict:
+        return {"data": self.world}
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard
+
+        from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+
+        for module in model.modules():
+            if isinstance(module, BatchNormAct):
+                module.global_stats = True
+        model.to(self.device)
+        mesh = init_device_mesh(self.device.type, (self.world,))
+        for seg in range(model.num_segments):
+            for block in model.segment_modules(seg):
+                fully_shard(block, mesh=mesh)
+        fully_shard(model, mesh=mesh)
+        return model
+
+    def train_loss(self, fused: bool) -> Callable:
+        return make_sharded_loss(fused)
+
+    def model_state(self, model: torch.nn.Module) -> dict:
+        return {k: gathered(v).detach() for k, v in model.state_dict().items()}
+
+    @torch.no_grad()
+    def load_model_state(self, model: torch.nn.Module, state) -> None:
+        own = model.state_dict()
+        if set(own) != set(state):
+            raise RuntimeError(
+                f"-t FSDP state dict: missing {sorted(set(own) - set(state))}"
+                f", unexpected {sorted(set(state) - set(own))}")
+        for name, value in own.items():
+            if hasattr(value, "device_mesh"):
+                value.to_local().copy_(
+                    _local_shard(state[name], value).to_local())
+            else:
+                value.copy_(state[name])
+
+    def optimizer_state(self, model: torch.nn.Module, optimizer) -> dict:
+        return gathered(optimizer.state_dict())
+
+    def load_optimizer_state(self, model: torch.nn.Module, optimizer,
+                             state: dict) -> None:
+        params = list(model.parameters())
+        slots = {}
+        for i, entry in state["state"].items():
+            slots[i] = {key: (_local_shard(v, params[int(i)])
+                              if isinstance(v, torch.Tensor) and v.dim() > 0
+                              else v)
+                        for key, v in entry.items()}
+        load_optimizer_state(optimizer, {**state, "state": slots})
+
+
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
-    """The run control's limits of the port: ``--grad-accum`` together
-    with ``--steps-per-dispatch K > 1`` and ``--grad-accum`` of milesial,
-    whose BatchNorm statistics do not add up over chunks, each refused
-    with the JAX package's words; once the strategy knows its ``device``
-    and its group's ``backend``, ``--steps-per-dispatch K > 1`` under
-    gloo on a card."""
+    """The run control's limits of the port: under TP and FSDP, whose
+    plain step alone is ported, ``--steps-per-dispatch K > 1``,
+    ``--remat``, ``--grad-accum`` and, under FSDP, ``--dtype
+    bf16_params``, each with one message naming the strategy and the flag
+    (``unported_run_control``); under every method ``--grad-accum``
+    together with ``--steps-per-dispatch K > 1`` and ``--grad-accum`` of
+    milesial, whose BatchNorm statistics do not add up over chunks, each
+    refused with the JAX package's words; once the strategy knows its
+    ``device`` and its group's ``backend``, ``--steps-per-dispatch K > 1``
+    under gloo on a card. All but the last raise before any group is
+    joined."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
     grad_accum = int(config.grad_accum)
+    if method in PLAIN_STEP_ONLY:
+        flags = [(k > 1, f"--steps-per-dispatch {k}"),
+                 (bool(config.remat), "--remat"),
+                 (grad_accum > 1, f"--grad-accum {grad_accum}"),
+                 (method == "FSDP" and config.dtype == "bf16_params",
+                  "--dtype bf16_params")]
+        for asked, flag in flags:
+            if asked:
+                raise ValueError(unported_run_control(method, flag))
     if k > 1 and grad_accum > 1:
         raise ValueError(STACKS_CONFLICT)
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
@@ -878,18 +1135,33 @@ def check_run_control(config, device: Optional[torch.device] = None,
             f"Queue A)")
 
 
+#: the strategies whose plain step alone is ported: their run control
+#: raises in ``check_run_control``
+PLAIN_STEP_ONLY = ("TP", "FSDP")
+
+
+def unported_run_control(method: str, flag: str) -> str:
+    return (
+        f"-t {method} {flag}: not ported yet — the port runs -t {method}'s "
+        f"plain step, eval, checkpoint and resume; its run control is still "
+        f"to port (ROADMAP.md, Queue A item 1b′)"
+    )
+
+
 STRATEGIES = {cls.name: cls for cls in (
     SingleDevice, DataParallel, DistributedDataParallel, Pipeline,
-    HybridDataPipeline, SpatialParallel, HybridDataSpatial)}
+    HybridDataPipeline, SpatialParallel, HybridDataSpatial, TensorParallel,
+    FullyShardedDataParallel)}
 
 
 def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
                    devices: Optional[Sequence[torch.device]] = None
                    ) -> Strategy:
     """``config.train_method`` → its strategy, on ``devices`` where one is
-    given (DP, MP, SP and each DDP_MP and DDP_SP rank; every method takes
-    its first as its device). The mesh specs, TP and FSDP raise with the
-    ROADMAP pointer, and so do the limits of ``check_run_control``."""
+    given (DP, MP, SP, TP and each DDP_MP and DDP_SP rank; every method
+    takes its first as its device). The mesh specs raise with the ROADMAP
+    pointer, and so do the limits of ``check_run_control``, before any
+    group is joined."""
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
         raise ValueError(unported_method_message(config.train_method))
@@ -902,6 +1174,6 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
 def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{', '.join(sorted(STRATEGIES))}; the mesh specs, TP and FSDP "
-        f"are still to port (ROADMAP.md, Queue A)"
+        f"{', '.join(sorted(STRATEGIES))}; the mesh specs (DxMxS"
+        f"[@fsdp|sp]) are still to port (ROADMAP.md, Queue A)"
     )

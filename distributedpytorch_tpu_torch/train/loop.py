@@ -2,7 +2,7 @@
 
 Counterpart of ``distributedpytorch_tpu/train/loop.py`` (``Trainer``,
 ``fit``) for ``-t singleGPU`` / ``DP`` / ``DDP`` / ``MP`` / ``DDP_MP`` /
-``SP`` / ``DDP_SP``. A
+``SP`` / ``DDP_SP`` / ``TP`` / ``FSDP``. A
 strategy (``parallel/strategy.py``) says what differs between them, and
 builds the train and eval steps:
 
@@ -37,7 +37,13 @@ builds the train and eval steps:
   its state dict gathering every stage's parameters;
 * under SP: one process, the batch placed on the first shard's device,
   the model there, the rows split over the shards in each step; under
-  DDP_SP DDP's contract with one SP per rank.
+  DDP_SP DDP's contract with one SP per rank;
+* under TP and FSDP the parameters and Adam's state are sharded (over
+  devices, over ranks): a checkpoint, the ``.pth`` and a restore go
+  through the strategy's whole state (``Strategy.model_state``,
+  ``optimizer_state``, their ``load_*``), the singleGPU layout under the
+  reference names; under FSDP every rank enters the gather and rank 0
+  writes.
 
 A stateful model's running statistics (milesial's BatchNorm) are buffers
 of its state dict, so the native checkpoint saves and restores them; the
@@ -93,7 +99,12 @@ rounded out to whole dispatches; ``profile_dir`` alone captures the
 whole run. It writes torch's chrome trace,
 ``<dir>/<method>.rank0.steps<a>-<b>.pt.trace.json`` with the steps it
 covered, not the JAX XPlane, and stops in ``train()``'s ``finally``. It
-raises, rather than nest, where another profiler is running.
+raises, rather than nest, where another profiler is running. On the
+card each window primes the profiler (``prime_profiler``): in a process
+older than some tens of seconds a session's first records come back
+out of its range and are dropped, so a window's trace would miss its
+first kernels, and a short session all of them; a window whose trace
+holds no device kernel raises and writes nothing.
 """
 
 from __future__ import annotations
@@ -104,6 +115,7 @@ import dataclasses
 import logging
 import os
 import signal
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -139,7 +151,6 @@ from distributedpytorch_tpu_torch.ops.kernels import (
 )
 from distributedpytorch_tpu_torch.ops.optim import (
     get_learning_rate,
-    load_optimizer_state,
     make_optimizer,
     set_learning_rate,
 )
@@ -212,30 +223,109 @@ def check_config(config: TrainConfig) -> None:
 #: profiler sessions ``warm_profiler`` tries before one that records no
 #: device activity for work that surely ran on the card counts as a fault
 PROFILER_TRIES = 3
-_profiler_warm = False
+#: the least number of spin kernels a primer launches (``prime_profiler``)
+PRIMER_KERNELS = 256
+#: and the more it launches for each second of the process's age: the
+#: device records a session drops at its head grow with it
+PRIMER_KERNELS_PER_S = 1.0
+#: the least time a primer runs, its kernels spread over it
+PRIMER_S = 0.25
+#: the primer's kernel (``torch.cuda._sleep``'s), which a trace's reader
+#: leaves out of the work it counts
+PRIMER_KERNEL = "spin_kernel"
+#: the spin of one primer kernel, in clock cycles (~0.5 µs on an H100)
+_PRIMER_CYCLES = 1_000
+#: the rounds a primer's kernels are launched in, each waited for
+_PRIMER_ROUNDS = 50
+#: how long a session on the card stays open after its work has ended
+#: (``settle_profiler``)
+PROFILER_TAIL_S = 0.1
+
+
+def process_age_s() -> float:
+    """Seconds since this process started."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return max(0.0, uptime - start_ticks / os.sysconf("SC_CLK_TCK"))
+
+
+def prime_profiler(devices) -> int:
+    """Inside a profiler session that has just started: short spin kernels
+    on each card of ``devices`` (one device or several;
+    ``PRIMER_KERNEL``), before the work the session traces. The profiler
+    drops device records at a session's head as out of its time range
+    (Kineto's "Out-of-range" record count): its first launches' records,
+    a number that grows with the process's age (~0.06 a second of it on
+    an H100, whether the session opens idle or busy;
+    ``tools/torch_profiler_drops.py`` measures it), and now and then a
+    record whose timestamp comes back tens of milliseconds early. A
+    short session late in a process then holds no device activity at
+    all. The primer's records take that place: at least
+    ``PRIMER_KERNELS`` plus ``PRIMER_KERNELS_PER_S`` a second of age,
+    launched in rounds of a ``_PRIMER_ROUNDS``-th of them, each waited
+    for, until it has run for at least ``PRIMER_S``. Returns the kernels
+    it launched."""
+    cards = list(dict.fromkeys(
+        [torch.device(devices)] if isinstance(devices, (str, torch.device))
+        else [torch.device(d) for d in devices]))
+    n = PRIMER_KERNELS + int(PRIMER_KERNELS_PER_S * process_age_s())
+    per_round = -(-n // _PRIMER_ROUNDS)
+    end = time.monotonic() + PRIMER_S
+    launched = 0
+    while launched < n or time.monotonic() < end:
+        for card in cards:
+            with torch.cuda.device(card):
+                for _ in range(per_round):
+                    torch.cuda._sleep(_PRIMER_CYCLES)
+        for card in cards:
+            torch.cuda.synchronize(card)
+        launched += per_round
+        time.sleep(PRIMER_S / _PRIMER_ROUNDS)
+    return launched * len(cards)
+
+
+def settle_profiler(devices=None) -> None:
+    """Before a profiler session on the card stops: wait for each card of
+    ``devices`` (every visible card by default), then ``PROFILER_TAIL_S``
+    more. The profiler now and then stamps a device record tens of
+    milliseconds after the kernel ran, and drops one stamped after the
+    session's end: the work's last kernels."""
+    cards = (range(torch.cuda.device_count()) if devices is None
+             else [torch.device(devices)]
+             if isinstance(devices, (str, torch.device)) else devices)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    time.sleep(PROFILER_TAIL_S)
+
+
+def device_kernels(prof) -> List[str]:
+    """The names of the device kernels a finished session recorded, the
+    primer's left out."""
+    return [evt.name for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and PRIMER_KERNEL not in evt.name]
 
 
 def warm_profiler(device: torch.device) -> int:
-    """Start the profiler's device tracing (CUPTI) once in this process,
-    before a session whose trace is kept: a process's first session on the
-    card can come back without any device activity. Profiles a small
-    kernel on ``device`` until the trace holds it and returns the
-    sessions that took (0 once the process is warm); raises after
-    ``PROFILER_TRIES``."""
-    global _profiler_warm
+    """Check that the profiler traces ``device`` before a session whose
+    trace is kept: a session that runs the primer (``prime_profiler``)
+    and then a small kernel, until the trace holds that kernel. Returns
+    the sessions that took; raises after ``PROFILER_TRIES``. The profiler
+    window runs it before each window, not once per process: whether the
+    profiler sees the card's work depends on the process's age, not on
+    what ran before."""
     from torch.profiler import ProfilerActivity, profile
 
-    if _profiler_warm:
-        return 0
     x = torch.ones(1024, device=device)
     for tries in range(1, PROFILER_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            prime_profiler(device)
             x.mul_(1.0)
-            torch.cuda.synchronize(device)
-        if any(evt.device_type == torch.autograd.DeviceType.CUDA
-               for evt in prof.events()):
-            _profiler_warm = True
+            settle_profiler(device)
+        if device_kernels(prof):
             return tries
     raise RuntimeError(f"the profiler saw no kernel on {device} in "
                        f"{PROFILER_TRIES} sessions")
@@ -247,9 +337,12 @@ class ProfileWindow:
     and CUDA activities, written as a chrome trace into ``out_dir`` when
     it stops. ``tick(step, size)`` comes before each dispatch of ``size``
     steps after ``step`` completed ones; ``stop(step)`` ends a window
-    still open (at the end of the run). On the card the process's
-    profiler is warmed up first (``warm_profiler``), so the window's
-    trace holds the card's kernels in a fresh process too."""
+    still open (at the end of the run). On the card each window checks
+    first that the profiler sees the card (``warm_profiler``), opens with
+    the primer (``prime_profiler``: spin kernels at the head of its
+    trace), stays open ``PROFILER_TAIL_S`` after the work
+    (``settle_profiler``), and raises at ``stop``, writing nothing, where
+    its trace holds no device kernel of the work."""
 
     def __init__(self, steps: Optional[Tuple[int, int]], out_dir: str,
                  method: str, device: torch.device):
@@ -289,6 +382,8 @@ class ProfileWindow:
                     self.out_dir)
         self.prof = profile(activities=activities)
         self.prof.start()
+        if self.device.type == "cuda":
+            prime_profiler(self.device)
         self.first = step
 
     def stop(self, step: int) -> None:
@@ -299,9 +394,13 @@ class ProfileWindow:
         self.done = True
         if self.device.type == "cuda":
             # every card of the step: the window's kernels end inside it
-            for i in range(torch.cuda.device_count()):
-                torch.cuda.synchronize(i)
+            settle_profiler()
         prof.stop()
+        if self.device.type == "cuda" and not device_kernels(prof):
+            raise RuntimeError(
+                f"profiler window: the trace of steps [{self.first}, {step}) "
+                f"holds no device activity on {self.device} — nothing "
+                f"written to {self.out_dir}")
         os.makedirs(self.out_dir, exist_ok=True)
         self.path = os.path.join(
             self.out_dir,
@@ -514,7 +613,12 @@ class Trainer:
         }
 
     def _param_names(self) -> List[str]:
-        return [name for name, _ in self.model.named_parameters()]
+        return self.strategy.param_names(self.model)
+
+    def _reseed(self, weights: Dict[str, torch.Tensor]) -> None:
+        """The f32 masters set to the whole ``weights``."""
+        self.optimizer.reseed_(self.strategy.param_values(
+            self.model, [weights[n] for n in self._param_names()]))
 
     def _restore(self, name: str) -> None:
         """``-c``: resume the full state from a native checkpoint or a JAX
@@ -529,10 +633,9 @@ class Trainer:
                                   exts=TRAIN_EXTS)
         if path.endswith(".pth"):
             weights = load_pth(path)
-            self.model.load_state_dict(weights)
+            self.strategy.load_model_state(self.model, weights)
             if has_master_weights(self.optimizer):
-                self.optimizer.reseed_(
-                    [weights[n] for n in self._param_names()])
+                self._reseed(weights)
             logger.info("Loaded reference .pth weights from %s", path)
             return
         payload = (load_jax_ckpt(path, self.config.weight_decay)
@@ -551,16 +654,16 @@ class Trainer:
             saved_policy, self.policy, payload["model"],
             payload["optimizer"], self._param_names(),
             where=f"restore {path}")
-        self.model.load_state_dict(model_state)
+        self.strategy.load_model_state(self.model, model_state)
         if opt_state is not None:
-            load_optimizer_state(self.optimizer, opt_state)
+            self.strategy.load_optimizer_state(self.model, self.optimizer,
+                                               opt_state)
         elif has_master_weights(self.optimizer):
             # weights only: the master is the restored weights
             logger.warning("restore %s: checkpoint carries no optimizer "
                            "state — re-seeding the %r master weights from "
                            "the restored params", path, self.policy.name)
-            self.optimizer.reseed_(
-                [payload["model"][n] for n in self._param_names()])
+            self._reseed(payload["model"])
         self.scheduler.load_state_dict(payload["scheduler"])
         set_learning_rate(self.optimizer, self.scheduler.lr)
         self.step = int(payload["step"])
@@ -682,17 +785,29 @@ class Trainer:
         if epoch == self._last_saved_epoch:
             return
         self._last_saved_epoch = epoch
-        if not self.strategy.is_main:
-            return
         self._save_tagged(self.checkpoint_path, epoch)
 
+    def _whole_state(self) -> Optional[Tuple[dict, dict]]:
+        """The singleGPU model and optimizer state dicts on the main
+        process (None elsewhere). Where reading them is a collective
+        (``gathers_state``, FSDP) every rank enters it."""
+        if not (self.strategy.is_main or self.strategy.gathers_state):
+            return None
+        state = (self.strategy.model_state(self.model),
+                 self.strategy.optimizer_state(self.model, self.optimizer))
+        return state if self.strategy.is_main else None
+
     def _save_tagged(self, path: str, epoch: int) -> None:
-        """One save of the main process: the host snapshot here, the write
-        on the background writer (``async_checkpoint``) or here, keeping
-        the newest ``keep_checkpoints`` files of ``path``. An earlier async
-        write's error is raised now, and more than two writes in flight
-        wait for the oldest (loop.py:504-561)."""
+        """One save, written by the main process (every rank calls it):
+        the host snapshot here, the write on the background writer
+        (``async_checkpoint``) or here, keeping the newest
+        ``keep_checkpoints`` files of ``path``. An earlier async write's
+        error is raised now, and more than two writes in flight wait for
+        the oldest (loop.py:504-561)."""
         cfg = self.config
+        state = self._whole_state()
+        if state is None:
+            return
         if cfg.async_checkpoint:
             for fut in [f for f in self._ckpt_futures if f.done()]:
                 self._ckpt_futures.remove(fut)
@@ -700,7 +815,7 @@ class Trainer:
             while len(self._ckpt_futures) > 2:
                 self._ckpt_futures.pop(0).result()
         payload = host_snapshot(
-            self.model, self.optimizer, self.scheduler.state_dict(),
+            *state, self.scheduler.state_dict(),
             self.step, epoch, self.records.state_dict(), self._manifest(),
             self._train_meta())
         if cfg.async_checkpoint:
@@ -821,8 +936,7 @@ class Trainer:
         # val_dice is the same on every rank: all take this branch
         if cfg.save_best and val_dice > self._best_dice:
             self._best_dice = val_dice
-            if self.strategy.is_main:
-                self._save_tagged(self.best_checkpoint_path, epoch + 1)
+            self._save_tagged(self.best_checkpoint_path, epoch + 1)
             logger.info("New best val Dice %.4f at epoch %d → %s", val_dice,
                         epoch + 1, self.best_checkpoint_path)
         if cfg.checkpoint_every_epochs and (
@@ -889,9 +1003,10 @@ class Trainer:
                 "--save-best: no epoch produced a finite val Dice "
                 "(empty/missing validation split?) — %s was never written",
                 self.best_checkpoint_path)
-        if self.strategy.is_main:
+        state = self._whole_state()
+        if state is not None:
             self.records.save()
-            save_pth(self.model.state_dict(), self.weights_path)
+            save_pth(state[0], self.weights_path)
         return {
             "val_loss": self.val_loss,
             "val_dice": self.val_dice,

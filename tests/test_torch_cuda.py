@@ -1497,3 +1497,91 @@ def test_a_ckpt_round_trip_resumes_on_the_card_bitwise(cuda_device,
         for key in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(state["inner"]["state"][i][key].cpu(), st[key])
     assert np.isfinite(again.train()["val_loss"])
+
+
+def _tp_milesial_step(cuda_device, method, devices):
+    """One float32 step of a small milesial ``--wgrad-taps`` (widths 128,
+    256: five 3×3 convs engage K5, six BatchNorms) under ``method`` on
+    ``devices``, SGD at lr 0; the loss, the whole gradients under the
+    reference names and each kernel's launches."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=method, model_arch="milesial",
+                      model_widths=(128, 256), dtype="f32", kernels="cuda",
+                      device=str(cuda_device), batch_size=2,
+                      wgrad_taps=True, image_size=(48, 32))
+    strategy = build_strategy(cfg, devices=devices)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(0)))
+    step = strategy.build_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.0),
+        get_kernel_policy("cuda"))
+    gen = np.random.default_rng(3)
+    batch = {"image": torch.from_numpy(gen.random((2, 32, 48, 3),
+                                                  np.float32)).to(cuda_device),
+             "mask": torch.from_numpy((gen.random((2, 32, 48)) > 0.6)
+                                      .astype(np.int64)).to(cuda_device)}
+    kernels.reset_launches()
+    loss = float(step(batch))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if hasattr(model, "whole_values"):
+        grads = dict(zip(model.whole_param_names(), model.whole_values(
+            [p.grad for p in model.parameters()])))
+    else:
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    return loss, grads, launches
+
+
+def test_tp_step_on_one_card_equals_singlegpu_with_kernels_per_slice(
+        cuda_device, monkeypatch):
+    """``-t TP`` on ``[cuda:0, cuda:0]``: two channel slices of every layer
+    on the card. One float32 step of a small milesial ``--wgrad-taps``
+    under ``DPT_WGRAD_BACKEND=pallas`` against its singleGPU step: the
+    loss within 1e-5 and each gradient within 2e-2 relative L2 (PERF.md
+    §2's float32 milesial bounds on the card), with K1 and K1-bwd once and
+    K2, K3 and K5 once per slice: the whole conv's widths engage K5."""
+    monkeypatch.setenv("DPT_WGRAD_BACKEND", "pallas")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    # float32, not TF32: the two paths' convolutions differ in width
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    single = _tp_milesial_step(cuda_device, "singleGPU", [cuda_device])
+    tp = _tp_milesial_step(cuda_device, "TP", [cuda_device] * 2)
+    assert single[2]["wgrad_9tap"] == 5 and single[2]["bn_act"] == 6
+    assert {k: tp[2][k] for k in ("loss_stats", "loss_stats_bwd", "bn_act",
+                                  "bn_act_bwd", "wgrad_9tap")} == {
+        "loss_stats": 1, "loss_stats_bwd": 1, "bn_act": 12,
+        "bn_act_bwd": 12, "wgrad_9tap": 10}
+    assert abs(tp[0] - single[0]) <= 1e-5 * abs(single[0])
+    for name, g in single[1].items():
+        got = tp[1][name].float()
+        rel = float((got - g.float()).norm() / g.float().norm())
+        assert rel <= 2e-2, (name, rel)
+
+
+def test_fsdp_at_world_one_under_nccl_trains_and_saves_whole_tensors(
+        nccl_world_one, tmp_path):
+    """``-t FSDP`` at world 1 under NCCL on the card: one epoch under
+    kernels cuda trains and evaluates to finite values, and its
+    checkpoint and ``.pth`` hold whole tensors under the reference names,
+    equal to the gathered parameters, with the manifest's
+    ``1x1x1@fsdp``."""
+    from distributedpytorch_tpu_torch import checkpoint
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(_small_config(nccl_world_one.device, tmp_path,
+                                    train_method="FSDP"))
+    result = trainer.train()
+    assert np.isfinite(result["val_loss"]) and result["steps"] == 6
+    saved = checkpoint.load_native(trainer.checkpoint_path)
+    assert saved["manifest"]["topology"]["mesh_spec"] == "1x1x1@fsdp"
+    whole = trainer.strategy.model_state(trainer.model)
+    pth = checkpoint.load_pth(trainer.weights_path)
+    for key, value in whole.items():
+        assert torch.equal(saved["model"][key], value.cpu()), key
+        assert torch.equal(pth[key], value.cpu()), key
+    assert not hasattr(saved["model"]["segmap.weight"], "device_mesh")

@@ -120,3 +120,113 @@ def test_the_cli_writes_the_window(tmp_path, monkeypatch):
                     "--profile-steps", "1:3"]) == 0
     assert os.listdir(tmp_path / "logs" / "profile") == [
         "singleGPU.rank0.steps1-3.pt.trace.json"]
+
+
+def test_a_card_window_whose_trace_holds_no_device_kernel_raises(
+        tmp_path, monkeypatch):
+    """A window on the card whose trace holds no device kernel of the
+    work (here a CPU run's window taken for a card's at its stop: its
+    trace has no device activity at all) raises at ``stop`` and writes
+    nothing, rather than a trace with no kernels and an exit of 0; a
+    trace's primer kernels (``PRIMER_KERNEL``) do not count as the
+    work's."""
+    from distributedpytorch_tpu_torch.train import loop
+
+    window = loop.ProfileWindow((0, 1), str(tmp_path / "prof"), "singleGPU",
+                                torch.device("cpu"))
+    window.tick(0, 1)
+    torch.ones(4).mul_(2.0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    window.device = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="holds no device activity"):
+        window.stop(1)
+    assert not (tmp_path / "prof").exists()
+    assert not torch.autograd._profiler_enabled()
+
+    class Event:
+        def __init__(self, name):
+            self.name = name
+            self.device_type = torch.autograd.DeviceType.CUDA
+
+    class Prof:
+        def __init__(self, names):
+            self.names = names
+
+        def events(self):
+            return [Event(n) for n in self.names]
+
+    assert loop.device_kernels(Prof([loop.PRIMER_KERNEL])) == []
+    assert loop.device_kernels(Prof([loop.PRIMER_KERNEL, "stats_kernel"])
+                               ) == ["stats_kernel"]
+
+
+def test_the_primer_launches_more_kernels_the_older_the_process(
+        monkeypatch):
+    """The primer (``prime_profiler``) launches at least
+    ``PRIMER_KERNELS`` spin kernels plus ``PRIMER_KERNELS_PER_S`` for
+    each second of the process's age on each of its cards, in rounds of
+    a ``_PRIMER_ROUNDS``-th of them that wait for every card, until it
+    has run for at least ``PRIMER_S``; the process's age grows with the clock."""
+    import contextlib
+    import time
+
+    from distributedpytorch_tpu_torch.train import loop
+
+    launched, waited, entered = [], [], []
+
+    @contextlib.contextmanager
+    def on(card):
+        entered.append(card)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "_sleep", launched.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", waited.append)
+    monkeypatch.setattr(torch.cuda, "device", on)
+    monkeypatch.setattr(loop, "PRIMER_S", 0.0)
+    rounds = loop._PRIMER_ROUNDS
+    for age in (0.0, 100.0, 1000.0, 3600.0):
+        monkeypatch.setattr(loop, "process_age_s", lambda age=age: age)
+        n = loop.PRIMER_KERNELS + int(loop.PRIMER_KERNELS_PER_S * age)
+        per_round = -(-n // rounds)
+        ran = -(-n // per_round)
+        launched.clear()
+        waited.clear()
+        assert loop.prime_profiler(torch.device("cuda", 0)) == len(launched)
+        assert len(launched) == ran * per_round >= n
+        assert len(launched) < n + per_round <= n + n // rounds + 1
+        assert len(waited) == ran <= rounds
+    cards = [torch.device("cuda", i) for i in (0, 1, 0)]
+    entered.clear()
+    waited.clear()
+    launched.clear()
+    assert loop.prime_profiler(cards) == 2 * ran * per_round == len(
+        launched)
+    assert entered == waited == cards[:2] * ran
+    monkeypatch.setattr(loop, "PRIMER_S", 0.1)
+    began = time.monotonic()
+    loop.prime_profiler(torch.device("cuda", 0))
+    assert time.monotonic() - began >= 0.1
+    monkeypatch.undo()
+    first = loop.process_age_s()
+    time.sleep(0.05)
+    assert 0.0 < first < loop.process_age_s() < first + 60.0
+
+
+def test_a_session_on_the_card_stays_open_after_its_work(monkeypatch):
+    """``settle_profiler`` waits for the cards it is given (every visible
+    card by default), then ``PROFILER_TAIL_S`` more, so a device record
+    the profiler stamps late still falls inside the session."""
+    import time
+
+    from distributedpytorch_tpu_torch.train import loop
+
+    waited = []
+    monkeypatch.setattr(torch.cuda, "synchronize", waited.append)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    began = time.monotonic()
+    loop.settle_profiler()
+    assert time.monotonic() - began >= loop.PROFILER_TAIL_S
+    assert waited == [0, 1]
+    waited.clear()
+    loop.settle_profiler(torch.device("cuda", 1))
+    assert waited == [torch.device("cuda", 1)]

@@ -19,10 +19,12 @@ modules this process loaded. Scenarios:
 * ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
   and the gradients the optimizer receives;
 * ``pipeline_steps``: train steps of ``-t DDP_MP`` (or the job's
-  ``method``, ``DDP_SP``), the rank's S stages (or row shards) all on the
-  CPU, from given weights: as ``steps``, with the state after every call,
-  each BatchNorm's ``global_stats`` flag, the strategy's devices and its
-  mesh. With the config's ``steps_per_dispatch`` K > 1 the batches go
+  ``method``, ``DDP_SP`` or ``FSDP``), the rank's S stages (or row shards)
+  all on the CPU, from given weights: as ``steps``, with the state after
+  every call (whole tensors, gathered under FSDP), each BatchNorm's
+  ``global_stats`` flag, the strategy's devices, its mesh and lr, and the
+  bytes of parameters and Adam's state this rank holds against the
+  whole's. With the config's ``steps_per_dispatch`` K > 1 the batches go
   through the strategy's multi-step in stacks of K, with its
   ``grad_accum`` N > 1 through its accumulation step in chunks of N;
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
@@ -101,7 +103,11 @@ def _first_step_grads(optimizer, names):
     def hook(opt, _args, _kwargs):
         if not grads:
             params = [p for g in opt.param_groups for p in g["params"]]
-            grads.update({n: p.grad.clone() for n, p in zip(names, params)})
+            # an FSDP shard's gradient, gathered whole on every rank
+            grads.update({n: (p.grad.full_tensor()
+                              if hasattr(p.grad, "full_tensor")
+                              else p.grad.clone())
+                          for n, p in zip(names, params)})
 
     optimizer.register_step_pre_hook(hook)
     return grads
@@ -195,15 +201,35 @@ def run_pipeline_steps(job, rank, world):
     losses, states = [], []
     for i in range(0, len(batches), size):
         losses.append(run(batches[i:i + size]))
-        states.append({k: v.clone() for k, v in model.state_dict().items()})
+        states.append({k: v.clone() for k, v in
+                       strategy.model_state(model).items()})
     return {"losses": torch.cat(losses), "grads": grads,
-            "states": states,
+            "states": states, "bytes": _state_bytes(model, optimizer),
+            "lr": strategy.lr_for(cfg.learning_rate),
             "master": [m.detach().clone()
                        for m in getattr(optimizer, "master", ())],
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
-            "devices": [str(d) for d in strategy.devices],
+            "devices": [str(d) for d in strategy.step_devices],
             "mesh": strategy.mesh_shape()}
+
+
+def _state_bytes(model, optimizer):
+    """``(mine, whole)``: the bytes of parameters and Adam's state this
+    rank holds (an FSDP shard's local part) and the whole state's."""
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    mine = whole = 0
+    for p in model.parameters():
+        tensors = [p] + [t for t in optimizer.state[p].values()
+                         if isinstance(t, torch.Tensor) and t.dim() > 0]
+        mine += sum(nbytes(local(t)) for t in tensors)
+        whole += sum(nbytes(t) for t in tensors)
+    return mine, whole
 
 
 @contextlib.contextmanager
@@ -286,9 +312,12 @@ def run_trainer(job, rank, world):
         "losses": [float(x) for x in trainer.records.losses],
         "result": result,
         "lr": get_learning_rate(trainer.optimizer),
-        "state": {k: v.clone() for k, v in trainer.model.state_dict().items()},
+        # whole tensors on every rank (an FSDP gather every rank enters)
+        "state": {k: v.clone() for k, v in
+                  trainer.strategy.model_state(trainer.model).items()},
         "wrote": sorted(os.path.relpath(os.path.join(d, f), out)
                         for d, _, files in os.walk(out) for f in files),
+        "out": out,
     }
 
 
