@@ -104,8 +104,17 @@ without the window, the step timed with and without a profiler
 (``profile_window``); a child trainer sent SIGTERM once step 3 has run,
 exiting 0 with its checkpoint, resumed here to the end (``preempt``);
 full-width milesial states, bf16 and bf16_params, through a JAX-format
-``.ckpt`` and back, and resumed onto the card with ``-c``, bitwise
-(``ckpt_roundtrip``). Each path's kernel launches are counted
+``.ckpt`` and back, and resumed onto the card with ``-c``, bitwise, then
+trained an epoch whose one val batch runs K1 (``ckpt_roundtrip``).
+``-t TP`` on ``[cuda:0, cuda:0]`` and ``-t FSDP`` at world 1 (NCCL) and
+as two gloo ranks run their plain steps against singleGPU's and DDP's
+(``train_tp``, ``train_fsdp``), then their run control
+(``tp_fsdp_run_control``): both models as one CUDA graph of 4 steps
+against their eager steps, bitwise, a replay's kernels by name in the
+graph's nodes; ``--remat`` bitwise the plain step at a lower peak
+memory; the f32 UNet's ``--grad-accum 2`` against singleGPU's (TP) and
+DDP's (FSDP); and FSDP's ``--dtype bf16_params`` against DDP's. Each
+path's kernel launches are counted
 from zero over its run (a CUDA graph's at each replay). It fails
 (non-zero exit, no result line) without a card, outside a checkout, or
 when any phase disagrees.
@@ -124,8 +133,10 @@ two NCCL ranks of two cards each plus a ``torchrun --nproc_per_node 2``
 launch of the training CLI (``sp_cards``), both also as CUDA graphs of 4
 steps against their eager steps; then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
-and 8 (``mp_cards``), and ``-t DP`` across the four cards against a
-one-card step (``dp_cards``). Every one of them also runs its path as
+and 8 (``mp_cards``), ``-t DP`` across the four cards against a
+one-card step (``dp_cards``), ``-t TP`` across the four cards against
+singleGPU (``tp_cards``) and ``-t FSDP`` as four NCCL ranks against
+``-t DDP`` (``fsdp_cards``). Every one of them also runs its path as
 one CUDA graph of 4 steps against its eager steps (``dp_cards``: the
 bf16 UNet at batch 16 and milesial at 8, ``dp_graph``): losses and
 weights bitwise (the ranks' equal after every stack), a guard tensor on
@@ -3832,7 +3843,8 @@ def _digest(tensors) -> str:
 
     digest = hashlib.sha256()
     for t in tensors:
-        digest.update(t.detach().cpu().numpy().tobytes())
+        # an FSDP shard gathered whole (a collective every rank enters)
+        digest.update(_full(t).detach().cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -5696,6 +5708,11 @@ def _optimizer_states_equal(a: dict, b: dict) -> bool:
             == float(b["param_groups"][0]["lr"]))
 
 
+# the resumed run of ckpt_roundtrip at -v 20 -b 4: 16 train samples (4
+# steps) and 4 val samples, one whole val batch
+RESUMED_SAMPLES = 20
+
+
 def phase_ckpt_roundtrip(tmp: str) -> dict:
     """Full-width milesial states (``train_milesial``'s bf16 checkpoint
     after 4 steps, ``train_run_control``'s bf16_params one after 2)
@@ -5703,11 +5720,16 @@ def phase_ckpt_roundtrip(tmp: str) -> dict:
     state (and the f32 master), scheduler, step, epoch, records and
     trainer state bitwise; then the training CLI's trainer resumes the
     ``.ckpt`` (``-c``) and holds the same model and optimizer state on
-    the card, bit for bit. The card's machine has no JAX: the checks
-    against the JAX package are the CPU tests'."""
+    the card, bit for bit, then trains one more epoch: ``--synthetic
+    RESUMED_SAMPLES -v 20 -b 4`` keeps one whole val batch, so the
+    resumed run's eval runs, K1 once in it, to a finite val loss. The
+    card's machine has no JAX: the checks against the JAX package are
+    the CPU tests'."""
+    import numpy as np
     import torch
 
     from distributedpytorch_tpu_torch import checkpoint
+    from distributedpytorch_tpu_torch.ops import kernels
 
     out = {"phase": "ckpt_roundtrip"}
     for label, src in (
@@ -5731,8 +5753,9 @@ def phase_ckpt_roundtrip(tmp: str) -> dict:
                                                     back["optimizer"])
         run = os.path.join(tmp, f"roundtrip_{label}_resumed")
         trainer, close = _cli_trainer(run, _rc_argv(
-            run, "-e", "2", "--model", "milesial", "--dtype",
-            saved["manifest"]["dtype"], "-c", dst, samples=10))
+            run, "-e", str(int(saved["epoch"]) + 1), "--model", "milesial",
+            "--dtype", saved["manifest"]["dtype"], "-c", dst,
+            samples=RESUMED_SAMPLES))
         try:
             on_card = next(trainer.model.parameters()).device.type
             same["model_on_the_card"] = _payloads_equal(
@@ -5740,16 +5763,36 @@ def phase_ckpt_roundtrip(tmp: str) -> dict:
             same["optimizer_on_the_card"] = _optimizer_states_equal(
                 saved["optimizer"], trainer.optimizer.state_dict())
             same["step_resumed"] = trainer.step == saved["step"]
+            val_batches = len(trainer.val_loader)
+            kernels.reset_launches()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            steps = trainer.step - int(saved["step"])
+            launches = {n: kernels.LAUNCHES[n] for n in LOSS_KERNELS}
         finally:
             close()
         out[label] = {"bytes": os.path.getsize(dst), "save_s": save_s,
-                      "load_s": load_s, "resumed_on": on_card, "equal": same}
+                      "load_s": load_s, "resumed_on": on_card, "equal": same,
+                      "resumed_epoch": {
+                          "steps": steps, "val_batches": val_batches,
+                          "val_loss": result["val_loss"],
+                          "val_dice": result["val_dice"],
+                          "launches": launches,
+                          # K1 per train step and per val batch, K1-bwd
+                          # per train step
+                          "expected": {"loss_stats": steps + val_batches,
+                                       "loss_stats_bwd": steps}}}
     out["device"] = torch.cuda.get_device_name(0)
     emit(out)
     for label in ("milesial_bf16", "milesial_bf16_params"):
         row = out[label]
         check(row["resumed_on"] == "cuda" and all(row["equal"].values()),
               f"{label}: {row}")
+        epoch = row["resumed_epoch"]
+        check(epoch["val_batches"] >= 1 and epoch["steps"] >= 1
+              and np.isfinite(epoch["val_loss"])
+              and epoch["launches"] == epoch["expected"],
+              f"{label}: the resumed epoch {epoch}")
     return out
 
 
@@ -6957,6 +7000,18 @@ def fsdp_rank(rank: int, world: int, backend: str, job: str) -> int:
             result["busy_ms"] = _busy_ms_by_device(
                 lambda: step(batch), 2, devices=[torch.device(device)])
             del step
+            torch.cuda.empty_cache()
+            # each model as one CUDA graph of GS_K steps against its eager
+            # steps, on this rank's rows
+            result["graphs"] = {}
+            for arch in ("unet", "milesial"):
+                def run(arch=arch):
+                    return _rank_graph_run(
+                        _strategy_config("FSDP", arch), rank, world,
+                        [torch.device(device)], DP_GRAPH_STACKS)
+
+                result["graphs"][arch] = (_with_wgrad_backend(run)
+                                          if arch == "milesial" else run())
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -7052,7 +7107,10 @@ def phase_tp_cards(world: int) -> dict:
     ``--wgrad-taps`` at ``-b 4``, the step's wall ms with each card's busy
     ms beside the singleGPU step on one card, and the bytes of parameters
     and Adam's state each card holds against the whole (at most ¼ × 1.5 of
-    it, plus the 1-channel head on the first)."""
+    it, plus the 1-channel head on the first); then each model as one CUDA
+    graph of GS_K steps across the cards against its eager steps
+    (``_graph_run``: bitwise, a replay's kernels, each card's busy ms,
+    eager and graph)."""
     import torch
 
     cards = [torch.device("cuda", i) for i in range(world)]
@@ -7065,6 +7123,8 @@ def phase_tp_cards(world: int) -> dict:
             return _tp_timing(arch, cards, batch)
 
         row = _with_wgrad_backend(run) if arch == "milesial" else run()
+        row["graph"] = _graph_run(_strategy_config("TP", arch), cards,
+                                  _tpf_per_replay(arch, world))
         out[arch] = row
         state = row["tp"]["state_bytes"]
         for i, nbytes in enumerate(state["per_slice"]):
@@ -7125,10 +7185,259 @@ def phase_fsdp_cards(tmp: str, world: int) -> dict:
     if (loss_err > FSDP_DDP_LOSS_RTOL or grad_err > RANKS_GRAD_RTOL
             or weight_abs > FSDP_DDP_WEIGHT_ATOL):
         problems.append(f"FSDP against DDP: {out['against_ddp']}")
+    out["graphs"] = {arch: _ranks_graph_rows(
+        [{"graph": r["graphs"][arch]} for r in ranks], world)
+        for arch in ("unet", "milesial")}
     out["problems"] = problems
     emit(out)
     _assert_ranks(report, "FSDP nccl ranks")
+    for arch, rows in out["graphs"].items():
+        _check_ranks_graph(rows, f"FSDP {arch} graphs over {world} ranks")
     check(not problems, f"fsdp_cards: {problems}")
+    return out
+
+
+# -t TP's and -t FSDP's run control (tp_fsdp_run_control), full width: TP
+# on [cuda:0, cuda:0] and FSDP at world 1 under NCCL, each as one CUDA
+# graph of GS_K steps against its eager steps (bf16, DP_GRAPH_STACKS
+# stacks), under --remat against the plain step (bf16, SGD at lr 0), the
+# float32 UNet's --grad-accum TPF_ACCUM (TP against singleGPU, FSDP against
+# DDP at world 1, SP_BOUNDS' f32 bounds), and FSDP's --dtype bf16_params
+# against DDP's at world 1 over TPF_BF16_STEPS Adam steps at TPF_LR
+TPF_ACCUM = 2
+TPF_BF16_STEPS = 2
+TPF_LR = 1e-4
+# masters after TPF_BF16_STEPS Adam steps, element by element, where not
+# bitwise: Adam moves an element by about lr a step (FSDP_DDP_WEIGHT_ATOL)
+TPF_MASTER_ATOL = 2 * TPF_LR * TPF_BF16_STEPS
+
+
+def _tpf_per_replay(arch: str, slices: int) -> dict:
+    """A replay's launches of GS_K steps of TP over ``slices`` (FSDP: 1)."""
+    return {n: GS_K * c for n, c in
+            _tp_expected_per_step(arch, slices).items()}
+
+
+def _tpf_remat_want(arch: str, slices: int) -> dict:
+    """A ``--remat`` step's launches: ``_tp_expected_per_step``, milesial's
+    K2 twice (the recompute's)."""
+    want = _tp_expected_per_step(arch, slices)
+    if arch == "milesial":
+        want["bn_act"] *= 2
+    return want
+
+
+def _tpf_accum(method: str, devices, chunks) -> dict:
+    """One float32 UNet ``--grad-accum`` step of ``method`` over
+    ``devices`` from the seed's weights on ``chunks``, SGD at lr 0, cuDNN
+    deterministic: the loss, the gradients (whole) and K1 / K1-bwd as the
+    wrappers counted them."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = _strategy_config(method, "unet", dtype="f32",
+                           grad_accum=len(chunks))
+    strategy = build_strategy(cfg, devices=devices)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED)))
+    step = strategy.build_accum_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.0),
+        get_kernel_policy("cuda"))
+    with _deterministic_cudnn():
+        kernels.reset_launches()
+        loss = float(step(chunks))
+        torch.cuda.synchronize()
+    out = {"loss": loss, "grads": _grads(model), "stats": {},
+           "launches": {n: kernels.LAUNCHES[n] for n in LOSS_KERNELS}}
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpf_accum_row(method: str, runs: dict, ref: str) -> dict:
+    """``method``'s accumulation step against ``ref``'s (``_tpf_accum``):
+    SP_BOUNDS' f32 bounds and K1 / K1-bwd per step (K1 in both passes of
+    every chunk, K1-bwd in the second)."""
+    import torch
+
+    want = {"loss_stats": 2 * TPF_ACCUM, "loss_stats_bwd": TPF_ACCUM}
+    row = {"phase": f"{method.lower()}_accum", "arch": "unet",
+           "dtype": "f32", "chunks": TPF_ACCUM, "batch": TRAIN_BATCH,
+           "against": ref, **_step_against(runs[method], runs[ref]),
+           "launches_per_step": runs[method]["launches"],
+           "expected_per_step": want,
+           "device": torch.cuda.get_device_name(0)}
+    row["ok"] = _within_sp_bounds("unet", "f32", row)
+    emit(row)
+    check(row["ok"], f"{method} accumulation against {ref}'s: {row}")
+    check(row["launches_per_step"] == want,
+          f"{method} accumulation launched {row['launches_per_step']}, "
+          f"expected {want}")
+    return row
+
+
+def _tpf_bf16_params(method: str, dev, batches) -> dict:
+    """``-t {method} --dtype bf16_params`` of the UNet at world 1 under
+    NCCL from the seed's weights: TPF_BF16_STEPS Adam steps at TPF_LR,
+    cuDNN deterministic; the losses, the f32 masters (whole) and the
+    bf16 parameters after them, and the masters' bytes this rank holds
+    against the whole's."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.ops.precision import (
+        cast_params_,
+        get_policy,
+    )
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = _strategy_config(method, "unet", dtype="bf16_params",
+                           learning_rate=TPF_LR)
+    strategy = build_strategy(cfg, devices=[dev])
+    policy = get_policy(cfg)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED),
+        cast_params=False))
+    opt = make_optimizer(model.parameters(),
+                         strategy.lr_for(cfg.learning_rate),
+                         cfg.weight_decay, policy=policy)
+    cast_params_(model, policy)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    with _deterministic_cudnn():
+        losses = [float(step(b)) for b in batches]
+        torch.cuda.synchronize()
+    names = strategy.param_names(model)
+    out = {"losses": losses,
+           "master": {n: _full(m).detach().clone()
+                      for n, m in zip(names, opt.master)},
+           # as a checkpoint reads them (FSDP: the gathered shards)
+           "params": {n: t.detach().clone() for n, t in
+                      strategy.model_state(model).items() if n in names},
+           "param_dtypes": sorted({str(p.dtype) for p in
+                                   model.parameters()}),
+           "master_bytes": {
+               "mine": sum((m.to_local() if hasattr(m, "to_local") else m)
+                           .numel() * 4 for m in opt.master),
+               "whole": sum(m.numel() * 4 for m in opt.master)}}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpf_bf16_params_row(dev) -> dict:
+    """FSDP's ``--dtype bf16_params`` against DDP's at world 1 under NCCL
+    (``_tpf_bf16_params``): the losses and the masters bitwise, else the
+    losses within SP_BOUNDS' bf16 loss bound and every master within
+    TPF_MASTER_ATOL; the parameters bf16, each its master rounded."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    batches = [_synthetic_batch(TRAIN_BATCH, dev)
+               for _ in range(TPF_BF16_STEPS)]
+    batches = [{k: torch.roll(v, i, 0) for k, v in b.items()}
+               for i, b in enumerate(batches)]
+    runs = {}
+    for method in ("DDP", "FSDP"):
+        with _world_one_env():
+            try:
+                runs[method] = _tpf_bf16_params(method, dev, batches)
+            finally:
+                runtime.shutdown()
+    a, b = runs["FSDP"], runs["DDP"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                         b["losses"]))
+    master_abs = max(float((a["master"][n] - m).abs().max())
+                     for n, m in b["master"].items())
+    row = {"phase": "fsdp_bf16_params", "arch": "unet", "steps":
+           TPF_BF16_STEPS, "lr": TPF_LR, "losses": a["losses"],
+           "ddp_losses": b["losses"], "loss_max_rel_err": loss_err,
+           "losses_bitwise_equal": a["losses"] == b["losses"],
+           "masters_bitwise_equal": all(
+               torch.equal(a["master"][n], m) for n, m in b["master"].items()),
+           "masters_max_abs_err": master_abs,
+           "masters_max_err_rel_to_tensor_max": _max_err_rel(a["master"],
+                                                             b["master"]),
+           "param_dtypes": a["param_dtypes"],
+           "params_bitwise_equal": all(
+               torch.equal(a["params"][n], p) for n, p in b["params"].items()),
+           "params_not_masters_rounded": {
+               n: float((a["params"][n].float()
+                         - m.to(torch.bfloat16).float()).abs().max())
+               for n, m in a["master"].items()
+               if not torch.equal(a["params"][n], m.to(torch.bfloat16))},
+           "master_bytes": a["master_bytes"],
+           "device": torch.cuda.get_device_name(0)}
+    row["ok"] = ((row["losses_bitwise_equal"] and row["masters_bitwise_equal"])
+                 or (loss_err <= SP_BOUNDS["bf16"]["unet_loss"]
+                     and master_abs <= TPF_MASTER_ATOL))
+    emit(row)
+    check(row["ok"] and row["param_dtypes"] == ["torch.bfloat16"]
+          and not row["params_not_masters_rounded"],
+          f"FSDP bf16_params against DDP's: {row}")
+    return row
+
+
+def phase_tp_fsdp_run_control() -> dict:
+    """``-t TP``'s and ``-t FSDP``'s run control at full width: TP on
+    ``[cuda:0, cuda:0]`` and FSDP at world 1 under NCCL, the bf16 UNet
+    and milesial ``--wgrad-taps`` (DPT_WGRAD_BACKEND=pallas) each as one
+    CUDA graph of GS_K steps against its eager steps (``_graph_run``:
+    bitwise, a replay's kernels by name in the graph's nodes and seen in
+    the trace, eager and graph step / host / ``cudaGraphLaunch`` ms) and
+    under ``--remat`` against its plain step (``_remat_run``: bitwise,
+    milesial's K2 twice, the step's memory above its start lower); the
+    float32 UNet's ``--grad-accum TPF_ACCUM`` against singleGPU's (TP)
+    and DDP's at world 1 (FSDP); FSDP's ``--dtype bf16_params`` against
+    DDP's (``_tpf_bf16_params_row``)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    devices = [dev] * TP_SLICES
+    out = {"phase": "tp_fsdp_run_control",
+           "tp_devices": [str(d) for d in devices],
+           "device": torch.cuda.get_device_name(0),
+           "graphs": {}, "remat": {}}
+    for arch in ("unet", "milesial"):
+        out["graphs"][f"tp_{arch}"] = _graph_run(
+            _strategy_config("TP", arch), devices,
+            _tpf_per_replay(arch, TP_SLICES))
+        out["remat"][f"tp_{arch}"] = _remat_run(
+            "TP", arch, devices, _tpf_remat_want(arch, TP_SLICES))
+        with _world_one_env():
+            try:
+                out["graphs"][f"fsdp_{arch}"] = _graph_run(
+                    _strategy_config("FSDP", arch), [dev],
+                    _tpf_per_replay(arch, 1))
+                out["remat"][f"fsdp_{arch}"] = _remat_run(
+                    "FSDP", arch, [dev], _tpf_remat_want(arch, 1))
+            finally:
+                runtime.shutdown()
+    batch = _synthetic_batch(TPF_ACCUM * TRAIN_BATCH, dev)
+    chunks = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+               for k, v in batch.items()} for i in range(TPF_ACCUM)]
+    runs = {"TP": _tpf_accum("TP", devices, chunks),
+            "singleGPU": _tpf_accum("singleGPU", [dev], chunks)}
+    for method in ("DDP", "FSDP"):
+        with _world_one_env():
+            try:
+                runs[method] = _tpf_accum(method, [dev], chunks)
+            finally:
+                runtime.shutdown()
+    out["accum"] = {"tp": _tpf_accum_row("TP", runs, "singleGPU"),
+                    "fsdp": _tpf_accum_row("FSDP", runs, "DDP")}
+    out["bf16_params"] = _tpf_bf16_params_row(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "tp_fsdp_run_control", "wall_s": out["wall_s"]})
     return out
 
 
@@ -7311,6 +7620,7 @@ def main(argv) -> int:
         ddp_sp = phase_train_ddp_sp_gloo2(tmp)
         train_tp = phase_train_tp(tmp, train)
         train_fsdp = phase_train_fsdp(tmp)
+        tpf = phase_tp_fsdp_run_control()
         run_control = phase_train_run_control(tmp)["launches"]
         graphs = phase_train_graph_strategies(tmp)
         phase_probes(tmp)
@@ -7422,6 +7732,25 @@ def main(argv) -> int:
         if name in train_fsdp["gloo2"]["launches"][0]:
             out["gloo_rank0"] = train_fsdp["gloo2"]["launches"][0][name]
         return out
+    def tp_fsdp_rc_launches(name):
+        """-t TP on [cuda:0, cuda:0] and -t FSDP at world 1 under NCCL
+        (tp_fsdp_run_control): per replay of a graph of 4 steps, counted
+        in the graph's nodes; per --remat step and per --grad-accum 2
+        step of the UNet, counted by the wrappers."""
+        out = {}
+        for key, row in tpf["graphs"].items():
+            if name in row["graph_launches_per_replay"]:
+                out[f"{key}_graph_per_replay"] = row[
+                    "graph_launches_per_replay"][name]
+        for key, row in tpf["remat"].items():
+            if name in row["expected_remat_per_step"]:
+                out[f"{key}_remat_step"] = row["launches_per_step"][
+                    "remat"][name]
+        for key, row in tpf["accum"].items():
+            if name in row["launches_per_step"]:
+                out[f"{key}_unet_accum_step"] = row["launches_per_step"][
+                    name]
+        return out
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -7440,6 +7769,7 @@ def main(argv) -> int:
             "ddp_sp_launches": None,
             "tp_launches": None,
             "fsdp_launches": None,
+            "tp_fsdp_run_control_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -7470,6 +7800,7 @@ def main(argv) -> int:
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("loss_stats"),
             "fsdp_launches": fsdp_launches("loss_stats"),
+            "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -7497,6 +7828,7 @@ def main(argv) -> int:
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("loss_stats_bwd"),
             "fsdp_launches": fsdp_launches("loss_stats_bwd"),
+            "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -7525,6 +7857,7 @@ def main(argv) -> int:
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("bn_act"),
             "fsdp_launches": fsdp_launches("bn_act"),
+            "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -7556,6 +7889,7 @@ def main(argv) -> int:
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("bn_act_bwd"),
             "fsdp_launches": fsdp_launches("bn_act_bwd"),
+            "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -7583,6 +7917,7 @@ def main(argv) -> int:
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("wgrad_9tap"),
             "fsdp_launches": fsdp_launches("wgrad_9tap"),
+            "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -26,7 +26,8 @@ class Rematerialized(torch.nn.Module):
     :287) and of the pipeline's per-stage remat (pipeline.py:230-276).
 
     A model that exposes its segments (``num_segments``,
-    ``apply_segment``: the UNet's and milesial's levels) is recomputed
+    ``apply_segment``: the UNet's and milesial's levels, and ``-t TP``'s
+    ``parallel/channels.ChannelSharded`` over them) is recomputed
     segment by segment: only the carries between segments stay alive, and
     the backward rebuilds one segment's activations at a time. One region
     around the whole forward would rebuild every activation at once at the
@@ -45,13 +46,8 @@ class Rematerialized(torch.nn.Module):
         super().__init__()
         self.module = module
 
-    def _contexts(self):
-        return contextlib.nullcontext(), recomputing(self.module)
-
     def _checkpoint(self, fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False,
-                          context_fn=self._contexts)
+        return _recomputed(self.module, fn, *args)
 
     def forward(self, *args):
         if not torch.is_grad_enabled():
@@ -65,6 +61,35 @@ class Rematerialized(torch.nn.Module):
             x, skips = self._checkpoint(self.module.apply_segment, x, skips,
                                         seg)
         return x
+
+
+def _recomputed(module: torch.nn.Module, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``recomputing(
+    module)``."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputing(module)))
+
+
+def recompute_in_backward(module: torch.nn.Module) -> None:
+    """From now on ``module``'s own forward is recomputed in its backward,
+    in place: the module, its names and its parameters stay, and a hook
+    on its call stays outside the recomputed region. That is the order
+    ``-t FSDP --remat`` needs: ``fully_shard``'s hooks all-gather a
+    block's parameters before its forward and again before its backward,
+    so the recompute computes with the parameters gathered for the
+    backward and keeps none of them alive between the two
+    (``parallel/strategy.FullyShardedDataParallel``). Without grad (eval)
+    the forward runs as it is."""
+    forward = module.forward
+
+    def recomputed(*args):
+        if not torch.is_grad_enabled():
+            return forward(*args)
+        return _recomputed(module, forward, *args)
+
+    module.forward = recomputed
 
 
 def rematerialized(module: torch.nn.Module, remat: bool) -> torch.nn.Module:

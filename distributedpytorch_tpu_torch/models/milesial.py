@@ -69,9 +69,11 @@ class BatchNormAct(nn.Module):
       autograd sees before ``var`` is formed: the moments of the global
       batch, as GSPMD computes them for the JAX DDP, valid because every
       rank holds an equal batch (the train loader drops the ragged one).
-      The running averages then move identically on every rank.
-      ``torch.nn.SyncBatchNorm`` is not used: it too stores the unbiased
-      variance;
+      The running averages then move identically on every rank. The
+      layer keeps the global moments (``kept_moments``), and a recompute
+      under ``recomputing`` (``--remat`` under DDP and FSDP) normalizes
+      with them and enters no all-reduce. ``torch.nn.SyncBatchNorm`` is
+      not used: it too stores the unbiased variance;
     * with ``replicas`` (set by the DP strategy for the forward of one
       step, ``parallel/replicas.py``) the replicas' threads meet here and
       every replica normalizes with the moments of the whole batch, which
@@ -112,19 +114,24 @@ class BatchNormAct(nn.Module):
         ``global_stats``), and the running averages moved by them."""
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = xf.square().mean(dim=(0, 2, 3))
-        if self.global_stats:
-            moments = all_reduce_sum(torch.stack([mean, mean2]))
-            mean, mean2 = moments / dist.get_world_size()
-        if not self.reuse_kept_moments:
+        if self.reuse_kept_moments and self.kept_moments is not None:
+            # the recompute: the moments its forward met on, and no
+            # meeting. A leaf that requires grad, as the meeting's moments
+            # do, so that the recompute saves for backward what the
+            # forward saved
+            mean, mean2 = self.kept_moments.detach().requires_grad_()
+        else:
             self.kept_moments = None
+            moments = None
+            if self.global_stats:
+                moments = all_reduce_sum(torch.stack([mean, mean2]))
+                moments = moments / dist.get_world_size()
+                mean, mean2 = moments
             if self.replicas is not None:
                 moments = self.replicas.mean(torch.stack([mean, mean2]))
-                self.kept_moments = moments.detach()
                 mean, mean2 = moments
-        elif self.kept_moments is not None:
-            # a leaf that requires grad, as the meeting's moments do, so
-            # that the recompute saves for backward what the forward saved
-            mean, mean2 = self.kept_moments.detach().requires_grad_()
+            if moments is not None:
+                self.kept_moments = moments.detach()
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         if self.update_running_stats:
             with torch.no_grad():

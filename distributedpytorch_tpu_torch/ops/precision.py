@@ -69,10 +69,18 @@ def get_policy(config_or_name=None) -> PrecisionPolicy:
 def cast_params_(module: torch.nn.Module, policy: PrecisionPolicy) -> None:
     """Every floating parameter of ``module`` stored in the policy's
     parameter dtype, in place; buffers (BatchNorm's running statistics)
-    stay as they are, as the JAX policy casts ``params`` only."""
+    stay as they are, as the JAX policy casts ``params`` only. A
+    ``DTensor`` parameter (an FSDP shard, before its first forward) takes
+    its cast local shard and spec too, which setting ``.data`` alone
+    leaves behind; ``fully_shard`` takes the new shard in at its lazy
+    init."""
     for p in module.parameters():
         if p.is_floating_point() and p.dtype != policy.param_dtype:
-            p.data = p.data.to(policy.param_dtype)
+            cast = p.data.to(policy.param_dtype)
+            p.data = cast
+            if hasattr(cast, "_local_tensor"):
+                p._local_tensor = cast._local_tensor
+                p._spec = cast._spec
 
 
 class MasterWeights:

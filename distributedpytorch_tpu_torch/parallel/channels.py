@@ -41,6 +41,24 @@ its slice of dy. A slice that K5 cannot take (bfloat16 with an
 out-channel count not a multiple of 16) raises when the model is
 sharded; it does not fall back to the plain contraction.
 
+The run control (``parallel/strategy.check_run_control``):
+
+* ``--remat``: ``ChannelSharded`` exposes the model's segments
+  (``num_segments``, ``apply_segment``, ``segment_modules``), so
+  ``models.Rematerialized`` recomputes it segment by segment, each
+  segment re-issuing its slices and gathers in the backward. A slice's
+  BatchNorm moments are per channel over the whole (replicated) batch,
+  its own: the recompute takes them again from its recomputed input,
+  with no meeting, and under ``models.recomputing`` the running
+  statistics move once per step;
+* ``--steps-per-dispatch K > 1``: one thread issues every slice on the
+  caller's current streams, which ``train/steps.MultiStep`` makes the
+  graph's, and the gathers' backward copies run on the forward's
+  streams, so one CUDA graph captures K whole steps over the slices'
+  cards;
+* ``--grad-accum``: each chunk runs through the sharded model, and its
+  statistics are K1's on the whole predictions on the first device.
+
 ``whole_state`` and ``load_whole_state`` concatenate and split the
 slices under the reference names, and ``whole_optimizer_state`` and
 ``sharded_optimizer_state`` do the same for Adam's state (and the f32
@@ -73,6 +91,10 @@ from distributedpytorch_tpu_torch.models.unet import (
 )
 from distributedpytorch_tpu_torch.ops.conv_backward import wgrad_uses_kernel
 from distributedpytorch_tpu_torch.ops.precision import LOSS_DTYPE
+from distributedpytorch_tpu_torch.utils.device import (
+    current_streams,
+    on_streams,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -84,24 +106,28 @@ class _Gather(torch.autograd.Function):
     """The channel concatenation of ``parts`` (in order) on each of
     ``devices``, one output per device; the backward adds each part's
     gradient slices of the outputs in device order, on the part's
-    device."""
+    device, on the streams the forward ran on (``utils/device.on_streams``:
+    autograd runs it on one card's thread, where another card's current
+    stream is its default one, outside a CUDA graph's capture)."""
 
     @staticmethod
     def forward(ctx, devices, *parts):
         ctx.sources = [p.device for p in parts]
         ctx.sizes = [p.shape[1] for p in parts]
+        ctx.streams = current_streams(ctx.sources + list(devices))
         return tuple(torch.cat([p.to(d, non_blocking=True) for p in parts],
                                dim=1) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
         sums: List = [None] * len(ctx.sources)
-        for g in grads:
-            if g is None:
-                continue
-            for k, piece in enumerate(g.split(ctx.sizes, dim=1)):
-                piece = piece.to(ctx.sources[k], non_blocking=True)
-                sums[k] = piece if sums[k] is None else sums[k] + piece
+        with on_streams(ctx.streams):
+            for g in grads:
+                if g is None:
+                    continue
+                for k, piece in enumerate(g.split(ctx.sizes, dim=1)):
+                    piece = piece.to(ctx.sources[k], non_blocking=True)
+                    sums[k] = piece if sums[k] is None else sums[k] + piece
         return (None, *sums)
 
 
@@ -247,44 +273,49 @@ def _whole_on_first(parts: List[torch.Tensor], device: torch.device
     return gather(parts, [device])[0]
 
 
-def _unet_forward(model: UNet, x: torch.Tensor, device: torch.device
-                  ) -> torch.Tensor:
-    """``UNet.forward`` on channel blocks (models/unet.py
-    ``apply_segment``)."""
-    parts = [x.permute(0, 3, 1, 2).to(model.dtype)]
-    skips = []
-    for i in range(len(model.widths)):
-        skip = _run(getattr(model.encoder, f"conv{i + 1}"), parts)
-        skips.append(skip)
-        parts = [F.max_pool2d(p, 2, 2) for p in skip]
-    parts = _run(model.mid, parts)
-    for i in range(len(model.widths)):
-        up = _run(getattr(model.decoder, f"deconv{i + 1}"), parts)
-        parts = _run(getattr(model.decoder, f"conv{i + 1}"),
-                     _crop(skips.pop(), up[0]) + up)
-    y = _whole_on_first(_run(model.segmap, parts), device)
-    return torch.sigmoid(y.to(LOSS_DTYPE)).permute(0, 2, 3, 1)
+def _unet_segment(model: UNet, x, skips: tuple, seg: int,
+                  device: torch.device):
+    """``UNet.apply_segment`` on channel blocks: the carry's ``x`` is the
+    NHWC batch into segment 0, the NHWC float32 predictions on ``device``
+    out of the last and a list of channel blocks in between; each skip
+    is one too."""
+    levels = len(model.widths)
+    if seg == 0:
+        x = [x.permute(0, 3, 1, 2).to(model.dtype)]
+    if seg < levels:
+        skip = _run(getattr(model.encoder, f"conv{seg + 1}"), x)
+        return [F.max_pool2d(p, 2, 2) for p in skip], skips + (skip,)
+    if seg == levels:
+        return _run(model.mid, x), skips
+    i = seg - levels
+    up = _run(getattr(model.decoder, f"deconv{i}"), x)
+    x = _run(getattr(model.decoder, f"conv{i}"), _crop(skips[-1], up[0]) + up)
+    if seg == 2 * levels:
+        y = _whole_on_first(_run(model.segmap, x), device)
+        x = torch.sigmoid(y.to(LOSS_DTYPE)).permute(0, 2, 3, 1)
+    return x, skips[:-1]
 
 
-def _milesial_forward(model: MilesialUNet, x: torch.Tensor,
-                      device: torch.device) -> torch.Tensor:
-    """``MilesialUNet.forward`` on channel blocks (models/milesial.py
-    ``apply_segment``)."""
+def _milesial_segment(model: MilesialUNet, x, skips: tuple, seg: int,
+                      device: torch.device):
+    """``MilesialUNet.apply_segment`` on channel blocks, with
+    ``_unet_segment``'s carry."""
     levels = len(model.widths) - 1
-    parts = _run(model.inc, [x.permute(0, 3, 1, 2).to(model.dtype)])
-    skips = [parts]
-    for i in range(1, levels + 1):
-        parts = _run(getattr(model, f"down{i}"), parts)
-        if i < levels:
-            skips.append(parts)
-    for i in range(1, levels + 1):
-        up = getattr(model, f"up{i}")
-        upsampled = _run(up.up, parts)
-        parts = _run(up.conv, _crop(skips.pop(), upsampled[0]) + upsampled)
-    y = _whole_on_first(_run(model.outc, parts), device).to(LOSS_DTYPE)
-    if model.n_classes == 1:
-        y = torch.sigmoid(y)
-    return y.permute(0, 2, 3, 1)
+    if seg == 0:
+        x = _run(model.inc, [x.permute(0, 3, 1, 2).to(model.dtype)])
+        return x, skips + (x,)
+    if seg <= levels:
+        x = _run(getattr(model, f"down{seg}"), x)
+        return x, (skips + (x,) if seg < levels else skips)
+    up = getattr(model, f"up{seg - levels}")
+    upsampled = _run(up.up, x)
+    x = _run(up.conv, _crop(skips[-1], upsampled[0]) + upsampled)
+    if seg == 2 * levels:
+        y = _whole_on_first(_run(model.outc, x), device).to(LOSS_DTYPE)
+        if model.n_classes == 1:
+            y = torch.sigmoid(y)
+        x = y.permute(0, 2, 3, 1)
+    return x, skips[:-1]
 
 
 def _sharded_layers(model: nn.Module) -> List[Tuple[nn.Module, str, nn.Module]]:
@@ -337,9 +368,27 @@ class ChannelSharded(nn.Module):
                 for name in self._layer_names]
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        fn = (_unet_forward if isinstance(self.model, UNet)
-              else _milesial_forward)
-        return fn(self.model, images, self.devices[0])
+        x, skips = images, ()
+        for seg in range(self.num_segments):
+            x, skips = self.apply_segment(x, skips, seg)
+        return x
+
+    # -- the model's segments, on channel blocks -------------------------------
+    # ``models.Rematerialized`` recomputes them one at a time under
+    # --remat, each re-issuing its slices and gathers
+    @property
+    def num_segments(self) -> int:
+        return self.model.num_segments
+
+    def apply_segment(self, x, skips, seg: int):
+        """The model's segment ``seg`` on the carry ``(x, skips)``
+        (``_unet_segment``)."""
+        fn = (_unet_segment if isinstance(self.model, UNet)
+              else _milesial_segment)
+        return fn(self.model, x, tuple(skips), seg, self.devices[0])
+
+    def segment_modules(self, seg: int) -> List[nn.Module]:
+        return self.model.segment_modules(seg)
 
     # -- whole tensors under the reference names ------------------------------
     def _layout(self) -> Dict[str, Tuple[List[torch.Tensor], int]]:

@@ -47,26 +47,29 @@ BatchNorm and XLA eval metrics (no GSPMD rule for ``pallas_call``).
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
-(MP, DDP_MP, both schedules), of each DP replica or of each SP row shard
-in its backward; a replica's or shard's recompute normalizes with the
-BatchNorm moments the replicas met on in its forward and a shard's convs
-take the halo rows they kept: neither meets again. ``--steps-per-dispatch
-K > 1`` (one CUDA graph of K steps, ``build_multi_train_step``, from the
-trainer's own train step) runs under every strategy, DP's replica and
-SP's shard threads included, and is refused under a gloo group on a
-card. ``--grad-accum`` runs outside the pipelines for the stateless
-UNet; under SP and DDP_SP each chunk's statistics are the shards' sums
-(``accum_stats``). What stays refused, with the JAX package's words:
-``--grad-accum`` of milesial and together with ``--steps-per-dispatch
-K > 1``. Under TP and FSDP only their plain step is ported:
-``--steps-per-dispatch K > 1``, ``--remat`` and ``--grad-accum`` raise
-there, with one message naming the strategy and the flag, and so does
-``--dtype bf16_params`` under FSDP. ``--dtype bf16_params`` runs under
-every other strategy; under DDP the gradients are averaged over the ranks in
+(MP, DDP_MP, both schedules), of each DP replica or SP row shard, of
+each segment of TP's channel-sharded model, or of each FSDP block
+inside ``fully_shard``'s hooks, in its backward; a replica's or shard's
+recompute normalizes with the BatchNorm moments the replicas met on in
+its forward, a DDP or FSDP rank's with the global moments it kept, and
+a shard's convs take the halo rows they kept: none meets again.
+``--steps-per-dispatch K > 1`` (one CUDA graph of K steps,
+``build_multi_train_step``, from the trainer's own train step) runs
+under every strategy, DP's replica and SP's shard threads, TP's slices
+and FSDP's all-gathers and reduce-scatters included, and is refused
+under a gloo group on a card. ``--grad-accum`` runs outside the
+pipelines for the stateless UNet; under SP and DDP_SP each chunk's
+statistics are the shards' sums (``accum_stats``), under FSDP each
+rank's own (``backward_averages_over``). What stays refused, with the
+JAX package's words: ``--grad-accum`` of milesial and together with
+``--steps-per-dispatch K > 1``. ``--dtype bf16_params`` runs under
+every strategy; under DDP the gradients are averaged over the ranks in
 ``REDUCE_DTYPE`` and rounded to bf16 once (``_allreduce_master_grads``),
 which is where the compiled JAX DDP step sums them too (its gradient
 all-reduce is float32 on the CPU mesh), and DDP_MP's stage gradients are
-reduced as the f32 master gradients. Where one backward adds several uses
+reduced as the f32 master gradients; under FSDP each block's bf16
+gradients are reduce-scattered in ``REDUCE_DTYPE`` and rounded to bf16
+once, and each master is a shard. Where one backward adds several uses
 of a parameter (gpipe's microbatches, DP's replicas, SP's shards) each
 use computes
 with its own cast of the f32 master (``ops/precision.PerUseCasts``), so
@@ -248,7 +251,12 @@ class Strategy:
             self.config.grad_accum, self.config.faithful_loss_scaling,
             kernels.train_loss_fused, sum_over_ranks=self.sum_over_ranks,
             remat=remat,
-            stats_impl=self.accum_stats(kernels.train_loss_fused))
+            stats_impl=self.accum_stats(kernels.train_loss_fused),
+            grads_averaged_over=self.backward_averages_over)
+
+    #: the ranks the model's own backward averages each gradient over
+    #: (FSDP's reduce-scatter); None where the steps reduce them
+    backward_averages_over: Optional[int] = None
 
     def accum_stats(self, fused: bool) -> Optional[Callable]:
         """Gradient accumulation's four statistics of a chunk's predictions
@@ -913,7 +921,18 @@ class TensorParallel(Strategy):
     whole predictions on the first device (K1 and K1-bwd there under
     ``--kernels cuda``), and Adam keeps each slice's state on its device
     (``ops/optim.device_runs``). A checkpoint holds the whole tensors
-    under the reference names (``model_state``, ``optimizer_state``)."""
+    under the reference names (``model_state``, ``optimizer_state``).
+
+    The run control is the generic one over the sharded model (the
+    module docstring of ``parallel/channels.py``): ``--remat`` recomputes
+    it segment by segment (``Strategy.wrap_model``), ``--steps-per-dispatch
+    K`` captures K steps over ``devices`` (``step_devices``; on
+    ``[cuda:0, cuda:0]`` one card) with Adam capturable on each card, and
+    the UNet's ``--grad-accum`` runs its chunks through the sharded model
+    (``accum_module``), K1 on the whole predictions on the first device.
+    The JAX TP runs the plain loss there (its accumulation fuses the loss
+    off the mesh only); the port runs K1 and K1-bwd under ``--kernels
+    cuda``, the same function."""
 
     name = "TP"
 
@@ -990,12 +1009,14 @@ def gathered(value):
     return value
 
 
-def _local_shard(whole: torch.Tensor, like) -> torch.Tensor:
+def _local_shard(whole: torch.Tensor, like,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's shard of ``whole`` as ``like``'s (a ``DTensor``)
-    placements cut it, on ``like``'s device, with no communication."""
+    placements cut it, on ``like``'s device, in ``dtype`` (by default
+    ``like``'s), with no communication."""
     from torch.distributed.tensor import distribute_tensor
 
-    return distribute_tensor(whole.to(like.device, like.dtype),
+    return distribute_tensor(whole.to(like.device, dtype or like.dtype),
                              like.device_mesh, like.placements,
                              src_data_rank=None)
 
@@ -1024,10 +1045,47 @@ class FullyShardedDataParallel(MultiProcessMixin, Strategy):
     forwards and enters each block's all-gather alike. A checkpoint
     gathers every shard whole on every rank (``gathers_state``), and
     rank 0 writes it; a resume cuts each rank's shard from the whole
-    tensors."""
+    tensors.
+
+    The run control:
+
+    * ``--remat`` wraps each block's own forward in a checkpoint before
+      ``fully_shard`` hooks it (``models.recompute_in_backward``), as
+      FSDP2 is meant to be used with activation checkpointing: the hooks
+      stay outside the recomputed region, so the backward all-gathers a
+      block's parameters, recomputes its forward with them and
+      reshards after, and no whole parameter stays alive between the
+      forward and the backward. ``models.Rematerialized`` around the
+      sharded model would call the segments past the root's own forward
+      hooks (FSDP2's lazy init makes the first module to run the root).
+      milesial's recompute normalizes with the global moments its
+      forward kept and enters no all-reduce;
+    * ``--steps-per-dispatch K`` captures K steps on the rank's card
+      (``train/steps.MultiStep``): FSDP2 forks its all-gather and
+      reduce-scatter streams from the current one and joins them back
+      with events, and the one eager stack before the capture makes its
+      streams, NCCL's communicator and Adam's moments over the shards;
+    * ``--grad-accum``: pass 1 sums the chunks' statistics over the
+      ranks (``sum_over_ranks``); pass 2 back-propagates each rank's own
+      statistics with the cotangent times the world size, so the
+      reduce-scatter's average after every chunk is the sum over the
+      ranks (``backward_averages_over``). Reduce-scattering after every
+      chunk keeps only each rank's shard of the gradients between the
+      chunks; syncing only after the last would keep the whole unsharded
+      gradients alive, what FSDP is there to avoid;
+    * ``--dtype bf16_params``: the parameters are cast to bf16 after
+      ``fully_shard`` (the trainer's ``cast_params_``, which FSDP2 takes
+      in at its lazy init), the f32 masters and Adam's moments are
+      shards of their own, each gradient is reduce-scattered in
+      ``REDUCE_DTYPE`` (``MixedPrecisionPolicy(reduce_dtype=...)``) and
+      rounded to bf16 once, as DDP's ``_allreduce_master_grads`` does,
+      and ``MasterWeights``' hook, which FSDP2 runs on the sharded
+      parameter after the reduce-scatter, widens it into its master's
+      gradient."""
 
     name = "FSDP"
     gathers_state = True
+    sum_over_ranks = staticmethod(sum_over_ranks_)
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
@@ -1044,10 +1102,15 @@ class FullyShardedDataParallel(MultiProcessMixin, Strategy):
     def mesh_shape(self) -> dict:
         return {"data": self.world}
 
+    @property
+    def backward_averages_over(self) -> int:
+        return self.world
+
     def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
         from torch.distributed.device_mesh import init_device_mesh
-        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
+        from distributedpytorch_tpu_torch.models import recompute_in_backward
         from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
 
         for module in model.modules():
@@ -1055,11 +1118,23 @@ class FullyShardedDataParallel(MultiProcessMixin, Strategy):
                 module.global_stats = True
         model.to(self.device)
         mesh = init_device_mesh(self.device.type, (self.world,))
+        policy = MixedPrecisionPolicy(reduce_dtype=REDUCE_DTYPE)
         for seg in range(model.num_segments):
             for block in model.segment_modules(seg):
-                fully_shard(block, mesh=mesh)
-        fully_shard(model, mesh=mesh)
+                if self.config.remat:
+                    recompute_in_backward(block)
+                fully_shard(block, mesh=mesh, mp_policy=policy)
+        fully_shard(model, mesh=mesh, mp_policy=policy)
         return model
+
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The sharded model itself: its blocks recompute themselves under
+        ``--remat`` (``place_model``)."""
+        return model
+
+    def accum_module(self, model, optimizer):
+        return model, False
 
     def train_loss(self, fused: bool) -> Callable:
         return make_sharded_loss(fused)
@@ -1086,41 +1161,49 @@ class FullyShardedDataParallel(MultiProcessMixin, Strategy):
 
     def load_optimizer_state(self, model: torch.nn.Module, optimizer,
                              state: dict) -> None:
-        params = list(model.parameters())
-        slots = {}
-        for i, entry in state["state"].items():
-            slots[i] = {key: (_local_shard(v, params[int(i)])
-                              if isinstance(v, torch.Tensor) and v.dim() > 0
-                              else v)
-                        for key, v in entry.items()}
-        load_optimizer_state(optimizer, {**state, "state": slots})
+        """Each rank's shard of every whole tensor of ``state``: Adam's
+        moments cut as the tensors Adam steps (the parameters, or under
+        master weights the f32 masters), the masters as themselves."""
+        if has_master_weights(optimizer):
+            masters = optimizer.master
+            state = {"master": [_local_shard(v, m) for v, m in
+                                zip(state["master"], masters)],
+                     "inner": _sharded_moments(state["inner"], masters)}
+        else:
+            state = _sharded_moments(state, list(model.parameters()))
+        load_optimizer_state(optimizer, state)
+
+    def param_values(self, model: torch.nn.Module, values) -> list:
+        """This rank's shard of each whole value, in its own dtype, as the
+        masters' reseed reads them."""
+        return [_local_shard(v, p, v.dtype)
+                for v, p in zip(values, model.parameters())]
+
+
+def _sharded_moments(state: dict, tensors) -> dict:
+    """A torch optimizer's state dict of whole tensors → each rank's shard
+    of every moment, cut as ``tensors`` (one per state index) are."""
+    slots = {}
+    for i, entry in state["state"].items():
+        slots[i] = {key: (_local_shard(v, tensors[int(i)])
+                          if isinstance(v, torch.Tensor) and v.dim() > 0
+                          else v)
+                    for key, v in entry.items()}
+    return {**state, "state": slots}
 
 
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
-    """The run control's limits of the port: under TP and FSDP, whose
-    plain step alone is ported, ``--steps-per-dispatch K > 1``,
-    ``--remat``, ``--grad-accum`` and, under FSDP, ``--dtype
-    bf16_params``, each with one message naming the strategy and the flag
-    (``unported_run_control``); under every method ``--grad-accum``
-    together with ``--steps-per-dispatch K > 1`` and ``--grad-accum`` of
-    milesial, whose BatchNorm statistics do not add up over chunks, each
-    refused with the JAX package's words; once the strategy knows its
-    ``device`` and its group's ``backend``, ``--steps-per-dispatch K > 1``
-    under gloo on a card. All but the last raise before any group is
-    joined."""
+    """The run control's limits of the port, the same under every method:
+    ``--grad-accum`` together with ``--steps-per-dispatch K > 1`` and
+    ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
+    over chunks, each refused with the JAX package's words; once the
+    strategy knows its ``device`` and its group's ``backend``,
+    ``--steps-per-dispatch K > 1`` under gloo on a card. All but the last
+    raise before any group is joined."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
     grad_accum = int(config.grad_accum)
-    if method in PLAIN_STEP_ONLY:
-        flags = [(k > 1, f"--steps-per-dispatch {k}"),
-                 (bool(config.remat), "--remat"),
-                 (grad_accum > 1, f"--grad-accum {grad_accum}"),
-                 (method == "FSDP" and config.dtype == "bf16_params",
-                  "--dtype bf16_params")]
-        for asked, flag in flags:
-            if asked:
-                raise ValueError(unported_run_control(method, flag))
     if k > 1 and grad_accum > 1:
         raise ValueError(STACKS_CONFLICT)
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
@@ -1133,19 +1216,6 @@ def check_run_control(config, device: Optional[torch.device] = None,
             f"host, which a CUDA graph of K steps cannot capture — use "
             f"the NCCL group torchrun makes on cards (ROADMAP.md, "
             f"Queue A)")
-
-
-#: the strategies whose plain step alone is ported: their run control
-#: raises in ``check_run_control``
-PLAIN_STEP_ONLY = ("TP", "FSDP")
-
-
-def unported_run_control(method: str, flag: str) -> str:
-    return (
-        f"-t {method} {flag}: not ported yet — the port runs -t {method}'s "
-        f"plain step, eval, checkpoint and resume; its run control is still "
-        f"to port (ROADMAP.md, Queue A item 1b′)"
-    )
 
 
 STRATEGIES = {cls.name: cls for cls in (

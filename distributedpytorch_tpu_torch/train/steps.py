@@ -35,8 +35,10 @@ Counterpart of ``distributedpytorch_tpu/train/steps.py``
   averaged over the ranks between the backward and Adam
   (``reduce_grads``);
 * ``make_multi_train_step`` runs K whole steps per call: on the card one
-  CUDA graph of them, over every card the strategy's step computes on,
-  on the CPU K plain steps.
+  CUDA graph of them, over every card the strategy's step computes on
+  (TP's channel slices' cards; FSDP's side streams for its all-gathers
+  and reduce-scatters join the capture through their events), on the
+  CPU K plain steps.
 
 A step takes a batch already on the model's device and returns the loss
 as a 0-d tensor there: nothing in a step waits for the card.
@@ -151,6 +153,7 @@ def make_accum_train_step(
     sum_over_ranks: Optional[Callable[[List[torch.Tensor]], None]] = None,
     remat: bool = False,
     stats_impl: Optional[Callable] = None,
+    grads_averaged_over: Optional[int] = None,
 ) -> Callable[[List[Batch]], torch.Tensor]:
     """One optimizer step over ``chunks`` batches with one batch's
     activations alive at a time, exact for the log-Dice loss, which does
@@ -185,6 +188,13 @@ def make_accum_train_step(
     ``sum_over_ranks`` adds the gradients once. Through an all-reduced
     statistic each rank's cotangent would add up over the ranks and the
     gradients come out ``world ×`` too large.
+
+    ``grads_averaged_over`` (not None) says that the model's own backward
+    averages every gradient over that many ranks (FSDP's reduce-scatter,
+    after each chunk): pass 2 then back-propagates the cotangent times
+    that count, the world factor the plain step's all-reduced statistics
+    give its gradients, so that the average comes out the sum over the
+    ranks, and ``sum_over_ranks`` adds pass 1's statistics alone.
     """
     if is_stateful_model(model):
         raise ValueError(STATEFUL_ACCUM)
@@ -212,11 +222,13 @@ def make_accum_train_step(
             if sum_over_ranks is not None:
                 sum_over_ranks([stats])
         loss, ct = loss_and_cotangent(stats)
+        if grads_averaged_over is not None and grads_averaged_over > 1:
+            ct = ct * grads_averaged_over
         optimizer.zero_grad(set_to_none=True)
         for chunk in stack:
             chunk_stats(chunk).backward(ct)
         grads = optimizer_grads(optimizer, params)
-        if sum_over_ranks is not None:
+        if sum_over_ranks is not None and grads_averaged_over is None:
             sum_over_ranks(grads)
         if grad_scale != 1.0:
             torch._foreach_mul_(grads, grad_scale)

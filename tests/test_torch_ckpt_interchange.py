@@ -375,3 +375,31 @@ def test_a_jax_ckpt_resumes_with_the_runs_weight_decay(tmp_path):
         assert torch.equal(got[name], value), name
     _, plain = _port_step(default)
     assert not all(torch.equal(plain[n], v) for n, v in want.items())
+
+
+def test_a_jax_ckpt_written_under_a_non_default_weight_decay_resumes_with_it(
+        tmp_path):
+    """A JAX ``.ckpt`` of two steps under ``weight_decay`` 0.5 (optax keeps
+    no weight decay in its state): the port's ``-c`` of it under the same
+    run setting holds 0.5 in every param group of Adam, and its next step
+    agrees with the JAX trainer's own resume of the file within PERF.md
+    §2's one-step bounds; resumed under the default config the port takes
+    that run's 1e-8 (``checkpoint.load_jax_ckpt(path, weight_decay)``),
+    and its step leaves those bounds."""
+    jcfg = _jax_config(str(tmp_path / "jax"), "unet", "f32",
+                       weight_decay=0.5)
+    JaxTrainer(jcfg).train()
+    jfile = os.path.join(jcfg.checkpoint_dir, "singleGPU.ckpt")
+    want = _jax_step(JaxTrainer(dataclasses.replace(
+        jcfg, epochs=2, checkpoint_name=jfile)))
+    pcfg = _port_config(str(tmp_path / "port"), "unet", "f32", epochs=2,
+                        checkpoint_name=jfile, weight_decay=0.5)
+    port = Trainer(pcfg)
+    assert {g["weight_decay"] for g in port.optimizer.param_groups} == {0.5}
+    assert port.step == 2
+    _assert_one_step_agrees(_port_step(port), want)
+    default = Trainer(dataclasses.replace(pcfg, weight_decay=1e-8))
+    assert {g["weight_decay"] for g in default.optimizer.param_groups} == {
+        1e-8}
+    with pytest.raises(AssertionError):
+        _assert_one_step_agrees(_port_step(default), want)

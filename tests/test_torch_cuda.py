@@ -1585,3 +1585,155 @@ def test_fsdp_at_world_one_under_nccl_trains_and_saves_whole_tensors(
         assert torch.equal(saved["model"][key], value.cpu()), key
         assert torch.equal(pth[key], value.cpu()), key
     assert not hasattr(saved["model"]["segmap.weight"], "device_mesh")
+
+
+# -- -t TP and -t FSDP: the K-step graph and --remat ----------------------------------
+
+
+def _tp_fsdp_parts(method, devices, arch="unet", remat=False, k=2):
+    """A small float32 model through ``method``'s strategy (TP's channel
+    slices on ``devices``, or FSDP's shards on its card at world 1) under
+    kernels cuda, with capturable Adam."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=method, model_arch=arch, dtype="f32",
+                      kernels="cuda", device="cuda", model_widths=(8, 16),
+                      image_size=(48, 32), batch_size=2,
+                      steps_per_dispatch=k, remat=remat)
+    strategy = build_strategy(cfg, devices=devices)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = strategy.place_model(model)
+    opt = make_optimizer(model.parameters(), 1e-3, capturable=True)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, opt, step, strategy
+
+
+def _local(model):
+    """``model``'s state dict with each FSDP shard as its local tensor."""
+    return {k: (v.to_local() if hasattr(v, "to_local") else v)
+            for k, v in model.state_dict().items()}
+
+
+def _tp_fsdp_graph_against_eager(method, devices, arch, k=2):
+    """``_graph_against_eager`` of ``_tp_fsdp_parts``, the weights and
+    buffers compared as local tensors (an FSDP shard's)."""
+    from distributedpytorch_tpu_torch.train.steps import make_multi_train_step
+
+    stacks = _stacks(devices[0], 3, k)
+    model_e, _opt, step, _s = _tp_fsdp_parts(method, devices, arch)
+    eager = [float(step({key: v[i] for key, v in s.items()}))
+             for s in stacks for i in range(k)]
+    model_g, _opt, step, strategy = _tp_fsdp_parts(method, devices, arch)
+    multi = make_multi_train_step(step, k, strategy.step_devices,
+                                  warmup_steps=strategy.capture_warmup_steps)
+    graphed, intact, guards = [], True, []
+    for s in stacks:
+        graphed += [float(x) for x in multi(s)]
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+        intact = intact and all(bool((g == 7.0).all()) for g in guards)
+        torch.cuda.empty_cache()
+        guards = [torch.full((1 << 22,), 7.0, device=d)
+                  for d in dict.fromkeys(devices)]
+    a, b = _local(model_e), _local(model_g)
+    same = all(torch.equal(v, b[key]) for key, v in a.items())
+    return eager, graphed, same, intact
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_tp_k_step_graph_on_one_card_equals_eager_bitwise(
+        cuda_device, monkeypatch, arch):
+    """``-t TP`` on ``[cuda:0, cuda:0]`` (two channel slices of every layer
+    on one card), K = 2: the graph's six losses, the weights and the
+    running statistics bitwise equal to six eager steps of the same
+    capturable Adam (cuDNN's deterministic algorithms), and guard tensors
+    allocated between replays left alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graphed, same, intact = _tp_fsdp_graph_against_eager(
+        "TP", [cuda_device, cuda_device], arch)
+    assert graphed == eager and same and intact
+
+
+def test_tp_k_step_graph_across_two_cards_equals_eager_bitwise(monkeypatch):
+    """The same with the slices on cuda:0 and cuda:1: every gather crosses
+    cards in the forward and its gradients back in the backward (on the
+    forward's streams), inside the capture."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graphed, same, intact = _tp_fsdp_graph_against_eager(
+        "TP", [torch.device("cuda", 0), torch.device("cuda", 1)], "milesial")
+    assert graphed == eager and same and intact
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_fsdp_k_step_graph_at_world_one_equals_eager_bitwise(
+        nccl_world_one, monkeypatch, arch):
+    """``-t FSDP`` at world 1 under NCCL, K = 2: FSDP2's all-gathers and
+    reduce-scatters on their own streams inside the capture; the graph's
+    six losses and the shards bitwise equal to six eager steps, and guard
+    tensors allocated between replays left alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graphed, same, intact = _tp_fsdp_graph_against_eager(
+        "FSDP", [nccl_world_one.device], arch)
+    assert graphed == eager and same and intact
+
+
+def _remat_against_plain(method, devices, arch):
+    """One step of ``_tp_fsdp_parts`` with and without ``--remat``, the
+    optimizer's step left out: (loss, launches, gradients) of each."""
+    batch = {k: v[0] for k, v in _stacks(devices[0], 1)[0].items()}
+    out = {}
+    for remat in (False, True):
+        model, opt, step, _s = _tp_fsdp_parts(method, devices, arch,
+                                              remat=remat, k=1)
+        opt.step = lambda: None  # keep the gradients and the weights
+        kernels.reset_launches()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        grads = [p.grad.to_local() if hasattr(p.grad, "to_local")
+                 else p.grad.clone() for p in model.parameters()]
+        out[remat] = (loss, dict(kernels.LAUNCHES), grads)
+    return out[False], out[True]
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_tp_remat_step_equals_the_plain_step_on_one_card(
+        cuda_device, monkeypatch, arch):
+    """``-t TP --remat`` on ``[cuda:0, cuda:0]``, recomputed segment by
+    segment, against the plain TP step, cuDNN deterministic: K1 and
+    K1-bwd once, milesial's K2 twice per BatchNorm and slice (the
+    recompute's), and the loss and every gradient bitwise equal."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    (l0, n0, g0), (l1, n1, g1) = _remat_against_plain(
+        "TP", [cuda_device, cuda_device], arch)
+    assert n1["loss_stats"] == n0["loss_stats"] == 1
+    assert n1["loss_stats_bwd"] == n0["loss_stats_bwd"] == 1
+    assert n1["bn_act"] == 2 * n0["bn_act"]
+    assert l1 == l0
+    for a, b in zip(g1, g0):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_fsdp_remat_step_at_world_one_equals_the_plain_step(
+        nccl_world_one, monkeypatch, arch):
+    """``-t FSDP --remat`` at world 1 under NCCL, each block recomputed
+    inside ``fully_shard``'s hooks, against the plain FSDP step: K2 twice
+    per BatchNorm, and the loss and every gradient bitwise equal."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    (l0, n0, g0), (l1, n1, g1) = _remat_against_plain(
+        "FSDP", [nccl_world_one.device], arch)
+    assert n1["bn_act"] == 2 * n0["bn_act"]
+    assert l1 == l0
+    for a, b in zip(g1, g0):
+        assert torch.equal(a, b)

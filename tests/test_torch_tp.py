@@ -45,9 +45,13 @@ from distributedpytorch_tpu_torch.parallel.channels import (
 )
 from distributedpytorch_tpu_torch.parallel.strategy import (
     build_strategy,
-    unported_run_control,
+    check_run_control,
 )
 from distributedpytorch_tpu_torch.train.loop import Trainer
+from distributedpytorch_tpu_torch.train.steps import (
+    STACKS_CONFLICT,
+    STATEFUL_ACCUM,
+)
 from torch_parallel_parity import (
     assert_step_matches,
     capture_then,
@@ -486,25 +490,52 @@ def test_a_jax_tp_ckpt_resumes_in_the_port(tmp_path):
 # -- what TP and FSDP refuse ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("method,flag,kw", [
-    ("TP", ["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2)),
-    ("TP", ["--remat"], dict(remat=True)),
-    ("TP", ["--grad-accum", "2"], dict(grad_accum=2)),
-    ("FSDP", ["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2)),
-    ("FSDP", ["--remat"], dict(remat=True)),
-    ("FSDP", ["--grad-accum", "2"], dict(grad_accum=2)),
-    ("FSDP", ["--dtype", "bf16_params"], dict(dtype="bf16_params"))])
-def test_the_run_control_under_tp_and_fsdp_is_refused(method, flag, kw):
-    """What TP and FSDP do not run yet, each with one message naming the
-    strategy and the flag, in the strategy and at the CLI, before any
-    group is joined; ``--dtype bf16_params`` runs under TP."""
-    message = unported_run_control(method, " ".join(flag))
-    assert f"-t {method} {' '.join(flag)}" in message
-    cfg = _port_config("unet", train_method=method, **kw)
-    with pytest.raises(ValueError, match=re.escape(message)):
-        build_strategy(cfg, devices=[CPU, CPU])
-    with pytest.raises(SystemExit, match=re.escape(message)):
-        cli.main(["-t", method, *CLI, *flag])
+GLOO_ON_A_CARD = "gloo moves CUDA tensors through the host"
+
+
+@pytest.mark.parametrize("method,arch,flag,kw,message", [
+    ("TP", "unet", ["--grad-accum", "2", "--steps-per-dispatch", "2"],
+     dict(grad_accum=2, steps_per_dispatch=2), STACKS_CONFLICT),
+    ("FSDP", "unet", ["--grad-accum", "2", "--steps-per-dispatch", "2"],
+     dict(grad_accum=2, steps_per_dispatch=2), STACKS_CONFLICT),
+    ("TP", "milesial", ["--grad-accum", "2"], dict(grad_accum=2),
+     STATEFUL_ACCUM),
+    ("FSDP", "milesial", ["--grad-accum", "2"], dict(grad_accum=2),
+     STATEFUL_ACCUM),
+    ("TP", "milesial", ["--grad-accum", "2", "--remat"],
+     dict(grad_accum=2, remat=True), STATEFUL_ACCUM),
+    ("FSDP", "milesial", ["--grad-accum", "2", "--dtype", "bf16_params"],
+     dict(grad_accum=2, dtype="bf16_params"), STATEFUL_ACCUM),
+    ("TP", "unet", ["--steps-per-dispatch", "2"],
+     dict(steps_per_dispatch=2), GLOO_ON_A_CARD),
+    ("FSDP", "unet", ["--steps-per-dispatch", "2"],
+     dict(steps_per_dispatch=2), GLOO_ON_A_CARD)])
+def test_the_run_control_under_tp_and_fsdp_is_refused(method, arch, flag,
+                                                      kw, message):
+    """What TP and FSDP still refuse is what every method refuses, with
+    the JAX package's words: ``--grad-accum`` with ``--steps-per-dispatch
+    K > 1`` and milesial's ``--grad-accum``, in the strategy and at the
+    CLI, before any group is joined; and K > 1 over a gloo group on a
+    card, which ``check_run_control`` refuses once the strategy knows its
+    device and backend (a pure call: no card needed), while the same
+    flags on the CPU build. ``--steps-per-dispatch``, ``--remat``,
+    ``--grad-accum`` and ``--dtype bf16_params`` alone build under
+    both."""
+    cfg = _port_config(arch, train_method=method, **kw)
+    if message == GLOO_ON_A_CARD:
+        with pytest.raises(ValueError, match=re.escape(message)):
+            check_run_control(cfg, device=torch.device("cuda", 0),
+                              backend="gloo")
+        check_run_control(cfg, device=CPU, backend="gloo")
+        check_run_control(cfg, device=torch.device("cuda", 0),
+                          backend="nccl")
+    else:
+        with pytest.raises(ValueError, match=re.escape(message)):
+            build_strategy(cfg, devices=[CPU, CPU])
+        with pytest.raises(SystemExit, match=re.escape(message)):
+            cli.main(["-t", method, *CLI, "--model", arch, *flag])
     assert not torch.distributed.is_initialized()
-    if kw == dict(dtype="bf16_params"):
-        build_strategy(_port_config("unet", **kw), devices=[CPU, CPU])
+    if method == "TP":
+        for alone in (dict(steps_per_dispatch=2), dict(remat=True),
+                      dict(grad_accum=2), dict(dtype="bf16_params")):
+            build_strategy(_port_config("unet", **alone), devices=[CPU, CPU])

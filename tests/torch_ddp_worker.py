@@ -24,9 +24,10 @@ modules this process loaded. Scenarios:
   every call (whole tensors, gathered under FSDP), each BatchNorm's
   ``global_stats`` flag, the strategy's devices, its mesh and lr, and the
   bytes of parameters and Adam's state this rank holds against the
-  whole's. With the config's ``steps_per_dispatch`` K > 1 the batches go
-  through the strategy's multi-step in stacks of K, with its
-  ``grad_accum`` N > 1 through its accumulation step in chunks of N;
+  whole's, and under ``--dtype bf16_params`` the f32 masters (whole).
+  With the config's ``steps_per_dispatch`` K > 1 the batches go through
+  the strategy's multi-step in stacks of K, with its ``grad_accum`` N > 1
+  through its accumulation step in chunks of N;
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
   its epochs; the losses, the val metrics, the lr, the final state dict
   and what each rank wrote into a directory of its own; how many
@@ -160,7 +161,10 @@ def run_pipeline_steps(job, rank, world):
         cast_params_,
         get_policy,
     )
-    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+    from distributedpytorch_tpu_torch.parallel.strategy import (
+        build_strategy,
+        gathered,
+    )
 
     cfg = TrainConfig(train_method=job.get("method", "DDP_MP"), device="cpu",
                       **job["config"])
@@ -206,7 +210,8 @@ def run_pipeline_steps(job, rank, world):
     return {"losses": torch.cat(losses), "grads": grads,
             "states": states, "bytes": _state_bytes(model, optimizer),
             "lr": strategy.lr_for(cfg.learning_rate),
-            "master": [m.detach().clone()
+            # whole, as the states (an FSDP master is a shard)
+            "master": [gathered(m).detach().clone()
                        for m in getattr(optimizer, "master", ())],
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
@@ -216,17 +221,23 @@ def run_pipeline_steps(job, rank, world):
 
 def _state_bytes(model, optimizer):
     """``(mine, whole)``: the bytes of parameters and Adam's state this
-    rank holds (an FSDP shard's local part) and the whole state's."""
+    rank holds (an FSDP shard's local part) and the whole state's; under
+    master weights each parameter's f32 master and Adam's state over the
+    master count with it."""
     def local(t):
         return t.to_local() if hasattr(t, "to_local") else t
 
     def nbytes(t):
         return t.numel() * t.element_size()
 
+    masters = dict(zip(getattr(optimizer, "params", ()),
+                       getattr(optimizer, "master", ())))
     mine = whole = 0
     for p in model.parameters():
-        tensors = [p] + [t for t in optimizer.state[p].values()
-                         if isinstance(t, torch.Tensor) and t.dim() > 0]
+        owners = [p] + ([masters[p]] if p in masters else [])
+        tensors = owners + [t for o in owners
+                            for t in optimizer.state[o].values()
+                            if isinstance(t, torch.Tensor) and t.dim() > 0]
         mine += sum(nbytes(local(t)) for t in tensors)
         whole += sum(nbytes(t) for t in tensors)
     return mine, whole
@@ -296,7 +307,7 @@ def run_trainer(job, rank, world):
         trainer = Trainer(cfg, initial_state=job["initial"])
         result = trainer.train()
     resumed_from = None
-    if cfg.checkpoint_name:
+    if cfg.checkpoint_name and not cfg.checkpoint_name.endswith(".pth"):
         payload = torch.load(cfg.checkpoint_name, weights_only=True)
         resumed_from = {k: payload[k] for k in ("manifest", "epoch", "step",
                                                 "scheduler")}
