@@ -113,8 +113,19 @@ as two gloo ranks run their plain steps against singleGPU's and DDP's
 against their eager steps, bitwise, a replay's kernels by name in the
 graph's nodes; ``--remat`` bitwise the plain step at a lower peak
 memory; the f32 UNet's ``--grad-accum 2`` against singleGPU's (TP) and
-DDP's (FSDP); and FSDP's ``--dtype bf16_params`` against DDP's. Each
-path's kernel launches are counted
+DDP's (FSDP); and FSDP's ``--dtype bf16_params`` against DDP's. The mesh
+specs (``train_mesh``): ``-t 1x2x1`` on ``[cuda:0, cuda:0]`` bitwise
+``-t TP`` for one step of each model and ``-t 1x1x2`` bitwise ``-t MP``,
+then ``2x2x1`` (data × channel) and ``2x2x1@fsdp`` (ZeRO × channel) as
+two gloo ranks on the card, each over ``[cuda:0, cuda:0]``: the ranks'
+whole states bitwise equal after 2 float32 UNet steps, step 1 against a
+world-1 step on the joint batch, K1 and K1-bwd once a step on each rank,
+milesial's K2, K3 and K5 per step by name in the trace, each slice's
+bytes, and a ``2x2x1@fsdp`` checkpoint resumed under singleGPU bitwise.
+The gloo ranks of ``train_ddp_gloo2``, ``train_ddp_sp_gloo2`` and
+``train_mesh``, correctness phases that time nothing, start together
+after ``predict`` and share the card (``_start_ranks``). Each path's
+kernel launches are counted
 from zero over its run (a CUDA graph's at each replay). It fails
 (non-zero exit, no result line) without a card, outside a checkout, or
 when any phase disagrees.
@@ -135,8 +146,11 @@ steps against their eager steps; then ``-t MP`` across 2
 and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), ``-t DP`` across the four cards against a
 one-card step (``dp_cards``), ``-t TP`` across the four cards against
-singleGPU (``tp_cards``) and ``-t FSDP`` as four NCCL ranks against
-``-t DDP`` (``fsdp_cards``). Every one of them also runs its path as
+singleGPU (``tp_cards``), ``-t FSDP`` as four NCCL ranks against
+``-t DDP`` (``fsdp_cards``), and ``2x2x1`` and ``2x2x1@fsdp`` as two
+NCCL ranks of two cards each (``mesh_cards``: the ranks bitwise equal,
+each card's bytes, the eager step's ms). Every one but the last also
+runs its path as
 one CUDA graph of 4 steps against its eager steps (``dp_cards``: the
 bf16 UNet at batch 16 and milesial at 8, ``dp_graph``): losses and
 weights bitwise (the ranks' equal after every stack), a guard tensor on
@@ -264,6 +278,10 @@ MILESIAL_K5_SHAPES = (
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's carries the process's age as it ends
+    (``at_s``), so a run's lines show where its time went."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.time() - _PROCESS_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2401,38 +2419,60 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
     return 0
 
 
-def _run_ddp_ranks(job: str, world: int, backend: str,
-                   flag: str = "--ddp-rank"):
+def _start_ranks(job: str, world: int, backend: str,
+                 flag: str = "--ddp-rank") -> dict:
     """``world`` processes of ``ddp_rank`` (``ddp_mp_rank`` with
-    ``--ddp-mp-rank``, ``fsdp_rank`` with ``--fsdp-rank``), started
-    together; their results by rank and the wall seconds they took."""
-    import torch
-
+    ``--ddp-mp-rank``, ``fsdp_rank`` with ``--fsdp-rank``, and so on),
+    started together; ``_run_ddp_ranks`` waits for them."""
     os.makedirs(job)
     env = dict(os.environ,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     for key in TORCHRUN_ENV:
         env.pop(key, None)
     t0 = time.perf_counter()
-    # a rank that dies of a signal prints its Python stack (faulthandler)
-    procs = [subprocess.Popen([sys.executable, "-X", "faulthandler",
-                               os.path.abspath(__file__),
-                               flag, str(rank), str(world), backend,
-                               job], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for rank in range(world)]
-    logs = []
+    # a rank that dies of a signal prints its Python stack (faulthandler);
+    # each rank writes into a file, so ranks nobody reads yet never block
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(job, f"log_{rank}.txt"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-X", "faulthandler",
+                 os.path.abspath(__file__), flag, str(rank), str(world),
+                 backend, job], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return {"job": job, "world": world, "backend": backend,
+            "procs": procs, "t0": t0}
+
+
+def _stop_ranks(started: dict) -> None:
+    """Every process of ``started`` killed (those that ended, unharmed)."""
+    for proc in started["procs"]:
+        proc.kill()
+        proc.wait()
+
+
+def _run_ddp_ranks(job: str, world: int, backend: str,
+                   flag: str = "--ddp-rank", started=None):
+    """The ranks ``_start_ranks`` starts (``started``, where an earlier
+    call started them); their results by rank and the wall seconds from
+    their start."""
+    import torch
+
+    started = started or _start_ranks(job, world, backend, flag)
+    job, procs, t0 = started["job"], started["procs"], started["t0"]
     try:
         for proc in procs:
-            logs.append(proc.communicate(timeout=300)[0])
+            proc.wait(timeout=300)
     finally:
-        for proc in procs:
-            proc.kill()
+        _stop_ranks(started)
     wall_s = time.perf_counter() - t0
     for rank, proc in enumerate(procs):
-        check(proc.returncode == 0,
-              f"{backend} rank {rank} of {world} exited {proc.returncode}: "
-              f"{logs[rank][-3000:]}")
+        if proc.returncode != 0:
+            with open(os.path.join(job, f"log_{rank}.txt"),
+                      errors="replace") as log:
+                tail = log.read()[-3000:]
+            check(False, f"{backend} rank {rank} of {world} exited "
+                  f"{proc.returncode}: {tail}")
     return [torch.load(os.path.join(job, f"result_{rank}.pt"),
                        weights_only=True) for rank in range(world)], wall_s
 
@@ -2474,13 +2514,13 @@ def _check_ranks_against_one_step(ranks, world: int) -> dict:
     return out
 
 
-def _assert_ranks(out: dict, what: str) -> None:
+def _assert_ranks(out: dict, what: str, steps: int = RANK_STEPS) -> None:
     check(out["weights_bitwise_equal"], f"{what}: the ranks' weights differ")
     check(all(l == out["losses"][0] for l in out["losses"]),
           f"{what}: the ranks' losses differ")
     for counts in out["launches"]:
-        check(counts["loss_stats"] == RANK_STEPS
-              and counts["loss_stats_bwd"] == RANK_STEPS,
+        check(counts["loss_stats"] == steps
+              and counts["loss_stats_bwd"] == steps,
               f"{what}: a rank launched {counts}")
     check(out["step1_loss_rel_err"] <= RANKS_LOSS_RTOL,
           f"{what}: step 1 loss off the world-1 step by rel "
@@ -2491,7 +2531,7 @@ def _assert_ranks(out: dict, what: str) -> None:
           f"largest")
 
 
-def phase_train_ddp_gloo2(tmp: str) -> dict:
+def phase_train_ddp_gloo2(tmp: str, started=None) -> dict:
     """Two ranks of the DDP path on the one card (``ddp_rank``, two
     processes this script spawns, both on cuda:0, a gloo group): the only
     run of the default check where K1 and K1-bwd work across ranks. Their
@@ -2502,7 +2542,7 @@ def phase_train_ddp_gloo2(tmp: str) -> dict:
     import torch
 
     ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "train_ddp_gloo2"), 2,
-                                   "gloo")
+                                   "gloo", started=started)
     out = {"phase": "train_ddp_gloo2", "world": 2, "backend": "gloo",
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
            **_check_ranks_against_one_step(ranks, 2)}
@@ -2775,8 +2815,10 @@ def _grads(model) -> dict:
     """The weight gradients under the singleGPU names: a ``-t TP`` model's
     channel slices concatenated, an FSDP shard's gathered."""
     if hasattr(model, "whole_values"):  # parallel/channels.ChannelSharded
+        # (and its ZeRO pieces, gathered: a collective)
+        first = next(model.parameters()).device
         return dict(zip(model.whole_param_names(), (
-            g.float().to(model.devices[0]) for g in model.whole_values(
+            g.float().to(first) for g in model.whole_values(
                 [p.grad for p in model.parameters()]))))
     return {n: _full(p.grad).float().clone()
             for n, p in model.named_parameters()}
@@ -5186,6 +5228,12 @@ def _graph_and_eager_sides(build, stacks, k: int, multi_step) -> dict:
     return sides
 
 
+# the calls of each side a graph run times by the wall clock, beside one
+# profiler session for its busy time: few, so that the script keeps to
+# its time limit as it grows
+TIMED_SIDE_CALLS = 2
+
+
 def _timed_sides(sides: dict, stacked, k: int, devices) -> dict:
     """Per step, eager (one step) and graph (one replay of k): the wall
     ms with every card drained, the host's enqueue ms, each card's busy
@@ -5197,14 +5245,14 @@ def _timed_sides(sides: dict, stacked, k: int, devices) -> dict:
     for mode, fn, n in (
             ("eager", lambda: sides["eager"]["step"](first), 1),
             ("graph", lambda: sides["graph"]["multi"](stacked), k)):
-        wall = _wall_ms(fn, 3, 1, devices) / n
+        wall = _wall_ms(fn, TIMED_SIDE_CALLS, 1, devices) / n
         _sync_all(devices)
         t0 = time.perf_counter()
         fn()
         host = (time.perf_counter() - t0) * 1e3 / n
         _sync_all(devices)
         busy = {i: ms / n for i, ms in
-                _busy_ms_by_device(fn, 2, devices).items()}
+                _busy_ms_by_device(fn, 1, devices).items()}
         cards = sorted({torch.device(d).index for d in devices})
         row[mode] = {"step_ms": wall, "host_enqueue_ms_per_step": host,
                      "busy_ms_by_card": busy,
@@ -5828,7 +5876,7 @@ MILESIAL_BATCHNORMS = 18
 MILESIAL_K5_CONVS = 13
 SP_KERNELS = ("loss_stats", "loss_stats_bwd", "bn_act", "bn_act_bwd",
               "wgrad_9tap")
-SP_TIMED_STEPS = 5
+SP_TIMED_STEPS = 3
 # the DDP_SP ranks: model and steps, -b 4 per rank over two shards, bf16,
 # milesial with --wgrad-taps under DPT_WGRAD_BACKEND=pallas
 DDP_SP_RUNS = (("unet", 2), ("milesial", 2))
@@ -6487,7 +6535,7 @@ def _deterministic_cudnn():
         torch.backends.cudnn.deterministic = saved
 
 
-def phase_train_ddp_sp_gloo2(tmp: str) -> dict:
+def phase_train_ddp_sp_gloo2(tmp: str, started=None) -> dict:
     """``-t DDP_SP`` on the one card: two ranks (``ddp_sp_rank``, two
     processes this script spawns) in a gloo group, each row-sharding its
     ``-b 4`` over ``[cuda:0, cuda:0]``, through DDP_SP_RUNS: the bf16
@@ -6501,7 +6549,8 @@ def phase_train_ddp_sp_gloo2(tmp: str) -> dict:
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
     ranks, wall_s = _run_ddp_ranks(
-        os.path.join(tmp, "train_ddp_sp_gloo2"), 2, "gloo", "--ddp-sp-rank")
+        os.path.join(tmp, "train_ddp_sp_gloo2"), 2, "gloo", "--ddp-sp-rank",
+        started)
     runs, problems = _check_ddp_sp_ranks(ranks, 2)
     refusals = [r["k_refusal"] for r in ranks]
     if not all(GLOO_REFUSAL in (msg or "") for msg in refusals):
@@ -6636,7 +6685,7 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
 # -t TP on [cuda:0, cuda:0] (train_tp): two channel slices of every layer
 # on the one card, full width, -b 4; across the cards (tp_cards)
 TP_SLICES = 2
-TP_TIMED_STEPS = 5
+TP_TIMED_STEPS = 3
 
 
 def _tp_expected_per_step(arch: str, slices: int) -> dict:
@@ -6652,14 +6701,14 @@ def _tp_expected_per_step(arch: str, slices: int) -> dict:
     return want
 
 
-def _tp_slice_kernels(dev, slices: int) -> dict:
+def _tp_slice_kernels(dev, slices: int, batch: int = TRAIN_BATCH) -> dict:
     """K2, K3 and K5 against their plain versions on the shapes one of
-    ``slices`` channel slices gives them at full width, batch 4: K2 and
-    K3 on milesial's widest BatchNorm input of a slice (4, 64/n, 640,
-    960) float32, K5 on its first engaged conv (128 → 128 at 320 × 480)
-    with the whole bf16 input and a slice's dy (4, 320, 480, 128/n). K1
-    and K1-bwd see the whole predictions, as on one device
-    (``loss_kernels``)."""
+    ``slices`` channel slices gives them at full width, batch 4 (or
+    ``batch``): K2 and K3 on milesial's widest BatchNorm input of a slice
+    (4, 64/n, 640, 960) float32, K5 on its first engaged conv (128 → 128
+    at 320 × 480) with the whole bf16 input and a slice's dy (4, 320,
+    480, 128/n). K1 and K1-bwd see the whole predictions, as on one
+    device (``loss_kernels``)."""
     import torch
 
     from distributedpytorch_tpu_torch.ops import kernels as kn
@@ -6675,7 +6724,7 @@ def _tp_slice_kernels(dev, slices: int) -> dict:
                 "max_err_rel_to_max": diff / scale if scale else diff}
 
     out = {}
-    x, a, b, mean = _bn_inputs((TRAIN_BATCH, 64 // slices, h, w), gen, dev,
+    x, a, b, mean = _bn_inputs((batch, 64 // slices, h, w), gen, dev,
                                torch.float32)
     out["bn_act"] = err(kn.bn_act(x, a, b), kn.bn_act_reference(x, a, b))
     g = torch.randn(x.shape, generator=gen, device=dev).contiguous(
@@ -6685,13 +6734,13 @@ def _tp_slice_kernels(dev, slices: int) -> dict:
     out["bn_act_bwd"] = max((err(u, v) for u, v in zip(got, want)),
                             key=lambda e: e["max_err_rel_to_max"])
     del x, g, got, want
-    xs = torch.randn((TRAIN_BATCH, h // 2, w // 2, 128), generator=gen,
+    xs = torch.randn((batch, h // 2, w // 2, 128), generator=gen,
                      device=dev).to(torch.bfloat16)
-    dy = torch.randn((TRAIN_BATCH, h // 2, w // 2, 128 // slices),
+    dy = torch.randn((batch, h // 2, w // 2, 128 // slices),
                      generator=gen, device=dev).to(torch.bfloat16)
     out["wgrad_9tap"] = err(wk.wgrad_9tap(xs, dy),
                             wk.wgrad_9tap_reference(xs, dy))
-    out["shapes"] = {"bn": [TRAIN_BATCH, 64 // slices, h, w],
+    out["shapes"] = {"bn": [batch, 64 // slices, h, w],
                      "wgrad_x": list(xs.shape), "wgrad_dy": list(dy.shape)}
     return out
 
@@ -7441,6 +7490,413 @@ def phase_tp_fsdp_run_control() -> dict:
     return out
 
 
+# -- the mesh specs (train_mesh, --cards 4's mesh_cards) ------------------------
+# the two new geometries: two data ranks, each over MESH_SLICES channel
+# slices, the float32 UNet at RANK_BATCH rows a rank for MESH_STEPS Adam
+# steps at MESH_LR, milesial --wgrad-taps in bf16 for one traced step
+MESH_SPECS = ("2x2x1", "2x2x1@fsdp")
+MESH_SLICES = 2
+MESH_STEPS = 2
+MESH_LR = 1e-4
+# each (rank, slice) place's bytes of parameters and Adam's state under
+# @fsdp against the whole's / 4 (the JAX test's margin,
+# tests/test_mesh.py:341)
+MESH_BYTES_MARGIN = 1.6
+
+
+def _mesh_twins(dev) -> dict:
+    """``-t 1x2x1`` against ``-t TP`` (both models) and ``-t 1x1x2``
+    against ``-t MP`` (the UNet, gpipe) on ``[cuda:0, cuda:0]``: one bf16
+    step of each from the seed's weights on the same batch, SGD at lr 0,
+    cuDNN deterministic; the loss, every gradient and the running
+    statistics must be bitwise equal, and the twin's name the spec."""
+    import torch
+
+    devices = [dev, dev]
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+    out = {}
+    for legacy, spec, arch in (("TP", "1x2x1", "unet"),
+                               ("TP", "1x2x1", "milesial"),
+                               ("MP", "1x1x2", "unet")):
+        def run(legacy=legacy, spec=spec, arch=arch):
+            runs = {}
+            for method in (legacy, spec):
+                model, step, strategy = _sp_model_step(method, arch, devices,
+                                                       "bf16")
+                runs[method] = {"loss": float(step(batch)),
+                                "grads": _grads(model),
+                                "stats": _running_stats(model),
+                                "name": strategy.name}
+                del model, step
+                torch.cuda.empty_cache()
+            a, b = runs[spec], runs[legacy]
+            return {"name": a["name"], "loss": a["loss"],
+                    "bitwise": (a["loss"] == b["loss"] and all(
+                        torch.equal(a["grads"][n], g)
+                        for n, g in b["grads"].items()) and all(
+                        torch.equal(a["stats"][n], t)
+                        for n, t in b["stats"].items()))}
+
+        out[f"{spec}_vs_{legacy}_{arch}"] = (
+            _with_wgrad_backend(run) if arch == "milesial" else run())
+    return out
+
+
+def _mesh_kernels(dev) -> dict:
+    """Each kernel of the mesh path against its plain version on the
+    shapes a rank gives it at full width, RANK_BATCH rows: K1 and K1-bwd
+    on the rank's whole predictions (2, 640, 960, 1) on its first card,
+    K2, K3 and K5 on a channel slice's (``_tp_slice_kernels``)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import loss_kernels as lk
+
+    w, h = IMAGE_WH
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def err(got, want):
+        scale = float(want.abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        return {"max_abs_err": diff,
+                "max_err_rel_to_max": diff / scale if scale else diff}
+
+    shape = (RANK_BATCH, h, w, 1)
+    p = torch.rand(shape, generator=gen, device=dev)
+    t = (torch.rand(shape, generator=gen, device=dev) > 0.6).float()
+    out = {"loss_stats": err(lk.eval_stats(p, t),
+                             lk.eval_stats_reference(p, t))}
+    ct = torch.tensor([1e-6, 0.0, -0.3, 0.1], device=dev)
+    out["loss_stats_bwd"] = err(lk.stats_bwd(p, t, ct),
+                                lk.stats_bwd_reference(p, t, ct))
+    del p, t
+    out.update(_tp_slice_kernels(dev, MESH_SLICES, RANK_BATCH))
+    out["shapes"]["loss"] = list(shape)
+    return out
+
+
+def _mesh_model_step(spec: str, arch: str, devices, dtype: str,
+                     per_rank: int):
+    """``(model, step, strategy)`` of the mesh spec over this rank's
+    ``devices`` for the full-width ``arch`` (milesial ``--wgrad-taps``)
+    from the seed's weights, Adam at MESH_LR."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=spec, model_arch=arch, dtype=dtype,
+                      kernels="cuda", device="cuda", batch_size=per_rank,
+                      learning_rate=MESH_LR, wgrad_taps=arch == "milesial")
+    strategy = build_strategy(cfg, devices=devices)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED)))
+    opt = make_optimizer(model.parameters(), MESH_LR)
+    step = strategy.build_train_step(model, opt, get_kernel_policy("cuda"))
+    return model, step, strategy, opt
+
+
+def _mesh_place_bytes(model, opt, rank: int) -> dict:
+    """Bytes of parameters and Adam's state on each (rank, card, channel
+    slice) place, the slice read from the parameter's name (a layer kept
+    whole counts on slice 0)."""
+    import re
+
+    names = getattr(model, "paths", None) or [
+        n for n, _ in model.named_parameters()]
+    places = {}
+    for name, p in zip(names, model.parameters()):
+        found = re.search(r"\.shards\.(\d+)\.", name)
+        key = (f"rank{rank}:{p.device}:slice"
+               f"{int(found.group(1)) if found else 0}")
+        tensors = [p] + [t for t in opt.state.get(p, {}).values()
+                         if hasattr(t, "dim") and t.dim() > 0]
+        places[key] = places.get(key, 0) + sum(
+            t.numel() * t.element_size() for t in tensors)
+    return places
+
+
+def _mesh_spec_run(spec: str, rank: int, world: int, devices, place,
+                   nccl: bool) -> dict:
+    """One rank's run of ``spec``: MESH_STEPS float32 UNet steps (losses,
+    step 1's whole gradients, the whole state gathered, the launches
+    counted by the wrappers, each place's bytes against the whole's), one
+    bf16 milesial step's kernels by name in the trace after a first step;
+    under NCCL the bf16 step's wall ms of both models at TRAIN_BATCH."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    model, step, strategy, opt = _mesh_model_step(spec, "unet", devices,
+                                                  "f32", RANK_BATCH)
+    check(strategy.name == spec and strategy.world == world
+          and strategy.rank == rank, f"{spec} rank {rank}: {strategy.info}")
+    batches = _ddp_batches(world, RANK_BATCH, MESH_STEPS)
+    kernels.reset_launches()
+    losses, grads = [], None
+    for batch in batches:
+        losses.append(float(step(place(batch, RANK_BATCH))))
+        grads = grads or {n: g.cpu() for n, g in _grads(model).items()}
+    launches = dict(kernels.LAUNCHES)
+    whole = strategy.model_state(model)
+    params = set(strategy.param_names(model))
+    out = {"losses": losses, "grads": grads, "launches": launches,
+           "state": {k: v.cpu() for k, v in whole.items()},
+           # parameters and Adam's two moments, float32
+           "whole_bytes": 3 * sum(v.numel() * v.element_size()
+                                  for k, v in whole.items() if k in params),
+           "place_bytes": _mesh_place_bytes(model, opt, rank),
+           "mesh": strategy.mesh_shape()}
+    del model, step, opt, whole
+    torch.cuda.empty_cache()
+
+    def milesial():
+        model, step, _, opt = _mesh_model_step(spec, "milesial", devices,
+                                               "bf16", RANK_BATCH)
+        batch = place(_ddp_batches(world, RANK_BATCH, 1)[0], RANK_BATCH)
+        step(batch)
+        _sync_all(devices)
+        names = tuple(_tp_expected_per_step("milesial", MESH_SLICES))
+        loss, traced = _traced_call(lambda: float(step(batch)), names)
+        return {"loss": loss, "traced_per_step": traced,
+                "expected_per_step": _tp_expected_per_step("milesial",
+                                                           MESH_SLICES)}
+
+    out["milesial"] = _with_wgrad_backend(milesial)
+    torch.cuda.empty_cache()
+    if nccl:
+        out["bf16_step_ms"] = {}
+        for arch in ("unet", "milesial"):
+            def timed(arch=arch):
+                _, step, _, _ = _mesh_model_step(spec, arch, devices, "bf16",
+                                                 TRAIN_BATCH)
+                batch = place(_ddp_batches(world, TRAIN_BATCH, 1)[0],
+                              TRAIN_BATCH)
+                return _wall_ms(lambda: step(batch), 5, warmup=2,
+                                devices=list(dict.fromkeys(devices)))
+
+            out["bf16_step_ms"][arch] = (_with_wgrad_backend(timed)
+                                         if arch == "milesial" else timed())
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_devices(rank: int, nccl: bool) -> list:
+    """A mesh rank's MESH_SLICES devices: its own cards under NCCL, two
+    slices of cuda:0 under gloo."""
+    import torch
+
+    if nccl:
+        return [torch.device("cuda", MESH_SLICES * rank + i)
+                for i in range(MESH_SLICES)]
+    return [torch.device("cuda", 0)] * MESH_SLICES
+
+
+def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of the mesh phases (``chip_smoke.py --mesh-rank R WORLD
+    BACKEND DIR``): joins a ``backend`` group over a file store in
+    ``DIR``; its MESH_SLICES devices are ``[cuda:0, cuda:0]`` under gloo
+    (``train_mesh``: both ranks on the one card) and ``cuda:2R``,
+    ``cuda:2R+1`` under nccl (``--cards``). Runs ``_mesh_spec_run`` for
+    each of MESH_SPECS; under gloo then a short run of the training CLI's
+    own functions under ``-t 2x2x1@fsdp`` on the same devices (one step
+    and one eval batch a rank), whose checkpoint rank 0 writes. Writes
+    ``DIR/result_R.pt``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nccl = backend == "nccl"
+    devices = _mesh_devices(rank, nccl)
+    torch.cuda.set_device(devices[0])
+    _warm_profiler()
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        def place(batch, per_rank):
+            rows = slice(rank * per_rank, (rank + 1) * per_rank)
+            return {k: torch.from_numpy(v[rows]).to(devices[0])
+                    for k, v in batch.items()}
+
+        result = {"devices": [str(d) for d in devices]}
+        with _deterministic_cudnn():
+            for spec in MESH_SPECS:
+                result[spec] = _mesh_spec_run(spec, rank, world, devices,
+                                              place, nccl)
+        if not nccl:
+            w, h = IMAGE_WH
+            run = os.path.join(job, f"cli_rank{rank}")
+            argv = ["-t", "2x2x1@fsdp", "--synthetic", "8", "-v", "50",
+                    "-b", str(RANK_BATCH), "-e", "1", "--image-size",
+                    str(w), str(h), "--dtype", "bf16", "--kernels", "cuda"]
+            # the group this process joined, and both slices on the one
+            # card, which the CLI's --device cuda cannot name
+            info = runtime.initialize_from_env(devices[0])
+            trainer, close = _cli_trainer(run, argv, devices=devices,
+                                          info=info)
+            try:
+                result["cli"] = {"result": trainer.train(), "run": run,
+                                 "wrote": _files(run)}
+            finally:
+                close()
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def _mesh_ranks_report(ranks, world: int) -> tuple:
+    """Per spec: the ranks checked as ``train_ddp_gloo2``'s
+    (``_check_ranks_against_one_step``: whole states bitwise equal, K1 and
+    K1-bwd once a step, step 1 against a world-1 step on the joint
+    batch), milesial's traced launches against a step's expected, and
+    under ``@fsdp`` each place's bytes against the whole / 4 ×
+    MESH_BYTES_MARGIN; the report and its problems."""
+    out, problems = {}, []
+    for spec in MESH_SPECS:
+        rows = [r[spec] for r in ranks]
+        row = _check_ranks_against_one_step(rows, world)
+        row["mesh"] = rows[0]["mesh"]
+        row["milesial"] = [r["milesial"] for r in rows]
+        places = {k: v for r in rows for k, v in r["place_bytes"].items()}
+        row["place_bytes"] = places
+        row["whole_bytes"] = rows[0]["whole_bytes"]
+        if "bf16_step_ms" in rows[0]:
+            row["bf16_step_ms"] = [r["bf16_step_ms"] for r in rows]
+        for r in row["milesial"]:
+            if r["traced_per_step"] != r["expected_per_step"]:
+                problems.append(f"{spec} milesial traced "
+                                f"{r['traced_per_step']}")
+        bound = row["whole_bytes"] / (world * MESH_SLICES) * MESH_BYTES_MARGIN
+        row["place_bytes_bound"] = bound if "fsdp" in spec else None
+        if "fsdp" in spec and max(places.values()) > bound:
+            problems.append(f"{spec}: a place holds {places} of "
+                            f"{row['whole_bytes']}")
+        if row["mesh"] != {"data": world, "model": MESH_SLICES}:
+            problems.append(f"{spec} mesh {row['mesh']}")
+        out[spec] = row
+    return out, problems
+
+
+def _resume_under_single_gpu(path: str) -> dict:
+    """``path`` (a ``2x2x1@fsdp`` checkpoint) resumed under singleGPU on
+    cuda:0: its weights, running statistics and Adam's moments bitwise."""
+    import torch
+
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.train.loop import Trainer
+
+    saved = load_native(path)
+    w, h = IMAGE_WH
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(train_method="singleGPU", device="cuda",
+                          dtype="bf16", kernels="cuda", epochs=1,
+                          batch_size=RANK_BATCH, image_size=(w, h),
+                          synthetic_samples=8, checkpoint_name=path,
+                          checkpoint_dir=os.path.join(tmp, "c"),
+                          log_dir=os.path.join(tmp, "l"),
+                          loss_dir=os.path.join(tmp, "s"))
+        trainer = Trainer(cfg)
+        model = trainer.model.state_dict()
+        opt = trainer.optimizer.state_dict()["state"]
+        same_model = all(torch.equal(model[k].cpu(), v)
+                         for k, v in saved["model"].items())
+        same_adam = bool(opt) and all(
+            torch.equal(opt[i][key].cpu(), st[key])
+            for i, st in saved["optimizer"]["state"].items()
+            for key in ("exp_avg", "exp_avg_sq"))
+        del trainer
+    torch.cuda.empty_cache()
+    return {"topology": saved["manifest"]["topology"],
+            "weights_bitwise": same_model, "adam_bitwise": same_adam}
+
+
+def phase_train_mesh(tmp: str, started=None) -> dict:
+    """The mesh specs on the one card: the spec twins of TP and MP
+    (``_mesh_twins``), each kernel against its plain version on a mesh
+    rank's shapes (``_mesh_kernels``), then ``2x2x1`` and ``2x2x1@fsdp``
+    as two gloo ranks on cuda:0, each over ``[cuda:0, cuda:0]``
+    (``mesh_rank``, two processes this script spawns), checked by
+    ``_mesh_ranks_report``, and rank 0's ``2x2x1@fsdp`` checkpoint from
+    the training CLI resumed under singleGPU bitwise. Prints its wall
+    time."""
+    import torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"phase": "train_mesh", "device": torch.cuda.get_device_name(0),
+           "cudnn_deterministic": True}
+    problems = []
+    with _deterministic_cudnn():
+        out["twins"] = _mesh_twins(dev)
+    for key, row in out["twins"].items():
+        if not row["bitwise"]:
+            problems.append(f"{key} not bitwise: {row}")
+    out["kernels"] = _mesh_kernels(dev)
+    for name in SP_KERNELS:
+        if (out["kernels"][name]["max_err_rel_to_max"]
+                > SP_SHARD_KERNEL_RTOL[name]):
+            problems.append(f"{name} on a mesh rank's shape: "
+                            f"{out['kernels'][name]}")
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "train_mesh"), 2,
+                                   "gloo", "--mesh-rank", started)
+    report, rank_problems = _mesh_ranks_report(ranks, 2)
+    out["gloo2"] = {"wall_s": wall_s, **report}
+    problems += rank_problems
+    cli = ranks[0]["cli"]
+    out["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
+                  "rank1_wrote": ranks[1]["cli"]["wrote"]}
+    if "checkpoints/2x2x1@fsdp.pt" not in cli["wrote"]:
+        problems.append(f"2x2x1@fsdp CLI run wrote {cli['wrote']}")
+    out["resume_single_gpu"] = _resume_under_single_gpu(os.path.join(
+        cli["run"], "checkpoints", "2x2x1@fsdp.pt"))
+    resumed = out["resume_single_gpu"]
+    if not (resumed["weights_bitwise"] and resumed["adam_bitwise"]):
+        problems.append(f"2x2x1@fsdp under singleGPU: {resumed}")
+    if (resumed["topology"]["mesh_spec"] != "2x2x1@fsdp"
+            or resumed["topology"]["process_count"] != 2):
+        problems.append(f"2x2x1@fsdp manifest {resumed['topology']}")
+    out["wall_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    emit(out)
+    for spec in MESH_SPECS:
+        _assert_ranks(report[spec], f"{spec} gloo ranks", MESH_STEPS)
+    check(not problems, f"train_mesh: {problems}")
+    return out
+
+
+def phase_mesh_cards(tmp: str) -> dict:
+    """``2x2x1`` and ``2x2x1@fsdp`` as two NCCL ranks of two cards each
+    (``--cards 4``, ``mesh_rank``): checked as ``train_mesh``'s gloo ranks
+    (the ranks bitwise equal, step 1 against a world-1 step, milesial's
+    kernels by name), each card's bytes of parameters and Adam's state
+    under ``@fsdp`` at most the whole / 4 × MESH_BYTES_MARGIN, and the
+    bf16 step's wall ms of both models at TRAIN_BATCH a rank."""
+    import torch
+
+    t0 = time.perf_counter()
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "mesh_cards"), 2,
+                                   "nccl", flag="--mesh-rank")
+    report, problems = _mesh_ranks_report(ranks, 2)
+    out = {"phase": "mesh_cards", "wall_s": wall_s,
+           "cards": [torch.cuda.get_device_name(i) for i in range(4)],
+           "devices": [r["devices"] for r in ranks], **report,
+           "problems": problems}
+    out["phase_wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for spec in MESH_SPECS:
+        _assert_ranks(report[spec], f"{spec} nccl ranks", MESH_STEPS)
+    check(not problems, f"mesh_cards: {problems}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -7489,8 +7945,9 @@ def main_cards(world: int) -> int:
     DDP_SP`` as two ranks of two cards (``phase_sp_cards``), ``-t FSDP``
     as N NCCL ranks (``phase_fsdp_cards``), ``-t MP`` across 2 and 4 of
     them (``phase_mp_cards``), ``-t DP`` across all N (``phase_dp_cards``)
-    and ``-t TP`` across all N (``phase_tp_cards``), and no other
-    phase."""
+    and ``-t TP`` across all N (``phase_tp_cards``), ``2x2x1`` and
+    ``2x2x1@fsdp`` as two NCCL ranks of two cards (``phase_mesh_cards``),
+    and no other phase."""
     import torch
 
     check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
@@ -7501,6 +7958,7 @@ def main_cards(world: int) -> int:
         phase_ddp_mp_cards(tmp)
         phase_sp_cards(tmp, world)
         phase_fsdp_cards(tmp, world)
+        phase_mesh_cards(tmp)
     phase_mp_cards(world)
     phase_dp_cards(world)
     phase_tp_cards(world)
@@ -7587,6 +8045,8 @@ def main(argv) -> int:
         return ddp_sp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--fsdp-rank"]:
         return fsdp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
     if argv[:1] == ["--dp-eager-step"]:
@@ -7610,14 +8070,28 @@ def main(argv) -> int:
         milesial_ddp = phase_train_milesial_ddp(tmp, milesial)
         serve_int8 = phase_serve_int8(tmp)
         phase_predict(tmp, serve_int8)
-        phase_train_ddp_gloo2(tmp)
+        # three correctness phases whose gloo ranks time nothing: their
+        # ranks start together and share the card
+        torch.cuda.empty_cache()
+        started = {name: _start_ranks(os.path.join(tmp, name), 2, "gloo",
+                                      flag)
+                   for name, flag in (("train_ddp_gloo2", "--ddp-rank"),
+                                      ("train_ddp_sp_gloo2", "--ddp-sp-rank"),
+                                      ("train_mesh", "--mesh-rank"))}
+        try:
+            phase_train_ddp_gloo2(tmp, started["train_ddp_gloo2"])
+            ddp_sp = phase_train_ddp_sp_gloo2(tmp,
+                                              started["train_ddp_sp_gloo2"])
+            mesh = phase_train_mesh(tmp, started["train_mesh"])
+        finally:
+            for group in started.values():
+                _stop_ranks(group)
         train_mp = phase_train_mp(tmp, train)
         milesial_mp = phase_train_milesial_mp(tmp)
         train_dp = phase_train_dp(tmp, train)
         ddp_mp = phase_train_ddp_mp_gloo2(tmp)
         train_sp = phase_train_sp(tmp, train)
         sp_rc = phase_sp_run_control()
-        ddp_sp = phase_train_ddp_sp_gloo2(tmp)
         train_tp = phase_train_tp(tmp, train)
         train_fsdp = phase_train_fsdp(tmp)
         tpf = phase_tp_fsdp_run_control()
@@ -7751,6 +8225,21 @@ def main(argv) -> int:
                 out[f"{key}_unet_accum_step"] = row["launches_per_step"][
                     name]
         return out
+    def mesh_launches(name):
+        """Rank 0's launches under each new geometry (train_mesh): K1 and
+        K1-bwd over its MESH_STEPS float32 UNet steps, counted by the
+        wrappers (once a step), and a bf16 milesial step's by name in the
+        trace (K2, K3 and K5 per channel slice)."""
+        out = {}
+        for spec in MESH_SPECS:
+            row = mesh["gloo2"][spec]
+            if name in LOSS_KERNELS:
+                out[f"{spec}_unet_{MESH_STEPS}_steps"] = row["launches"][0][
+                    name]
+            out[f"{spec}_milesial_step"] = row["milesial"][0][
+                "traced_per_step"][name]
+        return out
+
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -7770,6 +8259,7 @@ def main(argv) -> int:
             "tp_launches": None,
             "fsdp_launches": None,
             "tp_fsdp_run_control_launches": None,
+            "mesh_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -7801,6 +8291,8 @@ def main(argv) -> int:
             "tp_launches": tp_launches("loss_stats"),
             "fsdp_launches": fsdp_launches("loss_stats"),
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats"),
+            # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
+            "mesh_launches": mesh_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -7829,6 +8321,8 @@ def main(argv) -> int:
             "tp_launches": tp_launches("loss_stats_bwd"),
             "fsdp_launches": fsdp_launches("loss_stats_bwd"),
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats_bwd"),
+            # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
+            "mesh_launches": mesh_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -7858,6 +8352,8 @@ def main(argv) -> int:
             "tp_launches": tp_launches("bn_act"),
             "fsdp_launches": fsdp_launches("bn_act"),
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act"),
+            # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
+            "mesh_launches": mesh_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -7890,6 +8386,8 @@ def main(argv) -> int:
             "tp_launches": tp_launches("bn_act_bwd"),
             "fsdp_launches": fsdp_launches("bn_act_bwd"),
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act_bwd"),
+            # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
+            "mesh_launches": mesh_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -7918,6 +8416,8 @@ def main(argv) -> int:
             "tp_launches": tp_launches("wgrad_9tap"),
             "fsdp_launches": fsdp_launches("wgrad_9tap"),
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("wgrad_9tap"),
+            # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
+            "mesh_launches": mesh_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -86,6 +86,11 @@ import numpy as np
 import torch
 
 from distributedpytorch_tpu_torch.ops import msgpack
+from distributedpytorch_tpu_torch.parallel.mesh import (
+    canonical_spec,
+    is_mesh_spec,
+    parse_mesh_spec,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -593,9 +598,21 @@ def jax_topology(strategy: str, mesh: Mapping[str, int], precision: str
     under SP and DDP_SP, marked ``@sp``, and the parameters sharded over
     the data axis under FSDP, marked ``@fsdp`` (JAX mesh.py:257-267).
     ``process_count`` is the mesh's data axis where each data row is a
-    process (DDP, DDP_MP, DDP_SP, FSDP)."""
+    process (DDP, DDP_MP, DDP_SP, FSDP and every mesh spec). A mesh spec's
+    ``strategy`` is its canonical spec, and so is its ``mesh_spec``
+    (``2x2x1@fsdp`` for the ``fsdp+channel`` rule)."""
     mesh = {str(k): int(v) for k, v in mesh.items()}
     devices = int(np.prod(list(mesh.values()))) if mesh else 1
+    if is_mesh_spec(strategy):
+        cfg = parse_mesh_spec(strategy)
+        return {
+            "process_count": cfg.data,
+            "device_count": devices,
+            "strategy": strategy,
+            "mesh": mesh,
+            "mesh_spec": canonical_spec(cfg),
+            "precision": precision,
+        }
     processes = (mesh.get("data", 1)
                  if strategy in ("DDP", "DDP_MP", "DDP_SP", "FSDP") else 1)
     spatial = mesh.get("spatial", 1)

@@ -80,9 +80,14 @@ def get_args(argv=None):
         description="Train UNet on images and target masks",
     )
     parser.add_argument("--train-method", "-t", type=str, default="singleGPU",
-                        help="Training method: singleGPU, DP, DDP, MP, "
-                             "DDP_MP, SP, DDP_SP, TP or FSDP (mesh specs: "
-                             "ROADMAP.md)")
+                        help="Training method: singleGPU | DP | DDP | MP | "
+                             "DDP_MP | SP | DDP_SP | TP | FSDP, or a mesh "
+                             "spec DxMxS[@fsdp|sp] over the ('data','model',"
+                             "'stage') mesh — e.g. 2x1x2 (data x pipe), "
+                             "2x2x1 (data x tensor), 2x2x1@fsdp, 1x4x1@sp "
+                             "(one process per data row, M·S devices each; "
+                             "the named methods are aliases into mesh "
+                             "configs)")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
                         help="Percentage of data used as validation")
@@ -304,11 +309,27 @@ def start_runtime(args):
     train.py:58): ``-t DDP``, ``-t FSDP``, ``-t DDP_MP`` and ``-t DDP_SP``
     join the process group from torchrun's env (world 1 without one; a
     DDP_MP rank on the first of its ``--stages`` cards, a DDP_SP rank on
-    the first of its row shards' cards); every other method is one
-    process (DP, MP, SP and TP over the devices their strategy lists)."""
+    the first of its row shards' cards), and so does a mesh spec that
+    runs as one of them or over a data axis, on the first of its M·S
+    devices, after the spec's loud checks (``plan_mesh``); every other
+    method is one process (DP, MP, SP and TP over the devices their
+    strategy lists)."""
     from distributedpytorch_tpu_torch.dist import runtime
+    from distributedpytorch_tpu_torch.parallel.mesh import is_mesh_spec
     from distributedpytorch_tpu_torch.utils.device import resolve_device
 
+    if is_mesh_spec(args.train_method):
+        from distributedpytorch_tpu_torch.parallel.strategy import (
+            joins_group,
+            plan_mesh,
+        )
+
+        # the JAX errors before any group is joined
+        cls, _config, devices = plan_mesh(to_config(args),
+                                          runtime.planned_world())
+        if joins_group(cls):
+            return runtime.initialize_from_env(devices[0])
+        return runtime.RuntimeInfo(0, 1, device=devices[0])
     if args.train_method in ("DDP", "FSDP"):
         return runtime.initialize_from_env(args.device)
     if args.train_method == "DDP_MP":
@@ -364,17 +385,15 @@ def configure_logging(config, to_stderr: bool = True
 def main(argv=None) -> int:
     from distributedpytorch_tpu_torch.dist.runtime import shutdown
     from distributedpytorch_tpu_torch.parallel.strategy import (
-        STRATEGIES,
         check_run_control,
-        unported_method_message,
+        check_train_method,
     )
     from distributedpytorch_tpu_torch.train.loop import check_config
 
     args = get_args(argv)
-    if args.train_method not in STRATEGIES:
-        raise SystemExit(unported_method_message(args.train_method))
     try:
         # the refusals, before any process group is joined
+        check_train_method(args.train_method)
         check_config(to_config(args))
         check_run_control(to_config(args))
     except ValueError as exc:

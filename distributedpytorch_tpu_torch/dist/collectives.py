@@ -10,6 +10,9 @@
   accumulation's statistics and gradients,
   ``train/steps.make_accum_train_step``; ``-t DDP_MP``'s stage gradients
   and BatchNorm deltas, ``parallel/pipeline.py``).
+* ``all_gather_dim0`` and ``mean_dim0_piece`` — the ranks' dim-0 pieces
+  of a tensor put together, and a rank's piece of the mean over ranks,
+  outside autograd (the ZeRO shards of ``parallel/zero.py``).
 
 **How the gradient comes out right.** Every rank computes the same
 global loss from the summed statistics, so every rank back-propagates
@@ -91,3 +94,31 @@ def sum_over_ranks_(tensors: List[torch.Tensor], mean: bool = False) -> None:
             for t in group:
                 t.copy_(flat[offset:offset + t.numel()].view(t.shape))
                 offset += t.numel()
+
+
+def all_gather_dim0(piece: torch.Tensor) -> torch.Tensor:
+    """The ranks' equal dim-0 pieces, rank by rank, as one tensor: one
+    ``all_gather_into_tensor`` on the piece's device."""
+    world = dist.get_world_size()
+    out = piece.new_empty((world * piece.shape[0], *piece.shape[1:]))
+    dist.all_gather_into_tensor(out, piece.detach().contiguous())
+    return out
+
+
+def mean_dim0_piece(whole: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of dim 0 (torch.chunk's, equal pieces) of the
+    mean over ranks of ``whole``: one ``reduce_scatter_tensor`` under
+    NCCL; under gloo, which moves CUDA tensors through the host and has
+    no reduce-scatter of them, one all-reduce of ``whole`` (in place)
+    and the slice. The sum is divided by the world size afterwards, as
+    ``sum_over_ranks_`` does, under either."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    whole = whole.detach().contiguous()
+    if dist.get_backend() == "nccl":
+        piece = whole.new_empty((whole.shape[0] // world, *whole.shape[1:]))
+        dist.reduce_scatter_tensor(piece, whole, op=dist.ReduceOp.SUM)
+    else:
+        dist.all_reduce(whole, op=dist.ReduceOp.SUM)
+        piece = whole.chunk(world)[rank].clone()
+    piece /= world
+    return piece

@@ -234,9 +234,10 @@ class ChannelShards(nn.Module):
         layer, under its own names, in ``state_dict`` order."""
         out = {}
         first = self.shards[0]
-        for name, _ in first.named_parameters(recurse=False):
-            out[name] = ([getattr(s, name) for s in self.shards],
-                         self.dims[name])
+        # by attribute, not named_parameters: under ZeRO
+        # (``parallel/zero.py``) the slices' parameters are attributes
+        for name, axis in self.dims.items():
+            out[name] = ([getattr(s, name) for s in self.shards], axis)
         for name, _ in first.named_buffers(recurse=False):
             out[name] = ([getattr(s, name) for s in self.shards], 0)
         return out
@@ -354,6 +355,8 @@ class ChannelSharded(nn.Module):
             self._layer_names.append(path[id(layer)])
             parent._modules[name] = shards
         self.model = model
+        self._slices = self._find_param_slices()
+        self._num_slices = sum(1 for _ in self.parameters())
         if not any(s.sharded for _, s in self.layers()):
             logger.warning(
                 "TP: no parameter axis divides the %d-device mesh — state "
@@ -436,9 +439,10 @@ class ChannelSharded(nn.Module):
         """The singleGPU model's parameter names, in its order."""
         return list(self._param_names)
 
-    def _param_slices(self) -> List[Tuple[List[int], int]]:
+    def _find_param_slices(self) -> List[Tuple[List[int], int]]:
         """For each whole parameter, in the singleGPU order: the indices of
-        its slices among ``self.parameters()`` and their axis."""
+        its slices among ``self.parameters()`` and their axis. Kept as
+        built (``_slices``): ZeRO takes the slices out of the modules."""
         index = {p: j for j, p in enumerate(self.parameters())}
         layout = self._layout()
         return [([index[s] for s in layout[name][0]], layout[name][1])
@@ -448,8 +452,8 @@ class ChannelSharded(nn.Module):
                      ) -> List[torch.Tensor]:
         """Values of the whole parameters (in the singleGPU order) → one per
         slice, in ``self.parameters()`` order."""
-        out: List = [None] * sum(1 for _ in self.parameters())
-        for (js, axis), value in zip(self._param_slices(), whole):
+        out: List = [None] * self._num_slices
+        for (js, axis), value in zip(self._slices, whole):
             for j, piece in zip(js, value.chunk(len(js), axis)):
                 out[j] = piece
         return out
@@ -458,7 +462,7 @@ class ChannelSharded(nn.Module):
                      ) -> List[torch.Tensor]:
         """The inverse of ``slice_values``: host tensors."""
         return [torch.cat([sliced[j].detach().cpu() for j in js], axis)
-                for js, axis in self._param_slices()]
+                for js, axis in self._slices]
 
     def whole_optimizer_state(self, state: Mapping) -> dict:
         """An optimizer state dict over the slices (Adam's, or under
@@ -470,7 +474,7 @@ class ChannelSharded(nn.Module):
                     "inner": self.whole_optimizer_state(state["inner"])}
         slots = state["state"]
         out = {}
-        for k, (js, axis) in enumerate(self._param_slices()):
+        for k, (js, axis) in enumerate(self._slices):
             if not all(j in slots for j in js):
                 continue
             entry = dict(slots[js[0]])
@@ -494,7 +498,7 @@ class ChannelSharded(nn.Module):
                     "inner": self.sharded_optimizer_state(state["inner"])}
         slots = state["state"]
         out = {}
-        for k, (js, axis) in enumerate(self._param_slices()):
+        for k, (js, axis) in enumerate(self._slices):
             if k not in slots:
                 continue
             for i, j in enumerate(js):
@@ -507,4 +511,4 @@ class ChannelSharded(nn.Module):
                     if k != "params"}
         return {"state": out, "param_groups": [
             {**settings,
-             "params": list(range(sum(1 for _ in self.parameters())))}]}
+             "params": list(range(self._num_slices))}]}

@@ -1,13 +1,14 @@
 """Strategies: what differs between ``-t singleGPU``, ``DP``, ``DDP``,
-``MP``, ``DDP_MP``, ``SP``, ``DDP_SP``, ``TP`` and ``FSDP``.
+``MP``, ``DDP_MP``, ``SP``, ``DDP_SP``, ``TP``, ``FSDP`` and the mesh
+specs ``DxMxS[@tp|sp|fsdp]``.
 
 Counterpart of ``Strategy``, ``SingleDevice``, ``DataParallel``
 (strategy.py:542-555), ``MultiProcessMixin`` (:558-693),
 ``DistributedDataParallel`` (:696-716), ``Pipeline`` (:719-736),
 ``HybridDataPipeline`` (:739-780), ``SpatialParallel`` (:783-808),
 ``HybridDataSpatial`` (:811-843), ``TensorParallel`` (:885-909),
-``FullyShardedDataParallel`` (:912-952) and ``build_strategy`` (:1046) of
-``distributedpytorch_tpu/parallel/strategy.py``.
+``FullyShardedDataParallel`` (:912-952), ``GenericMesh`` (:955-1029) and
+``build_strategy`` (:1046) of ``distributedpytorch_tpu/parallel/strategy.py``.
 A strategy answers: which devices a process computes on, which samples it
 loads, the global batch, the lr, which process writes, where the model's
 layers live, and the train and eval steps.
@@ -21,7 +22,10 @@ the CPU tests run ``[cpu, cpu]``, a one-card check ``[cuda:0,
 cuda:0]``); so is each DDP_MP rank, SP over its shards' devices, each
 DDP_SP rank and TP over its channel slices' devices. FSDP is DDP's
 torchrun contract with the parameters and Adam's state sharded over the
-ranks. The mesh specs are not ported (ROADMAP.md, Queue A).
+ranks. A mesh spec ``-t DxMxS`` runs as the composition of these that it
+is (``GenericMesh``), data × channel (``DataTensorParallel``) and ZeRO ×
+channel (``ZeroTensorParallel``) included; sharding inside a pipeline
+stage is not ported (ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -113,6 +117,13 @@ from distributedpytorch_tpu_torch.parallel.pipeline import (
     make_pipeline_train_step,
 )
 from distributedpytorch_tpu_torch.parallel.channels import ChannelSharded
+from distributedpytorch_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    axis_layout,
+    canonical_spec,
+    is_mesh_spec,
+    parse_mesh_spec,
+)
 from distributedpytorch_tpu_torch.parallel.replicas import Replicated
 from distributedpytorch_tpu_torch.parallel.spatial import RowSharded
 from distributedpytorch_tpu_torch.train.steps import (
@@ -153,6 +164,16 @@ def _shrunk_data_degree(name: str, batch_size: int, n_devices: int) -> int:
             name, batch_size, n_devices, n, n_devices - n,
         )
     return n
+
+
+def _global_batchnorm(model: torch.nn.Module) -> None:
+    """milesial's BatchNorm on the global batch's moments (DDP, FSDP and
+    the data × channel meshes)."""
+    from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
+
+    for module in model.modules():
+        if isinstance(module, BatchNormAct):
+            module.global_stats = True
 
 
 class Strategy:
@@ -231,6 +252,11 @@ class Strategy:
         """The model with its layers on their devices."""
         return model.to(self.device)
 
+    def reduce_grads(self, model, optimizer) -> Optional[Callable]:
+        """What runs between the backward and Adam (None: nothing; the
+        model's own backward reduces where it must)."""
+        return None
+
     def build_train_step(self, model, optimizer, kernels) -> Callable:
         """``step(batch) -> loss`` of one optimizer step (train/steps.py);
         the faithful scale is the per-process ``batch_size``
@@ -239,7 +265,8 @@ class Strategy:
             self.wrap_model(model, optimizer), optimizer,
             self.config.batch_size,
             self.config.faithful_loss_scaling,
-            loss_impl=self.train_loss(kernels.train_loss_fused))
+            loss_impl=self.train_loss(kernels.train_loss_fused),
+            reduce_grads=self.reduce_grads(model, optimizer))
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
         """One optimizer step over ``config.grad_accum`` batches of
@@ -468,11 +495,7 @@ class DistributedDataParallel(MultiProcessMixin, Strategy):
         reduced through ``optimizer``'s f32 master gradients."""
         from torch.nn.parallel import DistributedDataParallel as DDP
 
-        from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
-
-        for module in model.modules():
-            if isinstance(module, BatchNormAct):
-                module.global_stats = True
+        _global_batchnorm(model)
         graphed = (int(self.config.steps_per_dispatch) > 1
                    and self.device.type == "cuda")
         stream = contextlib.nullcontext()
@@ -668,9 +691,8 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
                  devices: Optional[Sequence[torch.device]] = None):
         _check_schedule(config)
         stages = config.num_stages
-        _check_data_degree(config.batch_size, config.num_microbatches,
-                           info.num_processes if info is not None
-                           else runtime.planned_world())
+        self.check_data_degree(config, info.num_processes if info is not None
+                               else runtime.planned_world())
         if info is None:
             info = runtime.initialize_from_env(
                 devices[0] if devices else config.device, stages)
@@ -690,6 +712,12 @@ class HybridDataPipeline(MultiProcessMixin, Pipeline):
     @property
     def drop_last_train(self) -> bool:
         return True
+
+    @staticmethod
+    def check_data_degree(config, world: int) -> None:
+        """The JAX rule of the data degree over ``world`` processes
+        (``_check_data_degree``), before any group is joined."""
+        _check_data_degree(config.batch_size, config.num_microbatches, world)
 
 
 #: the row shards a process puts on one device that is not the list of
@@ -783,18 +811,6 @@ class SpatialParallel(Strategy):
         over them itself (``sum_over_ranks``)."""
         return make_row_sharded_stats(fused)
 
-    def reduce_grads(self, model, optimizer) -> Optional[Callable]:
-        """What runs between the backward and Adam: nothing in one
-        process."""
-        return None
-
-    def build_train_step(self, model, optimizer, kernels) -> Callable:
-        return make_train_step(
-            self.wrap_model(model, optimizer), optimizer,
-            self.config.batch_size, self.config.faithful_loss_scaling,
-            loss_impl=self.train_loss(kernels.train_loss_fused),
-            reduce_grads=self.reduce_grads(model, optimizer))
-
     def build_eval_step(self, model, kernels) -> Callable:
         return make_eval_step(self.wrap_model(model),
                               kernels.eval_stats_fused, sharded=True)
@@ -879,7 +895,7 @@ class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
                  devices: Optional[Sequence[torch.device]] = None):
         per_process = (len(devices) if devices is not None
                        else rank_shards(config.device))
-        sp = check_spatial_data_degree(
+        sp = self.spatial_degree(
             config, info.num_processes if info is not None
             else runtime.planned_world(), per_process)
         if info is None:
@@ -899,13 +915,24 @@ class HybridDataSpatial(MultiProcessMixin, SpatialParallel):
     def mesh_shape(self) -> dict:
         return {"data": self.world} | super().mesh_shape()
 
+    #: the spatial degree over ``world`` processes of ``per_process``
+    #: devices, checked before any group is joined
+    spatial_degree = staticmethod(check_spatial_data_degree)
+
     def reduce_grads(self, model, optimizer) -> Callable:
-        params = [p for p in model.parameters() if p.requires_grad]
+        return _mean_over_ranks(model, optimizer)
 
-        def reduce() -> None:
-            sum_over_ranks_(optimizer_grads(optimizer, params), mean=True)
 
-        return reduce
+def _mean_over_ranks(model, optimizer) -> Callable[[], None]:
+    """The gradients of ``model``'s parameters (under master weights the
+    f32 master gradients, in ``REDUCE_DTYPE``) replaced by their mean
+    over the ranks, one all-reduce per device."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def reduce() -> None:
+        sum_over_ranks_(optimizer_grads(optimizer, params), mean=True)
+
+    return reduce
 
 
 class TensorParallel(Strategy):
@@ -1111,11 +1138,8 @@ class FullyShardedDataParallel(MultiProcessMixin, Strategy):
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
         from distributedpytorch_tpu_torch.models import recompute_in_backward
-        from distributedpytorch_tpu_torch.models.milesial import BatchNormAct
 
-        for module in model.modules():
-            if isinstance(module, BatchNormAct):
-                module.global_stats = True
+        _global_batchnorm(model)
         model.to(self.device)
         mesh = init_device_mesh(self.device.type, (self.world,))
         policy = MixedPrecisionPolicy(reduce_dtype=REDUCE_DTYPE)
@@ -1192,15 +1216,276 @@ def _sharded_moments(state: dict, tensors) -> dict:
     return {**state, "state": slots}
 
 
+# -- the mesh specs -------------------------------------------------------------
+
+
+class GenericMesh:
+    """``-t DxMxS[@tp|sp|fsdp]`` (JAX strategy.py:955-1029, the grammar of
+    ``parallel/mesh.py``): a point of the mesh, run as the composition of
+    the port's strategies that it is (``plan_mesh``):
+
+    * ``1x1x1``: ``SingleDevice``;
+    * ``Dx1x1``: ``DistributedDataParallel``; ``Dx1x1@fsdp``:
+      ``FullyShardedDataParallel`` (``1x1x1@fsdp`` at world 1);
+    * ``1xMx1`` (and ``1xMx1@fsdp``: ZeRO over one rank is nothing):
+      ``TensorParallel`` over exactly M slices; ``1xMx1@sp``:
+      ``SpatialParallel`` over exactly M row shards;
+    * ``DxMx1@sp``: ``HybridDataSpatial``, exactly D × M;
+    * ``DxMx1``: ``DataTensorParallel`` (data × channel); ``DxMx1@fsdp``:
+      ``ZeroTensorParallel`` (ZeRO × channel);
+    * ``1x1xS``: ``Pipeline`` with S stages; ``Dx1xS``:
+      ``HybridDataPipeline``.
+
+    This class puts the specs' semantics (JAX docstring :955-972) over
+    the one the spec runs as, whose code runs unchanged: ``-b`` is per
+    process, the lr is never scaled (``lr_for``), ``name`` is the
+    canonical spec, ``mesh_shape`` the mesh's axes of size > 1
+    (``axis_layout``), and an infeasible geometry fails loudly, with the
+    JAX words, before any group is joined; no axis is ever shrunk. Each
+    data row is one process: D must be the launched world, and each
+    process computes on M·S devices of its own
+    (``runtime.stage_devices``: on the CPU, and on a card named by its
+    index, M·S repeats of it). The run control is that of the class the
+    spec runs as; under the two geometries no legacy name expresses
+    (``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1) ``check_run_control``
+    refuses it (ROADMAP.md, Queue A, item 1c″)."""
+
+    @property
+    def mesh_config(self) -> MeshConfig:
+        return parse_mesh_spec(self.config.train_method)
+
+    @property
+    def name(self) -> str:
+        return canonical_spec(self.mesh_config)
+
+    def mesh_shape(self) -> dict:
+        return dict(axis_layout(self.mesh_config))
+
+    def lr_for(self, base_lr: float) -> float:
+        return base_lr
+
+    def spatial_degree(self, config, world: int, per_process: int) -> int:
+        """DDP_SP's spatial degree: the model axis (``plan_mesh`` checked
+        the rows)."""
+        return parse_mesh_spec(config.train_method).model
+
+    def check_data_degree(self, config, world: int) -> None:
+        """DDP_MP's data degree: the data axis (``plan_mesh`` checked the
+        batch)."""
+
+
+class DataTensorParallel(GenericMesh, MultiProcessMixin, TensorParallel):
+    """``-t DxMx1`` with D, M > 1, data × channel (JAX ``2x2x1``,
+    ``MeshConfig(data=D, model=M, params="channel")``): one process per
+    data row, joined by ``dist.runtime``, each a ``ChannelSharded`` model
+    (``-t TP``) over M devices of its own, ``cuda:(LOCAL_RANK·M + i)`` by
+    default. The torchrun contract of DDP without its lr quirk: ``-b``
+    per process, ``ShardSpec(rank, world)``, the ragged batch dropped.
+
+    The loss is one loss over the global batch, its statistics summed
+    over the ranks on each rank's first device (``make_sharded_loss``);
+    milesial's BatchNorm normalizes each channel slice with its global
+    moments, all-reduced on the slice's device, where they meet the same
+    slice of every rank (``global_stats``). After the backward the
+    gradients are averaged over the ranks, one all-reduce per device
+    (``_mean_over_ranks``, as ``-t DDP_SP``), which takes out the
+    ``world ×`` of the statistics' all-reduce. Eval runs whole val
+    batches round robin and the tail on every rank; a checkpoint holds
+    the whole tensors (``-t TP``'s), which rank 0 writes."""
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        n = parse_mesh_spec(config.train_method).model
+        if info is None:
+            info = runtime.initialize_from_env(
+                devices[0] if devices else config.device, n)
+        devs = ([torch.device(d) for d in devices] if devices is not None
+                else runtime.stage_devices(config.device, info.local_rank, n))
+        self.devices = devs[:n]
+        Strategy.__init__(self, config, dataclasses.replace(
+            info, device=self.devices[0]))
+
+    @property
+    def drop_last_train(self) -> bool:
+        return True
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        _global_batchnorm(model)
+        return super().place_model(model)
+
+    def train_loss(self, fused: bool) -> Callable:
+        return make_sharded_loss(fused)
+
+    def reduce_grads(self, model, optimizer) -> Callable:
+        return _mean_over_ranks(model, optimizer)
+
+
+class ZeroTensorParallel(DataTensorParallel):
+    """``-t DxMx1@fsdp`` with D, M > 1, ZeRO × channel (JAX ``2x2x1@fsdp``,
+    the ``fsdp+channel`` rule): ``DataTensorParallel`` with each channel
+    slice's parameters and Adam's state cut again over the ranks
+    (``parallel/zero.ZeroSharded``). The top of each forward puts every
+    slice together on its card (one ``all_gather_into_tensor`` per
+    tensor), the gradients are reduce-scattered back to each rank's
+    piece, averaged over the ranks (``reduce_grads``), and Adam steps
+    the pieces. A checkpoint gathers the whole tensors on every rank
+    (``gathers_state``), which rank 0 writes; a resume cuts each rank's
+    piece."""
+
+    gathers_state = True
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        from distributedpytorch_tpu_torch.parallel.zero import ZeroSharded
+
+        return ZeroSharded(super().place_model(model))
+
+    def reduce_grads(self, model, optimizer) -> Callable:
+        return model.reduce_grads_
+
+
+#: the class each spec runs as, with the specs' semantics over it
+_MESH_TWINS = {
+    cls: type(f"Mesh{cls.__name__}", (GenericMesh, cls), {})
+    for cls in (SingleDevice, DistributedDataParallel,
+                FullyShardedDataParallel, TensorParallel, SpatialParallel,
+                HybridDataSpatial, Pipeline, HybridDataPipeline)}
+
+
+def _mesh_class(cfg: MeshConfig) -> type:
+    fsdp = "fsdp" in cfg.params
+    if cfg.stage > 1:
+        legacy = HybridDataPipeline if cfg.data > 1 else Pipeline
+    elif cfg.model > 1 and cfg.model_role == "spatial":
+        legacy = HybridDataSpatial if cfg.data > 1 else SpatialParallel
+    elif cfg.model > 1:
+        if cfg.data > 1:
+            return ZeroTensorParallel if fsdp else DataTensorParallel
+        legacy = TensorParallel
+    else:
+        legacy = (FullyShardedDataParallel if fsdp
+                  else DistributedDataParallel if cfg.data > 1
+                  else SingleDevice)
+    return _MESH_TWINS[legacy]
+
+
+def _is_in_stage(cfg: MeshConfig) -> bool:
+    """The points still to port: sharding inside a pipeline stage, and
+    ZeRO over row shards."""
+    fsdp = cfg.data > 1 and "fsdp" in cfg.params
+    return ((cfg.stage > 1 and (cfg.model > 1 or fsdp))
+            or (fsdp and cfg.model > 1 and cfg.model_role == "spatial"))
+
+
+def check_train_method(method: str) -> None:
+    """What ``-t`` refuses from its name alone, before any group is
+    joined: a name that is neither a method nor a mesh spec (the JAX
+    words), a malformed spec (``parse_mesh_spec``'s), a spatial model
+    axis inside a pipeline stage (JAX's own refusal, :983-992) and the
+    specs still to port (``unported_method_message``)."""
+    if method in STRATEGIES:
+        return
+    if not is_mesh_spec(method):
+        raise ValueError(
+            f"Unknown train method {method!r}; "
+            f"expected one of {sorted(STRATEGIES)} or a mesh spec "
+            f"DxMxS[@fsdp|sp] (docs/DISTRIBUTED.md 'The mesh engine')")
+    cfg = parse_mesh_spec(method)
+    name = canonical_spec(cfg)
+    if cfg.stage > 1 and cfg.model > 1 and cfg.model_role == "spatial":
+        raise ValueError(
+            f"mesh {name}: a 'spatial' model role inside a "
+            f"pipeline stage is not executable — spatial sharding "
+            f"halo-exchanges inside every schedule tick, which the "
+            f"stage-gated lax.cond program cannot carry; use the "
+            f"channel role on the model axis "
+            f"('{cfg.data}x{cfg.model}x{cfg.stage}') or keep spatial "
+            f"sharding on a flat mesh "
+            f"('{cfg.data}x{cfg.model}x1@sp') (ROADMAP.md, Queue A: the "
+            f"JAX package refuses it too)")
+    if _is_in_stage(cfg):
+        raise ValueError(unported_method_message(method))
+
+
+def plan_mesh(config, world: int,
+              info: Optional[runtime.RuntimeInfo] = None,
+              devices: Optional[Sequence[torch.device]] = None
+              ) -> Tuple[type, object, List[torch.device]]:
+    """``(class, config, devices)`` of the mesh spec ``config.train_method``
+    over ``world`` processes: the class it runs as (``GenericMesh``), the
+    config with ``num_stages`` the stage axis, and this process's M·S
+    devices (``devices`` where given). Raises the JAX package's loud
+    failures of an infeasible geometry first (JAX strategy.py:973-1029),
+    in the port's terms: a data axis other than the launched world, too
+    few devices, a batch the microbatches do not divide, rows the
+    spatial axis does not divide."""
+    check_train_method(config.train_method)
+    cfg = parse_mesh_spec(config.train_method)
+    name = canonical_spec(cfg)
+    per = cfg.model * cfg.stage
+    if devices is not None:
+        have = len(devices)
+    else:
+        dev = resolve_device(config.device)
+        have = per
+        if dev.type == "cuda" and dev.index is None:
+            local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+            have = torch.cuda.device_count() // max(1, local_world)
+    if cfg.data > world or per > have:
+        raise ValueError(f"mesh {name} needs {cfg.size} devices, "
+                         f"got {world * min(per, have)}")
+    if cfg.data < world:
+        raise ValueError(
+            f"mesh {name}: {world} processes launched for a data axis of "
+            f"{cfg.data} (one process per data row) — explicit mesh specs "
+            f"never shrink silently; launch {cfg.data}")
+    # the port's data axis is its processes: the global batch b × D
+    # always divides D, and a stage axis needs b % microbatches
+    global_batch = config.batch_size * world
+    if cfg.stage > 1:
+        _check_schedule(config)
+        mb = config.num_microbatches
+        if global_batch % (cfg.data * mb):
+            raise ValueError(
+                f"mesh {name}: global batch {global_batch} "
+                f"(batch_size {config.batch_size} x "
+                f"{world} processes) must be a "
+                f"multiple of data x microbatches = {cfg.data} x {mb}")
+        config = dataclasses.replace(config, num_stages=cfg.stage)
+    if cfg.model > 1 and cfg.model_role == "spatial":
+        h = config.image_size[1]
+        deep = 2 ** config.model_levels
+        if (h // deep) % cfg.model:
+            raise ValueError(
+                f"mesh {name}: the deepest level's {h // deep} "
+                f"image rows must divide the spatial axis "
+                f"({cfg.model})")
+    if devices is None:
+        local_rank = (info.local_rank if info is not None else
+                      (runtime.torchrun_env()
+                       or runtime.RuntimeInfo(0, 1)).local_rank)
+        devices = runtime.stage_devices(config.device, local_rank, per)
+    return (_mesh_class(cfg), config,
+            [torch.device(d) for d in devices][:per])
+
+
+def joins_group(cls: type) -> bool:
+    """Whether a process of strategy ``cls`` joins the process group (the
+    torchrun contract: DDP, FSDP, DDP_MP, DDP_SP and their specs)."""
+    return issubclass(cls, MultiProcessMixin)
+
+
 def check_run_control(config, device: Optional[torch.device] = None,
                       backend: Optional[str] = None) -> None:
     """The run control's limits of the port, the same under every method:
     ``--grad-accum`` together with ``--steps-per-dispatch K > 1`` and
     ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
-    over chunks, each refused with the JAX package's words; once the
-    strategy knows its ``device`` and its group's ``backend``,
-    ``--steps-per-dispatch K > 1`` under gloo on a card. All but the last
-    raise before any group is joined."""
+    over chunks, each refused with the JAX package's words; under the
+    data × channel and ZeRO × channel meshes (``DxMx1[@fsdp]``, D, M > 1)
+    ``--steps-per-dispatch K > 1``, ``--remat``, ``--grad-accum`` and
+    ``--dtype bf16_params``, not ported yet (ROADMAP.md, Queue A, item
+    1c″); once the strategy knows its ``device`` and its group's
+    ``backend``, ``--steps-per-dispatch K > 1`` under gloo on a card. All
+    but the last raise before any group is joined."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
     grad_accum = int(config.grad_accum)
@@ -1208,6 +1493,22 @@ def check_run_control(config, device: Optional[torch.device] = None,
         raise ValueError(STACKS_CONFLICT)
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
         raise ValueError(STATEFUL_ACCUM)
+    mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
+    if (mesh is not None and mesh.data > 1 and mesh.model > 1
+            and mesh.stage == 1 and mesh.model_role == "channel"):
+        flags = [flag for flag, on in (
+            (f"--steps-per-dispatch {k}", k > 1),
+            ("--remat", bool(config.remat)),
+            (f"--grad-accum {grad_accum}", grad_accum > 1),
+            ("--dtype bf16_params", get_policy(config).master_weights))
+            if on]
+        if flags:
+            kind = "ZeRO" if "fsdp" in mesh.params else "data"
+            raise ValueError(
+                f"{' and '.join(flags)} under -t {method} ({kind} × "
+                f"channel) is not ported yet: the run control of the "
+                f"DxMx1 and DxMx1@fsdp meshes is still to port "
+                f"(ROADMAP.md, Queue A, item 1c″)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -1228,14 +1529,18 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
                    devices: Optional[Sequence[torch.device]] = None
                    ) -> Strategy:
     """``config.train_method`` → its strategy, on ``devices`` where one is
-    given (DP, MP, SP, TP and each DDP_MP and DDP_SP rank; every method
-    takes its first as its device). The mesh specs raise with the ROADMAP
-    pointer, and so do the limits of ``check_run_control``, before any
-    group is joined."""
+    given (DP, MP, SP, TP, each DDP_MP and DDP_SP rank, and a mesh spec's
+    M·S devices of this process; every method takes its first as its
+    device). A mesh spec runs as ``GenericMesh`` says (``plan_mesh``,
+    which also raises for a name that is neither). What ``-t`` refuses
+    (``check_train_method``), an infeasible mesh and the limits of
+    ``check_run_control`` raise before any group is joined."""
+    check_run_control(config)
     cls = STRATEGIES.get(config.train_method)
     if cls is None:
-        raise ValueError(unported_method_message(config.train_method))
-    check_run_control(config)
+        cls, config, devices = plan_mesh(
+            config, info.num_processes if info is not None
+            else runtime.planned_world(), info, devices)
     strategy = cls(config, info, devices)
     check_run_control(config, strategy.device, strategy.backend)
     return strategy
@@ -1244,6 +1549,9 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
 def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{', '.join(sorted(STRATEGIES))}; the mesh specs (DxMxS"
-        f"[@fsdp|sp]) are still to port (ROADMAP.md, Queue A)"
+        f"{', '.join(sorted(STRATEGIES))} and the mesh specs "
+        f"DxMx1[@fsdp|sp], 1x1xS and Dx1xS; in-stage sharding (DxMxS with "
+        f"S > 1 and M > 1, Dx1xS@fsdp and DxMxS@fsdp with D > 1) and ZeRO "
+        f"over row shards (DxMx1@sp+fsdp) are still to port (ROADMAP.md, "
+        f"Queue A, item 1c′)"
     )

@@ -9,7 +9,8 @@ NCCL, the DDP_MP pipeline's seams at world 1, SP's K-step graph and
 ``--remat`` on repeated devices, the kernel probes and a
 priors file's effect, the profiler window's trace of the loss kernels
 (eager and in a CUDA graph), and a ``.ckpt`` round trip resumed on the
-card. Every test carries
+card, and the mesh specs ``1x2x1`` (bitwise TP) and ``2x2x1`` /
+``2x2x1@fsdp`` over two gloo ranks sharing the card. Every test carries
 the ``cuda`` marker and skips without a card; this file imports nothing
 of JAX, so the card's machine runs it as it is:
 
@@ -1737,3 +1738,90 @@ def test_fsdp_remat_step_at_world_one_equals_the_plain_step(
     assert l1 == l0
     for a, b in zip(g1, g0):
         assert torch.equal(a, b)
+
+
+# -- the mesh specs ---------------------------------------------------------------
+
+
+def _mesh_step(method, devices, arch):
+    """One float32 step of ``method``'s strategy over ``devices`` for a
+    small model under kernels cuda, SGD at lr 0: (loss, every gradient,
+    the whole state)."""
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=method, model_arch=arch, dtype="f32",
+                      kernels="cuda", device="cuda", model_widths=(8, 16),
+                      image_size=(48, 32), batch_size=2)
+    strategy = build_strategy(cfg, devices=devices)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(0)))
+    step = strategy.build_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.0),
+        get_kernel_policy("cuda"))
+    batch = {k: v[0] for k, v in _stacks(devices[0], 1)[0].items()}
+    loss = float(step(batch))
+    return (loss, [p.grad.clone() for p in model.parameters()],
+            strategy.model_state(model), strategy.name)
+
+
+@pytest.mark.parametrize("arch", ["unet", "milesial"])
+def test_mesh_1x2x1_step_is_bitwise_tp_on_one_card(cuda_device, monkeypatch,
+                                                   arch):
+    """``-t 1x2x1`` on ``[cuda:0, cuda:0]`` runs ``-t TP``'s code: one step
+    of each from the same weights on the same batch, cuDNN deterministic,
+    gives the same loss, gradients and whole state bit for bit, and the
+    spec's name."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [cuda_device, cuda_device]
+    l0, g0, s0, n0 = _mesh_step("TP", devices, arch)
+    l1, g1, s1, n1 = _mesh_step("1x2x1", devices, arch)
+    assert (n0, n1) == ("TP", "1x2x1")
+    assert l1 == l0
+    for a, b in zip(g1, g0):
+        assert torch.equal(a, b)
+    for key, value in s0.items():
+        assert torch.equal(s1[key], value), key
+
+
+def test_mesh_2x2x1_over_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """``2x2x1`` and ``2x2x1@fsdp`` as two gloo ranks sharing the card
+    (``tests/torch_ddp_worker.py``, each rank over ``[cuda:0, cuda:0]``),
+    milesial for two Adam steps under kernels cuda: the ranks' losses,
+    whole gradients and whole states after each step bitwise equal, the
+    two specs' losses within 1e-5 of each other, and under ``@fsdp`` no
+    whole slice of a cut parameter alive between steps."""
+    from torch_ddp_worker import launch
+
+    rng = np.random.default_rng(3)
+    batches = [{"image": rng.random((4, 32, 48, 3), np.float32),
+                "mask": (rng.random((4, 32, 48)) > 0.6).astype(np.int32)}
+               for _ in range(2)]
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+
+    config = dict(model_arch="milesial", model_widths=(8, 16), dtype="f32",
+                  kernels="cuda", batch_size=2, image_size=(48, 32))
+    initial = create_model(TrainConfig(**config),
+                           generator=torch.Generator().manual_seed(0)
+                           ).state_dict()
+    jobs = {spec: {"kind": "pipeline_steps", "method": spec,
+                   "device": "cuda:0", "config": config,
+                   "initial": initial, "batches": batches}
+            for spec in ("2x2x1", "2x2x1@fsdp")}
+    r0, r1 = launch(tmp_path / "job", jobs)
+    for spec in jobs:
+        a, b = r0[spec], r1[spec]
+        assert a["devices"] == b["devices"] == ["cuda:0", "cuda:0"]
+        assert torch.equal(a["losses"], b["losses"])
+        for name, g in a["grads"].items():
+            assert torch.equal(g, b["grads"][name]), name
+        for i, state in enumerate(a["states"]):
+            for key, value in state.items():
+                assert torch.equal(value, b["states"][i][key]), (i, key)
+    np.testing.assert_allclose(r0["2x2x1@fsdp"]["losses"].cpu().numpy(),
+                               r0["2x2x1"]["losses"].cpu().numpy(), rtol=1e-5)
+    assert r0["2x2x1@fsdp"]["slice_bytes"]["whole_leaves"] == 0

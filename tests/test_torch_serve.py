@@ -365,11 +365,11 @@ def test_cli_config_mapping_and_server_build(checkpoint):
 
 
 def test_training_entry_point_is_not_ported():
-    """Training is the default entry point now; the methods beyond
-    singleGPU, DP, DDP, MP, DDP_MP, SP, DDP_SP, TP and FSDP (the mesh
-    specs) are what is not ported, and the exit says where to look."""
+    """Training is the default entry point now; the mesh specs with
+    sharding inside a pipeline stage are what is not ported, and the exit
+    says where to look."""
     from distributedpytorch_tpu_torch.__main__ import main
 
-    for method in ("2x2x1", "2x1x2"):
+    for method in ("2x2x2", "2x1x2@fsdp"):
         with pytest.raises(SystemExit, match="not ported.*ROADMAP"):
             main(["-t", method])

@@ -369,7 +369,8 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 
 def test_cli_refuses_what_it_does_not_run(capsys):
-    for method in ("2x2x1", "2x1x2"):  # the mesh specs
+    # the mesh specs with sharding inside a pipeline stage
+    for method in ("2x2x2", "2x1x2@fsdp"):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
             cli.main(["-t", method])
     with pytest.raises(SystemExit):

@@ -19,12 +19,16 @@ modules this process loaded. Scenarios:
 * ``accum``: one ``--grad-accum`` step over this rank's chunks; its loss
   and the gradients the optimizer receives;
 * ``pipeline_steps``: train steps of ``-t DDP_MP`` (or the job's
-  ``method``, ``DDP_SP`` or ``FSDP``), the rank's S stages (or row shards)
-  all on the CPU, from given weights: as ``steps``, with the state after
+  ``method``, ``DDP_SP``, ``FSDP`` or a mesh spec), the rank's S stages
+  (or row shards, or channel slices) all on the CPU (or the job's
+  ``device``, a card both ranks share), from given weights: as ``steps``
+  (a channel-sharded model's gradients put together whole), with the
+  state after
   every call (whole tensors, gathered under FSDP), each BatchNorm's
   ``global_stats`` flag, the strategy's devices, its mesh and lr, and the
   bytes of parameters and Adam's state this rank holds against the
-  whole's, and under ``--dtype bf16_params`` the f32 masters (whole).
+  whole's (under ZeRO each channel slice's, ``slice_bytes``), its name,
+  and under ``--dtype bf16_params`` the f32 masters (whole).
   With the config's ``steps_per_dispatch`` K > 1 the batches go through
   the strategy's multi-step in stacks of K, with its ``grad_accum`` N > 1
   through its accumulation step in chunks of N;
@@ -33,6 +37,8 @@ modules this process loaded. Scenarios:
   and what each rank wrote into a directory of its own; how many
   ``DistributedDataParallel`` wrappers it built and how many forwards
   they ran; and whether its K-step dispatch drives its own train step;
+* ``cli``: ``cli.main`` on every rank over the joined group (last: it
+  leaves the group);
 * ``preempt``: ``Trainer`` under ``-t DDP`` whose train step raises
   SIGTERM on the ranks and after the global steps ``job["signal"]``
   names, or adds one to a rank's step count (``job["skew"]``); what each
@@ -95,15 +101,20 @@ def run_loss(job, rank, world):
     return {"loss": loss.detach(), "grad": preds.grad}
 
 
-def _first_step_grads(optimizer, names):
+def _first_step_grads(optimizer, names, whole=None):
     """``{name: gradient}`` as the optimizer's first step reads them (under
     master weights the scaled f32 ones Adam reads), filled by a step
-    pre-hook when that step runs."""
+    pre-hook when that step runs. ``whole`` (a channel-sharded model's
+    ``whole_values``, a collective under ZeRO) puts the parameters'
+    gradients together as the whole tensors ``names`` name."""
     grads = {}
 
     def hook(opt, _args, _kwargs):
         if not grads:
             params = [p for g in opt.param_groups for p in g["params"]]
+            if whole is not None:
+                grads.update(zip(names, whole([p.grad for p in params])))
+                return
             # an FSDP shard's gradient, gathered whole on every rank
             grads.update({n: (p.grad.full_tensor()
                               if hasattr(p.grad, "full_tensor")
@@ -166,8 +177,9 @@ def run_pipeline_steps(job, rank, world):
         gathered,
     )
 
-    cfg = TrainConfig(train_method=job.get("method", "DDP_MP"), device="cpu",
-                      **job["config"])
+    device = job.get("device", "cpu")
+    cfg = TrainConfig(train_method=job.get("method", "DDP_MP"),
+                      device=device, **job["config"])
     strategy = build_strategy(cfg)
     policy = get_policy(cfg)
     # as run_steps: the master seeded from the f32 weights, then the
@@ -179,12 +191,17 @@ def run_pipeline_steps(job, rank, world):
                                strategy.lr_for(cfg.learning_rate),
                                cfg.weight_decay, policy=policy)
     cast_params_(model, policy)
-    grads = _first_step_grads(optimizer, [n for n, _ in
-                                          model.named_parameters()])
+    if hasattr(model, "whole_values"):
+        # channel slices (and their ZeRO pieces): the whole gradients
+        grads = _first_step_grads(optimizer, model.whole_param_names(),
+                                  model.whole_values)
+    else:
+        grads = _first_step_grads(optimizer, [n for n, _ in
+                                              model.named_parameters()])
     kernels = get_kernel_policy(cfg.kernels)
     step = strategy.build_train_step(model, optimizer, kernels)
-    batches = [{k: _rows(v, rank, world) for k, v in batch.items()}
-               for batch in job["batches"]]
+    batches = [{k: _rows(v, rank, world).to(strategy.device)
+                for k, v in batch.items()} for batch in job["batches"]]
     size = 1
     if cfg.steps_per_dispatch > 1:
         size = cfg.steps_per_dispatch
@@ -216,7 +233,31 @@ def run_pipeline_steps(job, rank, world):
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
             "devices": [str(d) for d in strategy.step_devices],
-            "mesh": strategy.mesh_shape()}
+            "mesh": strategy.mesh_shape(), "name": strategy.name,
+            "slice_bytes": _slice_bytes(model, optimizer)}
+
+
+def _slice_bytes(model, optimizer):
+    """Under ZeRO (``parallel/zero.ZeroSharded``): the bytes of parameters
+    and Adam's state this rank holds for each channel slice (a layer kept
+    whole counts on slice 0), and how many elements of the wrapped
+    model's parameters are whole between steps (none: only the pieces
+    stay); else None."""
+    import re
+
+    if not hasattr(model, "paths"):
+        return None
+    held = {}
+    for path, p in zip(model.paths, model.parameters()):
+        found = re.search(r"\.shards\.(\d+)\.", path)
+        place = int(found.group(1)) if found else 0
+        tensors = [p] + [t for t in optimizer.state[p].values()
+                         if isinstance(t, torch.Tensor) and t.dim() > 0]
+        held[place] = held.get(place, 0) + sum(
+            t.numel() * t.element_size() for t in tensors)
+    leaves = sum(getattr(m, a).numel() for m, a, _s, cut in model._owners
+                 if cut and getattr(m, a) is not None)
+    return {"held": held, "whole_leaves": leaves}
 
 
 def _state_bytes(model, optimizer):
@@ -383,9 +424,41 @@ def run_preempt(job, rank, world):
             == signal.SIG_DFL}
 
 
+def run_cli(job, rank, world):
+    """``cli.main(job["argv"])`` on every rank, in ``job["dir"]``, over the
+    group this process already joined (``start_runtime`` takes it as it
+    is; the CLI's shutdown at its end leaves it, so it runs last); what
+    the ranks wrote there and rank 0's manifest."""
+    import logging
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.checkpoint import load_native
+
+    out = os.path.join(job["dir"], f"rank{rank}")
+    os.makedirs(out, exist_ok=True)
+    cwd = os.getcwd()
+    root = logging.getLogger()
+    before = list(root.handlers)
+    os.chdir(out)
+    try:
+        code = cli.main(job["argv"])
+    finally:
+        os.chdir(cwd)
+        for handler in set(root.handlers) - set(before):
+            root.removeHandler(handler)
+            handler.close()
+    method = job["argv"][job["argv"].index("-t") + 1]
+    ckpt = os.path.join(out, "checkpoints", f"{method}.pt")
+    return {"code": code, "out": out,
+            "wrote": sorted(os.path.relpath(os.path.join(d, f), out)
+                            for d, _, files in os.walk(out) for f in files),
+            "manifest": (load_native(ckpt)["manifest"]
+                         if os.path.exists(ckpt) else None)}
+
+
 SCENARIOS = {"loss": run_loss, "steps": run_steps, "accum": run_accum,
              "pipeline_steps": run_pipeline_steps, "trainer": run_trainer,
-             "preempt": run_preempt}
+             "preempt": run_preempt, "cli": run_cli}
 
 
 def main():
@@ -399,7 +472,9 @@ def main():
         results = {name: SCENARIOS[job["kind"]](job, rank, world)
                    for name, job in jobs.items()}
     finally:
-        torch.distributed.destroy_process_group()
+        # a ``cli`` scenario's run has left the group already
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     results["leaked"] = sorted(
         name for name in sys.modules
         if name in ("jax", "flax", "distributedpytorch_tpu")
