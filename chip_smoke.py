@@ -122,9 +122,21 @@ whole states bitwise equal after 2 float32 UNet steps, step 1 against a
 world-1 step on the joint batch, K1 and K1-bwd once a step on each rank,
 milesial's K2, K3 and K5 per step by name in the trace, each slice's
 bytes, and a ``2x2x1@fsdp`` checkpoint resumed under singleGPU bitwise.
-The gloo ranks of ``train_ddp_gloo2``, ``train_ddp_sp_gloo2`` and
-``train_mesh``, correctness phases that time nothing, start together
-after ``predict`` and share the card (``_start_ranks``). Each path's
+In-stage sharding (``train_in_stage``): ``-t 1x2x2`` on ``[cuda:0] *
+4`` bitwise ``-t 1x1x2`` on ``[cuda:0] * 2`` for one bf16 Adam step of
+each model under each schedule, the kernels' launches equal; beside
+them ``2x2x2`` and ``2x2x2@fsdp`` as two gloo ranks on the card, each
+over ``[cuda:0] * 4``: the ranks' whole states bitwise equal after 2
+float32 UNet steps, step 1 against a world-1 step on the joint batch,
+K1 and K1-bwd once per microbatch, one bf16 milesial step's K2, K3 and
+K5, each (rank, stage, slice) place's bytes, and a ``2x2x2@fsdp``
+checkpoint resumed under singleGPU bitwise; then, the card to itself,
+the bf16 UNet's gpipe step timed against its twin's with the kernels
+each adds. The gloo ranks of ``train_ddp_gloo2``,
+``train_ddp_sp_gloo2`` and ``train_mesh``, correctness phases that time
+nothing, start together after ``predict`` and share the card
+(``_start_ranks``); those of ``train_in_stage`` start once they have
+ended (a fourth pair beside them made a rank exit). Each path's
 kernel launches are counted
 from zero over its run (a CUDA graph's at each replay). It fails
 (non-zero exit, no result line) without a card, outside a checkout, or
@@ -147,9 +159,13 @@ and 4 cards, its step and measured bubble under both schedules at M = 2
 and 8 (``mp_cards``), ``-t DP`` across the four cards against a
 one-card step (``dp_cards``), ``-t TP`` across the four cards against
 singleGPU (``tp_cards``), ``-t FSDP`` as four NCCL ranks against
-``-t DDP`` (``fsdp_cards``), and ``2x2x1`` and ``2x2x1@fsdp`` as two
+``-t DDP`` (``fsdp_cards``), ``2x2x1`` and ``2x2x1@fsdp`` as two
 NCCL ranks of two cards each (``mesh_cards``: the ranks bitwise equal,
-each card's bytes, the eager step's ms). Every one but the last also
+each card's bytes, the eager step's ms), and in-stage sharding
+(``in_stage_cards``: ``1x2x2`` over the four cards against ``1x1x2`` on
+two, ``2x1x2@fsdp`` as two NCCL ranks of two cards against ``2x1x2``,
+the bf16 step timed and each card's bytes). Every one but the last two
+also
 runs its path as
 one CUDA graph of 4 steps against its eager steps (``dp_cards``: the
 bf16 UNet at batch 16 and milesial at 8, ``dp_graph``): losses and
@@ -2466,13 +2482,16 @@ def _run_ddp_ranks(job: str, world: int, backend: str,
     finally:
         _stop_ranks(started)
     wall_s = time.perf_counter() - t0
+    failed = []
     for rank, proc in enumerate(procs):
         if proc.returncode != 0:
             with open(os.path.join(job, f"log_{rank}.txt"),
                       errors="replace") as log:
-                tail = log.read()[-3000:]
-            check(False, f"{backend} rank {rank} of {world} exited "
-                  f"{proc.returncode}: {tail}")
+                tail = log.read()[-2000:]
+            failed.append(f"{backend} rank {rank} of {world} exited "
+                          f"{proc.returncode}: {tail}")
+    # every failed rank's tail: the first to fail may not be rank 0
+    check(not failed, "\n".join(failed))
     return [torch.load(os.path.join(job, f"result_{rank}.pt"),
                        weights_only=True) for rank in range(world)], wall_s
 
@@ -7575,10 +7594,11 @@ def _mesh_kernels(dev) -> dict:
 
 
 def _mesh_model_step(spec: str, arch: str, devices, dtype: str,
-                     per_rank: int):
-    """``(model, step, strategy)`` of the mesh spec over this rank's
+                     per_rank: int, **cfg_kw):
+    """``(model, step, strategy, opt)`` of the mesh spec over this rank's
     ``devices`` for the full-width ``arch`` (milesial ``--wgrad-taps``)
-    from the seed's weights, Adam at MESH_LR."""
+    from the seed's weights, Adam at MESH_LR; ``cfg_kw`` more of the
+    config (a pipeline's schedule)."""
     import torch
 
     from distributedpytorch_tpu_torch.config import TrainConfig
@@ -7589,7 +7609,8 @@ def _mesh_model_step(spec: str, arch: str, devices, dtype: str,
 
     cfg = TrainConfig(train_method=spec, model_arch=arch, dtype=dtype,
                       kernels="cuda", device="cuda", batch_size=per_rank,
-                      learning_rate=MESH_LR, wgrad_taps=arch == "milesial")
+                      learning_rate=MESH_LR, wgrad_taps=arch == "milesial",
+                      **cfg_kw)
     strategy = build_strategy(cfg, devices=devices)
     model = strategy.place_model(create_model(
         cfg, generator=torch.Generator().manual_seed(SEED)))
@@ -7785,8 +7806,9 @@ def _mesh_ranks_report(ranks, world: int) -> tuple:
 
 
 def _resume_under_single_gpu(path: str) -> dict:
-    """``path`` (a ``2x2x1@fsdp`` checkpoint) resumed under singleGPU on
-    cuda:0: its weights, running statistics and Adam's moments bitwise."""
+    """``path`` (a ``2x2x1@fsdp`` or ``2x2x2@fsdp`` checkpoint) resumed
+    under singleGPU on cuda:0: its weights, running statistics and Adam's
+    moments bitwise."""
     import torch
 
     from distributedpytorch_tpu_torch.checkpoint import load_native
@@ -7897,6 +7919,487 @@ def phase_mesh_cards(tmp: str) -> dict:
     return out
 
 
+# -- in-stage sharding (train_in_stage, --cards 4's in_stage_cards) -------------
+# one process: 1x2x2 on [cuda:0] * 4 against 1x1x2 on [cuda:0] * 2, each
+# model and schedule, one bf16 Adam step at MESH_LR on TRAIN_BATCH rows in
+# MP_MICROBATCHES microbatches; two gloo ranks, each on [cuda:0] * 4 at
+# RANK_BATCH rows: the float32 UNet for MESH_STEPS steps and one bf16
+# milesial step under each of IN_STAGE_SPECS (gpipe)
+IN_STAGE_SPECS = ("2x2x2", "2x2x2@fsdp")
+IN_STAGE_SLICES = 2
+IN_STAGE_STAGES = 2
+IN_STAGE_TIMED_STEPS = 5
+# --cards 4: 2x1x2@fsdp as two NCCL ranks of two cards against its twin
+IN_STAGE_CARD_SPECS = ("2x1x2", "2x1x2@fsdp")
+
+
+def _in_stage_digest(tensors) -> str:
+    """SHA-256 of the bytes of ``tensors`` in order, any dtype."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _in_stage_place_bytes(model, opt, rank: int) -> dict:
+    """Bytes of parameters and Adam's state on each (rank, stage, slice)
+    place of an in-stage model (``parallel/zero.ZeroSharded``, its
+    ``stage_of``), those of parameters kept whole among them, and each
+    stage's whole float32 parameters and two moments."""
+    places, kept, stages = {}, {}, {}
+    for j, owner in enumerate(model._owners):
+        s = model.stage_of[j]
+        for k, i in enumerate(owner.pieces):
+            p = model.pieces[i]
+            key = f"rank{rank}:stage{s}:slice{k}:{p.device}"
+            tensors = [p] + [t for t in opt.state.get(p, {}).values()
+                             if hasattr(t, "dim") and t.dim() > 0]
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            places[key] = places.get(key, 0) + nbytes
+            if owner.cut is None:
+                kept[key] = kept.get(key, 0) + nbytes
+        numel = 1
+        for n in owner.shape:
+            numel *= n
+        stages[f"stage{s}"] = stages.get(f"stage{s}", 0) + 3 * numel * 4
+    return {"places": places, "kept_whole": kept, "stage_bytes": stages}
+
+
+def _card_bytes(model, opt) -> dict:
+    """Bytes of parameters and Adam's state on each card."""
+    out = {}
+    for p in model.parameters():
+        tensors = [p] + [t for t in opt.state.get(p, {}).values()
+                         if hasattr(t, "dim") and t.dim() > 0]
+        out[str(p.device)] = out.get(str(p.device), 0) + sum(
+            t.numel() * t.element_size() for t in tensors)
+    return out
+
+
+def _kernel_names(fn) -> tuple:
+    """``(fn(), {name: count})`` of the device kernels and copies in the
+    trace of one call."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.train.loop import device_kernels
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _prime()
+        out = fn()
+        _settle()
+    return out, collections.Counter(device_kernels(prof))
+
+
+def _in_stage_twins(dev) -> dict:
+    """``-t 1x2x2`` on ``[dev] * 4`` against ``-t 1x1x2`` on ``[dev] * 2``:
+    one bf16 Adam step of each model under each schedule from the seed's
+    weights on the same batch, cuDNN deterministic. The loss, every
+    gradient, the whole state after Adam (running statistics included)
+    must be bitwise equal, and the wrappers' launch counts of the step
+    equal."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    batch = _synthetic_batch(TRAIN_BATCH, dev)
+    out = {}
+    for arch in ("unet", "milesial"):
+        for schedule in ("gpipe", "1f1b"):
+            def run(arch=arch, schedule=schedule):
+                runs = {}
+                for spec, n in (("1x1x2", 2), ("1x2x2", 4)):
+                    model, step, strategy, opt = _mesh_model_step(
+                        spec, arch, [dev] * n, "bf16", TRAIN_BATCH,
+                        pipeline_schedule=schedule,
+                        num_microbatches=MP_MICROBATCHES)
+                    kernels.reset_launches()
+                    loss = float(step(batch))
+                    runs[spec] = {
+                        "loss": loss, "launches": dict(kernels.LAUNCHES),
+                        "grads": {k: v.cpu() for k, v in
+                                  _grads(model).items()},
+                        "state": {k: v.cpu() for k, v in
+                                  strategy.model_state(model).items()},
+                        "name": strategy.name}
+                    del model, step, opt
+                    torch.cuda.empty_cache()
+                a, b = runs["1x2x2"], runs["1x1x2"]
+                return {
+                    "name": a["name"], "loss": a["loss"],
+                    "launches": a["launches"],
+                    "twin_launches": b["launches"],
+                    "bitwise": (a["loss"] == b["loss"] and all(
+                        torch.equal(a["grads"][n], g)
+                        for n, g in b["grads"].items()) and all(
+                        torch.equal(a["state"][k], v)
+                        for k, v in b["state"].items()))}
+
+            out[f"{arch}_{schedule}"] = (_with_wgrad_backend(run)
+                                         if arch == "milesial" else run())
+    return out
+
+
+def _in_stage_timing(devices_of: dict, batch_device) -> dict:
+    """The bf16 UNet's gpipe step (Adam, TRAIN_BATCH rows) of each spec of
+    ``devices_of`` (spec → its devices, the twin first), timed in turns
+    (twin, spec, spec, twin, ...); of each, the device kernels of one
+    traced step (and the 8 names a spec adds most of against the twin),
+    the host's ms to enqueue a step on idle cards and each card's busy ms
+    a step (3 traced steps)."""
+    import torch
+
+    steps, out = {}, {"ms": {}, "kernels_per_step": {}, "host_ms": {},
+                      "busy_ms": {}, "kernels_added_by_name": {},
+                      "param_adam_bytes_by_card": {}}
+    names = {}
+    batch = _synthetic_batch(TRAIN_BATCH, batch_device)
+    for spec, devices in devices_of.items():
+        model, step, _strategy, opt = _mesh_model_step(
+            spec, "unet", devices, "bf16", TRAIN_BATCH,
+            num_microbatches=MP_MICROBATCHES)
+        step(batch)
+        _, names[spec] = _kernel_names(lambda step=step: float(step(batch)))
+        out["kernels_per_step"][spec] = sum(names[spec].values())
+        twin = names[next(iter(devices_of))]
+        out["kernels_added_by_name"][spec] = dict(
+            (names[spec] - twin).most_common(8))
+        out["host_ms"][spec] = _host_enqueue_ms(
+            lambda step=step: step(batch))
+        out["busy_ms"][spec] = _busy_ms_by_device(
+            lambda step=step: step(batch), 3,
+            list(dict.fromkeys(devices)))
+        out["param_adam_bytes_by_card"][spec] = _card_bytes(model, opt)
+        steps[spec] = (step, list(dict.fromkeys(devices)))
+    order = list(devices_of)
+    for spec in order + order[::-1]:
+        step, devices = steps[spec]
+        out["ms"].setdefault(spec, []).append(_wall_ms(
+            lambda step=step: step(batch), IN_STAGE_TIMED_STEPS, warmup=1,
+            devices=devices))
+    del steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _in_stage_devices(rank: int, nccl: bool) -> list:
+    """An in-stage rank's devices: its two cards under NCCL
+    (``2x1x2@fsdp``, ``--cards``), four places of cuda:0 under gloo."""
+    import torch
+
+    if nccl:
+        return [torch.device("cuda", 2 * rank + s) for s in range(2)]
+    return [torch.device("cuda", 0)] * (IN_STAGE_SLICES * IN_STAGE_STAGES)
+
+
+def _in_stage_spec_run(spec: str, rank: int, world: int, devices,
+                       place) -> dict:
+    """One gloo rank's run of ``spec``: MESH_STEPS float32 UNet gpipe
+    steps (losses, step 1's whole gradients, the whole state, the
+    wrappers' launches, each place's bytes), then one bf16 milesial step
+    (its launches and a digest of its whole state)."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    model, step, strategy, opt = _mesh_model_step(
+        spec, "unet", devices, "f32", RANK_BATCH,
+        num_microbatches=MP_MICROBATCHES)
+    check(strategy.name == spec and strategy.world == world
+          and strategy.rank == rank, f"{spec} rank {rank}: {strategy.info}")
+    batches = _ddp_batches(world, RANK_BATCH, MESH_STEPS)
+    kernels.reset_launches()
+    losses, grads = [], None
+    for batch in batches:
+        losses.append(float(step(place(batch, RANK_BATCH))))
+        grads = grads or {n: g.cpu() for n, g in _grads(model).items()}
+    launches = dict(kernels.LAUNCHES)
+    whole = strategy.model_state(model)
+    out = {"losses": losses, "grads": grads, "launches": launches,
+           "state": {k: v.cpu() for k, v in whole.items()},
+           "place_bytes": _in_stage_place_bytes(model, opt, rank),
+           "mesh": strategy.mesh_shape()}
+    del model, step, opt, whole
+    torch.cuda.empty_cache()
+
+    def milesial():
+        model, step, strategy, _opt = _mesh_model_step(
+            spec, "milesial", devices, "bf16", RANK_BATCH,
+            num_microbatches=MP_MICROBATCHES)
+        batch = place(_ddp_batches(world, RANK_BATCH, 1)[0], RANK_BATCH)
+        kernels.reset_launches()
+        loss = float(step(batch))
+        return {"loss": loss, "launches": dict(kernels.LAUNCHES),
+                "state_digest": _in_stage_digest(
+                    strategy.model_state(model).values())}
+
+    out["milesial"] = _with_wgrad_backend(milesial)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _in_stage_cards_run(rank: int, world: int, devices, place) -> dict:
+    """One NCCL rank of ``in_stage_cards``: the bf16 UNet gpipe step of
+    each of IN_STAGE_CARD_SPECS over the rank's two cards at TRAIN_BATCH
+    rows, timed in turns (twin, ZeRO, ZeRO, twin), the host's ms to
+    enqueue a step, step 1's loss and a digest of the state after it, and
+    each card's bytes."""
+    import torch
+
+    out = {"ms": {}, "param_adam_bytes_by_card": {}, "step1": {}}
+    batch = place(_ddp_batches(world, TRAIN_BATCH, 1)[0], TRAIN_BATCH)
+    steps = {}
+    for spec in IN_STAGE_CARD_SPECS:
+        model, step, strategy, opt = _mesh_model_step(
+            spec, "unet", devices, "bf16", TRAIN_BATCH,
+            num_microbatches=MP_MICROBATCHES)
+        loss = float(step(batch))
+        out["step1"][spec] = {
+            "loss": loss, "state_digest": _in_stage_digest(
+                strategy.model_state(model).values())}
+        out["param_adam_bytes_by_card"][spec] = _card_bytes(model, opt)
+        steps[spec] = step
+    for spec in IN_STAGE_CARD_SPECS + IN_STAGE_CARD_SPECS[::-1]:
+        out["ms"].setdefault(spec, []).append(_wall_ms(
+            lambda spec=spec: steps[spec](batch), IN_STAGE_TIMED_STEPS,
+            warmup=1, devices=devices))
+    out["host_ms"] = {spec: _host_enqueue_ms(lambda spec=spec:
+                                             steps[spec](batch))
+                      for spec in IN_STAGE_CARD_SPECS}
+    del steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def in_stage_rank(rank: int, world: int, backend: str, job: str) -> int:
+    """One rank of the in-stage phases (``chip_smoke.py --in-stage-rank R
+    WORLD BACKEND DIR``): joins a ``backend`` group over a file store in
+    ``DIR``. Under gloo (``train_in_stage``: both ranks on the one card,
+    each over ``[cuda:0] * 4``) runs ``_in_stage_spec_run`` for each of
+    IN_STAGE_SPECS, then a short run of the training CLI's own functions
+    under ``-t 2x2x2@fsdp`` on the same devices (one step and one eval
+    batch a rank), whose checkpoint rank 0 writes; under nccl
+    (``--cards``: ``cuda:2R``, ``cuda:2R+1``) ``_in_stage_cards_run``.
+    Writes ``DIR/result_R.pt``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nccl = backend == "nccl"
+    devices = _in_stage_devices(rank, nccl)
+    torch.cuda.set_device(devices[0])
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{os.path.join(job, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        def place(batch, per_rank):
+            rows = slice(rank * per_rank, (rank + 1) * per_rank)
+            return {k: torch.from_numpy(v[rows]).to(devices[0])
+                    for k, v in batch.items()}
+
+        result = {"devices": [str(d) for d in devices]}
+        with _deterministic_cudnn():
+            if nccl:
+                result["cards"] = _in_stage_cards_run(rank, world, devices,
+                                                      place)
+            else:
+                for spec in IN_STAGE_SPECS:
+                    result[spec] = _in_stage_spec_run(spec, rank, world,
+                                                      devices, place)
+        if not nccl:
+            w, h = IMAGE_WH
+            run = os.path.join(job, f"cli_rank{rank}")
+            argv = ["-t", "2x2x2@fsdp", "--synthetic", "8", "-v", "50",
+                    "-b", str(RANK_BATCH), "-e", "1", "--image-size",
+                    str(w), str(h), "--dtype", "bf16", "--kernels", "cuda"]
+            info = runtime.initialize_from_env(devices[0])
+            trainer, close = _cli_trainer(run, argv, devices=devices,
+                                          info=info)
+            try:
+                result["cli"] = {"result": trainer.train(), "run": run,
+                                 "wrote": _files(run)}
+            finally:
+                close()
+        torch.save(result, os.path.join(job, f"result_{rank}.pt"))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def _in_stage_ranks_report(ranks, world: int) -> tuple:
+    """Per spec: the ranks checked against a world-1 step
+    (``_check_ranks_against_one_step``), their launches against
+    ``_ddp_mp_launches_expected``, milesial's step on both ranks (launches,
+    the state's digest), and under ``@fsdp`` each (rank, stage, slice)
+    place's bytes beside what it keeps whole against its stage's / 4 ×
+    MESH_BYTES_MARGIN; the report and its problems."""
+    out, problems = {}, []
+    unet_want = _ddp_mp_launches_expected("unet", "gpipe", MESH_STEPS, [])
+    milesial_want = _ddp_mp_launches_expected("milesial", "gpipe", 1, [])
+    for spec in IN_STAGE_SPECS:
+        rows = [r[spec] for r in ranks]
+        row = _check_ranks_against_one_step(rows, world)
+        row["mesh"] = rows[0]["mesh"]
+        row["launches_expected"] = unet_want
+        row["milesial"] = [r["milesial"] for r in rows]
+        row["milesial_launches_expected"] = milesial_want
+        places = {k: v for r in rows
+                  for k, v in r["place_bytes"]["places"].items()}
+        kept = {k: v for r in rows
+                for k, v in r["place_bytes"]["kept_whole"].items()}
+        stages = rows[0]["place_bytes"]["stage_bytes"]
+        row["place_bytes"] = places
+        row["kept_whole_bytes"] = kept
+        row["stage_bytes"] = stages
+        margin = world * IN_STAGE_SLICES
+        row["place_bytes_bound"] = ({s: b / margin * MESH_BYTES_MARGIN
+                                     for s, b in stages.items()}
+                                    if "fsdp" in spec else None)
+        if "fsdp" in spec:
+            for key, held in places.items():
+                stage = key.split(":")[1]
+                if held - kept.get(key, 0) > row["place_bytes_bound"][stage]:
+                    problems.append(f"{spec}: {key} holds {held} "
+                                    f"(keeps {kept.get(key, 0)} whole) of "
+                                    f"{stages[stage]}")
+        if row["mesh"] != {"data": world, "model": IN_STAGE_SLICES,
+                           "stage": IN_STAGE_STAGES}:
+            problems.append(f"{spec} mesh {row['mesh']}")
+        for counts in row["launches"]:
+            if counts != {**counts, **unet_want}:
+                problems.append(f"{spec} unet launches {counts}")
+        for r in row["milesial"]:
+            if r["launches"] != {**r["launches"], **milesial_want}:
+                problems.append(f"{spec} milesial launches {r['launches']}")
+        if len({r["state_digest"] for r in row["milesial"]}) != 1:
+            problems.append(f"{spec} milesial ranks' states differ")
+        out[spec] = row
+    return out, problems
+
+
+def phase_train_in_stage(tmp: str, started=None) -> dict:
+    """In-stage sharding on the one card: ``-t 1x2x2`` against its
+    ``1x1x2`` twin (``_in_stage_twins``) while ``2x2x2`` and
+    ``2x2x2@fsdp`` run as two gloo ranks on cuda:0, each over ``[cuda:0]
+    * 4`` (``in_stage_rank``, two processes this script spawns, or
+    ``started`` already), checked by ``_in_stage_ranks_report``; then,
+    with the card to itself, the bf16 UNet's step timed against the
+    twin's (``_in_stage_timing``), and rank 0's ``2x2x2@fsdp`` checkpoint
+    from the training CLI resumed under singleGPU bitwise. Prints its
+    wall time."""
+    import torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"phase": "train_in_stage",
+           "device": torch.cuda.get_device_name(0),
+           "cudnn_deterministic": True}
+    problems = []
+    with _deterministic_cudnn():
+        out["twins"] = _in_stage_twins(dev)
+    for key, row in out["twins"].items():
+        if not row["bitwise"]:
+            problems.append(f"1x2x2 {key} not bitwise its twin")
+        if row["launches"] != row["twin_launches"]:
+            problems.append(f"1x2x2 {key} launched {row['launches']}, "
+                            f"its twin {row['twin_launches']}")
+        if not row["launches"]["loss_stats"]:
+            problems.append(f"1x2x2 {key} launched no K1")
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "train_in_stage"), 2,
+                                   "gloo", "--in-stage-rank", started)
+    # timed once the ranks have left the card
+    out["timing"] = _in_stage_timing({"1x1x2": [dev] * 2,
+                                      "1x2x2": [dev] * 4}, dev)
+    report, rank_problems = _in_stage_ranks_report(ranks, 2)
+    out["gloo2"] = {"wall_s": wall_s, **report}
+    problems += rank_problems
+    cli = ranks[0]["cli"]
+    out["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
+                  "rank1_wrote": ranks[1]["cli"]["wrote"]}
+    if "checkpoints/2x2x2@fsdp.pt" not in cli["wrote"]:
+        problems.append(f"2x2x2@fsdp CLI run wrote {cli['wrote']}")
+    out["resume_single_gpu"] = _resume_under_single_gpu(os.path.join(
+        cli["run"], "checkpoints", "2x2x2@fsdp.pt"))
+    resumed = out["resume_single_gpu"]
+    if not (resumed["weights_bitwise"] and resumed["adam_bitwise"]):
+        problems.append(f"2x2x2@fsdp under singleGPU: {resumed}")
+    if (resumed["topology"]["mesh_spec"] != "2x2x2@fsdp"
+            or resumed["topology"]["process_count"] != 2):
+        problems.append(f"2x2x2@fsdp manifest {resumed['topology']}")
+    out["wall_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    emit(out)
+    for spec in IN_STAGE_SPECS:
+        row = report[spec]
+        check(row["weights_bitwise_equal"],
+              f"{spec}: the ranks' weights differ")
+        check(all(l == row["losses"][0] for l in row["losses"]),
+              f"{spec}: the ranks' losses differ")
+        check(row["step1_loss_rel_err"] <= RANKS_LOSS_RTOL
+              and row["step1_grad_max_err_rel_to_tensor_max"]
+              <= RANKS_GRAD_RTOL, f"{spec}: step 1 off the world-1 step")
+    check(not problems, f"train_in_stage: {problems}")
+    return out
+
+
+def phase_in_stage_cards(tmp: str) -> dict:
+    """In-stage sharding across cards (``--cards 4``): ``1x2x2`` with
+    stage s on cuda:s and its slices on cuda:s and cuda:2+s against
+    ``1x1x2`` on cuda:0 and cuda:1 (one bf16 UNet step bitwise, the step
+    timed in turns, each card's bytes), then ``2x1x2@fsdp`` as two NCCL
+    ranks of two cards each against ``2x1x2`` (``in_stage_rank``: the
+    step timed in turns, each card's bytes, step 1 equal)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(4)]
+    out = {"phase": "in_stage_cards",
+           "cards": [torch.cuda.get_device_name(i) for i in range(4)],
+           "peer_access": {f"{i}->{j}": torch.cuda.can_device_access_peer(
+               i, j) for i in range(4) for j in range(4) if i != j}}
+    problems = []
+    batch = _synthetic_batch(TRAIN_BATCH, cards[0])
+    with _deterministic_cudnn():
+        first = {}
+        for spec, devices in (("1x1x2", cards[:2]), ("1x2x2", cards)):
+            model, step, strategy, _opt = _mesh_model_step(
+                spec, "unet", devices, "bf16", TRAIN_BATCH,
+                num_microbatches=MP_MICROBATCHES)
+            first[spec] = (float(step(batch)), _in_stage_digest(
+                strategy.model_state(model).values()))
+            del model, step, _opt
+            torch.cuda.empty_cache()
+        out["one_process_step1"] = first
+        if first["1x2x2"] != first["1x1x2"]:
+            problems.append(f"1x2x2 over 4 cards: {first}")
+        out["one_process"] = _in_stage_timing(
+            {"1x1x2": cards[:2], "1x2x2": cards}, cards[0])
+    ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "in_stage_cards"), 2,
+                                   "nccl", flag="--in-stage-rank")
+    out["nccl2"] = {"wall_s": wall_s,
+                    "devices": [r["devices"] for r in ranks],
+                    **{f"rank{i}": r["cards"] for i, r in enumerate(ranks)}}
+    for r in ranks:
+        step1 = r["cards"]["step1"]
+        if step1["2x1x2@fsdp"]["loss"] != step1["2x1x2"]["loss"]:
+            problems.append(f"2x1x2@fsdp step 1 {step1}")
+    out["problems"] = problems
+    out["phase_wall_s"] = time.perf_counter() - t0
+    emit(out)
+    check(not problems, f"in_stage_cards: {problems}")
+    return out
+
+
 def phase_bounds() -> dict:
     """Bounds computed from shapes, not measured: K2 and K3 at milesial's
     largest epilogue (batch 4 at 960 x 640, 64 channels) with a float32 x
@@ -7947,7 +8450,7 @@ def main_cards(world: int) -> int:
     them (``phase_mp_cards``), ``-t DP`` across all N (``phase_dp_cards``)
     and ``-t TP`` across all N (``phase_tp_cards``), ``2x2x1`` and
     ``2x2x1@fsdp`` as two NCCL ranks of two cards (``phase_mesh_cards``),
-    and no other phase."""
+    in-stage sharding (``phase_in_stage_cards``), and no other phase."""
     import torch
 
     check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
@@ -7959,6 +8462,7 @@ def main_cards(world: int) -> int:
         phase_sp_cards(tmp, world)
         phase_fsdp_cards(tmp, world)
         phase_mesh_cards(tmp)
+        phase_in_stage_cards(tmp)
     phase_mp_cards(world)
     phase_dp_cards(world)
     phase_tp_cards(world)
@@ -8047,6 +8551,8 @@ def main(argv) -> int:
         return fsdp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--mesh-rank"]:
         return mesh_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--in-stage-rank"]:
+        return in_stage_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--cards"]:
         return main_cards(int(argv[1]))
     if argv[:1] == ["--dp-eager-step"]:
@@ -8083,6 +8589,14 @@ def main(argv) -> int:
             ddp_sp = phase_train_ddp_sp_gloo2(tmp,
                                               started["train_ddp_sp_gloo2"])
             mesh = phase_train_mesh(tmp, started["train_mesh"])
+            # a fourth pair of ranks beside those three made one of them
+            # exit: the in-stage ranks start once they have ended, and run
+            # beside the phase's one-process twins
+            torch.cuda.empty_cache()
+            started["train_in_stage"] = _start_ranks(
+                os.path.join(tmp, "train_in_stage"), 2, "gloo",
+                "--in-stage-rank")
+            in_stage = phase_train_in_stage(tmp, started["train_in_stage"])
         finally:
             for group in started.values():
                 _stop_ranks(group)
@@ -8240,6 +8754,22 @@ def main(argv) -> int:
                 "traced_per_step"][name]
         return out
 
+    def in_stage_launches(name):
+        """train_in_stage: per bf16 1x2x2 step of each model and schedule
+        (the wrappers' count, equal to its 1x1x2 twin's), and rank 0's
+        over its MESH_STEPS float32 UNet steps and its bf16 milesial step
+        under 2x2x2 and 2x2x2@fsdp."""
+        out = {f"1x2x2_{key}_step": row["launches"][name]
+               for key, row in in_stage["twins"].items()}
+        for spec in IN_STAGE_SPECS:
+            row = in_stage["gloo2"][spec]
+            if name in LOSS_KERNELS:
+                out[f"{spec}_unet_{MESH_STEPS}_steps"] = row["launches"][0][
+                    name]
+            out[f"{spec}_milesial_step"] = row["milesial"][0]["launches"][
+                name]
+        return out
+
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -8260,6 +8790,7 @@ def main(argv) -> int:
             "fsdp_launches": None,
             "tp_fsdp_run_control_launches": None,
             "mesh_launches": None,
+            "in_stage_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -8293,6 +8824,9 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats"),
             # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
             "mesh_launches": mesh_launches("loss_stats"),
+            # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
+            # (train_in_stage)
+            "in_stage_launches": in_stage_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -8323,6 +8857,9 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("loss_stats_bwd"),
             # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
             "mesh_launches": mesh_launches("loss_stats_bwd"),
+            # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
+            # (train_in_stage)
+            "in_stage_launches": in_stage_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -8354,6 +8891,9 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act"),
             # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
             "mesh_launches": mesh_launches("bn_act"),
+            # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
+            # (train_in_stage)
+            "in_stage_launches": in_stage_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -8388,6 +8928,9 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("bn_act_bwd"),
             # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
             "mesh_launches": mesh_launches("bn_act_bwd"),
+            # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
+            # (train_in_stage)
+            "in_stage_launches": in_stage_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -8418,6 +8961,9 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": tp_fsdp_rc_launches("wgrad_9tap"),
             # rank 0 under 2x2x1 and 2x2x1@fsdp (train_mesh)
             "mesh_launches": mesh_launches("wgrad_9tap"),
+            # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
+            # (train_in_stage)
+            "in_stage_launches": in_stage_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -10,9 +10,10 @@
   accumulation's statistics and gradients,
   ``train/steps.make_accum_train_step``; ``-t DDP_MP``'s stage gradients
   and BatchNorm deltas, ``parallel/pipeline.py``).
-* ``all_gather_dim0`` and ``mean_dim0_piece`` — the ranks' dim-0 pieces
-  of a tensor put together, and a rank's piece of the mean over ranks,
-  outside autograd (the ZeRO shards of ``parallel/zero.py``).
+* ``all_gather_dim0`` and ``reduced_dim0_piece`` — the ranks' dim-0
+  pieces of a tensor put together, and a rank's piece of the sum (or the
+  mean) over ranks, outside autograd (the ZeRO shards of
+  ``parallel/zero.py``).
 
 **How the gradient comes out right.** Every rank computes the same
 global loss from the summed statistics, so every rank back-propagates
@@ -105,13 +106,15 @@ def all_gather_dim0(piece: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mean_dim0_piece(whole: torch.Tensor) -> torch.Tensor:
+def reduced_dim0_piece(whole: torch.Tensor, mean: bool = True
+                       ) -> torch.Tensor:
     """This rank's piece of dim 0 (torch.chunk's, equal pieces) of the
-    mean over ranks of ``whole``: one ``reduce_scatter_tensor`` under
-    NCCL; under gloo, which moves CUDA tensors through the host and has
-    no reduce-scatter of them, one all-reduce of ``whole`` (in place)
-    and the slice. The sum is divided by the world size afterwards, as
-    ``sum_over_ranks_`` does, under either."""
+    sum over ranks of ``whole`` (its mean with ``mean``): one
+    ``reduce_scatter_tensor`` under NCCL; under gloo, which moves CUDA
+    tensors through the host and has no reduce-scatter of them, one
+    all-reduce of ``whole`` (in place) and the slice. The mean divides
+    the sum by the world size afterwards, as ``sum_over_ranks_`` does,
+    under either."""
     world, rank = dist.get_world_size(), dist.get_rank()
     whole = whole.detach().contiguous()
     if dist.get_backend() == "nccl":
@@ -120,5 +123,6 @@ def mean_dim0_piece(whole: torch.Tensor) -> torch.Tensor:
     else:
         dist.all_reduce(whole, op=dist.ReduceOp.SUM)
         piece = whole.chunk(world)[rank].clone()
-    piece /= world
+    if mean:
+        piece /= world
     return piece

@@ -1,9 +1,10 @@
 """Microbatched pipeline schedules over S stages: ``-t MP`` and, one per
-data rank, ``-t DDP_MP``.
+data rank, ``-t DDP_MP``; with sharding inside each stage, ``-t DxMxS``
+(M > 1) and ``DxMxS@fsdp`` (``parallel/in_stage.py``).
 
-Counterpart of ``distributedpytorch_tpu/parallel/pipeline.py`` without
-its in-stage mesh sharding. The reference's ``-t MP`` is a hand-written
-two-stage pipeline over ``cuda:0``/``cuda:1`` with two microbatches
+Counterpart of ``distributedpytorch_tpu/parallel/pipeline.py``. The
+reference's ``-t MP`` is a hand-written two-stage pipeline over
+``cuda:0``/``cuda:1`` with two microbatches
 (reference model/unet_model.py:14-53): while ``cuda:1`` decodes
 microbatch i, ``cuda:0`` encodes microbatch i+1, because CUDA launches
 are asynchronous. The port keeps that mechanism and generalises it as the
@@ -77,6 +78,13 @@ JAX package does:
 the input carries under 1f1b, the microbatches whose graph autograd keeps
 under gpipe.
 
+* **In-stage sharding.** Where ``model`` is a ``parallel/zero.
+  ZeroSharded`` (``in_stage.shard_stages``) its stages' parameters lie in
+  pieces: the step's top puts every cut one whole on its stage's device
+  before any tick, and its end cuts each gradient back to its pieces and
+  reduces them over the data ranks (the mean or the sum above) before
+  Adam steps the pieces; eval gathers at its top and drops at its end.
+
 * **A CUDA graph of K steps** (``train/steps.MultiStep``) captures either
   schedule, on one card or across cards: the copies between cards run on
   the current streams of both cards, which the capture has joined, and
@@ -88,6 +96,7 @@ under gpipe.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -113,6 +122,7 @@ from distributedpytorch_tpu_torch.ops.precision import (
     optimizer_grads,
     per_use_casts,
 )
+from distributedpytorch_tpu_torch.parallel.zero import ZeroSharded
 from distributedpytorch_tpu_torch.train.steps import (
     Batch,
     batch_metrics,
@@ -376,7 +386,9 @@ def make_pipeline_train_step(
     of this pipeline (the module docstring's three seams): the loss is
     the global batch's, the same on every rank. ``step.live`` is the
     schedule's ``LiveCarries``. ``remat`` recomputes each stage in its
-    backward."""
+    backward. A ``ZeroSharded`` ``model`` is gathered at the top of each
+    step and its gradients cut back to its pieces at the end (in-stage
+    sharding)."""
     if schedule not in PIPELINE_SCHEDULES:
         raise ValueError(
             f"pipeline schedule must be one of {PIPELINE_SCHEDULES}, "
@@ -390,6 +402,7 @@ def make_pipeline_train_step(
     live = LiveCarries(num_stages)
     params = list(model.parameters())
     running = _running_stats(model) if data_parallel else []
+    sharded = model if isinstance(model, ZeroSharded) else None
     runs = [rematerialized(stage, remat) for stage in stages]
     if schedule == "gpipe":
         # one backward over every microbatch: under master weights each
@@ -403,13 +416,21 @@ def make_pipeline_train_step(
     def open_step() -> List[torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if sharded is not None:
+            # every stage's leaves whole on its device, before any tick
+            # (JAX _gather_params)
+            sharded.gather_()
         return [r.clone() for r in running]
 
     def close_step(before: List[torch.Tensor], mean: bool) -> None:
-        if data_parallel:
+        if sharded is not None:
+            # the leaves' gradients back to their pieces, reduced over the
+            # data ranks (JAX _slice_to_shard after the closing psum)
+            sharded.reduce_grads_(mean)
+        elif data_parallel:
             _reduce_grads(optimizer_grads(optimizer, params), mean)
-            if running:
-                _combine_bn(running, before)
+        if running:
+            _combine_bn(running, before)
         optimizer.step()
 
     def gpipe_step(batch: Batch) -> torch.Tensor:
@@ -497,15 +518,19 @@ def make_pipeline_eval_step(
     mode (running averages), the predictions gathered on the last stage's
     device and measured there (one K1 launch per batch when
     ``eval_stats_fused``). Counterpart of ``make_pipeline_forward_fn``
-    (JAX :942-1032) with the eval metrics."""
+    (JAX :942-1032) with the eval metrics; a ``ZeroSharded`` ``model``
+    is gathered at its top and dropped at its end (JAX :949-1030)."""
     num_mb = int(num_microbatches)
     last = stages[-1].device
+    whole = (model.whole if isinstance(model, ZeroSharded)
+             else contextlib.nullcontext)
 
     @torch.no_grad()
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         inputs, target, _ = _split(batch, num_mb, last)
-        preds = torch.cat(fill_drain(stages, inputs, lambda m, y: y))
+        with whole():
+            preds = torch.cat(fill_drain(stages, inputs, lambda m, y: y))
         return batch_metrics(preds, target, eval_stats_fused)
 
     return eval_step

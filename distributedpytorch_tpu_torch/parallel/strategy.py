@@ -23,9 +23,10 @@ cuda:0]``); so is each DDP_MP rank, SP over its shards' devices, each
 DDP_SP rank and TP over its channel slices' devices. FSDP is DDP's
 torchrun contract with the parameters and Adam's state sharded over the
 ranks. A mesh spec ``-t DxMxS`` runs as the composition of these that it
-is (``GenericMesh``), data × channel (``DataTensorParallel``) and ZeRO ×
-channel (``ZeroTensorParallel``) included; sharding inside a pipeline
-stage is not ported (ROADMAP.md, Queue A).
+is (``GenericMesh``), data × channel (``DataTensorParallel``), ZeRO ×
+channel (``ZeroTensorParallel``) and sharding inside a pipeline stage
+(``InStagePipeline``, ``InStageHybridPipeline``) included; ZeRO over row
+shards is not ported (ROADMAP.md, Queue A).
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -48,6 +49,8 @@ once per step on the whole predictions on the first device, K1 in eval,
 and milesial's K2, K3 and K5 per channel slice on its device; under FSDP
 each rank runs them as a DDP rank does. The JAX TP and FSDP keep XLA
 BatchNorm and XLA eval metrics (no GSPMD rule for ``pallas_call``).
+Under in-stage sharding each stage computes on whole parameters on its
+compute device, so every kernel launches as under the ``Dx1xS`` twin.
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
@@ -117,6 +120,10 @@ from distributedpytorch_tpu_torch.parallel.pipeline import (
     make_pipeline_train_step,
 )
 from distributedpytorch_tpu_torch.parallel.channels import ChannelSharded
+from distributedpytorch_tpu_torch.parallel.in_stage import (
+    in_stage_config,
+    shard_stages,
+)
 from distributedpytorch_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_layout,
@@ -935,7 +942,32 @@ def _mean_over_ranks(model, optimizer) -> Callable[[], None]:
     return reduce
 
 
-class TensorParallel(Strategy):
+class ShardedState:
+    """The state of a model whose parameters lie in pieces
+    (``ChannelSharded``, ``zero.ZeroSharded``): a checkpoint holds the
+    whole tensors under the reference names, and a resume cuts them
+    again."""
+
+    def model_state(self, model) -> dict:
+        return model.whole_state()
+
+    def load_model_state(self, model, state) -> None:
+        model.load_whole_state(state)
+
+    def optimizer_state(self, model, optimizer) -> dict:
+        return model.whole_optimizer_state(optimizer.state_dict())
+
+    def load_optimizer_state(self, model, optimizer, state: dict) -> None:
+        load_optimizer_state(optimizer, model.sharded_optimizer_state(state))
+
+    def param_names(self, model) -> List[str]:
+        return model.whole_param_names()
+
+    def param_values(self, model, values) -> list:
+        return model.slice_values(values)
+
+
+class TensorParallel(ShardedState, Strategy):
     """``-t TP`` (JAX strategy.py:885-909, ``MeshConfig(model=n,
     params="channel")``): one process, every conv's out-channels split
     over ``devices`` (``parallel/channels.ChannelSharded``), by default
@@ -983,25 +1015,6 @@ class TensorParallel(Strategy):
 
     def place_model(self, model: torch.nn.Module) -> ChannelSharded:
         return ChannelSharded(model, self.devices)
-
-    def model_state(self, model: ChannelSharded) -> dict:
-        return model.whole_state()
-
-    def load_model_state(self, model: ChannelSharded, state) -> None:
-        model.load_whole_state(state)
-
-    def optimizer_state(self, model: ChannelSharded, optimizer) -> dict:
-        return model.whole_optimizer_state(optimizer.state_dict())
-
-    def load_optimizer_state(self, model: ChannelSharded, optimizer,
-                             state: dict) -> None:
-        load_optimizer_state(optimizer, model.sharded_optimizer_state(state))
-
-    def param_names(self, model: ChannelSharded) -> List[str]:
-        return model.whole_param_names()
-
-    def param_values(self, model: ChannelSharded, values) -> list:
-        return model.slice_values(values)
 
 
 def gathered(value):
@@ -1234,7 +1247,10 @@ class GenericMesh:
     * ``DxMx1``: ``DataTensorParallel`` (data × channel); ``DxMx1@fsdp``:
       ``ZeroTensorParallel`` (ZeRO × channel);
     * ``1x1xS``: ``Pipeline`` with S stages; ``Dx1xS``:
-      ``HybridDataPipeline``.
+      ``HybridDataPipeline``;
+    * ``1xMxS`` (M > 1): ``InStagePipeline``; ``DxMxS`` (M > 1) and
+      ``Dx1xS@fsdp`` / ``DxMxS@fsdp`` (D > 1): ``InStageHybridPipeline``
+      (``parallel/in_stage.py``).
 
     This class puts the specs' semantics (JAX docstring :955-972) over
     the one the spec runs as, whose code runs unchanged: ``-b`` is per
@@ -1246,9 +1262,9 @@ class GenericMesh:
     process computes on M·S devices of its own
     (``runtime.stage_devices``: on the CPU, and on a card named by its
     index, M·S repeats of it). The run control is that of the class the
-    spec runs as; under the two geometries no legacy name expresses
-    (``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1) ``check_run_control``
-    refuses it (ROADMAP.md, Queue A, item 1c″)."""
+    spec runs as; under the geometries no legacy name expresses
+    (``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1, and in-stage sharding)
+    ``check_run_control`` refuses it (ROADMAP.md, Queue A, item 1c″)."""
 
     @property
     def mesh_config(self) -> MeshConfig:
@@ -1343,6 +1359,58 @@ class ZeroTensorParallel(DataTensorParallel):
         return model.reduce_grads_
 
 
+class InStage(ShardedState):
+    """Sharding inside each pipeline stage (``parallel/in_stage.py``, JAX
+    ``HYBRID_SPECS``): the pipeline of S stages it runs over (``Pipeline``
+    at D = 1, ``HybridDataPipeline``'s data ranks at D > 1) with each
+    stage's parameters cut over its M devices and, under ``@fsdp`` with
+    D > 1, again over the ranks. The process's M·S devices (``places``)
+    are ordered as the JAX mesh orders its axes, data, model, stage, with
+    stage fastest: stage s computes on ``places[s]``, as its ``Dx1xS``
+    twin does, and its channel slices lie on ``places[i·S + s]``, i < M
+    (``cuda:(LOCAL_RANK·M·S + i·S + s)`` by default; on the CPU and on a
+    card named by its index every place is that device). The manifest's
+    ``topology.mesh`` lists the axes in that order. A checkpoint holds
+    the whole tensors under the reference names (``ShardedState``),
+    gathered on every rank under ``@fsdp`` (``gathers_state``), and rank 0
+    writes it; a resume cuts each place's pieces again. The run control
+    is refused here (``check_run_control``, ROADMAP.md, Queue A, item
+    1c″)."""
+
+    def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        # devices: plan_mesh's M·S, which build_strategy always passes
+        super().__init__(config, info, devices)
+        cfg = self.mesh_config
+        self.places = [torch.device(d)
+                       for d in devices][:cfg.model * cfg.stage]
+
+    @property
+    def gathers_state(self) -> bool:
+        cfg = self.mesh_config
+        return cfg.data > 1 and "fsdp" in cfg.params
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The stages on their devices, then each stage's parameters cut
+        over its places (and the ranks)."""
+        model = super().place_model(model)
+        return shard_stages(model, self.stages, self.places,
+                            self.mesh_config)
+
+
+class InStagePipeline(GenericMesh, InStage, Pipeline):
+    """``-t 1xMxS`` (and ``1xMxS@fsdp``, the same at one rank) with M > 1:
+    one process, ``InStage`` over ``Pipeline``."""
+
+
+class InStageHybridPipeline(GenericMesh, InStage, HybridDataPipeline):
+    """``-t DxMxS`` with D, M > 1, and ``Dx1xS@fsdp`` / ``DxMxS@fsdp`` with
+    D > 1: one process per data row, ``InStage`` over
+    ``HybridDataPipeline``'s data ranks (their statistics, gradient and
+    BatchNorm seams, over the data ranks only: the model axis computes
+    once)."""
+
+
 #: the class each spec runs as, with the specs' semantics over it
 _MESH_TWINS = {
     cls: type(f"Mesh{cls.__name__}", (GenericMesh, cls), {})
@@ -1353,6 +1421,8 @@ _MESH_TWINS = {
 
 def _mesh_class(cfg: MeshConfig) -> type:
     fsdp = "fsdp" in cfg.params
+    if in_stage_config(cfg) is not None:
+        return InStageHybridPipeline if cfg.data > 1 else InStagePipeline
     if cfg.stage > 1:
         legacy = HybridDataPipeline if cfg.data > 1 else Pipeline
     elif cfg.model > 1 and cfg.model_role == "spatial":
@@ -1368,12 +1438,11 @@ def _mesh_class(cfg: MeshConfig) -> type:
     return _MESH_TWINS[legacy]
 
 
-def _is_in_stage(cfg: MeshConfig) -> bool:
-    """The points still to port: sharding inside a pipeline stage, and
-    ZeRO over row shards."""
-    fsdp = cfg.data > 1 and "fsdp" in cfg.params
-    return ((cfg.stage > 1 and (cfg.model > 1 or fsdp))
-            or (fsdp and cfg.model > 1 and cfg.model_role == "spatial"))
+def _is_unported(cfg: MeshConfig) -> bool:
+    """The points still to port: ZeRO over row shards (``DxMx1@sp+fsdp``
+    with D > 1)."""
+    return (cfg.data > 1 and "fsdp" in cfg.params and cfg.model > 1
+            and cfg.model_role == "spatial")
 
 
 def check_train_method(method: str) -> None:
@@ -1381,7 +1450,7 @@ def check_train_method(method: str) -> None:
     joined: a name that is neither a method nor a mesh spec (the JAX
     words), a malformed spec (``parse_mesh_spec``'s), a spatial model
     axis inside a pipeline stage (JAX's own refusal, :983-992) and the
-    specs still to port (``unported_method_message``)."""
+    points still to port (``unported_method_message``)."""
     if method in STRATEGIES:
         return
     if not is_mesh_spec(method):
@@ -1402,7 +1471,7 @@ def check_train_method(method: str) -> None:
             f"sharding on a flat mesh "
             f"('{cfg.data}x{cfg.model}x1@sp') (ROADMAP.md, Queue A: the "
             f"JAX package refuses it too)")
-    if _is_in_stage(cfg):
+    if _is_unported(cfg):
         raise ValueError(unported_method_message(method))
 
 
@@ -1481,6 +1550,7 @@ def check_run_control(config, device: Optional[torch.device] = None,
     ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
     over chunks, each refused with the JAX package's words; under the
     data × channel and ZeRO × channel meshes (``DxMx1[@fsdp]``, D, M > 1)
+    and under in-stage sharding (``in_stage.in_stage_config``)
     ``--steps-per-dispatch K > 1``, ``--remat``, ``--grad-accum`` and
     ``--dtype bf16_params``, not ported yet (ROADMAP.md, Queue A, item
     1c″); once the strategy knows its ``device`` and its group's
@@ -1494,8 +1564,13 @@ def check_run_control(config, device: Optional[torch.device] = None,
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
         raise ValueError(STATEFUL_ACCUM)
     mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
-    if (mesh is not None and mesh.data > 1 and mesh.model > 1
+    kind = None
+    if mesh is not None and in_stage_config(mesh) is not None:
+        kind = "in-stage sharding"
+    elif (mesh is not None and mesh.data > 1 and mesh.model > 1
             and mesh.stage == 1 and mesh.model_role == "channel"):
+        kind = ("ZeRO" if "fsdp" in mesh.params else "data") + " × channel"
+    if kind is not None:
         flags = [flag for flag, on in (
             (f"--steps-per-dispatch {k}", k > 1),
             ("--remat", bool(config.remat)),
@@ -1503,11 +1578,10 @@ def check_run_control(config, device: Optional[torch.device] = None,
             ("--dtype bf16_params", get_policy(config).master_weights))
             if on]
         if flags:
-            kind = "ZeRO" if "fsdp" in mesh.params else "data"
             raise ValueError(
-                f"{' and '.join(flags)} under -t {method} ({kind} × "
-                f"channel) is not ported yet: the run control of the "
-                f"DxMx1 and DxMx1@fsdp meshes is still to port "
+                f"{' and '.join(flags)} under -t {method} ({kind}) is not "
+                f"ported yet: the run control of the DxMx1 and DxMx1@fsdp "
+                f"meshes and of in-stage sharding is still to port "
                 f"(ROADMAP.md, Queue A, item 1c″)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
@@ -1550,8 +1624,7 @@ def unported_method_message(method: str) -> str:
     return (
         f"-t {method} is not ported yet: the PyTorch port trains "
         f"{', '.join(sorted(STRATEGIES))} and the mesh specs "
-        f"DxMx1[@fsdp|sp], 1x1xS and Dx1xS; in-stage sharding (DxMxS with "
-        f"S > 1 and M > 1, Dx1xS@fsdp and DxMxS@fsdp with D > 1) and ZeRO "
-        f"over row shards (DxMx1@sp+fsdp) are still to port (ROADMAP.md, "
-        f"Queue A, item 1c′)"
+        f"DxMx1[@fsdp|sp], 1x1xS, Dx1xS and, with in-stage sharding, "
+        f"DxMxS and DxMxS@fsdp; ZeRO over row shards (DxMx1@sp+fsdp with "
+        f"D > 1) is still to port (ROADMAP.md, Queue A, item 1c′)"
     )

@@ -571,8 +571,8 @@ def test_cli_trains_under_torchrun_and_resumes_under_another_method(
 def test_cli_refuses_ddp_mp_without_a_data_axis(monkeypatch):
     """Without a launcher ``-t DDP_MP`` is world 1 and exits with the JAX
     "degenerates to plain MP" error, leaving no group behind; the methods
-    still to port are the mesh specs with sharding inside a pipeline
-    stage, and TP, FSDP and the flat specs train."""
+    still to port are the mesh specs with ZeRO over row shards, and TP,
+    FSDP, the flat specs and in-stage sharding train."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     with pytest.raises(ValueError, match="degenerates to plain MP"):
@@ -582,9 +582,10 @@ def test_cli_refuses_ddp_mp_without_a_data_axis(monkeypatch):
     trains, still = port_strategy.unported_method_message("x").split(";")
     assert "DDP_MP" in trains and "DDP_MP" not in still
     assert "mesh specs" in trains and "Dx1xS" in trains
-    for method in ("in-stage sharding", "DxMxS with S > 1 and M > 1",
-                   "Dx1xS@fsdp"):
+    assert "in-stage sharding" in trains and "DxMxS@fsdp" in trains
+    for method in ("ZeRO over row shards", "DxMx1@sp+fsdp with D > 1"):
         assert method in still
+    assert "in-stage" not in still and "DxMxS" not in still
     for method in ("TP", "FSDP"):
         assert method in trains and method not in still
     assert "SP" not in still

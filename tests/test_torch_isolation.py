@@ -142,6 +142,26 @@ def test_a_ddp_worker_never_loads_jax(tmp_path):
         assert np.isfinite(float(result["step"]["losses"][0]))
 
 
+def test_an_in_stage_zero_run_never_loads_jax(tmp_path):
+    """Two gloo ranks of ``tests/torch_ddp_worker.py`` train one epoch of
+    ``-t 2x2x2@fsdp`` (in-stage sharding with ZeRO over the ranks)
+    through the training CLI with ``--device cpu``: both exit 0, rank 0
+    writes the weights, and neither loads a module of the jax family."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_ddp_worker import launch
+
+    argv = ["-t", "2x2x2@fsdp", "--synthetic", "16", "--image-size", "24",
+            "16", "--model-widths", "8", "16", "-b", "2", "-v", "25", "-e",
+            "1", "--device", "cpu", "--num-workers", "0"]
+    jobs = {"cli": {"kind": "cli", "dir": str(tmp_path / "run"),
+                    "argv": argv}}
+    ranks = launch(tmp_path / "job", jobs)
+    for result in ranks:
+        assert result["leaked"] == []
+        assert result["cli"]["code"] == 0
+    assert "checkpoints/2x2x2@fsdp.pth" in ranks[0]["cli"]["wrote"]
+
+
 def test_mp_and_dp_runs_never_load_jax(tmp_path):
     """``-t MP`` (1f1b) and ``-t DP`` through the training CLI with
     ``--device cpu``, in a process of their own: both train, write their

@@ -277,15 +277,17 @@ def test_the_pipeline_twin_takes_the_specs_batch_rule(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-STILL_REFUSED = ["2x2x2", "1x2x2", "2x1x2@fsdp", "2x2x2@fsdp",
-                 "2x2x1@sp+fsdp"]
+STILL_REFUSED = ["2x2x1@sp+fsdp", "4x2x1@sp+fsdp", "2x4x1@sp+fsdp",
+                 "8x2x1@sp+fsdp", "2x2x1@fsdp+sp"]
 
 
 @pytest.mark.parametrize("spec", STILL_REFUSED)
 def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, monkeypatch):
-    """Sharding inside a pipeline stage and ZeRO over row shards are
-    refused by the strategy and by the CLI with the ROADMAP's item 1c′,
-    before any group is joined; the message lists what the port trains."""
+    """ZeRO over row shards (``DxMx1@sp+fsdp`` with D > 1), what item 1c′
+    still holds now that sharding inside a pipeline stage trains
+    (tests/test_torch_in_stage.py), is refused by the strategy and by the
+    CLI with the ROADMAP's item 1c′, before any group is joined; the
+    message lists what the port trains."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     pattern = r"not ported yet.*ROADMAP\.md, Queue A, item 1c′"

@@ -365,11 +365,11 @@ def test_cli_config_mapping_and_server_build(checkpoint):
 
 
 def test_training_entry_point_is_not_ported():
-    """Training is the default entry point now; the mesh specs with
-    sharding inside a pipeline stage are what is not ported, and the exit
-    says where to look."""
+    """Training is the default entry point now; the mesh specs with ZeRO
+    over row shards are what is not ported, and the exit says where to
+    look."""
     from distributedpytorch_tpu_torch.__main__ import main
 
-    for method in ("2x2x2", "2x1x2@fsdp"):
+    for method in ("2x2x1@sp+fsdp", "4x2x1@sp+fsdp"):
         with pytest.raises(SystemExit, match="not ported.*ROADMAP"):
             main(["-t", method])

@@ -369,8 +369,8 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 
 def test_cli_refuses_what_it_does_not_run(capsys):
-    # the mesh specs with sharding inside a pipeline stage
-    for method in ("2x2x2", "2x1x2@fsdp"):
+    # the mesh specs with ZeRO over row shards
+    for method in ("2x2x1@sp+fsdp", "4x2x1@sp+fsdp"):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
             cli.main(["-t", method])
     with pytest.raises(SystemExit):

@@ -27,8 +27,10 @@ modules this process loaded. Scenarios:
   every call (whole tensors, gathered under FSDP), each BatchNorm's
   ``global_stats`` flag, the strategy's devices, its mesh and lr, and the
   bytes of parameters and Adam's state this rank holds against the
-  whole's (under ZeRO each channel slice's, ``slice_bytes``), its name,
-  and under ``--dtype bf16_params`` the f32 masters (whole).
+  whole's (under ZeRO each channel slice's, under in-stage sharding each
+  (stage, slice) place's, ``slice_bytes``), its name, under ``--dtype
+  bf16_params`` the f32 masters (whole), and with the job's ``eval`` the
+  eval step's metrics on the first batch after the steps.
   With the config's ``steps_per_dispatch`` K > 1 the batches go through
   the strategy's multi-step in stacks of K, with its ``grad_accum`` N > 1
   through its accumulation step in chunks of N;
@@ -224,7 +226,10 @@ def run_pipeline_steps(job, rank, world):
         losses.append(run(batches[i:i + size]))
         states.append({k: v.clone() for k, v in
                        strategy.model_state(model).items()})
-    return {"losses": torch.cat(losses), "grads": grads,
+    metrics = None
+    if job.get("eval"):
+        metrics = strategy.build_eval_step(model, kernels)(batches[0])
+    return {"losses": torch.cat(losses), "grads": grads, "eval": metrics,
             "states": states, "bytes": _state_bytes(model, optimizer),
             "lr": strategy.lr_for(cfg.learning_rate),
             # whole, as the states (an FSDP master is a shard)
@@ -238,26 +243,42 @@ def run_pipeline_steps(job, rank, world):
 
 
 def _slice_bytes(model, optimizer):
-    """Under ZeRO (``parallel/zero.ZeroSharded``): the bytes of parameters
-    and Adam's state this rank holds for each channel slice (a layer kept
-    whole counts on slice 0), and how many elements of the wrapped
-    model's parameters are whole between steps (none: only the pieces
-    stay); else None."""
+    """Under ZeRO and in-stage sharding (``parallel/zero.ZeroSharded``):
+    the bytes of parameters and Adam's state this rank holds on each
+    place, a channel slice (a layer kept whole counts on slice 0), or
+    in a pipeline stage ``(stage, slice)``; how many elements of the
+    wrapped model's parameters are whole between steps (none: only the
+    pieces stay); in a pipeline, each stage's whole bytes
+    (``stage_bytes``, the whole tensors and their two moments) and each
+    place's bytes of parameters kept whole (``kept_whole``); else
+    None."""
     import re
 
     if not hasattr(model, "paths"):
         return None
-    held = {}
-    for path, p in zip(model.paths, model.parameters()):
-        found = re.search(r"\.shards\.(\d+)\.", path)
-        place = int(found.group(1)) if found else 0
-        tensors = [p] + [t for t in optimizer.state[p].values()
-                         if isinstance(t, torch.Tensor) and t.dim() > 0]
-        held[place] = held.get(place, 0) + sum(
-            t.numel() * t.element_size() for t in tensors)
-    leaves = sum(getattr(m, a).numel() for m, a, _s, cut in model._owners
-                 if cut and getattr(m, a) is not None)
-    return {"held": held, "whole_leaves": leaves}
+    stage_of = getattr(model, "stage_of", None)
+    held, kept, stages = {}, {}, {}
+    for j, owner in enumerate(model._owners):
+        for k, i in enumerate(owner.pieces):
+            p = model.pieces[i]
+            if stage_of is None:
+                found = re.search(r"\.shards\.(\d+)\.", model.paths[i])
+                place = int(found.group(1)) if found else 0
+            else:
+                place = (stage_of[j], k)
+            tensors = [p] + [t for t in optimizer.state[p].values()
+                             if isinstance(t, torch.Tensor) and t.dim() > 0]
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            held[place] = held.get(place, 0) + nbytes
+            if owner.cut is None:
+                kept[place] = kept.get(place, 0) + nbytes
+        if stage_of is not None:
+            whole = 3 * torch.Size(owner.shape).numel() * 4
+            stages[stage_of[j]] = stages.get(stage_of[j], 0) + whole
+    leaves = sum(getattr(o.module, o.attr).numel() for o in model._owners
+                 if o.cut and getattr(o.module, o.attr) is not None)
+    return {"held": held, "whole_leaves": leaves, "kept_whole": kept,
+            "stage_bytes": stages}
 
 
 def _state_bytes(model, optimizer):
