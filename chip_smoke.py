@@ -75,7 +75,15 @@ card, two processes this script spawns (``--ddp-sp-rank R 2 gloo DIR``),
 each row-sharding its ``-b 4`` over ``[cuda:0, cuda:0]``: weights bitwise
 equal after every step, step 1 against one SP step of the joint batch,
 each run again under ``--remat`` bitwise the plain run, and K = 2
-refused over gloo (``train_ddp_sp_gloo2``). Then the trainer's run control
+refused over gloo; in the same ranks ZeRO over row shards
+(``2x2x1@sp+fsdp``) beside its ``2x2x1@sp`` twin: the float32 UNet's
+losses and whole states bitwise the twin's after each of 2 steps (with
+PyTorch's own convolutions, which repeat bit for bit on the shared
+card), a bf16
+milesial step's K1, K1-bwd, K2, K3 and K5 launches the twin's, each
+rank's bytes of parameters and Adam's state, and rank 0's checkpoint
+from the training CLI resumed under singleGPU bitwise
+(``train_ddp_sp_gloo2``). Then the trainer's run control
 (``train_run_control``): the UNet with ``--steps-per-dispatch 4`` (one
 CUDA graph of 4 whole steps, K1 and K1-bwd inside it) against the same 16
 steps at K = 1, bitwise; milesial and the UNet with ``--remat`` against
@@ -154,12 +162,13 @@ launch of the training CLI (``ddp_mp_cards``); ``-t SP`` across the four
 cards (the halo rows cross NVLink) against one card, and ``-t DDP_SP`` as
 two NCCL ranks of two cards each plus a ``torchrun --nproc_per_node 2``
 launch of the training CLI (``sp_cards``), both also as CUDA graphs of 4
-steps against their eager steps; then ``-t MP`` across 2
-and 4 cards, its step and measured bubble under both schedules at M = 2
-and 8 (``mp_cards``), ``-t DP`` across the four cards against a
-one-card step (``dp_cards``), ``-t TP`` across the four cards against
-singleGPU (``tp_cards``), ``-t FSDP`` as four NCCL ranks against
-``-t DDP`` (``fsdp_cards``), ``2x2x1`` and ``2x2x1@fsdp`` as two
+steps against their eager steps, and in the DDP_SP ranks ZeRO over row
+shards against its twin, each model's bf16 step of both timed; then
+``-t MP`` across 2 and 4 cards, its step and measured bubble under both
+schedules at M = 2 and 8 (``mp_cards``), ``-t DP`` across the four
+cards against a one-card step (``dp_cards``), ``-t TP`` across the four
+cards against singleGPU (``tp_cards``), ``-t FSDP`` as four NCCL ranks
+against ``-t DDP`` (``fsdp_cards``), ``2x2x1`` and ``2x2x1@fsdp`` as two
 NCCL ranks of two cards each (``mesh_cards``: the ranks bitwise equal,
 each card's bytes, the eager step's ms), and in-stage sharding
 (``in_stage_cards``: ``1x2x2`` over the four cards against ``1x1x2`` on
@@ -6394,6 +6403,218 @@ def _ddp_sp_run(rank: int, world: int, devices, arch: str,
     return out
 
 
+# ZeRO over row shards (2x2x1@sp+fsdp) inside the DDP_SP ranks, beside its
+# twin 2x2x1@sp (DDP_SP's code under the spec's semantics: no lr scaling):
+# the float32 UNet for ZSP_STEPS steps and one bf16 milesial step at
+# TRAIN_BATCH a rank, each from the seed's weights with Adam at MESH_LR;
+# under NCCL (--cards 4) each model's bf16 step of both, timed in turns
+ZSP_SPEC = "2x2x1@sp+fsdp"
+ZSP_TWIN = "2x2x1@sp"
+ZSP_STEPS = 2
+ZSP_TIMED_STEPS = 5
+# a rank's float32 parameters and Adam's two moments under ZeRO at D = 2:
+# 12 B a value, the cut values halved, the 1-channel head's whole
+ZSP_RANK_BYTES = {"unet": 7_760_064 // 2 * 12 + 33 * 12,
+                  "milesial": 31_037_568 // 2 * 12 + 65 * 12}
+
+
+def _zsp_run(spec: str, arch: str, dtype: str, steps: int, rank: int,
+             world: int, devices) -> dict:
+    """``steps`` steps of ``spec`` on this rank's rows of the global
+    batches: the losses, the whole state's digest after each step (a
+    collective every rank enters under ZeRO), the launches counted from
+    zero over the steps, the bytes of parameters and Adam's state on each
+    card and the strategy's class."""
+    import torch
+
+    from distributedpytorch_tpu_torch.ops import kernels
+
+    model, step, strategy, opt = _mesh_model_step(spec, arch, devices,
+                                                  dtype, TRAIN_BATCH)
+    check(strategy.name == spec and strategy.world == world
+          and strategy.rank == rank, f"{spec} rank {rank}: {strategy.info}")
+    rows = slice(rank * TRAIN_BATCH, (rank + 1) * TRAIN_BATCH)
+    placed = [{k: torch.from_numpy(v[rows]).to(devices[0])
+               for k, v in batch.items()}
+              for batch in _ddp_batches(world, TRAIN_BATCH, steps)]
+    _sync_all(devices)
+    kernels.reset_launches()
+    losses, digests = [], []
+    for batch in placed:
+        losses.append(float(step(batch)))
+        digests.append(_digest(strategy.model_state(model).values()))
+    _sync_all(devices)
+    out = {"losses": losses, "state_digests": digests,
+           "launches": dict(kernels.LAUNCHES),
+           "card_bytes": _card_bytes(model, opt),
+           "mesh": strategy.mesh_shape(), "class": type(strategy).__name__}
+    del model, step, opt, strategy
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zsp_timing(rank: int, world: int, devices) -> dict:
+    """Each model's bf16 step (milesial ``--wgrad-taps``) of ZSP_TWIN and
+    ZSP_SPEC at TRAIN_BATCH a rank, by wall time with the rank's cards
+    drained, in turns: twin, ZeRO, ZeRO, twin; then for each one step's
+    device kernels and copies in the trace (all, and NCCL's), each card's
+    busy ms and the host's ms to enqueue it."""
+    import torch
+
+    rows = slice(rank * TRAIN_BATCH, (rank + 1) * TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v[rows]).to(devices[0])
+             for k, v in _ddp_batches(world, TRAIN_BATCH, 1)[0].items()}
+    out = {}
+    for arch in ("unet", "milesial"):
+        def timed(arch=arch):
+            steps = {spec: _mesh_model_step(spec, arch, devices, "bf16",
+                                            TRAIN_BATCH)[1]
+                     for spec in (ZSP_TWIN, ZSP_SPEC)}
+            ms = {spec: [] for spec in steps}
+            for spec in (ZSP_TWIN, ZSP_SPEC, ZSP_SPEC, ZSP_TWIN):
+                ms[spec].append(_wall_ms(lambda s=spec: steps[s](batch),
+                                         ZSP_TIMED_STEPS, warmup=2,
+                                         devices=devices))
+            row = {"step_ms": ms}
+            for spec, step in steps.items():
+                _, names = _kernel_names(lambda: step(batch))
+                row[spec] = {
+                    "device_ops": sum(names.values()),
+                    "nccl_kernels": sum(n for name, n in names.items()
+                                        if "nccl" in name.lower()),
+                    "busy_ms_by_card": _busy_ms_by_device(
+                        lambda: step(batch), 2, devices=devices),
+                    "host_enqueue_ms": _host_enqueue_ms(
+                        lambda: step(batch))}
+                _sync_all(devices)
+            return row
+
+        out[arch] = (_with_wgrad_backend(timed) if arch == "milesial"
+                     else timed())
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """Within the block, convolutions run PyTorch's own kernels, not
+    cuDNN's. With cuDNN (deterministic, no benchmark) two runs of the same
+    float32 DDP_SP UNet step in one process, on an H100 shared by the
+    seven processes of the gloo phases, differed in 44 of the 46 tensors
+    by up to 3.6e-6 (of 0.095), where on a card to itself the same
+    comparison held bitwise: the engine cuDNN runs is not fixed by the
+    step. PyTorch's own convolutions gave the same bits in every run on
+    the shared card."""
+    import torch
+
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def _zsp_runs(rank: int, world: int, devices, nccl: bool, job: str) -> dict:
+    """ZeRO over row shards on this rank's devices beside its twin: the
+    float32 UNet over ZSP_STEPS steps (``_without_cudnn``, so that the
+    two are bitwise comparable on a shared card) and one bf16 milesial
+    step (``_zsp_run``) of each; under NCCL their bf16 steps timed
+    (``_zsp_timing``); under gloo a short run of the training CLI's own
+    functions under ZSP_SPEC (one step and one eval batch a rank), whose
+    checkpoint rank 0 writes."""
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    with _without_cudnn():
+        unet = {spec: _zsp_run(spec, "unet", "f32", ZSP_STEPS, rank, world,
+                               devices)
+                for spec in (ZSP_TWIN, ZSP_SPEC)}
+    out = {"unet": unet,
+           "milesial": _with_wgrad_backend(lambda: {
+               spec: _zsp_run(spec, "milesial", "bf16", 1, rank, world,
+                              devices)
+               for spec in (ZSP_TWIN, ZSP_SPEC)})}
+    if nccl:
+        out["bf16_steps"] = _zsp_timing(rank, world, devices)
+        return out
+    w, h = IMAGE_WH
+    run = os.path.join(job, f"zsp_cli_rank{rank}")
+    argv = ["-t", ZSP_SPEC, "--synthetic", "8", "-v", "50", "-b",
+            str(RANK_BATCH), "-e", "1", "--image-size", str(w), str(h),
+            "--dtype", "bf16", "--kernels", "cuda"]
+    # the group this process joined, and both shards on the one card,
+    # which the CLI's --device cuda cannot name
+    trainer, close = _cli_trainer(run, argv, devices=devices,
+                                  info=runtime.initialize_from_env(
+                                      devices[0]))
+    try:
+        out["cli"] = {"result": trainer.train(), "run": run,
+                      "wrote": _files(run)}
+    finally:
+        close()
+    return out
+
+
+def _check_zsp_ranks(ranks, world: int) -> tuple:
+    """ZeRO over row shards against its twin on every rank: the float32
+    UNet's losses and whole state after every step bitwise the twin's and
+    equal across the ranks, the launches of each run the twin's and
+    SP_SHARDS shards' worth a step (``_sp_expected_per_step``), each
+    rank's bytes of parameters and Adam's state ZSP_RANK_BYTES on its
+    first card (the twin's twice that but for the head), the mesh JAX's;
+    milesial's bf16 step's launches the twin's and its loss beside the
+    twin's. Returns the rows and the disagreements."""
+    out, problems = {}, []
+    for arch, steps in (("unet", ZSP_STEPS), ("milesial", 1)):
+        rs = [r["zero"][arch] for r in ranks]
+        want = {n: c * steps for n, c in
+                _sp_expected_per_step(arch, SP_SHARDS).items()}
+        row = {
+            "steps": steps, "dtype": "f32" if arch == "unet" else "bf16",
+            "losses": [r[ZSP_SPEC]["losses"] for r in rs],
+            "twin_losses": [r[ZSP_TWIN]["losses"] for r in rs],
+            "launches": [r[ZSP_SPEC]["launches"] for r in rs],
+            "twin_launches": [r[ZSP_TWIN]["launches"] for r in rs],
+            "launches_expected": want,
+            "card_bytes": [r[ZSP_SPEC]["card_bytes"] for r in rs],
+            "twin_card_bytes": [r[ZSP_TWIN]["card_bytes"] for r in rs],
+            "rank_bytes_expected": ZSP_RANK_BYTES[arch],
+            "mesh": rs[0][ZSP_SPEC]["mesh"],
+            "class": rs[0][ZSP_SPEC]["class"],
+            "ranks_bitwise_equal": all(
+                r[ZSP_SPEC]["state_digests"]
+                == rs[0][ZSP_SPEC]["state_digests"]
+                and r[ZSP_SPEC]["losses"] == rs[0][ZSP_SPEC]["losses"]
+                for r in rs),
+            "bitwise_the_twin": all(
+                r[ZSP_SPEC]["state_digests"] == r[ZSP_TWIN]["state_digests"]
+                and r[ZSP_SPEC]["losses"] == r[ZSP_TWIN]["losses"]
+                for r in rs),
+        }
+        out[arch] = row
+        for r in rs:
+            got = r[ZSP_SPEC]
+            if (any(got["launches"].get(n) != c for n, c in want.items())
+                    or got["launches"] != r[ZSP_TWIN]["launches"]):
+                problems.append(f"{ZSP_SPEC} {arch}: launched "
+                                f"{got['launches']}, the twin "
+                                f"{r[ZSP_TWIN]['launches']}, expected {want}")
+            if list(got["card_bytes"].values()) != [ZSP_RANK_BYTES[arch]]:
+                problems.append(f"{ZSP_SPEC} {arch}: a rank holds "
+                                f"{got['card_bytes']}")
+        if row["mesh"] != {"data": world, "spatial": SP_SHARDS}:
+            problems.append(f"{ZSP_SPEC} mesh {row['mesh']}")
+        if row["class"] != "ZeroSpatial":
+            problems.append(f"{ZSP_SPEC} ran as {row['class']}")
+        if arch == "unet":
+            if not row["ranks_bitwise_equal"]:
+                problems.append(f"{ZSP_SPEC}: the ranks' states differ")
+            if not row["bitwise_the_twin"]:
+                problems.append(f"{ZSP_SPEC}: off its twin {ZSP_TWIN}: "
+                                f"{row['losses']} {row['twin_losses']}")
+    return out, problems
+
+
 def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
     """One rank of a multi-process DDP_SP phase (``chip_smoke.py
     --ddp-sp-rank R WORLD BACKEND DIR``): joins a ``backend`` group over a
@@ -6403,8 +6624,8 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
     rank), runs DDP_SP_RUNS (``_ddp_sp_run``), under gloo each again with
     ``--remat`` and the refusal of K > 1, under nccl each model as one
     CUDA graph of GS_K steps against its eager steps
-    (``_rank_graph_run``), and writes its results to
-    ``DIR/result_R.pt``."""
+    (``_rank_graph_run``), then ZeRO over row shards beside its twin
+    (``_zsp_runs``), and writes its results to ``DIR/result_R.pt``."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -6445,6 +6666,8 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
                         rank, world, devices, 3)
                 result["graph"][arch] = (_with_wgrad_backend(graph)
                                          if arch == "milesial" else graph())
+        result["zero"] = _zsp_runs(rank, world, devices, backend == "nccl",
+                                   job)
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -6562,8 +6785,11 @@ def phase_train_ddp_sp_gloo2(tmp: str, started=None) -> dict:
     Checked as ``_check_ddp_sp_ranks`` says, K1, K1-bwd, K2, K3 and K5
     counted per rank from zero over each run; each run again under
     ``--remat``, bitwise the plain run; ``--steps-per-dispatch 2``
-    refused over gloo on the card. A correctness phase: the ranks share
-    the card and their gradients cross the host."""
+    refused over gloo on the card. Then ZeRO over row shards in the same
+    ranks (``_zsp_runs``), checked by ``_check_zsp_ranks``, and rank 0's
+    ``2x2x1@sp+fsdp`` checkpoint from the training CLI resumed under
+    singleGPU bitwise. A correctness phase: the ranks share the card and
+    their gradients cross the host."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
@@ -6574,10 +6800,27 @@ def phase_train_ddp_sp_gloo2(tmp: str, started=None) -> dict:
     refusals = [r["k_refusal"] for r in ranks]
     if not all(GLOO_REFUSAL in (msg or "") for msg in refusals):
         problems.append(f"K = 2 over gloo on the card: {refusals}")
+    zero, zero_problems = _check_zsp_ranks(ranks, 2)
+    problems += zero_problems
+    cli = ranks[0]["zero"]["cli"]
+    zero["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
+                   "rank1_wrote": ranks[1]["zero"]["cli"]["wrote"]}
+    if f"checkpoints/{ZSP_SPEC}.pt" not in cli["wrote"]:
+        problems.append(f"{ZSP_SPEC} CLI run wrote {cli['wrote']}")
+    else:
+        resumed = _resume_under_single_gpu(os.path.join(
+            cli["run"], "checkpoints", f"{ZSP_SPEC}.pt"))
+        zero["resume_single_gpu"] = resumed
+        if not (resumed["weights_bitwise"] and resumed["adam_bitwise"]):
+            problems.append(f"{ZSP_SPEC} under singleGPU: {resumed}")
+        if (resumed["topology"]["mesh_spec"] != ZSP_SPEC
+                or resumed["topology"]["process_count"] != 2):
+            problems.append(f"{ZSP_SPEC} manifest {resumed['topology']}")
     out = {"phase": "train_ddp_sp_gloo2", "world": 2, "backend": "gloo",
            "shards": SP_SHARDS, "devices": [r["devices"] for r in ranks],
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
-           "runs": runs, "k_refusal": refusals[0], "problems": problems}
+           "runs": runs, "k_refusal": refusals[0],
+           "zero_over_row_shards": zero, "problems": problems}
     emit(out)
     check(not problems, f"train_ddp_sp_gloo2: {problems}")
     return out
@@ -6595,7 +6838,10 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
     NCCL ranks of two cards each (``ddp_sp_rank``, cuda:2r and cuda:2r+1),
     checked as ``train_ddp_sp_gloo2`` and timed, and each model as one
     CUDA graph of GS_K steps per rank, bitwise its eager steps with the
-    ranks' weights equal after every stack; then ``torchrun
+    ranks' weights equal after every stack; in the same ranks ZeRO over
+    row shards against its twin (``_check_zsp_ranks``: each rank's second
+    shard computes on the second card with its own copy of the gathered
+    leaves), each model's bf16 step of both timed; then ``torchrun
     --standalone --nproc_per_node 2`` of the training CLI with ``-t
     DDP_SP``, which must exit 0 with the DDP_SP artifacts, both ranks in
     its log and a manifest that says ``2x2x1@sp``."""
@@ -6650,6 +6896,10 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
     out["ddp_sp_devices"] = [r["devices"] for r in ranks]
     out["ddp_sp_wall_s"] = wall_s
     problems += rank_problems
+    zero, zero_problems = _check_zsp_ranks(ranks, 2)
+    problems += zero_problems
+    zero["bf16_steps"] = [r["zero"]["bf16_steps"] for r in ranks]
+    out["zero_over_row_shards"] = zero
     out["ddp_sp_graphs"] = {}
     for arch in ranks[0]["graph"]:
         rows = _ranks_graph_rows([{"graph": r["graph"][arch]}
@@ -7806,7 +8056,8 @@ def _mesh_ranks_report(ranks, world: int) -> tuple:
 
 
 def _resume_under_single_gpu(path: str) -> dict:
-    """``path`` (a ``2x2x1@fsdp`` or ``2x2x2@fsdp`` checkpoint) resumed
+    """``path`` (a ``2x2x1@fsdp``, ``2x2x2@fsdp`` or ``2x2x1@sp+fsdp``
+    checkpoint) resumed
     under singleGPU on cuda:0: its weights, running statistics and Adam's
     moments bitwise."""
     import torch
@@ -8697,6 +8948,15 @@ def main(argv) -> int:
         return {arch: row["launches"][0][name]
                 for arch, row in ddp_sp["runs"].items()
                 if name in row["launches_expected"]}
+
+    def zero_sp_launches(name):
+        """Rank 0's launches under 2x2x1@sp+fsdp in train_ddp_sp_gloo2
+        (the wrappers' count, equal to its 2x2x1@sp twin's): over the f32
+        UNet's ZSP_STEPS steps and over one bf16 milesial step."""
+        zero = ddp_sp["zero_over_row_shards"]
+        return {f"{arch}_{row['steps']}_steps": row["launches"][0][name]
+                for arch, row in zero.items()
+                if name in row.get("launches_expected", ())}
     def tp_launches(name):
         """-t TP on [cuda:0, cuda:0] (train_tp): per bf16 step of each
         model, counted by name in the profiler's trace (K1 and K1-bwd once,
@@ -8786,6 +9046,7 @@ def main(argv) -> int:
             "ddp_mp_launches": None,
             "sp_launches": None,
             "ddp_sp_launches": None,
+            "zero_sp_launches": None,
             "tp_launches": None,
             "fsdp_launches": None,
             "tp_fsdp_run_control_launches": None,
@@ -8817,6 +9078,8 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("loss_stats"),
             "ddp_sp_launches": ddp_sp_launches("loss_stats"),
+            # rank 0 under 2x2x1@sp+fsdp (train_ddp_sp_gloo2)
+            "zero_sp_launches": zero_sp_launches("loss_stats"),
             # per channel slice under -t TP (train_tp), per rank under
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("loss_stats"),
@@ -8850,6 +9113,8 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("loss_stats_bwd"),
             "ddp_sp_launches": ddp_sp_launches("loss_stats_bwd"),
+            # rank 0 under 2x2x1@sp+fsdp (train_ddp_sp_gloo2)
+            "zero_sp_launches": zero_sp_launches("loss_stats_bwd"),
             # per channel slice under -t TP (train_tp), per rank under
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("loss_stats_bwd"),
@@ -8884,6 +9149,8 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("bn_act"),
             "ddp_sp_launches": ddp_sp_launches("bn_act"),
+            # rank 0 under 2x2x1@sp+fsdp (train_ddp_sp_gloo2)
+            "zero_sp_launches": zero_sp_launches("bn_act"),
             # per channel slice under -t TP (train_tp), per rank under
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("bn_act"),
@@ -8921,6 +9188,8 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("bn_act_bwd"),
             "ddp_sp_launches": ddp_sp_launches("bn_act_bwd"),
+            # rank 0 under 2x2x1@sp+fsdp (train_ddp_sp_gloo2)
+            "zero_sp_launches": zero_sp_launches("bn_act_bwd"),
             # per channel slice under -t TP (train_tp), per rank under
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("bn_act_bwd"),
@@ -8954,6 +9223,8 @@ def main(argv) -> int:
             # per shard under -t SP and DDP_SP (train_sp, train_ddp_sp_gloo2)
             "sp_launches": sp_launches("wgrad_9tap"),
             "ddp_sp_launches": ddp_sp_launches("wgrad_9tap"),
+            # rank 0 under 2x2x1@sp+fsdp (train_ddp_sp_gloo2)
+            "zero_sp_launches": zero_sp_launches("wgrad_9tap"),
             # per channel slice under -t TP (train_tp), per rank under
             # -t FSDP (train_fsdp)
             "tp_launches": tp_launches("wgrad_9tap"),

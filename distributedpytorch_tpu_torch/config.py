@@ -22,7 +22,7 @@ class TrainConfig:
 
     # -- strategy -----------------------------------------------------------
     # "singleGPU", "DP", "DDP", "MP", "DDP_MP", "SP", "DDP_SP", "TP" or
-    # "FSDP" (parallel/strategy.py); the mesh specs are not ported yet
+    # "FSDP", or a mesh spec "DxMxS[@tp|sp|fsdp]" (parallel/strategy.py)
     train_method: str = "singleGPU"
 
     # -- optimization -------------------------------------------------------

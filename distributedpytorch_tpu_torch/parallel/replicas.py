@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -192,6 +192,22 @@ def _replica_uses(sources: Sequence[torch.Tensor],
     return uses
 
 
+#: the attribute of a module that names the parameters a wrapper holds
+#: for it as plain attributes (``zero.ZeroSharded``: the whole leaves it
+#: gathers at the top of a step, and the ones it keeps whole)
+HELD_PARAMS = "_held_params"
+
+
+def read_params(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """``(attribute, tensor)`` of each parameter ``module`` itself reads:
+    its registered ones, then those a wrapper holds for it
+    (``HELD_PARAMS``), None left out."""
+    named = list(module._parameters.items()) + [
+        (key, getattr(module, key)) for key in getattr(module, HELD_PARAMS,
+                                                       ())]
+    return [(key, p) for key, p in named if p is not None]
+
+
 def replicate(module: nn.Module, devices: Sequence[torch.device],
               casts: Optional[PerUseCasts] = None) -> List[nn.Module]:
     """``module``'s replicas on ``devices``, as the module docstring says:
@@ -199,8 +215,12 @@ def replicate(module: nn.Module, devices: Sequence[torch.device],
     copy with its own cast of each master and ``module``'s buffers;
     replica i > 0 a copy on ``devices[i]`` whose parameters are views of
     one copy of the parameters (of their masters, cast) and whose buffers
-    are copies."""
-    params = list(module.parameters())
+    are copies. The parameters are those the modules read
+    (``read_params``): a wrapper's gathered leaves are copied as the
+    registered ones are, so no replica past the first reads a tensor of
+    the first device."""
+    params = list(dict.fromkeys(p for m in module.modules()
+                                for _, p in read_params(m)))
     if casts is None:
         uses = [params]
         sources = params
@@ -224,8 +244,8 @@ def replicate(module: nn.Module, devices: Sequence[torch.device],
             for key, p in m._parameters.items():
                 if p is None:
                     r._parameters[key] = None
-                else:
-                    setattr(r, key, uses[i][index[p]])
+            for key, p in read_params(m):
+                setattr(r, key, uses[i][index[p]])
             for key, b in m._buffers.items():
                 r._buffers[key] = (b if i == 0 or b is None
                                    else b.to(device, copy=True))

@@ -24,9 +24,9 @@ DDP_SP rank and TP over its channel slices' devices. FSDP is DDP's
 torchrun contract with the parameters and Adam's state sharded over the
 ranks. A mesh spec ``-t DxMxS`` runs as the composition of these that it
 is (``GenericMesh``), data × channel (``DataTensorParallel``), ZeRO ×
-channel (``ZeroTensorParallel``) and sharding inside a pipeline stage
-(``InStagePipeline``, ``InStageHybridPipeline``) included; ZeRO over row
-shards is not ported (ROADMAP.md, Queue A).
+channel (``ZeroTensorParallel``), ZeRO over row shards (``ZeroSpatial``)
+and sharding inside a pipeline stage (``InStagePipeline``,
+``InStageHybridPipeline``) included.
 
 Under ``--kernels cuda`` each DDP rank's forward is local to its card, so
 the kernels stay engaged as on one device: K1 and K1-bwd per shard inside
@@ -50,7 +50,9 @@ and milesial's K2, K3 and K5 per channel slice on its device; under FSDP
 each rank runs them as a DDP rank does. The JAX TP and FSDP keep XLA
 BatchNorm and XLA eval metrics (no GSPMD rule for ``pallas_call``).
 Under in-stage sharding each stage computes on whole parameters on its
-compute device, so every kernel launches as under the ``Dx1xS`` twin.
+compute device, so every kernel launches as under the ``Dx1xS`` twin;
+under ZeRO over row shards each shard does, as under its ``DxMx1@sp``
+twin.
 
 The run control (``check_run_control``): ``--remat`` recomputes the
 forward of the step (singleGPU, DDP, ``--grad-accum``), of each stage
@@ -1244,6 +1246,7 @@ class GenericMesh:
       ``TensorParallel`` over exactly M slices; ``1xMx1@sp``:
       ``SpatialParallel`` over exactly M row shards;
     * ``DxMx1@sp``: ``HybridDataSpatial``, exactly D × M;
+      ``DxMx1@sp+fsdp`` (D > 1): ``ZeroSpatial`` (ZeRO over row shards);
     * ``DxMx1``: ``DataTensorParallel`` (data × channel); ``DxMx1@fsdp``:
       ``ZeroTensorParallel`` (ZeRO × channel);
     * ``1x1xS``: ``Pipeline`` with S stages; ``Dx1xS``:
@@ -1263,8 +1266,9 @@ class GenericMesh:
     (``runtime.stage_devices``: on the CPU, and on a card named by its
     index, M·S repeats of it). The run control is that of the class the
     spec runs as; under the geometries no legacy name expresses
-    (``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1, and in-stage sharding)
-    ``check_run_control`` refuses it (ROADMAP.md, Queue A, item 1c″)."""
+    (``DxMx1``, ``DxMx1@fsdp`` and ``DxMx1@sp+fsdp`` with D, M > 1, and
+    in-stage sharding) ``check_run_control`` refuses it (ROADMAP.md,
+    Queue A, item 1c″)."""
 
     @property
     def mesh_config(self) -> MeshConfig:
@@ -1359,6 +1363,58 @@ class ZeroTensorParallel(DataTensorParallel):
         return model.reduce_grads_
 
 
+class ZeroSpatial(GenericMesh, ShardedState, HybridDataSpatial):
+    """``-t DxMx1@sp+fsdp`` with D, M > 1, ZeRO over row shards (JAX
+    ``2x2x1@sp+fsdp``: ``MeshConfig(data=D, model=M,
+    model_role="spatial", params="fsdp")``): ``HybridDataSpatial`` (one
+    process per data row, each row-sharding its batch over M devices of
+    its own; the shards' loss, the BatchNorm moments over the shards and
+    the ranks, eval over the shards, the ragged batch dropped) with each
+    parameter and Adam's state over it cut over the ranks
+    (``parallel/zero.ZeroSharded`` over the rank's ``RowSharded``): a
+    parameter whose dim 0 divides the world keeps this rank's dim-0 piece
+    on the rank's first device, the 1-channel head's whole on every
+    rank. The JAX package keeps a piece on every (data, spatial) device
+    and cuts a leaf's largest divisible HWIO axis (``state_leaf_spec``);
+    the function is the same.
+
+    The top of each forward gathers every cut parameter whole on the
+    first device (one ``all_gather_into_tensor`` per tensor, the same
+    order on every rank), the shards then compute as under DDP_SP, each
+    past the first with its own copy of the gathered leaves
+    (``replicas.read_params``), and after the backward each gradient is
+    reduce-scattered back to the rank's piece, averaged over the ranks
+    (``reduce_grads``: the statistics' all-reduce makes each rank's
+    gradient ``world ×`` its share, as under DDP_SP), and the leaves are
+    dropped; eval gathers and drops around its forward. A checkpoint
+    gathers the whole tensors under the reference names on every rank
+    (``gathers_state``), which rank 0 writes; a resume cuts each rank's
+    piece. The run control is refused here (``check_run_control``,
+    ROADMAP.md, Queue A, item 1c″)."""
+
+    gathers_state = True
+
+    def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        from distributedpytorch_tpu_torch.parallel.zero import (
+            PlainState,
+            ZeroSharded,
+        )
+
+        model = super().place_model(model)
+        return ZeroSharded(RowSharded(model, self.devices,
+                                      over_ranks=self.over_ranks),
+                           state=PlainState(model))
+
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The placed model itself: its forward gathers, then row-shards
+        (``--remat`` and master weights are refused here)."""
+        return model
+
+    def reduce_grads(self, model, optimizer) -> Callable:
+        return model.reduce_grads_
+
+
 class InStage(ShardedState):
     """Sharding inside each pipeline stage (``parallel/in_stage.py``, JAX
     ``HYBRID_SPECS``): the pipeline of S stages it runs over (``Pipeline``
@@ -1426,6 +1482,8 @@ def _mesh_class(cfg: MeshConfig) -> type:
     if cfg.stage > 1:
         legacy = HybridDataPipeline if cfg.data > 1 else Pipeline
     elif cfg.model > 1 and cfg.model_role == "spatial":
+        if cfg.data > 1 and fsdp:
+            return ZeroSpatial
         legacy = HybridDataSpatial if cfg.data > 1 else SpatialParallel
     elif cfg.model > 1:
         if cfg.data > 1:
@@ -1438,19 +1496,12 @@ def _mesh_class(cfg: MeshConfig) -> type:
     return _MESH_TWINS[legacy]
 
 
-def _is_unported(cfg: MeshConfig) -> bool:
-    """The points still to port: ZeRO over row shards (``DxMx1@sp+fsdp``
-    with D > 1)."""
-    return (cfg.data > 1 and "fsdp" in cfg.params and cfg.model > 1
-            and cfg.model_role == "spatial")
-
-
 def check_train_method(method: str) -> None:
     """What ``-t`` refuses from its name alone, before any group is
     joined: a name that is neither a method nor a mesh spec (the JAX
-    words), a malformed spec (``parse_mesh_spec``'s), a spatial model
-    axis inside a pipeline stage (JAX's own refusal, :983-992) and the
-    points still to port (``unported_method_message``)."""
+    words), a malformed spec (``parse_mesh_spec``'s) and a spatial model
+    axis inside a pipeline stage (JAX's own refusal, :983-992): every
+    spec the JAX package trains, the port trains."""
     if method in STRATEGIES:
         return
     if not is_mesh_spec(method):
@@ -1471,8 +1522,6 @@ def check_train_method(method: str) -> None:
             f"sharding on a flat mesh "
             f"('{cfg.data}x{cfg.model}x1@sp') (ROADMAP.md, Queue A: the "
             f"JAX package refuses it too)")
-    if _is_unported(cfg):
-        raise ValueError(unported_method_message(method))
 
 
 def plan_mesh(config, world: int,
@@ -1549,8 +1598,9 @@ def check_run_control(config, device: Optional[torch.device] = None,
     ``--grad-accum`` together with ``--steps-per-dispatch K > 1`` and
     ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
     over chunks, each refused with the JAX package's words; under the
-    data × channel and ZeRO × channel meshes (``DxMx1[@fsdp]``, D, M > 1)
-    and under in-stage sharding (``in_stage.in_stage_config``)
+    data × channel, ZeRO × channel and ZeRO × row-shard meshes
+    (``DxMx1[@fsdp]`` and ``DxMx1@sp+fsdp``, D, M > 1) and under in-stage
+    sharding (``in_stage.in_stage_config``)
     ``--steps-per-dispatch K > 1``, ``--remat``, ``--grad-accum`` and
     ``--dtype bf16_params``, not ported yet (ROADMAP.md, Queue A, item
     1c″); once the strategy knows its ``device`` and its group's
@@ -1570,6 +1620,9 @@ def check_run_control(config, device: Optional[torch.device] = None,
     elif (mesh is not None and mesh.data > 1 and mesh.model > 1
             and mesh.stage == 1 and mesh.model_role == "channel"):
         kind = ("ZeRO" if "fsdp" in mesh.params else "data") + " × channel"
+    elif (mesh is not None and mesh.data > 1 and mesh.model > 1
+            and mesh.stage == 1 and "fsdp" in mesh.params):
+        kind = "ZeRO over row shards"
     if kind is not None:
         flags = [flag for flag, on in (
             (f"--steps-per-dispatch {k}", k > 1),
@@ -1580,9 +1633,9 @@ def check_run_control(config, device: Optional[torch.device] = None,
         if flags:
             raise ValueError(
                 f"{' and '.join(flags)} under -t {method} ({kind}) is not "
-                f"ported yet: the run control of the DxMx1 and DxMx1@fsdp "
-                f"meshes and of in-stage sharding is still to port "
-                f"(ROADMAP.md, Queue A, item 1c″)")
+                f"ported yet: the run control of the DxMx1, DxMx1@fsdp and "
+                f"DxMx1@sp+fsdp meshes and of in-stage sharding is still "
+                f"to port (ROADMAP.md, Queue A, item 1c″)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -1619,12 +1672,3 @@ def build_strategy(config, info: Optional[runtime.RuntimeInfo] = None,
     check_run_control(config, strategy.device, strategy.backend)
     return strategy
 
-
-def unported_method_message(method: str) -> str:
-    return (
-        f"-t {method} is not ported yet: the PyTorch port trains "
-        f"{', '.join(sorted(STRATEGIES))} and the mesh specs "
-        f"DxMx1[@fsdp|sp], 1x1xS, Dx1xS and, with in-stage sharding, "
-        f"DxMxS and DxMxS@fsdp; ZeRO over row shards (DxMx1@sp+fsdp with "
-        f"D > 1) is still to port (ROADMAP.md, Queue A, item 1c′)"
-    )

@@ -1,8 +1,9 @@
 """Parameters cut into pieces and put together whole at the top of a
 step, by hand: ZeRO over the data ranks (``-t DxMx1@fsdp``, the
-``fsdp+channel`` rule of ``parallel/mesh.py``) and sharding inside a
-pipeline stage (``-t DxMxS`` with M > 1, ``Dx1xS@fsdp`` and
-``DxMxS@fsdp``, ``parallel/in_stage.py``).
+``fsdp+channel`` rule of ``parallel/mesh.py``, and ``-t DxMx1@sp+fsdp``
+over a rank's ``spatial.RowSharded``, whose replicas copy the gathered
+leaves) and sharding inside a pipeline stage (``-t DxMxS`` with M > 1,
+``Dx1xS@fsdp`` and ``DxMxS@fsdp``, ``parallel/in_stage.py``).
 
 Counterpart of the JAX mesh engine's ``fsdp+channel`` point
 (``mesh.state_leaf_spec``: the out-channels over ``model``, the slice
@@ -62,6 +63,7 @@ from distributedpytorch_tpu_torch.dist.collectives import (
     reduced_dim0_piece,
     sum_over_ranks_,
 )
+from distributedpytorch_tpu_torch.parallel.replicas import HELD_PARAMS
 
 
 def is_cut(shape: Sequence[int], world: int) -> bool:
@@ -195,18 +197,23 @@ class ZeroSharded(nn.Module):
     ``whole_optimizer_state``, ``sharded_optimizer_state``,
     ``whole_param_names``, ``slice_values`` and ``whole_values``, each
     over its parameters in ``named_parameters`` order; any other model is
-    read as ``PlainState`` reads it. Without a process group the world is
+    read as ``PlainState`` reads it, or as ``state`` (a ``PlainState`` of
+    the model a wrapper such as ``spatial.RowSharded`` holds: the
+    reference names, without the wrapper's prefix). Each module whose
+    parameters it takes lists them under ``replicas.HELD_PARAMS``, so
+    replicas copy the whole leaves. Without a process group the world is
     one rank. ``paths`` keeps ``inner``'s parameter name of each
     piece."""
 
     def __init__(self, inner: nn.Module,
-                 cuts: Optional[Sequence[Optional[Cut]]] = None):
+                 cuts: Optional[Sequence[Optional[Cut]]] = None,
+                 state: Optional[PlainState] = None):
         super().__init__()
         self.world, self.rank = ((dist.get_world_size(), dist.get_rank())
                                  if dist.is_initialized() else (1, 0))
         self.inner = inner
-        self._state = (inner if hasattr(inner, "whole_state")
-                       else PlainState(inner))
+        self._state = state or (inner if hasattr(inner, "whole_state")
+                                else PlainState(inner))
         named = list(inner.named_parameters())
         if cuts is None:
             cuts = [Cut(p.device, (p.device,), 0, True)
@@ -230,6 +237,8 @@ class ZeroSharded(nn.Module):
             del module._parameters[attr]
             # a whole one is read where it lies
             object.__setattr__(module, attr, None if cut else p)
+            object.__setattr__(module, HELD_PARAMS,
+                               getattr(module, HELD_PARAMS, ()) + (attr,))
             start = len(self.pieces)
             for shard in shards:
                 self.pieces.append(shard)

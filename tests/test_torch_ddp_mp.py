@@ -21,6 +21,7 @@ Every scenario of the two ranks runs in one launch per module (the
 ``ranks`` fixture), bounded by ``LAUNCH_TIMEOUT_S``."""
 
 import functools
+import itertools
 import os
 import subprocess
 import sys
@@ -570,22 +571,40 @@ def test_cli_trains_under_torchrun_and_resumes_under_another_method(
 
 def test_cli_refuses_ddp_mp_without_a_data_axis(monkeypatch):
     """Without a launcher ``-t DDP_MP`` is world 1 and exits with the JAX
-    "degenerates to plain MP" error, leaving no group behind; the methods
-    still to port are the mesh specs with ZeRO over row shards, and TP,
-    FSDP, the flat specs and in-stage sharding train."""
+    "degenerates to plain MP" error, leaving no group behind. Nothing is
+    left to port among the ``-t`` names: over D, M, S ∈ {1, 2} and every
+    option set, ``check_train_method`` takes each spec the JAX package's
+    ``parse_mesh_spec`` takes, except a spatial model axis inside a
+    pipeline stage (``DxMxS@sp``, S > 1), which the JAX package's
+    strategy refuses too; it refuses every spec JAX's grammar refuses."""
+    from distributedpytorch_tpu.parallel import mesh as jax_mesh
+
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     with pytest.raises(ValueError, match="degenerates to plain MP"):
         run_cli(["-t", "DDP_MP", "-e", "1", *CLI])
     assert not torch.distributed.is_initialized()
     assert "DDP_MP" in port_strategy.STRATEGIES
-    trains, still = port_strategy.unported_method_message("x").split(";")
-    assert "DDP_MP" in trains and "DDP_MP" not in still
-    assert "mesh specs" in trains and "Dx1xS" in trains
-    assert "in-stage sharding" in trains and "DxMxS@fsdp" in trains
-    for method in ("ZeRO over row shards", "DxMx1@sp+fsdp with D > 1"):
-        assert method in still
-    assert "in-stage" not in still and "DxMxS" not in still
-    for method in ("TP", "FSDP"):
-        assert method in trains and method not in still
-    assert "SP" not in still
+    assert not hasattr(port_strategy, "unported_method_message")
+    opts = ["", "@tp", "@sp", "@fsdp", "@fsdp+tp", "@sp+fsdp", "@sp+tp",
+            "@fsdp+sp+tp"]
+    trained = refused = 0
+    for d, m, s, opt in itertools.product((1, 2), (1, 2), (1, 2), opts):
+        spec = f"{d}x{m}x{s}{opt}"
+        try:
+            cfg = jax_mesh.parse_mesh_spec(spec)
+        except ValueError:
+            with pytest.raises(ValueError):
+                port_strategy.check_train_method(spec)
+            continue
+        if s > 1 and cfg.model > 1 and cfg.model_role == "spatial":
+            refused += 1
+            with pytest.raises(ValueError, match="not executable"):
+                port_strategy.check_train_method(spec)
+            with pytest.raises(ValueError, match="not executable"):
+                jax_build_strategy(JaxTrainConfig(train_method=spec),
+                                   devices=jax.devices()[:d * m * s])
+            continue
+        trained += 1
+        port_strategy.check_train_method(spec)
+    assert (trained, refused) == (36, 4)

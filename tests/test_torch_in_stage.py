@@ -189,8 +189,9 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     """The class each in-stage point runs as, its name, mesh (the JAX
     axes in (data, model, stage) order) and whether its checkpoint is a
     collective; ``1x1x2@fsdp`` stays the flat pipeline (ZeRO over one
-    rank is nothing); ``2x2x1@sp+fsdp`` is refused naming item 1c′ and
-    ``2x2x2@sp`` in JAX's words, neither joining a group."""
+    rank is nothing); ``2x2x1@sp+fsdp`` under ``--remat`` is refused
+    naming item 1c″ and ``2x2x2@sp`` in JAX's words, neither joining a
+    group."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     info = runtime.RuntimeInfo(0, 2)
@@ -214,9 +215,10 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     flat = port_strategy.build_strategy(
         port_config("unet", train_method="1x1x2@fsdp"), None, [CPU, CPU])
     assert type(flat).__mro__[2] is port_strategy.Pipeline
-    with pytest.raises(ValueError, match=r"not ported yet.*item 1c′"):
+    with pytest.raises(ValueError, match=r"not ported yet.*item 1c″"):
         port_strategy.build_strategy(
-            port_config("unet", train_method="2x2x1@sp+fsdp"), info)
+            port_config("unet", train_method="2x2x1@sp+fsdp", remat=True),
+            info)
     with pytest.raises(ValueError, match="spatial.*not executable"):
         port_strategy.build_strategy(
             port_config("unet", train_method="2x2x2@sp"), info)

@@ -277,24 +277,40 @@ def test_the_pipeline_twin_takes_the_specs_batch_rule(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-STILL_REFUSED = ["2x2x1@sp+fsdp", "4x2x1@sp+fsdp", "2x4x1@sp+fsdp",
-                 "8x2x1@sp+fsdp", "2x2x1@fsdp+sp"]
+#: what stays refused: the run control under ZeRO over row shards (item
+#: 1c″) and a spatial model axis inside a pipeline stage (JAX's refusal)
+STILL_REFUSED = [
+    ("2x2x1@sp+fsdp", ["--steps-per-dispatch", "2"],
+     dict(steps_per_dispatch=2), r"ROADMAP\.md, Queue A, item 1c″"),
+    ("2x2x1@sp+fsdp", ["--remat"], dict(remat=True),
+     r"ROADMAP\.md, Queue A, item 1c″"),
+    ("2x2x1@sp+fsdp", ["--grad-accum", "2"], dict(grad_accum=2),
+     r"ROADMAP\.md, Queue A, item 1c″"),
+    ("2x2x1@sp+fsdp", ["--dtype", "bf16_params"], dict(dtype="bf16_params"),
+     r"ROADMAP\.md, Queue A, item 1c″"),
+    ("2x2x2@sp", [], {}, r"'spatial' model role inside a pipeline stage "
+     r"is not executable.*the JAX package refuses it too")]
 
 
-@pytest.mark.parametrize("spec", STILL_REFUSED)
-def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, monkeypatch):
-    """ZeRO over row shards (``DxMx1@sp+fsdp`` with D > 1), what item 1c′
-    still holds now that sharding inside a pipeline stage trains
-    (tests/test_torch_in_stage.py), is refused by the strategy and by the
-    CLI with the ROADMAP's item 1c′, before any group is joined; the
-    message lists what the port trains."""
+@pytest.mark.parametrize("spec,flag,kw,pattern", STILL_REFUSED)
+def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, flag, kw,
+                                                         pattern,
+                                                         monkeypatch):
+    """Every spec the JAX package trains trains here too, ZeRO over row
+    shards (``DxMx1@sp+fsdp``) among them (tests/test_torch_zero_spatial
+    .py); what stays refused is refused by the strategy and by the CLI
+    before any group is joined: the K-step graph, ``--remat``,
+    ``--grad-accum`` and ``--dtype bf16_params`` under ``2x2x1@sp+fsdp``
+    naming the ROADMAP's item 1c″, and a spatial model axis inside a
+    pipeline stage in the JAX package's words."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
-    pattern = r"not ported yet.*ROADMAP\.md, Queue A, item 1c′"
+    cfg = port_config("unet", train_method=spec, **kw)
     with pytest.raises(ValueError, match=pattern):
-        port_strategy.build_strategy(port_config("unet", train_method=spec))
+        port_strategy.build_strategy(cfg, runtime.RuntimeInfo(0, 2),
+                                     [CPU, CPU])
     with pytest.raises(SystemExit, match=pattern):
-        cli.main(["-t", spec, *CLI])
+        cli.main(["-t", spec, *CLI, *flag])
     assert not torch.distributed.is_initialized()
 
 

@@ -369,10 +369,13 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 
 def test_cli_refuses_what_it_does_not_run(capsys):
-    # the mesh specs with ZeRO over row shards
-    for method in ("2x2x1@sp+fsdp", "4x2x1@sp+fsdp"):
-        with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
-            cli.main(["-t", method])
+    # a spatial model axis inside a pipeline stage (the JAX words), and
+    # the run control under ZeRO over row shards (ROADMAP item 1c″)
+    for argv, said in ((["-t", "2x2x2@sp"], "not executable.*ROADMAP"),
+                       (["-t", "4x2x1@sp+fsdp", "--remat"],
+                        "not ported yet.*ROADMAP.*1c″")):
+        with pytest.raises(SystemExit, match=said):
+            cli.main(argv)
     with pytest.raises(SystemExit):
         cli.get_args(["--step-timeout", "5"])  # not defined (the watchdog)
     with pytest.raises(SystemExit):
