@@ -82,7 +82,10 @@ PyTorch's own convolutions, which repeat bit for bit on the shared
 card), a bf16
 milesial step's K1, K1-bwd, K2, K3 and K5 launches the twin's, each
 rank's bytes of parameters and Adam's state, and rank 0's checkpoint
-from the training CLI resumed under singleGPU bitwise
+from the training CLI resumed under singleGPU bitwise, and its run
+control: each model's ``--remat`` step bitwise the twin's plain step,
+its ``--dtype bf16_params`` step and the UNet's ``--grad-accum 2`` step
+bitwise the twin's, each rank's bf16_params bytes (``_rc_runs``)
 (``train_ddp_sp_gloo2``). Then the trainer's run control
 (``train_run_control``): the UNet with ``--steps-per-dispatch 4`` (one
 CUDA graph of 4 whole steps, K1 and K1-bwd inside it) against the same 16
@@ -121,7 +124,10 @@ as two gloo ranks run their plain steps against singleGPU's and DDP's
 against their eager steps, bitwise, a replay's kernels by name in the
 graph's nodes; ``--remat`` bitwise the plain step at a lower peak
 memory; the f32 UNet's ``--grad-accum 2`` against singleGPU's (TP) and
-DDP's (FSDP); and FSDP's ``--dtype bf16_params`` against DDP's. The mesh
+DDP's (FSDP); FSDP's ``--dtype bf16_params`` against DDP's; and the
+classes of ``2x2x1``, ``2x2x1@fsdp`` and ``2x2x1@sp+fsdp`` built at
+world 1 under NCCL on ``[cuda:0, cuda:0]`` as CUDA graphs of 4 steps
+against their eager steps, bitwise (``_rc_world_one_graph``). The mesh
 specs (``train_mesh``): ``-t 1x2x1`` on ``[cuda:0, cuda:0]`` bitwise
 ``-t TP`` for one step of each model and ``-t 1x1x2`` bitwise ``-t MP``,
 then ``2x2x1`` (data × channel) and ``2x2x1@fsdp`` (ZeRO × channel) as
@@ -129,8 +135,9 @@ two gloo ranks on the card, each over ``[cuda:0, cuda:0]``: the ranks'
 whole states bitwise equal after 2 float32 UNet steps, step 1 against a
 world-1 step on the joint batch, K1 and K1-bwd once a step on each rank,
 milesial's K2, K3 and K5 per step by name in the trace, each slice's
-bytes, and a ``2x2x1@fsdp`` checkpoint resumed under singleGPU bitwise.
-In-stage sharding (``train_in_stage``): ``-t 1x2x2`` on ``[cuda:0] *
+bytes, and a ``2x2x1@fsdp`` checkpoint resumed under singleGPU bitwise;
+and their run control beside each other, as ``train_ddp_sp_gloo2``'s
+(``_rc_runs``). In-stage sharding (``train_in_stage``): ``-t 1x2x2`` on ``[cuda:0] *
 4`` bitwise ``-t 1x1x2`` on ``[cuda:0] * 2`` for one bf16 Adam step of
 each model under each schedule, the kernels' launches equal; beside
 them ``2x2x2`` and ``2x2x2@fsdp`` as two gloo ranks on the card, each
@@ -152,7 +159,12 @@ when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
 
-runs, after the build, ``-t DDP`` across four cards under NCCL, one
+runs, after the build, the training CLI in two fresh NCCL ranks of two
+cards each, as torchrun starts them, straight into one CUDA graph of 4
+steps (``fresh_rank_graphs``: the UNet under ``2x2x1@fsdp`` with
+``--dtype bf16_params``, ``2x2x1`` bf16 and ``2x2x1@sp+fsdp``
+``bf16_params``; a rank that hangs prints its threads' stacks; milesial's
+graph there refused before any group is joined); then ``-t DDP`` across four cards under NCCL, one
 process per card (``ddp_cards``): the same checks as the two gloo ranks,
 the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
 launch of the training CLI; ``-t DDP_MP`` as two NCCL ranks of two cards
@@ -170,7 +182,10 @@ cards against a one-card step (``dp_cards``), ``-t TP`` across the four
 cards against singleGPU (``tp_cards``), ``-t FSDP`` as four NCCL ranks
 against ``-t DDP`` (``fsdp_cards``), ``2x2x1`` and ``2x2x1@fsdp`` as two
 NCCL ranks of two cards each (``mesh_cards``: the ranks bitwise equal,
-each card's bytes, the eager step's ms), and in-stage sharding
+each card's bytes, the eager step's ms; with ``2x2x1@sp+fsdp`` in
+``sp_cards``, each model as one CUDA graph of 4 steps against its eager
+steps and its bf16_params bytes per card, ``_rc_card_graphs``), and
+in-stage sharding
 (``in_stage_cards``: ``1x2x2`` over the four cards against ``1x1x2`` on
 two, ``2x1x2@fsdp`` as two NCCL ranks of two cards against ``2x1x2``,
 the bf16 step timed and each card's bytes). Every one but the last two
@@ -1756,7 +1771,7 @@ def phase_train(tmp: str) -> dict:
     # kernels by the profiler's clock
     batch = trainer.place_batch(trainer.train_loader.load_slice(
         trainer.train_loader.batch_slices(0)[0]))
-    step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), 5, warmup=2)
     host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
     top = _top_kernels(lambda: trainer.train_step(batch), 3)
     out = {
@@ -2257,7 +2272,7 @@ def phase_train_ddp(tmp: str, train: dict) -> dict:
             "--image-size", str(w), str(h), "--dtype", "bf16",
             "--kernels", "cuda"]
     trainer, result, launches, _, artifacts, timing = _ddp_world_one(
-        os.path.join(tmp, "train_ddp"), argv, _step_ms(10, 3))
+        os.path.join(tmp, "train_ddp"), argv, _step_ms(5, 2))
     steps = result["steps"]
     eval_batches = TRAIN_EPOCHS * len(trainer.val_loader)
     losses = [float(x) for x in trainer.records.losses]
@@ -2440,7 +2455,7 @@ def ddp_rank(rank: int, world: int, backend: str, job: str) -> int:
                 [torch.device(device)], 5)
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -2474,6 +2489,16 @@ def _stop_ranks(started: dict) -> None:
     for proc in started["procs"]:
         proc.kill()
         proc.wait()
+
+
+def _leave_group() -> None:
+    """A rank's process group destroyed through ``runtime.shutdown``,
+    which first collects the CUDA graphs that only reference cycles still
+    hold: ``ncclCommDestroy`` waits until every graph that captured a
+    collective of the communicator is destroyed."""
+    from distributedpytorch_tpu_torch.dist import runtime
+
+    runtime.shutdown()
 
 
 def _run_ddp_ranks(job: str, world: int, backend: str,
@@ -2946,7 +2971,7 @@ def phase_train_mp(tmp: str, train: dict) -> dict:
               f"MP {schedule}: first loss {losses[0]} against train's "
               f"{train['losses'][0]}")
         batch = _first_batch(trainer)
-        step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+        step_ms = cuda_ms(lambda: trainer.train_step(batch), 5, warmup=2)
         host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
         top = _top_kernels(lambda: trainer.train_step(batch), 2)
         device_ms = sum(ms for _, ms in top)
@@ -3224,7 +3249,7 @@ def phase_train_dp(tmp: str, train: dict) -> dict:
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         batch = _first_batch(trainer)
-        step_ms = cuda_ms(lambda: trainer.train_step(batch), 10, warmup=3)
+        step_ms = cuda_ms(lambda: trainer.train_step(batch), 5, warmup=2)
         host_ms = _host_enqueue_ms(lambda: trainer.train_step(batch))
     finally:
         close()
@@ -3408,7 +3433,8 @@ def _remat_run(method: str, arch: str, devices, want: dict) -> dict:
         out = {"loss": loss, "launches": dict(kernels.LAUNCHES),
                "grads": _grads(model), "stats": _running_stats(model)}
         out.update(_peak_step_bytes(step, batch))
-        out["step_ms"] = cuda_ms(lambda: step(batch), 3, warmup=1)
+        # _peak_step_bytes ran two steps: warm already
+        out["step_ms"] = cuda_ms(lambda: step(batch), 1, warmup=0)
         del model, step
         torch.cuda.empty_cache()
         return out
@@ -3911,10 +3937,14 @@ def _digest(tensors) -> str:
     """SHA-256 of the bytes of ``tensors``, in order."""
     import hashlib
 
+    import torch
+
     digest = hashlib.sha256()
     for t in tensors:
-        # an FSDP shard gathered whole (a collective every rank enters)
-        digest.update(_full(t).detach().cpu().numpy().tobytes())
+        # an FSDP shard gathered whole (a collective every rank enters);
+        # its bytes, whatever the dtype (numpy has no bfloat16)
+        t = _full(t).detach().cpu().contiguous()
+        digest.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -4060,7 +4090,7 @@ def ddp_mp_rank(rank: int, world: int, backend: str, job: str) -> int:
                 for schedule in ("gpipe", "1f1b")}
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -4907,13 +4937,13 @@ def phase_train_run_control(tmp: str) -> dict:
 # train_graph_strategies: each run at K = GS_K against K = 1 with the same
 # capturable Adam, full width, bf16 (bf16_params where named), -b 4. DDP
 # captures after its 11 eager warm-up steps (three stacks), so its runs
-# take 160 samples (32 steps, five stacks through the graph); milesial
-# takes 40 (8 steps: one warm-up stack, one through the graph)
+# take 112 samples (22 steps, two stacks through the graph and a tail);
+# milesial takes 40 (8 steps: one warm-up stack, one through the graph)
 GS_K = RC_K
 GS_RUNS = (
     # label, extra CLI arguments, samples, epochs, the wgrad backend
-    ("ddp", ("-t", "DDP"), 160, 1, False),
-    ("ddp_bf16_params", ("-t", "DDP", "--dtype", "bf16_params"), 160, 1,
+    ("ddp", ("-t", "DDP"), 112, 1, False),
+    ("ddp_bf16_params", ("-t", "DDP", "--dtype", "bf16_params"), 112, 1,
      False),
     ("mp_gpipe", ("-t", "MP", "--stages", "2", "--microbatches", "2",
                   "--pipeline-schedule", "gpipe"), RC_SAMPLES, 2, False),
@@ -5259,7 +5289,7 @@ def _graph_and_eager_sides(build, stacks, k: int, multi_step) -> dict:
 # the calls of each side a graph run times by the wall clock, beside one
 # profiler session for its busy time: few, so that the script keeps to
 # its time limit as it grows
-TIMED_SIDE_CALLS = 2
+TIMED_SIDE_CALLS = 1
 
 
 def _timed_sides(sides: dict, stacked, k: int, devices) -> dict:
@@ -5426,7 +5456,7 @@ PROBE_NAMES = ("conv_epilogue", "eval_stats", "fused_loss", "serve_mask",
 # samples (6 steps) and one eval batch, steps [2, 4) at K = 1 and K = 2
 PW_SAMPLES = 30
 PW_STEPS = (2, 4)
-PW_TIMED = 10
+PW_TIMED = 5
 # the preempted run: --synthetic 30 -v 20 -b 4 -e 2 (6 steps an epoch),
 # SIGTERM from this process once step 3 has run
 PREEMPT_SAMPLES = 30
@@ -5904,7 +5934,7 @@ MILESIAL_BATCHNORMS = 18
 MILESIAL_K5_CONVS = 13
 SP_KERNELS = ("loss_stats", "loss_stats_bwd", "bn_act", "bn_act_bwd",
               "wgrad_9tap")
-SP_TIMED_STEPS = 3
+SP_TIMED_STEPS = 2
 # the DDP_SP ranks: model and steps, -b 4 per rank over two shards, bf16,
 # milesial with --wgrad-taps under DPT_WGRAD_BACKEND=pallas
 DDP_SP_RUNS = (("unet", 2), ("milesial", 2))
@@ -6625,7 +6655,9 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
     ``--remat`` and the refusal of K > 1, under nccl each model as one
     CUDA graph of GS_K steps against its eager steps
     (``_rank_graph_run``), then ZeRO over row shards beside its twin
-    (``_zsp_runs``), and writes its results to ``DIR/result_R.pt``."""
+    (``_zsp_runs``) and its run control (under gloo ``_rc_runs``, under
+    nccl ``_rc_card_graphs``), and writes its results to
+    ``DIR/result_R.pt``."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -6668,9 +6700,14 @@ def ddp_sp_rank(rank: int, world: int, backend: str, job: str) -> int:
                                          if arch == "milesial" else graph())
         result["zero"] = _zsp_runs(rank, world, devices, backend == "nccl",
                                    job)
+        if backend == "nccl":
+            result["rc_graphs"] = _rc_card_graphs((ZSP_SPEC,), rank, world,
+                                                  devices)
+        else:
+            result["run_control"] = _rc_runs("ddp_sp", rank, world, devices)
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -6802,6 +6839,8 @@ def phase_train_ddp_sp_gloo2(tmp: str, started=None) -> dict:
         problems.append(f"K = 2 over gloo on the card: {refusals}")
     zero, zero_problems = _check_zsp_ranks(ranks, 2)
     problems += zero_problems
+    run_control, rc_problems = _check_rc_ranks(ranks, "ddp_sp")
+    problems += rc_problems
     cli = ranks[0]["zero"]["cli"]
     zero["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
                    "rank1_wrote": ranks[1]["zero"]["cli"]["wrote"]}
@@ -6820,7 +6859,8 @@ def phase_train_ddp_sp_gloo2(tmp: str, started=None) -> dict:
            "shards": SP_SHARDS, "devices": [r["devices"] for r in ranks],
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
            "runs": runs, "k_refusal": refusals[0],
-           "zero_over_row_shards": zero, "problems": problems}
+           "zero_over_row_shards": zero, "run_control": run_control,
+           "problems": problems}
     emit(out)
     check(not problems, f"train_ddp_sp_gloo2: {problems}")
     return out
@@ -6900,6 +6940,8 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
     problems += zero_problems
     zero["bf16_steps"] = [r["zero"]["bf16_steps"] for r in ranks]
     out["zero_over_row_shards"] = zero
+    out["run_control_graphs"], rc_problems = _check_rc_card_graphs(ranks)
+    problems += rc_problems
     out["ddp_sp_graphs"] = {}
     for arch in ranks[0]["graph"]:
         rows = _ranks_graph_rows([{"graph": r["graph"][arch]}
@@ -6954,7 +6996,7 @@ def phase_sp_cards(tmp: str, world: int) -> dict:
 # -t TP on [cuda:0, cuda:0] (train_tp): two channel slices of every layer
 # on the one card, full width, -b 4; across the cards (tp_cards)
 TP_SLICES = 2
-TP_TIMED_STEPS = 3
+TP_TIMED_STEPS = 2
 
 
 def _tp_expected_per_step(arch: str, slices: int) -> dict:
@@ -7332,7 +7374,7 @@ def fsdp_rank(rank: int, world: int, backend: str, job: str) -> int:
                                           if arch == "milesial" else run())
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -7713,7 +7755,8 @@ def phase_tp_fsdp_run_control() -> dict:
     milesial's K2 twice, the step's memory above its start lower); the
     float32 UNet's ``--grad-accum TPF_ACCUM`` against singleGPU's (TP)
     and DDP's at world 1 (FSDP); FSDP's ``--dtype bf16_params`` against
-    DDP's (``_tpf_bf16_params_row``)."""
+    DDP's (``_tpf_bf16_params_row``); then the flat mesh points' classes
+    at world 1 as CUDA graphs of GS_K steps (``_rc_world_one_graph``)."""
     import torch
 
     from distributedpytorch_tpu_torch.dist import runtime
@@ -7754,6 +7797,9 @@ def phase_tp_fsdp_run_control() -> dict:
     out["accum"] = {"tp": _tpf_accum_row("TP", runs, "singleGPU"),
                     "fsdp": _tpf_accum_row("FSDP", runs, "DDP")}
     out["bf16_params"] = _tpf_bf16_params_row(dev)
+    out["mesh_world_one"] = {
+        f"{spec}_{arch}": _rc_world_one_graph(spec, cls_name, arch, dev)
+        for spec, cls_name, arch in RC_WORLD_ONE}
     out["wall_s"] = time.perf_counter() - t0
     emit({"phase": "tp_fsdp_run_control", "wall_s": out["wall_s"]})
     return out
@@ -7971,9 +8017,11 @@ def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
     ``DIR``; its MESH_SLICES devices are ``[cuda:0, cuda:0]`` under gloo
     (``train_mesh``: both ranks on the one card) and ``cuda:2R``,
     ``cuda:2R+1`` under nccl (``--cards``). Runs ``_mesh_spec_run`` for
-    each of MESH_SPECS; under gloo then a short run of the training CLI's
-    own functions under ``-t 2x2x1@fsdp`` on the same devices (one step
-    and one eval batch a rank), whose checkpoint rank 0 writes. Writes
+    each of MESH_SPECS; under gloo then their run control beside each
+    other (``_rc_runs``) and a short run of the training CLI's own
+    functions under ``-t 2x2x1@fsdp`` on the same devices (one step and
+    one eval batch a rank), whose checkpoint rank 0 writes; under nccl
+    their graphs and bf16_params bytes (``_rc_card_graphs``). Writes
     ``DIR/result_R.pt``."""
     import torch
 
@@ -7999,6 +8047,11 @@ def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
             for spec in MESH_SPECS:
                 result[spec] = _mesh_spec_run(spec, rank, world, devices,
                                               place, nccl)
+        if nccl:
+            result["rc_graphs"] = _rc_card_graphs(MESH_SPECS, rank, world,
+                                                  devices)
+        else:
+            result["run_control"] = _rc_runs("mesh", rank, world, devices)
         if not nccl:
             w, h = IMAGE_WH
             run = os.path.join(job, f"cli_rank{rank}")
@@ -8017,8 +8070,7 @@ def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
                 close()
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        if torch.distributed.is_initialized():
-            torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -8091,6 +8143,343 @@ def _resume_under_single_gpu(path: str) -> dict:
             "weights_bitwise": same_model, "adam_bitwise": same_adam}
 
 
+# -- the run control of the flat new geometries -------------------------------
+# train_mesh's and train_ddp_sp_gloo2's gloo ranks run each point beside its
+# twin (2x2x1@fsdp beside 2x2x1, 2x2x1@sp+fsdp beside 2x2x1@sp): one step
+# (one --grad-accum RC_ACCUM step of the UNet) at RANK_BATCH rows a rank
+# from the seed's weights with Adam at MESH_LR, with PyTorch's
+# convolutions (trap 11: cuDNN does not repeat a step on the shared card).
+# Each label names (spec, arch, dtype, config); a row compares two labels
+RC_ACCUM = 2
+RC_RUNS = {
+    "mesh": {
+        "plain_unet": ("2x2x1", "unet", "f32", {}),
+        "remat_unet": ("2x2x1", "unet", "f32", {"remat": True}),
+        "zero_remat_unet": ("2x2x1@fsdp", "unet", "f32", {"remat": True}),
+        "plain_milesial": ("2x2x1", "milesial", "bf16", {}),
+        "remat_milesial": ("2x2x1", "milesial", "bf16", {"remat": True}),
+        "zero_remat_milesial": ("2x2x1@fsdp", "milesial", "bf16",
+                                {"remat": True}),
+        "bf16p_unet": ("2x2x1", "unet", "bf16_params", {}),
+        "zero_bf16p_unet": ("2x2x1@fsdp", "unet", "bf16_params", {}),
+        "bf16p_milesial": ("2x2x1", "milesial", "bf16_params", {}),
+        "zero_bf16p_milesial": ("2x2x1@fsdp", "milesial", "bf16_params", {}),
+        "accum_unet": ("2x2x1", "unet", "f32", {"grad_accum": RC_ACCUM}),
+        "zero_accum_unet": ("2x2x1@fsdp", "unet", "f32",
+                            {"grad_accum": RC_ACCUM})},
+    "ddp_sp": {
+        "plain_unet": ("2x2x1@sp", "unet", "f32", {}),
+        "zero_remat_unet": ("2x2x1@sp+fsdp", "unet", "f32", {"remat": True}),
+        "plain_milesial": ("2x2x1@sp", "milesial", "bf16", {}),
+        "zero_remat_milesial": ("2x2x1@sp+fsdp", "milesial", "bf16",
+                                {"remat": True}),
+        "bf16p_unet": ("2x2x1@sp", "unet", "bf16_params", {}),
+        "zero_bf16p_unet": ("2x2x1@sp+fsdp", "unet", "bf16_params", {}),
+        "bf16p_milesial": ("2x2x1@sp", "milesial", "bf16_params", {}),
+        "zero_bf16p_milesial": ("2x2x1@sp+fsdp", "milesial", "bf16_params",
+                                {}),
+        "accum_unet": ("2x2x1@sp", "unet", "f32", {"grad_accum": RC_ACCUM}),
+        "zero_accum_unet": ("2x2x1@sp+fsdp", "unet", "f32",
+                            {"grad_accum": RC_ACCUM})}}
+# (run, against): bitwise the loss, the whole state after Adam and the
+# whole f32 masters; the launches equal but for milesial's recompute, whose
+# K2 runs twice
+RC_PAIRS = (("remat_unet", "plain_unet"), ("zero_remat_unet", "plain_unet"),
+            ("remat_milesial", "plain_milesial"),
+            ("zero_remat_milesial", "plain_milesial"),
+            ("zero_bf16p_unet", "bf16p_unet"),
+            ("zero_bf16p_milesial", "bf16p_milesial"),
+            ("zero_accum_unet", "accum_unet"))
+# each rank's bytes of bf16 parameters, f32 masters and Adam's two f32
+# moments over them under 2x2x1@sp+fsdp at D = 2, all on its first card:
+# 14 B a value of the cut values halved and of the 1-channel head
+RC_BF16P_RANK_BYTES = {"unet": 7_760_064 // 2 * 14 + 33 * 14,
+                       "milesial": 31_037_568 // 2 * 14 + 65 * 14}
+
+
+def _rc_run(spec: str, arch: str, dtype: str, rank: int, world: int,
+            devices, **cfg_kw) -> dict:
+    """One step of ``spec`` (one ``--grad-accum`` step with ``grad_accum``
+    in ``cfg_kw``) on this rank's rows of the global batches: its loss,
+    the launches counted from zero, a digest of the whole state after
+    Adam and of the whole f32 masters (collectives every rank enters under
+    ZeRO), the peak memory above the step's start on the first card and
+    each card's bytes of parameters, masters and Adam's state."""
+    import torch
+
+    from distributedpytorch_tpu_torch.config import TrainConfig
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops import kernels
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.ops.precision import (
+        cast_params_,
+        get_policy,
+    )
+    from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
+
+    cfg = TrainConfig(train_method=spec, model_arch=arch, dtype=dtype,
+                      kernels="cuda", device="cuda", batch_size=RANK_BATCH,
+                      learning_rate=MESH_LR, wgrad_taps=arch == "milesial",
+                      **cfg_kw)
+    strategy = build_strategy(cfg, devices=devices)
+    policy = get_policy(cfg)
+    model = strategy.place_model(create_model(
+        cfg, generator=torch.Generator().manual_seed(SEED),
+        cast_params=False))
+    opt = make_optimizer(model.parameters(), MESH_LR, cfg.weight_decay,
+                         policy=policy)
+    cast_params_(model, policy)
+    chunks = int(cfg.grad_accum)
+    kern = get_kernel_policy("cuda")
+    step = (strategy.build_accum_train_step(model, opt, kern) if chunks > 1
+            else strategy.build_train_step(model, opt, kern))
+    rows = slice(rank * RANK_BATCH, (rank + 1) * RANK_BATCH)
+    batches = [{k: torch.from_numpy(v[rows]).to(devices[0])
+                for k, v in b.items()}
+               for b in _ddp_batches(world, RANK_BATCH, chunks)]
+    _sync_all(devices)
+    kernels.reset_launches()
+    base = torch.cuda.memory_allocated(devices[0])
+    torch.cuda.reset_peak_memory_stats(devices[0])
+    loss = float(step(batches) if chunks > 1 else step(batches[0]))
+    _sync_all(devices)
+    peak = torch.cuda.max_memory_allocated(devices[0])
+    masters = list(getattr(opt, "master", ()))
+    out = {"spec": spec, "loss": loss, "launches": dict(kernels.LAUNCHES),
+           "state_digest": _digest(strategy.model_state(model).values()),
+           "master_digest": _digest(
+               model.whole_values(masters)
+               if masters and hasattr(model, "whole_values") else masters),
+           "step_bytes": peak - base, "card_bytes": _card_bytes(model, opt)}
+    del model, step, opt, strategy
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rc_runs(kind: str, rank: int, world: int, devices) -> dict:
+    """Every run of ``RC_RUNS[kind]`` on this rank (``_rc_run``), with
+    PyTorch's convolutions, milesial under DPT_WGRAD_BACKEND=pallas; the
+    seconds they took."""
+    t0 = time.perf_counter()
+    out = {}
+    with _without_cudnn():
+        for label, (spec, arch, dtype, kw) in RC_RUNS[kind].items():
+            def run(spec=spec, arch=arch, dtype=dtype, kw=kw):
+                return _rc_run(spec, arch, dtype, rank, world, devices, **kw)
+
+            out[label] = (_with_wgrad_backend(run) if arch == "milesial"
+                          else run())
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _rc_expected(label: str, point_kind: str) -> dict:
+    """What one run of ``label`` launches on a rank: a step's
+    (``_tp_expected_per_step`` over MESH_SLICES channel slices, or
+    ``_sp_expected_per_step`` over SP_SHARDS row shards), K2 twice under
+    ``--remat`` (the recompute's), both passes' K1 and the second's K1-bwd
+    for every chunk of an accumulation."""
+    arch = label.rpartition("_")[2]
+    per = (_tp_expected_per_step(arch, MESH_SLICES) if point_kind == "mesh"
+           else _sp_expected_per_step(arch, SP_SHARDS))
+    if "remat" in label and arch == "milesial":
+        per["bn_act"] *= 2
+    if "accum" in label:
+        per = {"loss_stats": 2 * RC_ACCUM * per["loss_stats"],
+               "loss_stats_bwd": RC_ACCUM * per["loss_stats_bwd"]}
+    return per
+
+
+def _check_rc_ranks(ranks, kind: str) -> tuple:
+    """The run control's rows of ``kind``'s ranks (``_rc_runs``): each run
+    of RC_PAIRS bitwise its reference on every rank (loss, whole state
+    after Adam, whole masters), the ranks equal, each run's launches
+    ``_rc_expected``, a remat run's step memory below its reference's;
+    under ``2x2x1@sp+fsdp --dtype bf16_params`` each rank's bytes
+    RC_BF16P_RANK_BYTES on its first card. Returns the rows and the
+    disagreements."""
+    rows, problems = {}, []
+    rcs = [r["run_control"] for r in ranks]
+    for label in RC_RUNS[kind]:
+        want = _rc_expected(label, kind)
+        got = [rc[label] for rc in rcs]
+        if any(g["launches"].get(n) != c for g in got
+               for n, c in want.items()):
+            problems.append(f"{kind} {label}: launched "
+                            f"{[g['launches'] for g in got]}, expected {want}")
+        if any((g["loss"], g["state_digest"], g["master_digest"])
+               != (got[0]["loss"], got[0]["state_digest"],
+                   got[0]["master_digest"]) for g in got):
+            problems.append(f"{kind} {label}: the ranks differ")
+    for run, ref in RC_PAIRS:
+        if run not in RC_RUNS[kind]:
+            continue
+        a, b = rcs[0][run], rcs[0][ref]
+        row = {"spec": a["spec"], "against": f"{b['spec']} {ref}",
+               "loss": a["loss"], "ref_loss": b["loss"],
+               "bitwise": (a["loss"] == b["loss"]
+                           and a["state_digest"] == b["state_digest"]
+                           and a["master_digest"] == b["master_digest"]),
+               "launches": a["launches"], "ref_launches": b["launches"],
+               "step_bytes": a["step_bytes"],
+               "ref_step_bytes": b["step_bytes"],
+               "card_bytes": [rc[run]["card_bytes"] for rc in rcs]}
+        rows[run] = row
+        if not row["bitwise"]:
+            problems.append(f"{kind} {run} off {ref}: {row}")
+        if "remat" in run and not row["step_bytes"] < row["ref_step_bytes"]:
+            problems.append(f"{kind} {run}: step memory {row['step_bytes']}"
+                            f" not below {row['ref_step_bytes']}")
+        if "bf16p" in run and "sp+fsdp" in a["spec"]:
+            arch = run.rpartition("_")[2]
+            for cards in row["card_bytes"]:
+                if list(cards.values()) != [RC_BF16P_RANK_BYTES[arch]]:
+                    problems.append(f"{kind} {run}: a rank holds {cards}, "
+                                    f"not {RC_BF16P_RANK_BYTES[arch]}")
+    rows["wall_s"] = [rc["wall_s"] for rc in rcs]
+    return rows, problems
+
+
+# the K-step graph of each flat point's class at world 1 under NCCL on
+# [cuda:0, cuda:0] (tp_fsdp_run_control): ZeroSharded still cuts over its
+# one rank and issues its all-gathers and reduce-scatters; the bf16 UNet
+# of each, RANK_BATCH rows, two stacks of GS_K (milesial's graphs run
+# across cards, --cards 4's mesh_cards and sp_cards)
+RC_WORLD_ONE = (("2x2x1", "DataTensorParallel", "unet"),
+                ("2x2x1@fsdp", "ZeroTensorParallel", "unet"),
+                ("2x2x1@sp+fsdp", "ZeroSpatial", "unet"))
+
+
+def _rc_world_one_graph(spec: str, cls_name: str, arch: str, dev) -> dict:
+    """``cls_name`` built directly at world 1 under NCCL over ``[dev,
+    dev]`` (``plan_mesh`` would want D ranks): one CUDA graph of GS_K
+    steps against GS_K eager steps from the seed's weights with the same
+    capturable Adam, cuDNN deterministic (``_graph_and_eager``), a
+    replay's kernels by name in the graph's nodes. Emits the row and
+    fails unless it is bitwise, the guards intact and the replay launches
+    what GS_K steps do."""
+    import torch
+
+    from distributedpytorch_tpu_torch.dist import runtime
+    from distributedpytorch_tpu_torch.models import create_model
+    from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
+    from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.parallel import strategy as strategies
+
+    devices = [dev, dev]
+    cfg = _strategy_config(spec, arch, batch_size=RANK_BATCH,
+                           steps_per_dispatch=GS_K)
+    per = (_sp_expected_per_step(arch, SP_SHARDS) if "sp" in spec
+           else _tp_expected_per_step(arch, MESH_SLICES))
+    want = {n: GS_K * c for n, c in per.items()}
+
+    def build():
+        info = runtime.initialize_from_env(dev, len(devices))
+        strategy = getattr(strategies, cls_name)(cfg, info, devices)
+        model = strategy.place_model(create_model(
+            cfg, generator=torch.Generator().manual_seed(SEED)))
+        opt = make_optimizer(model.parameters(), cfg.learning_rate,
+                             cfg.weight_decay, capturable=True)
+        return model, strategy.build_train_step(
+            model, opt, get_kernel_policy("cuda")), strategy
+
+    def run():
+        stacks = _rolled_stacks(_synthetic_batch(GS_K * RANK_BATCH, dev),
+                                GS_K, 2)
+        with _world_one_env():
+            try:
+                with _keeping_graphs():
+                    sides = _graph_and_eager(build, stacks, GS_K)
+                nodes = _graph_kernels(sides["graph"]["multi"]._graph,
+                                       tuple(want))
+                row = {"bitwise_equal_to_eager": sides["bitwise_equal"],
+                       "guards_intact": all(sides[m]["guards_intact"]
+                                            for m in ("eager", "graph")),
+                       "losses": sides["graph"]["losses"],
+                       "graph_launches_per_replay": nodes}
+                del sides
+            finally:
+                runtime.shutdown()
+        torch.cuda.empty_cache()
+        return row
+
+    t0 = time.perf_counter()
+    row = {"phase": "mesh_world_one_graph", "spec": spec, "class": cls_name,
+           "arch": arch, "batch": RANK_BATCH, "k": GS_K,
+           "devices": [str(d) for d in devices], "cudnn_deterministic": True,
+           **(_with_wgrad_backend(run) if arch == "milesial" else run()),
+           "expected_per_replay": want,
+           "device": torch.cuda.get_device_name(0)}
+    row["wall_s"] = time.perf_counter() - t0
+    emit(row)
+    what = f"{spec} ({cls_name}) {arch} graph at world 1"
+    check(row["bitwise_equal_to_eager"] and row["guards_intact"],
+          f"{what}: off its eager steps, or wrote into eager memory")
+    check(row["graph_launches_per_replay"] == want,
+          f"{what}: a replay's graph holds "
+          f"{row['graph_launches_per_replay']}, not {want}")
+    return row
+
+
+def _rc_card_graphs(specs, rank: int, world: int, devices) -> dict:
+    """Under NCCL (``--cards 4``) each of ``specs`` and each model, bf16,
+    TRAIN_BATCH rows a rank, as one CUDA graph of GS_K steps against its
+    eager steps over two stacks (``_rank_graph_run``: bitwise, the guards,
+    eager and graph step / host / busy / ``cudaGraphLaunch`` ms); then one
+    ``bf16_params`` step of each and its bytes of parameters, masters and
+    Adam's state on each card (``_rc_run``)."""
+    out = {}
+    for spec in specs:
+        for arch in ("unet", "milesial"):
+            def graph(spec=spec, arch=arch):
+                return _rank_graph_run(
+                    _strategy_config(spec, arch, steps_per_dispatch=GS_K),
+                    rank, world, devices, 2)
+
+            def bf16p(spec=spec, arch=arch):
+                return _rc_run(spec, arch, "bf16_params", rank, world,
+                               devices)
+
+            wrap = _with_wgrad_backend if arch == "milesial" else (
+                lambda fn: fn())
+            out[f"{spec}_{arch}"] = {"graph": wrap(graph),
+                                     "bf16_params": wrap(bf16p)}
+    return out
+
+
+def _check_rc_card_graphs(ranks) -> tuple:
+    """``_rc_card_graphs``' rows: each graph bitwise its eager steps with
+    its guards intact on every rank and the ranks' losses equal (under
+    ZeRO each rank's state dict holds its own pieces, so the weights'
+    digests differ by design; the whole states are compared where the
+    gloo ranks run); under ``2x2x1@sp+fsdp`` each rank's ``bf16_params``
+    bytes RC_BF16P_RANK_BYTES on its first card."""
+    rows, problems = {}, []
+    for key in ranks[0]["rc_graphs"]:
+        rs = [r["rc_graphs"][key] for r in ranks]
+        g = [r["graph"] for r in rs]
+        row = {"bitwise_equal_to_eager": [x["bitwise_equal"] for x in g],
+               "guards_intact": [x["guards_intact"] for x in g],
+               "ranks_equal": all(x["losses"] == g[0]["losses"]
+                                  for x in g),
+               "eager": [x["eager"] for x in g],
+               "graph": [x["graph"] for x in g],
+               "bf16_params_card_bytes": [r["bf16_params"]["card_bytes"]
+                                          for r in rs]}
+        rows[key] = row
+        if not (all(row["bitwise_equal_to_eager"])
+                and all(row["guards_intact"]) and row["ranks_equal"]):
+            problems.append(f"{key} graph: {row}")
+        if key.startswith("2x2x1@sp+fsdp"):
+            arch = key.rpartition("_")[2]
+            for cards in row["bf16_params_card_bytes"]:
+                if max(cards.values()) != RC_BF16P_RANK_BYTES[arch]:
+                    problems.append(f"{key}: a rank's first card holds "
+                                    f"{cards} under bf16_params")
+    return rows, problems
+
+
 def phase_train_mesh(tmp: str, started=None) -> dict:
     """The mesh specs on the one card: the spec twins of TP and MP
     (``_mesh_twins``), each kernel against its plain version on a mesh
@@ -8123,6 +8512,8 @@ def phase_train_mesh(tmp: str, started=None) -> dict:
     report, rank_problems = _mesh_ranks_report(ranks, 2)
     out["gloo2"] = {"wall_s": wall_s, **report}
     problems += rank_problems
+    out["run_control"], rc_problems = _check_rc_ranks(ranks, "mesh")
+    problems += rc_problems
     cli = ranks[0]["cli"]
     out["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
                   "rank1_wrote": ranks[1]["cli"]["wrote"]}
@@ -8158,7 +8549,10 @@ def phase_mesh_cards(tmp: str) -> dict:
     ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "mesh_cards"), 2,
                                    "nccl", flag="--mesh-rank")
     report, problems = _mesh_ranks_report(ranks, 2)
+    rc_graphs, rc_problems = _check_rc_card_graphs(ranks)
+    problems += rc_problems
     out = {"phase": "mesh_cards", "wall_s": wall_s,
+           "run_control_graphs": rc_graphs,
            "cards": [torch.cuda.get_device_name(i) for i in range(4)],
            "devices": [r["devices"] for r in ranks], **report,
            "problems": problems}
@@ -8179,7 +8573,7 @@ def phase_mesh_cards(tmp: str) -> dict:
 IN_STAGE_SPECS = ("2x2x2", "2x2x2@fsdp")
 IN_STAGE_SLICES = 2
 IN_STAGE_STAGES = 2
-IN_STAGE_TIMED_STEPS = 5
+IN_STAGE_TIMED_STEPS = 3
 # --cards 4: 2x1x2@fsdp as two NCCL ranks of two cards against its twin
 IN_STAGE_CARD_SPECS = ("2x1x2", "2x1x2@fsdp")
 
@@ -8222,11 +8616,16 @@ def _in_stage_place_bytes(model, opt, rank: int) -> dict:
 
 
 def _card_bytes(model, opt) -> dict:
-    """Bytes of parameters and Adam's state on each card."""
+    """Bytes of parameters and Adam's state on each card (under master
+    weights with each f32 master and Adam's state over it)."""
+    masters = dict(zip(getattr(opt, "params", ()),
+                       getattr(opt, "master", ())))
     out = {}
     for p in model.parameters():
-        tensors = [p] + [t for t in opt.state.get(p, {}).values()
-                         if hasattr(t, "dim") and t.dim() > 0]
+        owners = [p] + ([masters[p]] if p in masters else [])
+        tensors = owners + [t for o in owners
+                            for t in opt.state.get(o, {}).values()
+                            if hasattr(t, "dim") and t.dim() > 0]
         out[str(p.device)] = out.get(str(p.device), 0) + sum(
             t.numel() * t.element_size() for t in tensors)
     return out
@@ -8482,8 +8881,7 @@ def in_stage_rank(rank: int, world: int, backend: str, job: str) -> int:
                 close()
         torch.save(result, os.path.join(job, f"result_{rank}.pt"))
     finally:
-        if torch.distributed.is_initialized():
-            torch.distributed.destroy_process_group()
+        _leave_group()
     return 0
 
 
@@ -8692,6 +9090,130 @@ def _finish(device: dict) -> None:
     }})
 
 
+# -- fresh ranks straight into the K-step graph (--cards 4's fresh_rank_graphs) --
+# the training CLI as torchrun starts it: two new processes of two cards
+# each, whose first dispatch is the eager warm-up of the graph of
+# FRESH_K steps they capture in the next; the README's command first
+FRESH_RUNS = (
+    ("2x2x1@fsdp", "unet", "bf16_params"),
+    ("2x2x1", "unet", "bf16"),
+    ("2x2x1@sp+fsdp", "unet", "bf16_params"),
+)
+# milesial's graph there hung in the capture: the CLI refuses it
+# (parallel/strategy.check_card_graph) before either rank joins a group
+FRESH_REFUSED = ("2x2x1", "milesial", "bf16")
+FRESH_REFUSAL = "hung in the capture"
+FRESH_K = 4
+FRESH_TIMEOUT_S = 120.0
+
+
+def _fresh_cli_ranks(job: str, argv, timeout_s: float) -> dict:
+    """Two processes of ``python -m distributedpytorch_tpu_torch argv`` in
+    ``job`` with the environment torchrun gives its ranks (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT on this host),
+    NCCL's warnings on. A rank still running after ``timeout_s`` gets
+    SIGABRT, so that faulthandler prints every thread's Python stack into
+    its log, and is then killed. Their exit codes, the wall seconds,
+    whether they hung, and each log's tail."""
+    import signal
+
+    os.makedirs(job)
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=here, RANK=str(rank),
+                   LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), NCCL_DEBUG="WARN")
+        logs.append(os.path.join(job, f"log_{rank}.txt"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", "-m",
+                 "distributedpytorch_tpu_torch", *argv],
+                cwd=job, env=env, stdout=log, stderr=subprocess.STDOUT))
+    hung = False
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, t0 + timeout_s - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            hung = True
+    if hung:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGABRT)
+        time.sleep(5)
+    for proc in procs:
+        proc.kill()
+        proc.wait()
+    wall_s = time.perf_counter() - t0
+    tails = []
+    for path in logs:
+        with open(path, errors="replace") as log:
+            tails.append(log.read()[-6000 if hung else -1500:])
+    return {"rcs": [p.returncode for p in procs], "hung": hung,
+            "wall_s": wall_s, "tails": tails}
+
+
+def phase_fresh_rank_graphs(tmp: str) -> dict:
+    """Each of FRESH_RUNS through the training CLI in two fresh NCCL
+    ranks of two cards each (``_fresh_cli_ranks``): ``-t SPEC
+    --steps-per-dispatch FRESH_K`` over two epochs of one dispatch a
+    rank, the first the eager warm-up and the second captured and
+    replayed, with no collective before it in either process. Fails
+    unless every run ends within FRESH_TIMEOUT_S with both ranks' exit
+    codes 0 and rank 0 writes the checkpoint and logs the second epoch
+    with a finite validation loss; a run that hangs leaves its ranks'
+    stacks in the phase's line. Then FRESH_REFUSED the same way, which
+    both ranks must refuse, naming why, and leave."""
+    import math
+    import re
+
+    t0 = time.perf_counter()
+    w, h = IMAGE_WH
+
+    def argv_of(spec, arch, dtype):
+        return ["-t", spec, "--model", arch, "--dtype", dtype,
+                "--steps-per-dispatch", str(FRESH_K), "--synthetic", "40",
+                "-b", "4", "-e", "2", "--image-size", str(w), str(h),
+                "--num-workers", "0"]
+
+    runs, problems = [], []
+    for spec, arch, dtype in FRESH_RUNS:
+        argv = argv_of(spec, arch, dtype)
+        job = os.path.join(tmp, f"fresh_{len(runs)}")
+        run = {"argv": argv, **_fresh_cli_ranks(job, argv, FRESH_TIMEOUT_S)}
+        # rank 0 logs the epochs
+        losses = [float(v) for v in re.findall(
+            r"Epoch 2/2: val loss (\S+),", run["tails"][0])]
+        run["val_loss_epoch_2"] = losses
+        run["wrote_checkpoint"] = os.path.isfile(
+            os.path.join(job, "checkpoints", f"{spec}.pt"))
+        ok = (not run["hung"] and run["rcs"] == [0, 0]
+              and run["wrote_checkpoint"] and bool(losses)
+              and math.isfinite(losses[-1]))
+        if ok:
+            run.pop("tails")
+        else:
+            problems.append(f"{spec} {arch} {dtype}")
+        runs.append(run)
+        if run["hung"]:
+            break  # its stacks are the finding; the next would wait too
+    argv = argv_of(*FRESH_REFUSED)
+    refused = {"argv": argv, **_fresh_cli_ranks(
+        os.path.join(tmp, "fresh_refused"), argv, FRESH_TIMEOUT_S)}
+    if (refused["hung"] or 0 in refused["rcs"]
+            or not all(FRESH_REFUSAL in t for t in refused["tails"])):
+        problems.append(f"{' '.join(FRESH_REFUSED)} not refused")
+    out = {"phase": "fresh_rank_graphs", "k": FRESH_K, "runs": runs,
+           "refused": refused, "problems": problems,
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    check(not problems, f"fresh_rank_graphs: {problems}")
+    return out
+
+
 def main_cards(world: int) -> int:
     """``python3 chip_smoke.py --cards N``: the build, then ``-t DDP``
     across N cards (``phase_ddp_cards``), ``-t DDP_MP`` as two ranks of
@@ -8701,13 +9223,16 @@ def main_cards(world: int) -> int:
     them (``phase_mp_cards``), ``-t DP`` across all N (``phase_dp_cards``)
     and ``-t TP`` across all N (``phase_tp_cards``), ``2x2x1`` and
     ``2x2x1@fsdp`` as two NCCL ranks of two cards (``phase_mesh_cards``),
-    in-stage sharding (``phase_in_stage_cards``), and no other phase."""
+    in-stage sharding (``phase_in_stage_cards``), and no other phase;
+    first the training CLI in fresh NCCL ranks straight into its K-step
+    graph (``phase_fresh_rank_graphs``)."""
     import torch
 
     check(world >= 2 * MP_STAGES and torch.cuda.device_count() >= world,
           f"--cards {world} on {torch.cuda.device_count()} cards")
     device = phase_device()
     with tempfile.TemporaryDirectory() as tmp:
+        phase_fresh_rank_graphs(tmp)
         phase_ddp_cards(tmp, world)
         phase_ddp_mp_cards(tmp)
         phase_sp_cards(tmp, world)
@@ -9030,6 +9555,23 @@ def main(argv) -> int:
                 name]
         return out
 
+    def flat_rc_launches(name):
+        """Rank 0's launches under the run control of the flat points
+        (train_mesh's and train_ddp_sp_gloo2's ranks: per --remat step,
+        per --grad-accum 2 step of the UNet and per bf16_params step,
+        counted by the wrappers) and per replay of a world-1 graph of
+        GS_K steps (tp_fsdp_run_control, the graph's nodes)."""
+        out = {}
+        for rows in (mesh["run_control"], ddp_sp["run_control"]):
+            for run, row in rows.items():
+                if run != "wall_s" and name in row["launches"]:
+                    out[f"{row['spec']}_{run}"] = row["launches"][name]
+        for key, row in tpf["mesh_world_one"].items():
+            if name in row["graph_launches_per_replay"]:
+                out[f"{key}_graph_per_replay"] = row[
+                    "graph_launches_per_replay"][name]
+        return out
+
     emit({"kernels": [
         {
             "name": "serve_mask",
@@ -9052,6 +9594,7 @@ def main(argv) -> int:
             "tp_fsdp_run_control_launches": None,
             "mesh_launches": None,
             "in_stage_launches": None,
+            "flat_run_control_launches": None,
             "run_control_launches": None,
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
@@ -9090,6 +9633,9 @@ def main(argv) -> int:
             # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
             # (train_in_stage)
             "in_stage_launches": in_stage_launches("loss_stats"),
+            # rank 0 under the flat points' run control and their
+            # world-1 graphs
+            "flat_run_control_launches": flat_rc_launches("loss_stats"),
             "run_control_launches": replay_launches("loss_stats"),
             "max_abs_err": loss["stats_max_abs_err"],
             "ms": loss["stats_ms"],
@@ -9125,6 +9671,9 @@ def main(argv) -> int:
             # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
             # (train_in_stage)
             "in_stage_launches": in_stage_launches("loss_stats_bwd"),
+            # rank 0 under the flat points' run control and their
+            # world-1 graphs
+            "flat_run_control_launches": flat_rc_launches("loss_stats_bwd"),
             "run_control_launches": replay_launches("loss_stats_bwd"),
             "max_abs_err": loss["grad_max_abs_err"],
             "ms": loss["bwd_ms"],
@@ -9161,6 +9710,9 @@ def main(argv) -> int:
             # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
             # (train_in_stage)
             "in_stage_launches": in_stage_launches("bn_act"),
+            # rank 0 under the flat points' run control and their
+            # world-1 graphs
+            "flat_run_control_launches": flat_rc_launches("bn_act"),
             "run_control_launches": replay_launches("bn_act"),
             # per replay of milesial's bucket graphs, float and int8
             "serve_launches_per_replay": serve_replay_launches("bn_act"),
@@ -9200,6 +9752,9 @@ def main(argv) -> int:
             # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
             # (train_in_stage)
             "in_stage_launches": in_stage_launches("bn_act_bwd"),
+            # rank 0 under the flat points' run control and their
+            # world-1 graphs
+            "flat_run_control_launches": flat_rc_launches("bn_act_bwd"),
             "run_control_launches": replay_launches("bn_act_bwd"),
             "max_abs_err": bn["dx_max_abs_err"],
             "ms": bn["f32"]["bwd_ms"],
@@ -9235,6 +9790,9 @@ def main(argv) -> int:
             # per 1x2x2 step, rank 0 under 2x2x2 and 2x2x2@fsdp
             # (train_in_stage)
             "in_stage_launches": in_stage_launches("wgrad_9tap"),
+            # rank 0 under the flat points' run control and their
+            # world-1 graphs
+            "flat_run_control_launches": flat_rc_launches("wgrad_9tap"),
             "run_control_launches": replay_launches("wgrad_9tap"),
             "max_abs_err": max(c["max_abs_err"] for c in wgrad["cases"]),
             "ms": k5["ms"],

@@ -383,8 +383,12 @@ def configure_logging(config, to_stderr: bool = True
 
 
 def main(argv=None) -> int:
-    from distributedpytorch_tpu_torch.dist.runtime import shutdown
+    from distributedpytorch_tpu_torch.dist.runtime import (
+        planned_world,
+        shutdown,
+    )
     from distributedpytorch_tpu_torch.parallel.strategy import (
+        check_card_graph,
         check_run_control,
         check_train_method,
     )
@@ -396,6 +400,7 @@ def main(argv=None) -> int:
         check_train_method(args.train_method)
         check_config(to_config(args))
         check_run_control(to_config(args))
+        check_card_graph(to_config(args), planned_world())
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
     try:
@@ -405,7 +410,12 @@ def main(argv=None) -> int:
     try:
         configure_logging(to_config(args), to_stderr=info.is_main)
         logging.info("UNet for Carvana Image Masking (Segmentation)")
-        result = build_trainer(args, info).train()
+        trainer = build_trainer(args, info)
+        try:
+            result = trainer.train()
+        finally:
+            # a live graph of NCCL collectives keeps shutdown waiting
+            trainer.release_graph()
         logging.info("Done: %s", result)
     finally:
         shutdown()

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import logging
 import os
 from typing import List, Optional, Union
@@ -181,6 +182,10 @@ def initialize_from_env(device: Union[None, str, torch.device] = None,
 
 
 def shutdown() -> None:
-    """``dist.destroy_process_group`` parity (reference train.py:61)."""
+    """``dist.destroy_process_group`` parity (reference train.py:61).
+    NCCL's ``ncclCommDestroy`` waits until every CUDA graph that captured
+    a collective of the communicator is destroyed: a graph that only
+    reference cycles still hold is collected first."""
     if dist.is_initialized():
+        gc.collect()
         dist.destroy_process_group()

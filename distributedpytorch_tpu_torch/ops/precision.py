@@ -132,10 +132,15 @@ class MasterWeights:
         return self._master_of[p].requires_grad_(True)
 
     def _widen(self, p: torch.Tensor) -> None:
-        m = self._master_of[p]
-        g = p.grad.to(WGRAD_DTYPE)
-        m.grad = g if m.grad is None else m.grad.add_(g)
+        self.add_master_grad(p, p.grad.to(WGRAD_DTYPE))
         p.grad = None
+
+    def add_master_grad(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        """The f32 ``g`` added to ``p``'s master's gradient (set where
+        there is none): a gradient reduced in f32 outside autograd
+        (``parallel/zero.ZeroSharded``) goes there without a rounding."""
+        m = self._master_of[p]
+        m.grad = g if m.grad is None else m.grad.add_(g)
 
     @property
     def param_groups(self):
@@ -215,9 +220,10 @@ class MasterWeights:
 
 
 class PerUseCasts:
-    """The parameters of ``module`` for one use, under master weights: each
-    its f32 master (``MasterWeights.leaf``) cast to the parameter's dtype,
-    on the use's device. A parameter that several uses share in one
+    """The parameters a module reads, for one use, under master weights:
+    each its f32 source (``leaves``: its master's ``MasterWeights.leaf``,
+    or a ZeRO step's gathered float32 leaf, ``parallel/zero.py``) cast to
+    the parameter's dtype, on the use's device. A parameter that several uses share in one
     backward (gpipe's microbatches, DP's replicas) would otherwise collect
     their bf16 gradients in bf16 before the master's hook widens the sum;
     through its own cast each use's gradient becomes f32 first, and
@@ -227,10 +233,10 @@ class PerUseCasts:
     is the parameter's value: the master's step sets each parameter to
     its master rounded."""
 
-    def __init__(self, optimizer, module: torch.nn.Module):
-        self.named = [(name, p, optimizer.leaf(p))
-                      for name, p in module.named_parameters()]
-        self._leaf = {p: m for _, p, m in self.named}
+    def __init__(self, leaves: Dict[torch.Tensor, torch.Tensor],
+                 named: Sequence[Tuple[str, torch.Tensor]] = ()):
+        self._leaf = dict(leaves)
+        self.named = list(named)
 
     def master(self, p: torch.nn.Parameter) -> torch.Tensor:
         """``p``'s f32 master, the leaf its uses' gradients add at."""
@@ -244,7 +250,7 @@ class PerUseCasts:
         """``{name: cast}`` of every parameter, each on its own device:
         what ``torch.func.functional_call`` runs one use of the module
         with."""
-        return {name: self.of(p) for name, p, _ in self.named}
+        return {name: self.of(p) for name, p in self.named}
 
 
 def per_use_casts(optimizer, module: torch.nn.Module
@@ -253,7 +259,8 @@ def per_use_casts(optimizer, module: torch.nn.Module
     where the parameters are f32 and their uses add in f32 already."""
     if not has_master_weights(optimizer):
         return None
-    return PerUseCasts(optimizer, module)
+    named = list(module.named_parameters())
+    return PerUseCasts({p: optimizer.leaf(p) for _, p in named}, named)
 
 
 def has_master_weights(optimizer) -> bool:

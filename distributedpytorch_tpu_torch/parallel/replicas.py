@@ -260,7 +260,10 @@ class Replicated(nn.Module):
     own cast of the f32 masters, so autograd adds the replicas' gradients
     in f32, where the GSPMD DP step of the JAX package sums them. Under
     ``remat`` each replica recomputes its forward segment by segment in
-    its backward (``models.Rematerialized``)."""
+    its backward (``models.Rematerialized``). A forward's ``casts`` take
+    the place of those it was built with: a wrapper that gathers the
+    parameters at the top of each step (``zero.ZeroSharded``) passes
+    that step's."""
 
     #: the name of each replica's thread past the first, and its index
     thread_name = "dpt-dp-replica"
@@ -274,7 +277,9 @@ class Replicated(nn.Module):
         self.remat = remat
         self._casts = casts
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                casts: Optional[PerUseCasts] = None) -> torch.Tensor:
+        casts = self._casts if casts is None else casts
         n = len(self.devices)
         if images.shape[0] % n:
             raise ValueError(f"DP: a batch of {images.shape[0]} does not "
@@ -288,7 +293,7 @@ class Replicated(nn.Module):
             bn.replicas = meeting
         try:
             replicas = [rematerialized(r, self.remat) for r in
-                        replicate(self.module, self.devices, self._casts)]
+                        replicate(self.module, self.devices, casts)]
             if n == 1:
                 return replicas[0](images)
             slices = [x.to(d, non_blocking=True)

@@ -238,7 +238,9 @@ class RowSharded(Replicated):
         self.levels = (module.num_segments - 1) // 2
         self.convs = halo_convs(module)
 
-    def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, images: torch.Tensor,
+                casts: Optional[PerUseCasts] = None) -> List[torch.Tensor]:
+        casts = self._casts if casts is None else casts
         n = len(self.devices)
         rows = images.shape[1]
         if rows % (n * 2 ** self.levels):
@@ -259,7 +261,7 @@ class RowSharded(Replicated):
             bn.replicas = meeting
         try:
             replicas = [rematerialized(r, self.remat) for r in
-                        replicate(self.module, self.devices, self._casts)]
+                        replicate(self.module, self.devices, casts)]
             slices = [x.to(d, non_blocking=True)
                       for x, d in zip(images.chunk(n, dim=1), self.devices)]
             return self._run(replicas, slices, meeting)

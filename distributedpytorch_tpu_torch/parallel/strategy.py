@@ -61,15 +61,18 @@ each segment of TP's channel-sharded model, or of each FSDP block
 inside ``fully_shard``'s hooks, in its backward; a replica's or shard's
 recompute normalizes with the BatchNorm moments the replicas met on in
 its forward, a DDP or FSDP rank's with the global moments it kept, and
-a shard's convs take the halo rows they kept: none meets again.
-``--steps-per-dispatch K > 1`` (one CUDA graph of K steps,
-``build_multi_train_step``, from the trainer's own train step) runs
+a shard's convs take the halo rows they kept: none meets again; a ZeRO
+model (``DxMx1@fsdp``, ``DxMx1@sp+fsdp``) gathers once and recomputes
+on its leaves (``parallel/zero.py``). ``--steps-per-dispatch K > 1``
+(one CUDA graph of K steps, ``build_multi_train_step``, from the
+trainer's own train step) runs
 under every strategy, DP's replica and SP's shard threads, TP's slices
 and FSDP's all-gathers and reduce-scatters included, and is refused
 under a gloo group on a card. ``--grad-accum`` runs outside the
 pipelines for the stateless UNet; under SP and DDP_SP each chunk's
 statistics are the shards' sums (``accum_stats``), under FSDP each
-rank's own (``backward_averages_over``). What stays refused, with the
+rank's own (``backward_averages_over``), under ZeRO one gather and
+one reduce-scatter of the ranks' sum. What stays refused, with the
 JAX package's words: ``--grad-accum`` of milesial and together with
 ``--steps-per-dispatch K > 1``. ``--dtype bf16_params`` runs under
 every strategy; under DDP the gradients are averaged over the ranks in
@@ -78,7 +81,10 @@ which is where the compiled JAX DDP step sums them too (its gradient
 all-reduce is float32 on the CPU mesh), and DDP_MP's stage gradients are
 reduced as the f32 master gradients; under FSDP each block's bf16
 gradients are reduce-scattered in ``REDUCE_DTYPE`` and rounded to bf16
-once, and each master is a shard. Where one backward adds several uses
+once, and each master is a shard; under ZeRO (``parallel/zero.py``)
+float32 leaves are reduce-scattered into the masters' gradients, with no
+rounding after. In-stage sharding's run control is refused (ROADMAP.md,
+Queue A, item 1c″). Where one backward adds several uses
 of a parameter (gpipe's microbatches, DP's replicas, SP's shards) each
 use computes
 with its own cast of the f32 master (``ops/precision.PerUseCasts``), so
@@ -91,7 +97,7 @@ import contextlib
 import dataclasses
 import logging
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -288,7 +294,8 @@ class Strategy:
             kernels.train_loss_fused, sum_over_ranks=self.sum_over_ranks,
             remat=remat,
             stats_impl=self.accum_stats(kernels.train_loss_fused),
-            grads_averaged_over=self.backward_averages_over)
+            grads_averaged_over=self.backward_averages_over,
+            **self.accum_hooks(model))
 
     #: the ranks the model's own backward averages each gradient over
     #: (FSDP's reduce-scatter); None where the steps reduce them
@@ -306,6 +313,12 @@ class Strategy:
         the model itself under ``--remat`` (its ranks' sum is
         ``sum_over_ranks``)."""
         return model, self.config.remat
+
+    def accum_hooks(self, model: torch.nn.Module) -> Dict[str, Callable]:
+        """What gradient accumulation runs at the top of its step
+        (``open_step``) and after its pass 2 (``close_step``, which then
+        sums the gradients over the ranks): nothing here."""
+        return {}
 
     #: eager steps ``MultiStep`` runs before it captures K steps
     capture_warmup_steps = 1
@@ -1265,10 +1278,11 @@ class GenericMesh:
     process computes on M·S devices of its own
     (``runtime.stage_devices``: on the CPU, and on a card named by its
     index, M·S repeats of it). The run control is that of the class the
-    spec runs as; under the geometries no legacy name expresses
-    (``DxMx1``, ``DxMx1@fsdp`` and ``DxMx1@sp+fsdp`` with D, M > 1, and
-    in-stage sharding) ``check_run_control`` refuses it (ROADMAP.md,
-    Queue A, item 1c″)."""
+    spec runs as: under ``DxMx1`` the run control of ``-t TP`` on each
+    rank with DDP_SP's mean over the ranks, under ``DxMx1@fsdp`` and
+    ``DxMx1@sp+fsdp`` ``zero.ZeroSharded``'s (its module docstring);
+    under in-stage sharding ``check_run_control`` refuses it
+    (ROADMAP.md, Queue A, item 1c″)."""
 
     @property
     def mesh_config(self) -> MeshConfig:
@@ -1311,7 +1325,22 @@ class DataTensorParallel(GenericMesh, MultiProcessMixin, TensorParallel):
     (``_mean_over_ranks``, as ``-t DDP_SP``), which takes out the
     ``world ×`` of the statistics' all-reduce. Eval runs whole val
     batches round robin and the tail on every rank; a checkpoint holds
-    the whole tensors (``-t TP``'s), which rank 0 writes."""
+    the whole tensors (``-t TP``'s), which rank 0 writes.
+
+    The run control is ``-t TP``'s on each rank: ``--remat`` recomputes
+    the channel-sharded model segment by segment, milesial's BatchNorm on
+    the global moments its forward kept, so no all-reduce of a recompute
+    meets the other ranks; ``--steps-per-dispatch K`` captures K steps
+    over the rank's ``devices``, the all-reduces of the moments, of the
+    statistics and of ``_mean_over_ranks`` inside; the UNet's
+    ``--grad-accum`` runs its chunks through the sharded model, K1 on the
+    whole predictions on the first device, sums pass 1's statistics over
+    the ranks and back-propagates each rank's own, then sums the
+    gradients over the ranks once (``sum_over_ranks``); under
+    ``--dtype bf16_params`` ``_mean_over_ranks`` averages the f32 master
+    gradients."""
+
+    sum_over_ranks = staticmethod(sum_over_ranks_)
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
@@ -1340,7 +1369,37 @@ class DataTensorParallel(GenericMesh, MultiProcessMixin, TensorParallel):
         return _mean_over_ranks(model, optimizer)
 
 
-class ZeroTensorParallel(DataTensorParallel):
+class ZeroSteps:
+    """The train steps over a ZeRO point's placed ``parallel/zero.ZeroSharded``
+    (``DxMx1@fsdp``, ``DxMx1@sp+fsdp``): the model itself, trained with
+    the optimizer (``train_with``, which under master weights makes a
+    step's leaves float32); ``reduce_grads_`` between the backward and
+    Adam; an accumulation step opened by one held gather and closed by one
+    reduce-scatter of the ranks' sum (``accum_hooks``). A checkpoint
+    gathers the whole tensors on every rank (``gathers_state``)."""
+
+    gathers_state = True
+
+    def wrap_model(self, model: torch.nn.Module,
+                   optimizer=None) -> torch.nn.Module:
+        """The placed model itself, trained with ``optimizer``: it
+        gathers, then recomputes under ``--remat`` (``place_model``)."""
+        if optimizer is not None:
+            model.train_with(optimizer)
+        return model
+
+    def accum_module(self, model, optimizer):
+        return self.wrap_model(model, optimizer), False
+
+    def accum_hooks(self, model) -> Dict[str, Callable]:
+        return {"open_step": lambda: model.gather_(hold=True),
+                "close_step": lambda: model.reduce_grads_(mean=False)}
+
+    def reduce_grads(self, model, optimizer) -> Callable:
+        return model.reduce_grads_
+
+
+class ZeroTensorParallel(ZeroSteps, DataTensorParallel):
     """``-t DxMx1@fsdp`` with D, M > 1, ZeRO × channel (JAX ``2x2x1@fsdp``,
     the ``fsdp+channel`` rule): ``DataTensorParallel`` with each channel
     slice's parameters and Adam's state cut again over the ranks
@@ -1350,20 +1409,21 @@ class ZeroTensorParallel(DataTensorParallel):
     piece, averaged over the ranks (``reduce_grads``), and Adam steps
     the pieces. A checkpoint gathers the whole tensors on every rank
     (``gathers_state``), which rank 0 writes; a resume cuts each rank's
-    piece."""
-
-    gathers_state = True
+    piece. The run control is ``ZeroSharded``'s (``parallel/zero.py``):
+    under ``--remat`` one gather, then the channel-sharded model
+    recomputed segment by segment on its leaves; the accumulation's one
+    gather and one reduce-scatter of the ranks' sum; under ``--dtype
+    bf16_params`` float32 leaves, reduce-scattered into the masters'
+    gradients."""
 
     def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
         from distributedpytorch_tpu_torch.parallel.zero import ZeroSharded
 
-        return ZeroSharded(super().place_model(model))
-
-    def reduce_grads(self, model, optimizer) -> Callable:
-        return model.reduce_grads_
+        return ZeroSharded(super().place_model(model),
+                           remat=self.config.remat)
 
 
-class ZeroSpatial(GenericMesh, ShardedState, HybridDataSpatial):
+class ZeroSpatial(ZeroSteps, GenericMesh, ShardedState, HybridDataSpatial):
     """``-t DxMx1@sp+fsdp`` with D, M > 1, ZeRO over row shards (JAX
     ``2x2x1@sp+fsdp``: ``MeshConfig(data=D, model=M,
     model_role="spatial", params="fsdp")``): ``HybridDataSpatial`` (one
@@ -1389,10 +1449,13 @@ class ZeroSpatial(GenericMesh, ShardedState, HybridDataSpatial):
     dropped; eval gathers and drops around its forward. A checkpoint
     gathers the whole tensors under the reference names on every rank
     (``gathers_state``), which rank 0 writes; a resume cuts each rank's
-    piece. The run control is refused here (``check_run_control``,
-    ROADMAP.md, Queue A, item 1c″)."""
-
-    gathers_state = True
+    piece. The run control is ``ZeroSharded``'s (``parallel/zero.py``):
+    under ``--remat`` one gather, then each shard recomputed with the
+    halo rows and moments it kept, as under DDP_SP; the accumulation's
+    one gather and one reduce-scatter of the ranks' sum, each chunk's
+    statistics the shards' (``accum_stats``); under ``--dtype
+    bf16_params`` float32 leaves, each shard computing with its own cast
+    of them, reduce-scattered into the masters' gradients."""
 
     def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
         from distributedpytorch_tpu_torch.parallel.zero import (
@@ -1402,17 +1465,9 @@ class ZeroSpatial(GenericMesh, ShardedState, HybridDataSpatial):
 
         model = super().place_model(model)
         return ZeroSharded(RowSharded(model, self.devices,
-                                      over_ranks=self.over_ranks),
+                                      over_ranks=self.over_ranks,
+                                      remat=self.config.remat),
                            state=PlainState(model))
-
-    def wrap_model(self, model: torch.nn.Module,
-                   optimizer=None) -> torch.nn.Module:
-        """The placed model itself: its forward gathers, then row-shards
-        (``--remat`` and master weights are refused here)."""
-        return model
-
-    def reduce_grads(self, model, optimizer) -> Callable:
-        return model.reduce_grads_
 
 
 class InStage(ShardedState):
@@ -1597,10 +1652,8 @@ def check_run_control(config, device: Optional[torch.device] = None,
     """The run control's limits of the port, the same under every method:
     ``--grad-accum`` together with ``--steps-per-dispatch K > 1`` and
     ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
-    over chunks, each refused with the JAX package's words; under the
-    data × channel, ZeRO × channel and ZeRO × row-shard meshes
-    (``DxMx1[@fsdp]`` and ``DxMx1@sp+fsdp``, D, M > 1) and under in-stage
-    sharding (``in_stage.in_stage_config``)
+    over chunks, each refused with the JAX package's words; under
+    in-stage sharding (``in_stage.in_stage_config``)
     ``--steps-per-dispatch K > 1``, ``--remat``, ``--grad-accum`` and
     ``--dtype bf16_params``, not ported yet (ROADMAP.md, Queue A, item
     1c″); once the strategy knows its ``device`` and its group's
@@ -1614,16 +1667,7 @@ def check_run_control(config, device: Optional[torch.device] = None,
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
         raise ValueError(STATEFUL_ACCUM)
     mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
-    kind = None
     if mesh is not None and in_stage_config(mesh) is not None:
-        kind = "in-stage sharding"
-    elif (mesh is not None and mesh.data > 1 and mesh.model > 1
-            and mesh.stage == 1 and mesh.model_role == "channel"):
-        kind = ("ZeRO" if "fsdp" in mesh.params else "data") + " × channel"
-    elif (mesh is not None and mesh.data > 1 and mesh.model > 1
-            and mesh.stage == 1 and "fsdp" in mesh.params):
-        kind = "ZeRO over row shards"
-    if kind is not None:
         flags = [flag for flag, on in (
             (f"--steps-per-dispatch {k}", k > 1),
             ("--remat", bool(config.remat)),
@@ -1632,10 +1676,10 @@ def check_run_control(config, device: Optional[torch.device] = None,
             if on]
         if flags:
             raise ValueError(
-                f"{' and '.join(flags)} under -t {method} ({kind}) is not "
-                f"ported yet: the run control of the DxMx1, DxMx1@fsdp and "
-                f"DxMx1@sp+fsdp meshes and of in-stage sharding is still "
-                f"to port (ROADMAP.md, Queue A, item 1c″)")
+                f"{' and '.join(flags)} under -t {method} (in-stage "
+                f"sharding) is not ported yet: the run control of in-stage "
+                f"sharding is still to port (ROADMAP.md, Queue A, item "
+                f"1c″)")
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -1644,6 +1688,30 @@ def check_run_control(config, device: Optional[torch.device] = None,
             f"host, which a CUDA graph of K steps cannot capture — use "
             f"the NCCL group torchrun makes on cards (ROADMAP.md, "
             f"Queue A)")
+
+
+def check_card_graph(config, world: int) -> None:
+    """The training CLI's and the trainer's one limit past
+    ``check_run_control``: milesial's ``--steps-per-dispatch K > 1``
+    under ``DxMx1``, ``DxMx1@fsdp`` or ``DxMx1@sp+fsdp`` across ``world``
+    > 1 ranks on cards, refused. From fresh NCCL ranks of the training
+    CLI its graph hung in the capture (ROADMAP.md, Queue C); the same
+    graphs hold bitwise where ``chip_smoke.py``'s ranks build the
+    strategies themselves, which this does not refuse. The CLI checks it
+    before any group is joined (``runtime.planned_world``)."""
+    method = config.train_method
+    mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
+    flat = (mesh is not None and mesh.stage == 1 and mesh.data > 1
+            and mesh.model > 1
+            and (mesh.model_role == "channel" or "fsdp" in mesh.params))
+    if (flat and int(config.steps_per_dispatch) > 1 and world > 1
+            and getattr(config, "model_arch", "unet") == "milesial"
+            and torch.device(config.device or "cuda").type == "cuda"):
+        raise ValueError(
+            f"--steps-per-dispatch {config.steps_per_dispatch} of milesial "
+            f"under -t {method} across {world} ranks on cards is refused: "
+            f"from fresh NCCL ranks its graph of K steps hung in the "
+            f"capture (ROADMAP.md, Queue C) — run K = 1 there, or the UNet")
 
 
 STRATEGIES = {cls.name: cls for cls in (

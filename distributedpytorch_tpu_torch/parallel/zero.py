@@ -46,6 +46,37 @@ time, as each tensor's ``Cut`` says:
 Every rank issues its collectives in the same order, tensor by tensor,
 so under NCCL each card meets the card in the same place on the other
 ranks (``dist/collectives.sum_over_ranks_``).
+
+The run control of a train step over ``ZeroSharded`` (``-t DxMx1@fsdp``
+and ``-t DxMx1@sp+fsdp``):
+
+* ``--remat`` (``remat``): the forward gathers once, outside any
+  recomputed region, and then recomputes the wrapped model segment by
+  segment on those leaves (``models.Rematerialized``; a
+  ``spatial.RowSharded`` recomputes its shards itself). A region around
+  the whole forward would gather again in the backward, a collective
+  there, and its new leaves would take gradients ``reduce_grads_`` never
+  reads;
+* ``--grad-accum``: ``gather_(hold=True)`` at the top of the
+  accumulation step; both passes' forwards run on those leaves, so the
+  chunks' gradients add up in the leaves' ``.grad``, and one
+  ``reduce_grads_(mean=False)`` after the last chunk cuts them back, the
+  ranks' sum (each rank back-propagates its own statistics with the
+  global cotangent);
+* ``--dtype bf16_params`` (``train_with`` a ``precision.MasterWeights``
+  over the pieces): a train step's leaves are float32, the gathered bf16
+  pieces widened, and a module reads its cast to bf16, so each leaf's
+  gradient is the widening of the bf16 one; a wrapper's replicas (the
+  row shards) each compute with their own cast (``Replicated``'s
+  forward takes the step's ``precision.PerUseCasts``),
+  so their uses add in float32, as ``precision.PerUseCasts`` adds them
+  at the masters. ``reduce_grads_`` reduce-scatters that float32
+  gradient and gives it to the piece's master gradient, with no rounding
+  after it (a parameter kept whole reduces its master's gradient): no
+  sum over ranks runs in bf16;
+* ``--steps-per-dispatch K``: every gather, reduce-scatter and drop runs
+  inside the step, so one CUDA graph captures K of them under NCCL, and
+  no leaf outlives a replay.
 """
 
 from __future__ import annotations
@@ -63,7 +94,16 @@ from distributedpytorch_tpu_torch.dist.collectives import (
     reduced_dim0_piece,
     sum_over_ranks_,
 )
-from distributedpytorch_tpu_torch.parallel.replicas import HELD_PARAMS
+from distributedpytorch_tpu_torch.models import rematerialized
+from distributedpytorch_tpu_torch.ops.precision import (
+    WGRAD_DTYPE,
+    PerUseCasts,
+    has_master_weights,
+)
+from distributedpytorch_tpu_torch.parallel.replicas import (
+    HELD_PARAMS,
+    Replicated,
+)
 
 
 def is_cut(shape: Sequence[int], world: int) -> bool:
@@ -203,12 +243,24 @@ class ZeroSharded(nn.Module):
     parameters it takes lists them under ``replicas.HELD_PARAMS``, so
     replicas copy the whole leaves. Without a process group the world is
     one rank. ``paths`` keeps ``inner``'s parameter name of each
-    piece."""
+    piece. ``remat`` recomputes ``inner`` in the backward of a train
+    forward, on the leaves that forward gathered (the module
+    docstring)."""
 
     def __init__(self, inner: nn.Module,
                  cuts: Optional[Sequence[Optional[Cut]]] = None,
-                 state: Optional[PlainState] = None):
+                 state: Optional[PlainState] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
+        # the MasterWeights of the train steps (train_with), and the one
+        # the leaves alive were gathered for
+        self._masters = None
+        self._step_masters = None
+        self._held = False
+        # a wrapper's replicas (row shards) compute each with its own
+        # casts of a step's float32 leaves, which its forward takes
+        self._takes_casts = isinstance(inner, Replicated)
+        self._casts: Optional[PerUseCasts] = None
         self.world, self.rank = ((dist.get_world_size(), dist.get_rank())
                                  if dist.is_initialized() else (1, 0))
         self.inner = inner
@@ -250,20 +302,43 @@ class ZeroSharded(nn.Module):
     def _pieces_of(self, owner: _Owner) -> List[torch.Tensor]:
         return [self.pieces[i] for i in owner.pieces]
 
+    def train_with(self, optimizer) -> None:
+        """The optimizer the train steps drive: under master weights
+        (``precision.MasterWeights``) a train step's leaves are float32
+        and their gradients go to the masters (the module docstring)."""
+        self._masters = optimizer if has_master_weights(optimizer) else None
+
     # -- the whole parameters, around a step --------------------------------
-    def gather_(self) -> None:
+    def gather_(self, train: bool = False, hold: bool = False) -> None:
         """Every cut parameter whole on its home device, as a new leaf its
-        module reads."""
-        leaves = []
+        module reads: a train step's (``train``), under master weights
+        float32, each module reading its cast. With ``hold`` (a train
+        step's) every forward until ``reduce_grads_`` or ``drop_`` runs on
+        these leaves and gathers none."""
+        masters = self._masters if train or hold else None
+        leaves, sources = [], {}
         for owner in self._owners:
-            if owner.cut is None:
-                continue
             pieces = self._pieces_of(owner)
-            leaf = _join(pieces, owner.cut, self.world).requires_grad_(
-                pieces[0].requires_grad)
-            object.__setattr__(owner.module, owner.attr, leaf)
+            if owner.cut is None:
+                if masters is not None:
+                    sources[pieces[0]] = masters.leaf(pieces[0])
+                continue
+            whole = _join(pieces, owner.cut, self.world)
+            if masters is None:
+                leaf = read = whole.requires_grad_(pieces[0].requires_grad)
+            else:
+                leaf = whole.to(WGRAD_DTYPE).requires_grad_(
+                    pieces[0].requires_grad)
+                read = leaf.to(whole.dtype)
+                sources[read] = leaf
+            object.__setattr__(owner.module, owner.attr, read)
             leaves.append(leaf)
         self._leaves = leaves
+        self._step_masters = masters
+        self._held = hold
+        self._casts = (PerUseCasts(sources)
+                       if masters is not None and self._takes_casts
+                       else None)
 
     def drop_(self) -> None:
         """The whole leaves let go: the modules read None until the next
@@ -272,6 +347,9 @@ class ZeroSharded(nn.Module):
             if owner.cut is not None:
                 object.__setattr__(owner.module, owner.attr, None)
         self._leaves = []
+        self._step_masters = None
+        self._held = False
+        self._casts = None
 
     @contextlib.contextmanager
     def whole(self):
@@ -282,11 +360,18 @@ class ZeroSharded(nn.Module):
         finally:
             self.drop_()
 
+    def _train_forward(self, images: torch.Tensor) -> torch.Tensor:
+        if self._casts is not None:
+            return self.inner(images, casts=self._casts)
+        return rematerialized(self.inner, self.remat)(images)
+
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if self._held:
+            return self._train_forward(images)
         if self.training and torch.is_grad_enabled():
             # the leaves stay for reduce_grads_ to read their gradients
-            self.gather_()
-            return self.inner(images)
+            self.gather_(train=True)
+            return self._train_forward(images)
         with self.whole():
             return self.inner(images)
 
@@ -299,13 +384,19 @@ class ZeroSharded(nn.Module):
         all-reduced, one flat all-reduce per device, where there are
         several ranks. Each is the ranks' mean with ``mean``, else their
         sum; zeros stand where there is no gradient, so every rank reduces
-        the same tensors. Then the leaves are dropped."""
+        the same tensors. Under master weights the gradients reduced are
+        float32 and land in the masters' (the module docstring). Then the
+        leaves are dropped."""
+        masters = self._step_masters
         leaves = iter(self._leaves)
         rest = []
         for owner in self._owners:
             pieces = self._pieces_of(owner)
             if owner.cut is None:
                 p = pieces[0]
+                if masters is not None:
+                    rest += masters.master_grads([p])
+                    continue
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 rest.append(p.grad)
@@ -318,7 +409,11 @@ class ZeroSharded(nn.Module):
             if cut.over_ranks:
                 parts = [reduced_dim0_piece(p, mean) for p in parts]
             for piece, g in zip(pieces, _placed(parts, cut)):
-                piece.grad = g
+                if masters is None:
+                    piece.grad = g
+                else:
+                    masters.add_master_grad(piece, g)
+                    g = masters.master_grads([piece])[0]
                 if not cut.over_ranks:
                     rest.append(g)
         if rest and self.world > 1:
@@ -367,7 +462,11 @@ class ZeroSharded(nn.Module):
     def whole_optimizer_state(self, state: Mapping) -> dict:
         """An optimizer state dict over the pieces → the wrapped model's
         ``whole_optimizer_state`` of the whole tensors, each moment of a
-        cut parameter put together (every rank enters, in index order)."""
+        cut parameter put together (every rank enters, in index order);
+        under master weights the f32 masters too, whole."""
+        if "master" in state:
+            return {"master": self.whole_values(state["master"]),
+                    "inner": self.whole_optimizer_state(state["inner"])}
         slots = {int(k): v for k, v in state["state"].items()}
         out = {}
         for j, owner in enumerate(self._owners):
@@ -386,7 +485,11 @@ class ZeroSharded(nn.Module):
 
     def sharded_optimizer_state(self, state: Mapping) -> dict:
         """The inverse of ``whole_optimizer_state``: this rank's pieces of
-        each moment, one param group over this module's parameters."""
+        each moment, one param group over this module's parameters, and
+        under master weights of each f32 master."""
+        if "master" in state:
+            return {"master": self.slice_values(state["master"]),
+                    "inner": self.sharded_optimizer_state(state["inner"])}
         inner = self._state.sharded_optimizer_state(state)
         slots = {int(k): v for k, v in inner["state"].items()}
         out = {}

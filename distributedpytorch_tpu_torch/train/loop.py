@@ -143,6 +143,7 @@ from distributedpytorch_tpu_torch.data.dataset import (
     build_dataset,
 )
 from distributedpytorch_tpu_torch.data.loader import DataLoader, seeded_split
+from distributedpytorch_tpu_torch.dist import runtime
 from distributedpytorch_tpu_torch.evaluate import evaluate_sharded
 from distributedpytorch_tpu_torch.models import create_model
 from distributedpytorch_tpu_torch.ops.kernels import (
@@ -165,6 +166,7 @@ from distributedpytorch_tpu_torch.ops.schedule import ReduceLROnPlateau
 from distributedpytorch_tpu_torch.parallel.strategy import (
     Strategy,
     build_strategy,
+    check_card_graph,
     check_run_control,
 )
 from distributedpytorch_tpu_torch.train.steps import STACKS_CONFLICT
@@ -451,6 +453,7 @@ class Trainer:
         # device and group
         check_run_control(config, self.strategy.device,
                           self.strategy.backend)
+        check_card_graph(config, runtime.planned_world())
         self.device = self.strategy.device
         # the probe priors' rejections disengage their kernels here, before
         # the model and the steps are built
@@ -1065,6 +1068,16 @@ class Trainer:
                          "steps %s", self.strategy.rank, steps)
             return True
         return bool(flags[:, 0].any())
+
+    def release_graph(self) -> None:
+        """Drop the K-step CUDA graph and its memory pools
+        (``MultiStep.reset``; a later dispatch warms up and captures
+        again). NCCL's ``ncclCommDestroy`` waits until every graph that
+        captured a collective of the communicator is destroyed, so a
+        process that leaves its group under NCCL drops the graph first
+        (``cli.main``)."""
+        if self.multi_step is not None:
+            self.multi_step.reset()
 
     def train(self) -> dict:
         """Run the epochs; returns once every checkpoint write is on disk

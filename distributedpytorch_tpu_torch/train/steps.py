@@ -154,6 +154,8 @@ def make_accum_train_step(
     remat: bool = False,
     stats_impl: Optional[Callable] = None,
     grads_averaged_over: Optional[int] = None,
+    open_step: Optional[Callable[[], None]] = None,
+    close_step: Optional[Callable[[], None]] = None,
 ) -> Callable[[List[Batch]], torch.Tensor]:
     """One optimizer step over ``chunks`` batches with one batch's
     activations alive at a time, exact for the log-Dice loss, which does
@@ -195,6 +197,13 @@ def make_accum_train_step(
     that count, the world factor the plain step's all-reduced statistics
     give its gradients, so that the average comes out the sum over the
     ranks, and ``sum_over_ranks`` adds pass 1's statistics alone.
+
+    ``open_step()`` runs at the top of the step and ``close_step()``
+    after pass 2, before the optimizer reads the gradients: the
+    strategy's (ZeRO's one gather, whose leaves both passes run on, and
+    its one reduce-scatter of the ranks' sum, ``parallel/zero.py``).
+    Where ``close_step`` is given, it sums the gradients over the ranks
+    and ``sum_over_ranks`` adds pass 1's statistics alone.
     """
     if is_stateful_model(model):
         raise ValueError(STATEFUL_ACCUM)
@@ -214,6 +223,8 @@ def make_accum_train_step(
                 f"stack carries {len(stack)} chunks but this step was built "
                 f"for grad_accum={chunks}"
             )
+        if open_step is not None:
+            open_step()
         with torch.no_grad():
             stats = torch.zeros(4, dtype=LOSS_DTYPE,
                                 device=stack[0]["image"].device)
@@ -227,8 +238,11 @@ def make_accum_train_step(
         optimizer.zero_grad(set_to_none=True)
         for chunk in stack:
             chunk_stats(chunk).backward(ct)
+        if close_step is not None:
+            close_step()
         grads = optimizer_grads(optimizer, params)
-        if sum_over_ranks is not None and grads_averaged_over is None:
+        if (sum_over_ranks is not None and grads_averaged_over is None
+                and close_step is None):
             sum_over_ranks(grads)
         if grad_scale != 1.0:
             torch._foreach_mul_(grads, grad_scale)

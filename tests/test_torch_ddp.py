@@ -266,7 +266,7 @@ def test_strategy_matches_the_jax_ddp(scaling):
         torch.nn.Linear)
     with pytest.raises(ValueError, match="not ported yet.*ROADMAP.*1c″"):
         port_strategy.build_strategy(
-            TrainConfig(train_method="2x2x1@sp+fsdp", remat=True))
+            TrainConfig(train_method="2x2x2@fsdp", remat=True))
 
 
 # -- the sharded loss ------------------------------------------------------------
@@ -572,7 +572,7 @@ def test_cli_trains_under_torchrun_and_resumes_at_another_world(tmp_path):
 
 
 def test_cli_still_refuses_dp_and_mp_and_a_missing_card(monkeypatch):
-    """What is still to port, the run control under ZeRO over row shards,
+    """What is still to port, the run control under in-stage sharding,
     exits with the ROADMAP pointer (``-t DP``, ``-t MP``, ``-t DDP_MP``,
     ``-t SP``, ``-t DDP_SP``, ``-t TP``, ``-t FSDP``, the flat specs,
     in-stage sharding and ZeRO over row shards train now:
@@ -582,7 +582,7 @@ def test_cli_still_refuses_dp_and_mp_and_a_missing_card(monkeypatch):
     tests/test_torch_fsdp.py, tests/test_torch_mesh.py,
     tests/test_torch_in_stage.py, tests/test_torch_zero_spatial.py);
     ``-t DDP`` without a card exits naming ``--device cpu``."""
-    for method in ("2x2x1@sp+fsdp", "4x2x1@sp+fsdp"):
+    for method in ("2x2x2@fsdp", "4x2x2@fsdp"):
         with pytest.raises(SystemExit, match="not ported yet.*ROADMAP.*1c″"):
             cli.main(["-t", method, "--device", "cpu", "--remat"])
     if not torch.cuda.is_available():

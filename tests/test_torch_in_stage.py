@@ -189,7 +189,7 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     """The class each in-stage point runs as, its name, mesh (the JAX
     axes in (data, model, stage) order) and whether its checkpoint is a
     collective; ``1x1x2@fsdp`` stays the flat pipeline (ZeRO over one
-    rank is nothing); ``2x2x1@sp+fsdp`` under ``--remat`` is refused
+    rank is nothing); ``2x1x2@fsdp`` under ``--remat`` is refused
     naming item 1c″ and ``2x2x2@sp`` in JAX's words, neither joining a
     group."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
@@ -217,7 +217,7 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     assert type(flat).__mro__[2] is port_strategy.Pipeline
     with pytest.raises(ValueError, match=r"not ported yet.*item 1c″"):
         port_strategy.build_strategy(
-            port_config("unet", train_method="2x2x1@sp+fsdp", remat=True),
+            port_config("unet", train_method="2x1x2@fsdp", remat=True),
             info)
     with pytest.raises(ValueError, match="spatial.*not executable"):
         port_strategy.build_strategy(

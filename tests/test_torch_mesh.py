@@ -277,16 +277,16 @@ def test_the_pipeline_twin_takes_the_specs_batch_rule(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-#: what stays refused: the run control under ZeRO over row shards (item
+#: what stays refused: the run control under in-stage sharding (item
 #: 1c″) and a spatial model axis inside a pipeline stage (JAX's refusal)
 STILL_REFUSED = [
-    ("2x2x1@sp+fsdp", ["--steps-per-dispatch", "2"],
+    ("2x2x2@fsdp", ["--steps-per-dispatch", "2"],
      dict(steps_per_dispatch=2), r"ROADMAP\.md, Queue A, item 1c″"),
-    ("2x2x1@sp+fsdp", ["--remat"], dict(remat=True),
+    ("2x2x2@fsdp", ["--remat"], dict(remat=True),
      r"ROADMAP\.md, Queue A, item 1c″"),
-    ("2x2x1@sp+fsdp", ["--grad-accum", "2"], dict(grad_accum=2),
+    ("2x2x2@fsdp", ["--grad-accum", "2"], dict(grad_accum=2),
      r"ROADMAP\.md, Queue A, item 1c″"),
-    ("2x2x1@sp+fsdp", ["--dtype", "bf16_params"], dict(dtype="bf16_params"),
+    ("2x2x2@fsdp", ["--dtype", "bf16_params"], dict(dtype="bf16_params"),
      r"ROADMAP\.md, Queue A, item 1c″"),
     ("2x2x2@sp", [], {}, r"'spatial' model role inside a pipeline stage "
      r"is not executable.*the JAX package refuses it too")]
@@ -296,11 +296,11 @@ STILL_REFUSED = [
 def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, flag, kw,
                                                          pattern,
                                                          monkeypatch):
-    """Every spec the JAX package trains trains here too, ZeRO over row
-    shards (``DxMx1@sp+fsdp``) among them (tests/test_torch_zero_spatial
-    .py); what stays refused is refused by the strategy and by the CLI
-    before any group is joined: the K-step graph, ``--remat``,
-    ``--grad-accum`` and ``--dtype bf16_params`` under ``2x2x1@sp+fsdp``
+    """Every spec the JAX package trains trains here too, with its run
+    control at every flat point (tests/test_torch_mesh_run_control.py);
+    what stays refused is refused by the strategy and by the CLI before
+    any group is joined: the K-step graph, ``--remat``, ``--grad-accum``
+    and ``--dtype bf16_params`` under in-stage sharding (``2x2x2@fsdp``)
     naming the ROADMAP's item 1c″, and a spatial model axis inside a
     pipeline stage in the JAX package's words."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
@@ -315,26 +315,38 @@ def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, flag, kw,
 
 
 @pytest.mark.parametrize("spec", ["2x2x1", "2x2x1@fsdp"])
-@pytest.mark.parametrize("flag,kw", [
-    (["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2)),
-    (["--remat"], dict(remat=True)),
-    (["--grad-accum", "2"], dict(grad_accum=2)),
-    (["--dtype", "bf16_params"], dict(dtype="bf16_params"))])
-def test_the_run_control_of_the_new_geometries_is_refused(spec, flag, kw,
-                                                          monkeypatch):
-    """Under ``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1 the K-step graph,
-    ``--remat``, ``--grad-accum`` and ``--dtype bf16_params`` are refused
-    naming the ROADMAP's item 1c″, in the strategy and at the CLI, before
-    any group is joined; plain ``--dtype bf16`` builds."""
+@pytest.mark.parametrize("arch,flag,kw,in_stage,pattern", [
+    ("unet", ["--grad-accum", "2", "--steps-per-dispatch", "2"],
+     dict(grad_accum=2, steps_per_dispatch=2), False,
+     r"--steps-per-dispatch and --grad-accum both stack loader batches"),
+    ("milesial", ["--model", "milesial", "--grad-accum", "2"],
+     dict(grad_accum=2), False,
+     r"gradient accumulation supports stateless models only"),
+    ("unet", ["--remat"], dict(remat=True), True,
+     r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, Queue A, "
+     r"item 1c″"),
+    ("unet", ["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2),
+     True, r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, Queue "
+     r"A, item 1c″")])
+def test_the_run_control_of_the_new_geometries_is_refused(
+        spec, arch, flag, kw, in_stage, pattern, monkeypatch):
+    """The run control of ``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1 trains
+    (tests/test_torch_mesh_run_control.py); what stays refused there is
+    what every method refuses, in the JAX package's words (``--grad-accum``
+    with ``--steps-per-dispatch K > 1``, milesial's ``--grad-accum``), and
+    under their in-stage counterparts (``2x2x2``, ``2x2x2@fsdp``)
+    ``--remat`` and the K-step graph naming the ROADMAP's item 1c″, in
+    the strategy and at the CLI, before any group is joined; plain
+    ``--dtype bf16`` builds."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
-    pattern = r"is not ported yet.*ROADMAP\.md, Queue A, item 1c″"
-    cfg = port_config("unet", train_method=spec, **kw)
+    method = spec.replace("2x2x1", "2x2x2") if in_stage else spec
+    cfg = port_config(arch, train_method=method, **kw)
     with pytest.raises(ValueError, match=pattern):
         port_strategy.build_strategy(cfg, runtime.RuntimeInfo(0, 2),
-                                     [CPU, CPU])
+                                     [CPU] * (4 if in_stage else 2))
     with pytest.raises(SystemExit, match=pattern):
-        cli.main(["-t", spec, *CLI, *flag])
+        cli.main(["-t", method, *CLI, *flag])
     assert not torch.distributed.is_initialized()
     port_strategy.build_strategy(
         port_config("unet", train_method=spec, dtype="bf16"),

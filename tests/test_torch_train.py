@@ -370,9 +370,9 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 def test_cli_refuses_what_it_does_not_run(capsys):
     # a spatial model axis inside a pipeline stage (the JAX words), and
-    # the run control under ZeRO over row shards (ROADMAP item 1c″)
+    # the run control under in-stage sharding (ROADMAP item 1c″)
     for argv, said in ((["-t", "2x2x2@sp"], "not executable.*ROADMAP"),
-                       (["-t", "4x2x1@sp+fsdp", "--remat"],
+                       (["-t", "4x2x2@fsdp", "--remat"],
                         "not ported yet.*ROADMAP.*1c″")):
         with pytest.raises(SystemExit, match=said):
             cli.main(argv)

@@ -169,22 +169,24 @@ def test_each_rank_holds_the_predicted_bytes(arch, cut, kept, rank_bytes):
     (["--dtype", "bf16_params"], dict(dtype="bf16_params"))])
 def test_the_run_control_is_refused_naming_item_1c(flag, kw, monkeypatch):
     """Under ``4x2x1@sp+fsdp`` the K-step graph, ``--remat``,
-    ``--grad-accum`` and ``--dtype bf16_params`` are refused naming the
+    ``--grad-accum`` and ``--dtype bf16_params`` build ``ZeroSpatial``
+    now (tests/test_torch_mesh_run_control_dist.py trains them); under its
+    in-stage neighbour ``4x2x2@fsdp`` each is still refused naming the
     ROADMAP's item 1c″, in the strategy and at the CLI, before any group
-    is joined; plain ``--dtype bf16`` builds."""
+    is joined."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
-    spec = "4x2x1@sp+fsdp"
-    pattern = (r"is not ported yet.*DxMx1@sp\+fsdp.*ROADMAP\.md, Queue A, "
-               r"item 1c″")
     info = runtime.RuntimeInfo(0, 4)
+    strategy = port_strategy.build_strategy(
+        port_config("unet", train_method="4x2x1@sp+fsdp", **kw), info,
+        [CPU, CPU])
+    assert type(strategy) is port_strategy.ZeroSpatial
+    spec = "4x2x2@fsdp"
+    pattern = (r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, "
+               r"Queue A, item 1c″")
     with pytest.raises(ValueError, match=pattern):
         port_strategy.build_strategy(
-            port_config("unet", train_method=spec, **kw), info, [CPU, CPU])
+            port_config("unet", train_method=spec, **kw), info, [CPU] * 4)
     with pytest.raises(SystemExit, match=pattern):
         cli.main(["-t", spec, *CLI, *flag])
-    assert not torch.distributed.is_initialized()
-    port_strategy.build_strategy(
-        port_config("unet", train_method=spec, dtype="bf16"), info,
-        [CPU, CPU])
     assert not torch.distributed.is_initialized()

@@ -33,14 +33,17 @@ modules this process loaded. Scenarios:
   eval step's metrics on the first batch after the steps.
   With the config's ``steps_per_dispatch`` K > 1 the batches go through
   the strategy's multi-step in stacks of K, with its ``grad_accum`` N > 1
-  through its accumulation step in chunks of N;
+  through its accumulation step in chunks of N; with the job's ``count``
+  the steps' collectives, ZeRO gathers and reductions and recomputes
+  (``_counting``);
 * ``trainer``: ``Trainer`` under ``-t DDP`` (or the job's ``method``) for
   its epochs; the losses, the val metrics, the lr, the final state dict
   and what each rank wrote into a directory of its own; how many
   ``DistributedDataParallel`` wrappers it built and how many forwards
   they ran; and whether its K-step dispatch drives its own train step;
-* ``cli``: ``cli.main`` on every rank over the joined group (last: it
-  leaves the group);
+* ``cli``: ``cli.main`` on every rank over the joined group (it leaves
+  the group, so the ``cli`` scenarios run last; each past the first joins
+  a group of its own first);
 * ``preempt``: ``Trainer`` under ``-t DDP`` whose train step raises
   SIGTERM on the ranks and after the global steps ``job["signal"]``
   names, or adds one to a rank's step count (``job["skew"]``); what each
@@ -222,22 +225,30 @@ def run_pipeline_steps(job, rank, world):
         def run(group):
             return step(group[0]).reshape(1)
     losses, states = [], []
+    counts = _new_counts()
     for i in range(0, len(batches), size):
-        losses.append(run(batches[i:i + size]))
+        with (_counting(counts) if job.get("count")
+              else contextlib.nullcontext()):
+            losses.append(run(batches[i:i + size]))
         states.append({k: v.clone() for k, v in
                        strategy.model_state(model).items()})
     metrics = None
     if job.get("eval"):
         metrics = strategy.build_eval_step(model, kernels)(batches[0])
+    masters = list(getattr(optimizer, "master", ()))
     return {"losses": torch.cat(losses), "grads": grads, "eval": metrics,
             "states": states, "bytes": _state_bytes(model, optimizer),
             "lr": strategy.lr_for(cfg.learning_rate),
-            # whole, as the states (an FSDP master is a shard)
-            "master": [gathered(m).detach().clone()
-                       for m in getattr(optimizer, "master", ())],
+            # whole, as the states (an FSDP master is a shard, a channel
+            # slice's or a ZeRO piece's is put together)
+            "master": ([m.detach().clone() for m in
+                        model.whole_values(masters)]
+                       if masters and hasattr(model, "whole_values")
+                       else [gathered(m).detach().clone() for m in masters]),
             "global_stats": sorted({m.global_stats for m in model.modules()
                                     if isinstance(m, BatchNormAct)}),
             "devices": [str(d) for d in strategy.step_devices],
+            "counts": counts if job.get("count") else None,
             "mesh": strategy.mesh_shape(), "name": strategy.name,
             "slice_bytes": _slice_bytes(model, optimizer)}
 
@@ -245,7 +256,8 @@ def run_pipeline_steps(job, rank, world):
 def _slice_bytes(model, optimizer):
     """Under ZeRO and in-stage sharding (``parallel/zero.ZeroSharded``):
     the bytes of parameters and Adam's state this rank holds on each
-    place, a channel slice (a layer kept whole counts on slice 0), or
+    place (under master weights with each f32 master and Adam's state over
+    it), a channel slice (a layer kept whole counts on slice 0), or
     in a pipeline stage ``(stage, slice)``; how many elements of the
     wrapped model's parameters are whole between steps (none: only the
     pieces stay); in a pipeline, each stage's whole bytes
@@ -257,6 +269,8 @@ def _slice_bytes(model, optimizer):
     if not hasattr(model, "paths"):
         return None
     stage_of = getattr(model, "stage_of", None)
+    masters = dict(zip(getattr(optimizer, "params", ()),
+                       getattr(optimizer, "master", ())))
     held, kept, stages = {}, {}, {}
     for j, owner in enumerate(model._owners):
         for k, i in enumerate(owner.pieces):
@@ -266,8 +280,10 @@ def _slice_bytes(model, optimizer):
                 place = int(found.group(1)) if found else 0
             else:
                 place = (stage_of[j], k)
-            tensors = [p] + [t for t in optimizer.state[p].values()
-                             if isinstance(t, torch.Tensor) and t.dim() > 0]
+            owners = [p] + ([masters[p]] if p in masters else [])
+            tensors = owners + [t for o in owners
+                                for t in optimizer.state[o].values()
+                                if isinstance(t, torch.Tensor) and t.dim() > 0]
             nbytes = sum(t.numel() * t.element_size() for t in tensors)
             held[place] = held.get(place, 0) + nbytes
             if owner.cut is None:
@@ -303,6 +319,66 @@ def _state_bytes(model, optimizer):
         mine += sum(nbytes(local(t)) for t in tensors)
         whole += sum(nbytes(t) for t in tensors)
     return mine, whole
+
+
+def _new_counts():
+    return {"all_reduce": 0, "all_gather_into_tensor": 0,
+            "reduce_scatter_tensor": 0, "summed_dtypes": set(),
+            "gathers": 0, "reductions": 0, "recomputes": 0}
+
+
+@contextlib.contextmanager
+def _counting(counts):
+    """Within the block ``counts`` (``_new_counts``) counts the
+    collectives this process issues, by name, and the dtypes of the
+    tensors its sums over ranks (all-reduce, reduce-scatter) take; the
+    ZeRO gathers and reductions (``zero.ZeroSharded.gather_`` and
+    ``reduce_grads_``); and the recomputes (``models.recomputing``
+    entered)."""
+    import torch.distributed as dist
+
+    from distributedpytorch_tpu_torch import models
+    from distributedpytorch_tpu_torch.parallel.zero import ZeroSharded
+
+    saved = {name: getattr(dist, name) for name in (
+        "all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")}
+    methods = {"gathers": ZeroSharded.gather_,
+               "reductions": ZeroSharded.reduce_grads_}
+    recomputing = models.recomputing
+
+    def collective(name):
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            if name != "all_gather_into_tensor":
+                counts["summed_dtypes"].add(str(args[0].dtype))
+            return saved[name](*args, **kwargs)
+        return counted
+
+    def method(key):
+        def counted(self, *args, **kwargs):
+            counts[key] += 1
+            return methods[key](self, *args, **kwargs)
+        return counted
+
+    @contextlib.contextmanager
+    def counted_recomputing(module):
+        counts["recomputes"] += 1
+        with recomputing(module):
+            yield
+
+    for name in saved:
+        setattr(dist, name, collective(name))
+    ZeroSharded.gather_ = method("gathers")
+    ZeroSharded.reduce_grads_ = method("reductions")
+    models.recomputing = counted_recomputing
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+        ZeroSharded.gather_ = methods["gathers"]
+        ZeroSharded.reduce_grads_ = methods["reductions"]
+        models.recomputing = recomputing
 
 
 @contextlib.contextmanager
@@ -455,6 +531,13 @@ def run_cli(job, rank, world):
     from distributedpytorch_tpu_torch import cli
     from distributedpytorch_tpu_torch.checkpoint import load_native
 
+    if not torch.distributed.is_initialized():
+        # an earlier ``cli`` scenario left the group: a new one, over a
+        # file store of this scenario's
+        os.makedirs(job["dir"], exist_ok=True)
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(job['dir'], 'store')}",
+            rank=rank, world_size=world)
     out = os.path.join(job["dir"], f"rank{rank}")
     os.makedirs(out, exist_ok=True)
     cwd = os.getcwd()
