@@ -145,9 +145,14 @@ over ``[cuda:0] * 4``: the ranks' whole states bitwise equal after 2
 float32 UNet steps, step 1 against a world-1 step on the joint batch,
 K1 and K1-bwd once per microbatch, one bf16 milesial step's K2, K3 and
 K5, each (rank, stage, slice) place's bytes, and a ``2x2x2@fsdp``
-checkpoint resumed under singleGPU bitwise; then, the card to itself,
-the bf16 UNet's gpipe step timed against its twin's with the kernels
-each adds. The gloo ranks of ``train_ddp_gloo2``,
+checkpoint resumed under singleGPU bitwise, and each point's
+``--remat`` and ``bf16_params`` step against ``2x1x2``'s (``_rc_runs``);
+then, the card to itself, the bf16 UNet's gpipe step timed against its
+twin's with the kernels each adds, and ``1x2x2``'s run control: the
+UNet as a CUDA graph of 4 steps against its eager steps, its
+``--remat`` step against the plain one, both models' ``bf16_params``
+step against ``1x1x2``'s (``_in_stage_run_control``). The gloo ranks of
+``train_ddp_gloo2``,
 ``train_ddp_sp_gloo2`` and ``train_mesh``, correctness phases that time
 nothing, start together after ``predict`` and share the card
 (``_start_ranks``); those of ``train_in_stage`` start once they have
@@ -159,12 +164,14 @@ when any phase disagrees.
 
     python3 chip_smoke.py --cards 4
 
-runs, after the build, the training CLI in two fresh NCCL ranks of two
-cards each, as torchrun starts them, straight into one CUDA graph of 4
-steps (``fresh_rank_graphs``: the UNet under ``2x2x1@fsdp`` with
-``--dtype bf16_params``, ``2x2x1`` bf16 and ``2x2x1@sp+fsdp``
-``bf16_params``; a rank that hangs prints its threads' stacks; milesial's
-graph there refused before any group is joined); then ``-t DDP`` across four cards under NCCL, one
+runs, after the build, the training CLI in fresh processes, two NCCL
+ranks of two cards each as torchrun starts them (one process of four
+cards for ``1x2x2``), straight into one CUDA graph of 4 steps
+(``fresh_rank_graphs``: the UNet under ``2x2x1@fsdp`` with ``--dtype
+bf16_params``, ``2x2x1`` bf16 and ``2x2x1@sp+fsdp`` ``bf16_params``,
+milesial under ``2x2x1`` bf16, both models under ``1x2x2`` and
+``2x1x2@fsdp`` with ``bf16_params``; a rank that hangs prints its
+threads' stacks); then ``-t DDP`` across four cards under NCCL, one
 process per card (``ddp_cards``): the same checks as the two gloo ranks,
 the bf16 step at world 1 and 4, and a ``torchrun --nproc_per_node 4``
 launch of the training CLI; ``-t DDP_MP`` as two NCCL ranks of two cards
@@ -184,11 +191,13 @@ against ``-t DDP`` (``fsdp_cards``), ``2x2x1`` and ``2x2x1@fsdp`` as two
 NCCL ranks of two cards each (``mesh_cards``: the ranks bitwise equal,
 each card's bytes, the eager step's ms; with ``2x2x1@sp+fsdp`` in
 ``sp_cards``, each model as one CUDA graph of 4 steps against its eager
-steps and its bf16_params bytes per card, ``_rc_card_graphs``), and
-in-stage sharding
+steps and its bf16_params bytes per card, ``_rc_card_graphs``, milesial's
+``2x2x1`` graph the fresh ranks' first work), and in-stage sharding
 (``in_stage_cards``: ``1x2x2`` over the four cards against ``1x1x2`` on
 two, ``2x1x2@fsdp`` as two NCCL ranks of two cards against ``2x1x2``,
-the bf16 step timed and each card's bytes). Every one but the last two
+the bf16 step timed and each card's bytes, and each model under
+``bf16_params`` as a CUDA graph of 4 steps against its eager steps).
+Every one but the last two
 also
 runs its path as
 one CUDA graph of 4 steps against its eager steps (``dp_cards``: the
@@ -5389,25 +5398,34 @@ def _check_ranks_graph(rows: dict, what: str) -> None:
 def _graph_build(cfg, devices=None, init=None):
     """``build()`` for ``_graph_and_eager``: ``cfg``'s strategy (on
     ``devices``), the full-width model from the seed's weights (or
-    ``init``) placed by it, capturable Adam at the strategy's lr, and its
-    train step; returns ``(model, step, strategy)``."""
+    ``init``) placed by it, capturable Adam at the strategy's lr (over
+    f32 masters seeded before the parameters are rounded under
+    ``bf16_params``, as the trainer does), and its train step; returns
+    ``(model, step, strategy)``."""
     import torch
 
     from distributedpytorch_tpu_torch.models import create_model
     from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
     from distributedpytorch_tpu_torch.ops.optim import make_optimizer
+    from distributedpytorch_tpu_torch.ops.precision import (
+        cast_params_,
+        get_policy,
+    )
     from distributedpytorch_tpu_torch.parallel.strategy import build_strategy
 
     def build():
         strategy = build_strategy(cfg, devices=devices)
+        policy = get_policy(cfg)
         model = create_model(cfg, generator=torch.Generator().manual_seed(
-            SEED))
+            SEED), cast_params=False)
         if init is not None:
             model.load_state_dict(init)
         model = strategy.place_model(model)
         opt = make_optimizer(model.parameters(),
                              strategy.lr_for(cfg.learning_rate),
-                             cfg.weight_decay, capturable=True)
+                             cfg.weight_decay, policy=policy,
+                             capturable=True)
+        cast_params_(model, policy)
         return model, strategy.build_train_step(
             model, opt, get_kernel_policy(cfg.kernels)), strategy
 
@@ -8016,13 +8034,14 @@ def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
     BACKEND DIR``): joins a ``backend`` group over a file store in
     ``DIR``; its MESH_SLICES devices are ``[cuda:0, cuda:0]`` under gloo
     (``train_mesh``: both ranks on the one card) and ``cuda:2R``,
-    ``cuda:2R+1`` under nccl (``--cards``). Runs ``_mesh_spec_run`` for
-    each of MESH_SPECS; under gloo then their run control beside each
-    other (``_rc_runs``) and a short run of the training CLI's own
-    functions under ``-t 2x2x1@fsdp`` on the same devices (one step and
-    one eval batch a rank), whose checkpoint rank 0 writes; under nccl
-    their graphs and bf16_params bytes (``_rc_card_graphs``). Writes
-    ``DIR/result_R.pt``."""
+    ``cuda:2R+1`` under nccl (``--cards``). Under nccl first their graphs
+    and bf16_params bytes (``_rc_card_graphs``: milesial's ``2x2x1``
+    graph of 4 steps is the fresh rank's first work). Runs
+    ``_mesh_spec_run`` for each of MESH_SPECS; under gloo then their run
+    control beside each other (``_rc_runs``) and a short run of the
+    training CLI's own functions under ``-t 2x2x1@fsdp`` on the same
+    devices (one step and one eval batch a rank), whose checkpoint rank 0
+    writes. Writes ``DIR/result_R.pt``."""
     import torch
 
     from distributedpytorch_tpu_torch.dist import runtime
@@ -8043,16 +8062,17 @@ def mesh_rank(rank: int, world: int, backend: str, job: str) -> int:
                     for k, v in batch.items()}
 
         result = {"devices": [str(d) for d in devices]}
+        if nccl:
+            # first, in a fresh rank: milesial's graph of 4 steps at 2x2x1
+            # after no eager work but its own
+            result["rc_graphs"] = _rc_card_graphs(MESH_SPECS, rank, world,
+                                                  devices)
         with _deterministic_cudnn():
             for spec in MESH_SPECS:
                 result[spec] = _mesh_spec_run(spec, rank, world, devices,
                                               place, nccl)
-        if nccl:
-            result["rc_graphs"] = _rc_card_graphs(MESH_SPECS, rank, world,
-                                                  devices)
-        else:
-            result["run_control"] = _rc_runs("mesh", rank, world, devices)
         if not nccl:
+            result["run_control"] = _rc_runs("mesh", rank, world, devices)
             w, h = IMAGE_WH
             run = os.path.join(job, f"cli_rank{rank}")
             argv = ["-t", "2x2x1@fsdp", "--synthetic", "8", "-v", "50",
@@ -8181,6 +8201,24 @@ RC_RUNS = {
         "accum_unet": ("2x2x1@sp", "unet", "f32", {"grad_accum": RC_ACCUM}),
         "zero_accum_unet": ("2x2x1@sp+fsdp", "unet", "f32",
                             {"grad_accum": RC_ACCUM})}}
+# in-stage sharding (train_in_stage's gloo ranks, each on [cuda:0] * 4;
+# gpipe): the flat twin 2x1x2 plain and under bf16_params, each point's
+# --remat step against the twin's plain step and its bf16_params step
+# against the twin's, the UNet in float32 at every point, milesial bf16 at
+# 2x2x2@fsdp
+RC_RUNS["in_stage"] = {
+    "plain_unet": ("2x1x2", "unet", "f32", {}),
+    "plain_milesial": ("2x1x2", "milesial", "bf16", {}),
+    "bf16p_unet": ("2x1x2", "unet", "bf16_params", {}),
+    "bf16p_milesial": ("2x1x2", "milesial", "bf16_params", {}),
+    **{f"{kind}_{spec}_unet": (spec, "unet", dtype, kw)
+       for spec in ("2x2x2", "2x1x2@fsdp", "2x2x2@fsdp")
+       for kind, dtype, kw in (("remat", "f32", {"remat": True}),
+                               ("bf16p", "bf16_params", {}))},
+    "remat_2x2x2@fsdp_milesial": ("2x2x2@fsdp", "milesial", "bf16",
+                                  {"remat": True}),
+    "bf16p_2x2x2@fsdp_milesial": ("2x2x2@fsdp", "milesial", "bf16_params",
+                                  {})}
 # (run, against): bitwise the loss, the whole state after Adam and the
 # whole f32 masters; the launches equal but for milesial's recompute, whose
 # K2 runs twice
@@ -8189,7 +8227,12 @@ RC_PAIRS = (("remat_unet", "plain_unet"), ("zero_remat_unet", "plain_unet"),
             ("zero_remat_milesial", "plain_milesial"),
             ("zero_bf16p_unet", "bf16p_unet"),
             ("zero_bf16p_milesial", "bf16p_milesial"),
-            ("zero_accum_unet", "accum_unet"))
+            ("zero_accum_unet", "accum_unet"),
+            # each in-stage point's run (FLAG_SPEC_ARCH) against the
+            # twin's of its model and flag, a remat run against the plain
+            *((label, label.split("_")[0].replace("remat", "plain") + "_"
+               + label.split("_")[2])
+              for label in RC_RUNS["in_stage"] if label.count("_") == 2))
 # each rank's bytes of bf16 parameters, f32 masters and Adam's two f32
 # moments over them under 2x2x1@sp+fsdp at D = 2, all on its first card:
 # 14 B a value of the cut values halved and of the 1-channel head
@@ -8295,15 +8338,17 @@ def _check_rc_ranks(ranks, kind: str) -> tuple:
     """The run control's rows of ``kind``'s ranks (``_rc_runs``): each run
     of RC_PAIRS bitwise its reference on every rank (loss, whole state
     after Adam, whole masters), the ranks equal, each run's launches
-    ``_rc_expected``, a remat run's step memory below its reference's;
+    ``_rc_expected`` (in-stage sharding's its twin's, milesial's K2 twice
+    under ``--remat``), a remat run's step memory below its reference's;
     under ``2x2x1@sp+fsdp --dtype bf16_params`` each rank's bytes
     RC_BF16P_RANK_BYTES on its first card. Returns the rows and the
     disagreements."""
     rows, problems = {}, []
     rcs = [r["run_control"] for r in ranks]
     for label in RC_RUNS[kind]:
-        want = _rc_expected(label, kind)
         got = [rc[label] for rc in rcs]
+        # in-stage sharding launches as its twin (the pairs below)
+        want = {} if kind == "in_stage" else _rc_expected(label, kind)
         if any(g["launches"].get(n) != c for g in got
                for n, c in want.items()):
             problems.append(f"{kind} {label}: launched "
@@ -8328,6 +8373,14 @@ def _check_rc_ranks(ranks, kind: str) -> tuple:
         rows[run] = row
         if not row["bitwise"]:
             problems.append(f"{kind} {run} off {ref}: {row}")
+        twice = "remat" in run and run.endswith("milesial")
+        if kind == "in_stage" and any(
+                c != b["launches"].get(n, 0) * (2 if twice and n == "bn_act"
+                                                else 1)
+                for g in (rc[run] for rc in rcs)
+                for n, c in g["launches"].items()):
+            problems.append(f"{kind} {run} launched {row['launches']}, "
+                            f"its twin {row['ref_launches']}")
         if "remat" in run and not row["step_bytes"] < row["ref_step_bytes"]:
             problems.append(f"{kind} {run}: step memory {row['step_bytes']}"
                             f" not below {row['ref_step_bytes']}")
@@ -8431,7 +8484,7 @@ def _rc_card_graphs(specs, rank: int, world: int, devices) -> dict:
     Adam's state on each card (``_rc_run``)."""
     out = {}
     for spec in specs:
-        for arch in ("unet", "milesial"):
+        for arch in ("milesial", "unet"):
             def graph(spec=spec, arch=arch):
                 return _rank_graph_run(
                     _strategy_config(spec, arch, steps_per_dispatch=GS_K),
@@ -8800,7 +8853,10 @@ def _in_stage_cards_run(rank: int, world: int, devices, place) -> dict:
     each of IN_STAGE_CARD_SPECS over the rank's two cards at TRAIN_BATCH
     rows, timed in turns (twin, ZeRO, ZeRO, twin), the host's ms to
     enqueue a step, step 1's loss and a digest of the state after it, and
-    each card's bytes."""
+    each card's bytes; then each spec and model under ``bf16_params`` as
+    one CUDA graph of GS_K steps against its eager steps
+    (``_rank_graph_run``: bitwise, eager and graph step / host /
+    ``cudaGraphLaunch`` ms)."""
     import torch
 
     out = {"ms": {}, "param_adam_bytes_by_card": {}, "step1": {}}
@@ -8825,6 +8881,18 @@ def _in_stage_cards_run(rank: int, world: int, devices, place) -> dict:
                       for spec in IN_STAGE_CARD_SPECS}
     del steps
     torch.cuda.empty_cache()
+    out["graphs"] = {}
+    for spec in IN_STAGE_CARD_SPECS:
+        for arch in ("unet", "milesial"):
+            def graph(spec=spec, arch=arch):
+                return _rank_graph_run(
+                    _strategy_config(spec, arch, dtype="bf16_params",
+                                     steps_per_dispatch=GS_K),
+                    rank, world, devices, 2)
+
+            out["graphs"][f"{spec}_{arch}"] = (
+                _with_wgrad_backend(graph) if arch == "milesial"
+                else graph())
     return out
 
 
@@ -8833,9 +8901,11 @@ def in_stage_rank(rank: int, world: int, backend: str, job: str) -> int:
     WORLD BACKEND DIR``): joins a ``backend`` group over a file store in
     ``DIR``. Under gloo (``train_in_stage``: both ranks on the one card,
     each over ``[cuda:0] * 4``) runs ``_in_stage_spec_run`` for each of
-    IN_STAGE_SPECS, then a short run of the training CLI's own functions
-    under ``-t 2x2x2@fsdp`` on the same devices (one step and one eval
-    batch a rank), whose checkpoint rank 0 writes; under nccl
+    IN_STAGE_SPECS, the run control's runs (``_rc_runs("in_stage")``:
+    each point's ``--remat`` and ``bf16_params`` step beside its twin's),
+    then a short run of the training CLI's own functions under ``-t
+    2x2x2@fsdp`` on the same devices (one step and one eval batch a
+    rank), whose checkpoint rank 0 writes; under nccl
     (``--cards``: ``cuda:2R``, ``cuda:2R+1``) ``_in_stage_cards_run``.
     Writes ``DIR/result_R.pt``."""
     import torch
@@ -8866,6 +8936,8 @@ def in_stage_rank(rank: int, world: int, backend: str, job: str) -> int:
                     result[spec] = _in_stage_spec_run(spec, rank, world,
                                                       devices, place)
         if not nccl:
+            result["run_control"] = _rc_runs("in_stage", rank, world,
+                                             devices)
             w, h = IMAGE_WH
             run = os.path.join(job, f"cli_rank{rank}")
             argv = ["-t", "2x2x2@fsdp", "--synthetic", "8", "-v", "50",
@@ -8936,6 +9008,46 @@ def _in_stage_ranks_report(ranks, world: int) -> tuple:
     return out, problems
 
 
+def _in_stage_run_control(dev) -> dict:
+    """The run control of ``1x2x2`` on ``[dev] * 4`` with the card to
+    itself: the bf16 UNet as one CUDA graph of GS_K steps against its
+    eager steps (``_graph_run``: bitwise, a replay's K1 / K1-bwd, eager
+    and graph ms), its ``--remat`` step against the plain step
+    (``_remat_run``: bitwise, the step's memory above its start as a
+    share of the plain step's), and a ``bf16_params`` step of each model
+    against its ``1x1x2`` twin's (``_rc_run``: the loss, the whole state
+    and the whole masters bitwise, the launches equal), cuDNN
+    deterministic."""
+    per_step = {"loss_stats": MP_MICROBATCHES,
+                "loss_stats_bwd": MP_MICROBATCHES}
+    out = {"graph": _graph_run(
+        _strategy_config("1x2x2", "unet"), [dev] * 4,
+        {k: GS_K * v for k, v in per_step.items()}),
+        "remat": _remat_run("1x2x2", "unet", [dev] * 4, per_step),
+        "bf16_params": {}}
+    problems = []
+    with _deterministic_cudnn():
+        for arch in ("unet", "milesial"):
+            def run(arch=arch):
+                return {spec: _rc_run(spec, arch, "bf16_params", 0, 1,
+                                      [dev] * n)
+                        for spec, n in (("1x1x2", 2), ("1x2x2", 4))}
+
+            got = _with_wgrad_backend(run) if arch == "milesial" else run()
+            a, b = got["1x2x2"], got["1x1x2"]
+            row = {"loss": a["loss"], "twin_loss": b["loss"],
+                   "launches": a["launches"],
+                   "twin_launches": b["launches"],
+                   "bitwise": all(a[k] == b[k] for k in (
+                       "loss", "state_digest", "master_digest"))}
+            out["bf16_params"][arch] = row
+            if not row["bitwise"] or a["launches"] != b["launches"]:
+                problems.append(f"1x2x2 {arch} bf16_params off 1x1x2: "
+                                f"{row}")
+    out["problems"] = problems
+    return out
+
+
 def phase_train_in_stage(tmp: str, started=None) -> dict:
     """In-stage sharding on the one card: ``-t 1x2x2`` against its
     ``1x1x2`` twin (``_in_stage_twins``) while ``2x2x2`` and
@@ -8943,9 +9055,12 @@ def phase_train_in_stage(tmp: str, started=None) -> dict:
     * 4`` (``in_stage_rank``, two processes this script spawns, or
     ``started`` already), checked by ``_in_stage_ranks_report``; then,
     with the card to itself, the bf16 UNet's step timed against the
-    twin's (``_in_stage_timing``), and rank 0's ``2x2x2@fsdp`` checkpoint
-    from the training CLI resumed under singleGPU bitwise. Prints its
-    wall time."""
+    twin's (``_in_stage_timing``) and ``1x2x2``'s run control
+    (``_in_stage_run_control``), and rank 0's ``2x2x2@fsdp`` checkpoint
+    from the training CLI resumed under singleGPU bitwise. The ranks
+    also run each point's ``--remat`` and ``bf16_params`` step against
+    its twin's (``_check_rc_ranks(ranks, "in_stage")``). Prints its wall
+    time."""
     import torch
 
     t0 = time.perf_counter()
@@ -8969,9 +9084,13 @@ def phase_train_in_stage(tmp: str, started=None) -> dict:
     # timed once the ranks have left the card
     out["timing"] = _in_stage_timing({"1x1x2": [dev] * 2,
                                       "1x2x2": [dev] * 4}, dev)
+    out["run_control_1x2x2"] = _in_stage_run_control(dev)
+    problems += out["run_control_1x2x2"].pop("problems")
     report, rank_problems = _in_stage_ranks_report(ranks, 2)
     out["gloo2"] = {"wall_s": wall_s, **report}
     problems += rank_problems
+    out["run_control"], rc_problems = _check_rc_ranks(ranks, "in_stage")
+    problems += rc_problems
     cli = ranks[0]["cli"]
     out["cli"] = {"result": cli["result"], "wrote": cli["wrote"],
                   "rank1_wrote": ranks[1]["cli"]["wrote"]}
@@ -9005,9 +9124,13 @@ def phase_in_stage_cards(tmp: str) -> dict:
     """In-stage sharding across cards (``--cards 4``): ``1x2x2`` with
     stage s on cuda:s and its slices on cuda:s and cuda:2+s against
     ``1x1x2`` on cuda:0 and cuda:1 (one bf16 UNet step bitwise, the step
-    timed in turns, each card's bytes), then ``2x1x2@fsdp`` as two NCCL
-    ranks of two cards each against ``2x1x2`` (``in_stage_rank``: the
-    step timed in turns, each card's bytes, step 1 equal)."""
+    timed in turns, each card's bytes, and each model under
+    ``bf16_params`` as one CUDA graph of GS_K steps bitwise its eager
+    steps, ``_graph_run``), then ``2x1x2@fsdp`` as two NCCL ranks of two
+    cards each against ``2x1x2`` (``in_stage_rank``: the step timed in
+    turns, each card's bytes, step 1 equal, each model's ``bf16_params``
+    graph bitwise its eager steps on both ranks, the ranks' losses
+    equal)."""
     import torch
 
     t0 = time.perf_counter()
@@ -9033,6 +9156,23 @@ def phase_in_stage_cards(tmp: str) -> dict:
             problems.append(f"1x2x2 over 4 cards: {first}")
         out["one_process"] = _in_stage_timing(
             {"1x1x2": cards[:2], "1x2x2": cards}, cards[0])
+    # each model under bf16_params as one CUDA graph of GS_K steps against
+    # its eager steps, 1x2x2 over the four cards beside 1x1x2 on two
+    want = {"loss_stats": GS_K * MP_MICROBATCHES,
+            "loss_stats_bwd": GS_K * MP_MICROBATCHES}
+    out["one_process_graphs"] = {}
+    for arch in ("unet", "milesial"):
+        if arch == "milesial":
+            want = {**want, "bn_act": GS_K * 18 * MP_MICROBATCHES,
+                    "bn_act_bwd": GS_K * 18 * MP_MICROBATCHES,
+                    "wgrad_9tap": GS_K * 13 * MP_MICROBATCHES}
+        for spec, devices in (("1x1x2", cards[:2]), ("1x2x2", cards)):
+            row = _graph_run(_strategy_config(spec, arch,
+                                              dtype="bf16_params"),
+                             devices, want)
+            out["one_process_graphs"][f"{spec}_{arch}"] = {
+                key: row[key] for key in ("eager", "graph", "graph_speedup",
+                                          "graph_launches_per_replay")}
     ranks, wall_s = _run_ddp_ranks(os.path.join(tmp, "in_stage_cards"), 2,
                                    "nccl", flag="--in-stage-rank")
     out["nccl2"] = {"wall_s": wall_s,
@@ -9042,6 +9182,12 @@ def phase_in_stage_cards(tmp: str) -> dict:
         step1 = r["cards"]["step1"]
         if step1["2x1x2@fsdp"]["loss"] != step1["2x1x2"]["loss"]:
             problems.append(f"2x1x2@fsdp step 1 {step1}")
+    for key in ranks[0]["cards"]["graphs"]:
+        g = [r["cards"]["graphs"][key] for r in ranks]
+        if not (all(x["bitwise_equal"] and x["guards_intact"] for x in g)
+                and all(x["losses"] == g[0]["losses"] for x in g)):
+            problems.append(f"{key} graph across NCCL ranks: "
+                            f"{[(x['bitwise_equal'], x['losses']) for x in g]}")
     out["problems"] = problems
     out["phase_wall_s"] = time.perf_counter() - t0
     emit(out)
@@ -9091,30 +9237,37 @@ def _finish(device: dict) -> None:
 
 
 # -- fresh ranks straight into the K-step graph (--cards 4's fresh_rank_graphs) --
-# the training CLI as torchrun starts it: two new processes of two cards
-# each, whose first dispatch is the eager warm-up of the graph of
-# FRESH_K steps they capture in the next; the README's command first
+# the training CLI as torchrun starts it: fresh processes of two cards each
+# (one of four cards for 1x2x2), whose first dispatch is the eager warm-up
+# of the graph of FRESH_K steps they capture in the next: (spec, model,
+# dtype, processes), the README's command first, then milesial's graph
+# across the two ranks' cards (its capture crashed or hung while autograd
+# ran each card's backward on a thread of its own: ROADMAP.md Trap 14)
+# and in-stage sharding under bf16_params
 FRESH_RUNS = (
-    ("2x2x1@fsdp", "unet", "bf16_params"),
-    ("2x2x1", "unet", "bf16"),
-    ("2x2x1@sp+fsdp", "unet", "bf16_params"),
+    ("2x2x1@fsdp", "unet", "bf16_params", 2),
+    ("2x2x1", "unet", "bf16", 2),
+    ("2x2x1@sp+fsdp", "unet", "bf16_params", 2),
+    ("2x2x1", "milesial", "bf16", 2),
+    ("1x2x2", "unet", "bf16_params", 1),
+    ("1x2x2", "milesial", "bf16_params", 1),
+    ("2x1x2@fsdp", "unet", "bf16_params", 2),
+    ("2x1x2@fsdp", "milesial", "bf16_params", 2),
 )
-# milesial's graph there hung in the capture: the CLI refuses it
-# (parallel/strategy.check_card_graph) before either rank joins a group
-FRESH_REFUSED = ("2x2x1", "milesial", "bf16")
-FRESH_REFUSAL = "hung in the capture"
 FRESH_K = 4
 FRESH_TIMEOUT_S = 120.0
 
 
-def _fresh_cli_ranks(job: str, argv, timeout_s: float) -> dict:
-    """Two processes of ``python -m distributedpytorch_tpu_torch argv`` in
-    ``job`` with the environment torchrun gives its ranks (RANK,
-    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT on this host),
-    NCCL's warnings on. A rank still running after ``timeout_s`` gets
-    SIGABRT, so that faulthandler prints every thread's Python stack into
-    its log, and is then killed. Their exit codes, the wall seconds,
-    whether they hung, and each log's tail."""
+def _fresh_cli_ranks(job: str, argv, timeout_s: float,
+                     nprocs: int = 2) -> dict:
+    """``nprocs`` processes of ``python -m distributedpytorch_tpu_torch
+    argv`` in ``job``, with the environment torchrun gives its ranks
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT on this
+    host) where there are several, NCCL's warnings on. A rank still
+    running after ``timeout_s`` gets SIGABRT, so that faulthandler prints
+    every thread's Python stack into its log, and is then killed. Their
+    exit codes, the wall seconds, whether they hung, and each log's
+    tail."""
     import signal
 
     os.makedirs(job)
@@ -9122,11 +9275,15 @@ def _fresh_cli_ranks(job: str, argv, timeout_s: float) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     procs, logs = [], []
     t0 = time.perf_counter()
-    for rank in range(2):
-        env = dict(os.environ, PYTHONPATH=here, RANK=str(rank),
-                   LOCAL_RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), NCCL_DEBUG="WARN")
+    base = {key: v for key, v in os.environ.items()
+            if key not in TORCHRUN_ENV}
+    for rank in range(nprocs):
+        env = dict(base, PYTHONPATH=here, NCCL_DEBUG="WARN")
+        if nprocs > 1:
+            env.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE=str(nprocs),
+                       LOCAL_WORLD_SIZE=str(nprocs),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         logs.append(os.path.join(job, f"log_{rank}.txt"))
         with open(logs[-1], "w") as log:
             procs.append(subprocess.Popen(
@@ -9157,40 +9314,36 @@ def _fresh_cli_ranks(job: str, argv, timeout_s: float) -> dict:
 
 
 def phase_fresh_rank_graphs(tmp: str) -> dict:
-    """Each of FRESH_RUNS through the training CLI in two fresh NCCL
-    ranks of two cards each (``_fresh_cli_ranks``): ``-t SPEC
-    --steps-per-dispatch FRESH_K`` over two epochs of one dispatch a
-    rank, the first the eager warm-up and the second captured and
-    replayed, with no collective before it in either process. Fails
-    unless every run ends within FRESH_TIMEOUT_S with both ranks' exit
-    codes 0 and rank 0 writes the checkpoint and logs the second epoch
-    with a finite validation loss; a run that hangs leaves its ranks'
-    stacks in the phase's line. Then FRESH_REFUSED the same way, which
-    both ranks must refuse, naming why, and leave."""
+    """Each of FRESH_RUNS through the training CLI in fresh processes
+    (``_fresh_cli_ranks``: two NCCL ranks of two cards each, or one
+    process of four cards): ``-t SPEC --steps-per-dispatch FRESH_K`` over
+    two epochs of one dispatch or more a rank, the first the eager
+    warm-up and the next captured and replayed, with no collective before
+    it in either process. Fails unless every run ends within
+    FRESH_TIMEOUT_S with every exit code 0 and rank 0 writes the
+    checkpoint and logs the second epoch with a finite validation loss; a
+    run that hangs leaves its ranks' stacks in the phase's line."""
     import math
     import re
 
     t0 = time.perf_counter()
     w, h = IMAGE_WH
-
-    def argv_of(spec, arch, dtype):
-        return ["-t", spec, "--model", arch, "--dtype", dtype,
+    runs, problems = [], []
+    for spec, arch, dtype, nprocs in FRESH_RUNS:
+        argv = ["-t", spec, "--model", arch, "--dtype", dtype,
                 "--steps-per-dispatch", str(FRESH_K), "--synthetic", "40",
                 "-b", "4", "-e", "2", "--image-size", str(w), str(h),
                 "--num-workers", "0"]
-
-    runs, problems = [], []
-    for spec, arch, dtype in FRESH_RUNS:
-        argv = argv_of(spec, arch, dtype)
         job = os.path.join(tmp, f"fresh_{len(runs)}")
-        run = {"argv": argv, **_fresh_cli_ranks(job, argv, FRESH_TIMEOUT_S)}
+        run = {"argv": argv, **_fresh_cli_ranks(job, argv, FRESH_TIMEOUT_S,
+                                                nprocs)}
         # rank 0 logs the epochs
         losses = [float(v) for v in re.findall(
             r"Epoch 2/2: val loss (\S+),", run["tails"][0])]
         run["val_loss_epoch_2"] = losses
         run["wrote_checkpoint"] = os.path.isfile(
             os.path.join(job, "checkpoints", f"{spec}.pt"))
-        ok = (not run["hung"] and run["rcs"] == [0, 0]
+        ok = (not run["hung"] and run["rcs"] == [0] * nprocs
               and run["wrote_checkpoint"] and bool(losses)
               and math.isfinite(losses[-1]))
         if ok:
@@ -9200,15 +9353,8 @@ def phase_fresh_rank_graphs(tmp: str) -> dict:
         runs.append(run)
         if run["hung"]:
             break  # its stacks are the finding; the next would wait too
-    argv = argv_of(*FRESH_REFUSED)
-    refused = {"argv": argv, **_fresh_cli_ranks(
-        os.path.join(tmp, "fresh_refused"), argv, FRESH_TIMEOUT_S)}
-    if (refused["hung"] or 0 in refused["rcs"]
-            or not all(FRESH_REFUSAL in t for t in refused["tails"])):
-        problems.append(f"{' '.join(FRESH_REFUSED)} not refused")
     out = {"phase": "fresh_rank_graphs", "k": FRESH_K, "runs": runs,
-           "refused": refused, "problems": problems,
-           "wall_s": time.perf_counter() - t0}
+           "problems": problems, "wall_s": time.perf_counter() - t0}
     emit(out)
     check(not problems, f"fresh_rank_graphs: {problems}")
     return out

@@ -383,12 +383,8 @@ def configure_logging(config, to_stderr: bool = True
 
 
 def main(argv=None) -> int:
-    from distributedpytorch_tpu_torch.dist.runtime import (
-        planned_world,
-        shutdown,
-    )
+    from distributedpytorch_tpu_torch.dist.runtime import shutdown
     from distributedpytorch_tpu_torch.parallel.strategy import (
-        check_card_graph,
         check_run_control,
         check_train_method,
     )
@@ -400,7 +396,6 @@ def main(argv=None) -> int:
         check_train_method(args.train_method)
         check_config(to_config(args))
         check_run_control(to_config(args))
-        check_card_graph(to_config(args), planned_world())
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
     try:

@@ -35,6 +35,17 @@ on the port's tensors and held by ``parallel/zero.ZeroSharded``:
   each as the ranks' mean under gpipe and their sum under 1f1b (the
   pipeline's gradient factor per schedule). Eval gathers at its top and
   drops at its end.
+* **The run control** (JAX ``_build_stage_fns(..., remat)``,
+  ``build_multi_train_step`` and ``policy.cast_grads`` around
+  ``_pipeline_raw_step``) runs on the leaves the step's top gathered,
+  as ``parallel/pipeline.py`` says: ``--remat`` recomputes each stage on
+  them, with no gather and no collective in the backward; under
+  ``--dtype bf16_params`` they are float32, each gpipe microbatch
+  computing with casts of its own, and their gradients go to the masters
+  of the pieces; ``--steps-per-dispatch K`` captures K steps over every
+  place (``strategy.InStage.step_devices``), each gather, reduction and
+  drop inside. ``--grad-accum`` is refused, as every pipeline refuses it
+  ("raise --microbatches").
 """
 
 from __future__ import annotations

@@ -84,6 +84,14 @@ under gpipe.
   before any tick, and its end cuts each gradient back to its pieces and
   reduces them over the data ranks (the mean or the sum above) before
   Adam steps the pieces; eval gathers at its top and drops at its end.
+  The run control runs on those leaves: ``remat`` recomputes each stage
+  on them, so no recompute gathers or meets the ranks (1f1b's phase A
+  and every phase-B unit read the same leaves); under master weights
+  they are float32 (``ZeroSharded.train_with``), gpipe's microbatches
+  each compute with casts of their own (``ZeroSharded.casts_of``, built
+  anew by each step) and 1f1b's units add at the leaves in float32, and
+  their gradients go to the masters of the pieces; a K-step graph
+  captures the gathers, reductions and drops with the steps.
 
 * **A CUDA graph of K steps** (``train/steps.MultiStep``) captures either
   schedule, on one card or across cards: the copies between cards run on
@@ -403,23 +411,22 @@ def make_pipeline_train_step(
     params = list(model.parameters())
     running = _running_stats(model) if data_parallel else []
     sharded = model if isinstance(model, ZeroSharded) else None
+    if sharded is not None:
+        # under master weights a step's leaves are float32
+        sharded.train_with(optimizer)
     runs = [rematerialized(stage, remat) for stage in stages]
-    if schedule == "gpipe":
-        # one backward over every microbatch: under master weights each
-        # microbatch's stage uses its own cast of the f32 masters
-        gpipe_runs = [
-            rematerialized(stage if casts is None else PerUse(stage, casts),
-                           remat)
-            for stage, casts in ((st, per_use_casts(optimizer, st))
-                                 for st in stages)]
+    # under master weights, a stage's casts of its f32 sources: the
+    # masters, or a ZeroSharded model's leaves of the step
+    casts_of = (sharded.casts_of if sharded is not None
+                else lambda stage: per_use_casts(optimizer, stage))
 
     def open_step() -> List[torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if sharded is not None:
             # every stage's leaves whole on its device, before any tick
-            # (JAX _gather_params)
-            sharded.gather_()
+            # and outside any recomputed region (JAX _gather_params)
+            sharded.gather_(train=True)
         return [r.clone() for r in running]
 
     def close_step(before: List[torch.Tensor], mean: bool) -> None:
@@ -436,6 +443,12 @@ def make_pipeline_train_step(
     def gpipe_step(batch: Batch) -> torch.Tensor:
         before = open_step()
         inputs, target, rows = _split(batch, num_mb, last)
+        # one backward over every microbatch: under master weights each
+        # microbatch's stage computes with its own casts of the sources
+        gpipe_runs = [
+            rematerialized(st if casts is None else PerUse(st, casts),
+                           remat)
+            for st, casts in ((st, casts_of(st)) for st in stages)]
         per_mb = fill_drain(gpipe_runs, inputs,
                             lambda m, y: stats_fn(y, target[rows(m)]), live)
         stats = _summed(per_mb)

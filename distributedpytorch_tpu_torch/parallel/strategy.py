@@ -63,13 +63,16 @@ recompute normalizes with the BatchNorm moments the replicas met on in
 its forward, a DDP or FSDP rank's with the global moments it kept, and
 a shard's convs take the halo rows they kept: none meets again; a ZeRO
 model (``DxMx1@fsdp``, ``DxMx1@sp+fsdp``) gathers once and recomputes
-on its leaves (``parallel/zero.py``). ``--steps-per-dispatch K > 1``
+on its leaves (``parallel/zero.py``), and under in-stage sharding each
+stage recomputes on the leaves the pipeline gathered once.
+``--steps-per-dispatch K > 1``
 (one CUDA graph of K steps, ``build_multi_train_step``, from the
 trainer's own train step) runs
 under every strategy, DP's replica and SP's shard threads, TP's slices
-and FSDP's all-gathers and reduce-scatters included, and is refused
-under a gloo group on a card. ``--grad-accum`` runs outside the
-pipelines for the stateless UNet; under SP and DDP_SP each chunk's
+and FSDP's all-gathers and reduce-scatters and in-stage sharding's
+over every place included, and is refused under a gloo group on a
+card. ``--grad-accum`` runs outside the pipelines (in-stage sharding
+too) for the stateless UNet; under SP and DDP_SP each chunk's
 statistics are the shards' sums (``accum_stats``), under FSDP each
 rank's own (``backward_averages_over``), under ZeRO one gather and
 one reduce-scatter of the ranks' sum. What stays refused, with the
@@ -83,8 +86,8 @@ reduced as the f32 master gradients; under FSDP each block's bf16
 gradients are reduce-scattered in ``REDUCE_DTYPE`` and rounded to bf16
 once, and each master is a shard; under ZeRO (``parallel/zero.py``)
 float32 leaves are reduce-scattered into the masters' gradients, with no
-rounding after. In-stage sharding's run control is refused (ROADMAP.md,
-Queue A, item 1c″). Where one backward adds several uses
+rounding after, under in-stage sharding too. Where one backward adds
+several uses
 of a parameter (gpipe's microbatches, DP's replicas, SP's shards) each
 use computes
 with its own cast of the f32 master (``ops/precision.PerUseCasts``), so
@@ -583,6 +586,11 @@ def _allreduce_master_grads(optimizer, bucket):
     return fut
 
 
+#: the JAX package's refusal of ``--grad-accum`` under a pipeline
+PIPELINE_ACCUM = ("pipeline strategies already microbatch inside the "
+                  "schedule — raise --microbatches instead of --grad-accum")
+
+
 class Pipeline(Strategy):
     """Reference ``-t MP`` (unet_model.py:14-53): an S-stage microbatched
     pipeline in one process (``parallel/pipeline.py``). Stage s runs on
@@ -643,10 +651,7 @@ class Pipeline(Strategy):
             data_parallel=self.data_parallel, remat=cfg.remat)
 
     def build_accum_train_step(self, model, optimizer, kernels) -> Callable:
-        raise ValueError(
-            "pipeline strategies already microbatch inside the "
-            "schedule — raise --microbatches instead of --grad-accum"
-        )
+        raise ValueError(PIPELINE_ACCUM)
 
     def build_eval_step(self, model, kernels) -> Callable:
         return make_pipeline_eval_step(model, self.stages,
@@ -1280,9 +1285,9 @@ class GenericMesh:
     index, M·S repeats of it). The run control is that of the class the
     spec runs as: under ``DxMx1`` the run control of ``-t TP`` on each
     rank with DDP_SP's mean over the ranks, under ``DxMx1@fsdp`` and
-    ``DxMx1@sp+fsdp`` ``zero.ZeroSharded``'s (its module docstring);
-    under in-stage sharding ``check_run_control`` refuses it
-    (ROADMAP.md, Queue A, item 1c″)."""
+    ``DxMx1@sp+fsdp`` ``zero.ZeroSharded``'s (its module docstring),
+    and under in-stage sharding the pipeline's on the leaves its
+    ``open_step`` gathered (``InStage``)."""
 
     @property
     def mesh_config(self) -> MeshConfig:
@@ -1484,9 +1489,17 @@ class InStage(ShardedState):
     ``topology.mesh`` lists the axes in that order. A checkpoint holds
     the whole tensors under the reference names (``ShardedState``),
     gathered on every rank under ``@fsdp`` (``gathers_state``), and rank 0
-    writes it; a resume cuts each place's pieces again. The run control
-    is refused here (``check_run_control``, ROADMAP.md, Queue A, item
-    1c″)."""
+    writes it; a resume cuts each place's pieces again.
+
+    The run control is the pipeline's, on the leaves its ``open_step``
+    gathered (``parallel/pipeline.py``): ``--remat`` recomputes each
+    stage on them, with no gather and no collective in the backward;
+    ``--dtype bf16_params`` makes them float32, gpipe's microbatches each
+    computing with casts of their own, and sends their gradients to the
+    masters of the pieces; ``--steps-per-dispatch K`` captures K steps
+    over every place (``step_devices``), the gathers and reductions
+    inside. ``--grad-accum`` is refused, in the JAX pipeline's words
+    (``check_run_control``)."""
 
     def __init__(self, config, info: Optional[runtime.RuntimeInfo] = None,
                  devices: Optional[Sequence[torch.device]] = None):
@@ -1500,6 +1513,12 @@ class InStage(ShardedState):
     def gathers_state(self) -> bool:
         cfg = self.mesh_config
         return cfg.data > 1 and "fsdp" in cfg.params
+
+    @property
+    def step_devices(self) -> List[torch.device]:
+        """Every place, the stage devices first: a K-step graph streams
+        and pools each card a piece lies on."""
+        return list(self.places)
 
     def place_model(self, model: torch.nn.Module) -> torch.nn.Module:
         """The stages on their devices, then each stage's parameters cut
@@ -1653,12 +1672,11 @@ def check_run_control(config, device: Optional[torch.device] = None,
     ``--grad-accum`` together with ``--steps-per-dispatch K > 1`` and
     ``--grad-accum`` of milesial, whose BatchNorm statistics do not add up
     over chunks, each refused with the JAX package's words; under
-    in-stage sharding (``in_stage.in_stage_config``)
-    ``--steps-per-dispatch K > 1``, ``--remat``, ``--grad-accum`` and
-    ``--dtype bf16_params``, not ported yet (ROADMAP.md, Queue A, item
-    1c″); once the strategy knows its ``device`` and its group's
-    ``backend``, ``--steps-per-dispatch K > 1`` under gloo on a card. All
-    but the last raise before any group is joined."""
+    in-stage sharding (``in_stage.in_stage_config``) ``--grad-accum``, in
+    the JAX pipeline's words (``PIPELINE_ACCUM``); once the strategy
+    knows its ``device`` and its group's ``backend``,
+    ``--steps-per-dispatch K > 1`` under gloo on a card. All but the last
+    raise before any group is joined."""
     method = config.train_method
     k = int(config.steps_per_dispatch)
     grad_accum = int(config.grad_accum)
@@ -1667,19 +1685,9 @@ def check_run_control(config, device: Optional[torch.device] = None,
     if grad_accum > 1 and getattr(config, "model_arch", "unet") == "milesial":
         raise ValueError(STATEFUL_ACCUM)
     mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
-    if mesh is not None and in_stage_config(mesh) is not None:
-        flags = [flag for flag, on in (
-            (f"--steps-per-dispatch {k}", k > 1),
-            ("--remat", bool(config.remat)),
-            (f"--grad-accum {grad_accum}", grad_accum > 1),
-            ("--dtype bf16_params", get_policy(config).master_weights))
-            if on]
-        if flags:
-            raise ValueError(
-                f"{' and '.join(flags)} under -t {method} (in-stage "
-                f"sharding) is not ported yet: the run control of in-stage "
-                f"sharding is still to port (ROADMAP.md, Queue A, item "
-                f"1c″)")
+    if (grad_accum > 1 and mesh is not None
+            and in_stage_config(mesh) is not None):
+        raise ValueError(PIPELINE_ACCUM)
     if (k > 1 and backend == "gloo" and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -1688,30 +1696,6 @@ def check_run_control(config, device: Optional[torch.device] = None,
             f"host, which a CUDA graph of K steps cannot capture — use "
             f"the NCCL group torchrun makes on cards (ROADMAP.md, "
             f"Queue A)")
-
-
-def check_card_graph(config, world: int) -> None:
-    """The training CLI's and the trainer's one limit past
-    ``check_run_control``: milesial's ``--steps-per-dispatch K > 1``
-    under ``DxMx1``, ``DxMx1@fsdp`` or ``DxMx1@sp+fsdp`` across ``world``
-    > 1 ranks on cards, refused. From fresh NCCL ranks of the training
-    CLI its graph hung in the capture (ROADMAP.md, Queue C); the same
-    graphs hold bitwise where ``chip_smoke.py``'s ranks build the
-    strategies themselves, which this does not refuse. The CLI checks it
-    before any group is joined (``runtime.planned_world``)."""
-    method = config.train_method
-    mesh = parse_mesh_spec(method) if is_mesh_spec(method) else None
-    flat = (mesh is not None and mesh.stage == 1 and mesh.data > 1
-            and mesh.model > 1
-            and (mesh.model_role == "channel" or "fsdp" in mesh.params))
-    if (flat and int(config.steps_per_dispatch) > 1 and world > 1
-            and getattr(config, "model_arch", "unet") == "milesial"
-            and torch.device(config.device or "cuda").type == "cuda"):
-        raise ValueError(
-            f"--steps-per-dispatch {config.steps_per_dispatch} of milesial "
-            f"under -t {method} across {world} ranks on cards is refused: "
-            f"from fresh NCCL ranks its graph of K steps hung in the "
-            f"capture (ROADMAP.md, Queue C) — run K = 1 there, or the UNet")
 
 
 STRATEGIES = {cls.name: cls for cls in (

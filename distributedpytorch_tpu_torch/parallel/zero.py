@@ -48,15 +48,18 @@ so under NCCL each card meets the card in the same place on the other
 ranks (``dist/collectives.sum_over_ranks_``).
 
 The run control of a train step over ``ZeroSharded`` (``-t DxMx1@fsdp``
-and ``-t DxMx1@sp+fsdp``):
+and ``-t DxMx1@sp+fsdp``; under in-stage sharding the pipeline's
+``open_step`` gathers and its ``close_step`` reduces, as
+``parallel/pipeline.py`` says):
 
 * ``--remat`` (``remat``): the forward gathers once, outside any
   recomputed region, and then recomputes the wrapped model segment by
   segment on those leaves (``models.Rematerialized``; a
-  ``spatial.RowSharded`` recomputes its shards itself). A region around
-  the whole forward would gather again in the backward, a collective
-  there, and its new leaves would take gradients ``reduce_grads_`` never
-  reads;
+  ``spatial.RowSharded`` recomputes its shards itself; a pipeline
+  recomputes each stage on the leaves its ``open_step`` gathered). A
+  region around the whole forward would gather again in the backward, a
+  collective there, and its new leaves would take gradients
+  ``reduce_grads_`` never reads;
 * ``--grad-accum``: ``gather_(hold=True)`` at the top of the
   accumulation step; both passes' forwards run on those leaves, so the
   chunks' gradients add up in the leaves' ``.grad``, and one
@@ -68,7 +71,8 @@ and ``-t DxMx1@sp+fsdp``):
   pieces widened, and a module reads its cast to bf16, so each leaf's
   gradient is the widening of the bf16 one; a wrapper's replicas (the
   row shards) each compute with their own cast (``Replicated``'s
-  forward takes the step's ``precision.PerUseCasts``),
+  forward takes the step's ``precision.PerUseCasts``), and so do
+  gpipe's microbatches of a pipeline stage (``casts_of``),
   so their uses add in float32, as ``precision.PerUseCasts`` adds them
   at the masters. ``reduce_grads_`` reduce-scatters that float32
   gradient and gives it to the piece's master gradient, with no rounding
@@ -261,6 +265,9 @@ class ZeroSharded(nn.Module):
         # casts of a step's float32 leaves, which its forward takes
         self._takes_casts = isinstance(inner, Replicated)
         self._casts: Optional[PerUseCasts] = None
+        # under master weights, each tensor a train step's modules read →
+        # its float32 source (a leaf, or a whole parameter's master)
+        self._sources: Optional[Dict[torch.Tensor, torch.Tensor]] = None
         self.world, self.rank = ((dist.get_world_size(), dist.get_rank())
                                  if dist.is_initialized() else (1, 0))
         self.inner = inner
@@ -336,6 +343,7 @@ class ZeroSharded(nn.Module):
         self._leaves = leaves
         self._step_masters = masters
         self._held = hold
+        self._sources = sources if masters is not None else None
         self._casts = (PerUseCasts(sources)
                        if masters is not None and self._takes_casts
                        else None)
@@ -349,7 +357,24 @@ class ZeroSharded(nn.Module):
         self._leaves = []
         self._step_masters = None
         self._held = False
+        self._sources = None
         self._casts = None
+
+    def casts_of(self, module: nn.Module) -> Optional[PerUseCasts]:
+        """Under master weights, in a train step: ``PerUseCasts`` of what
+        ``module`` (a part of the wrapped model, a pipeline stage) reads,
+        by its names in ``module``, each the cast of its float32 source
+        (a cut parameter's leaf, a whole one's master). Each use of
+        ``module`` through ``torch.func.functional_call`` then computes
+        with casts of its own, so the uses' gradients add in float32 at
+        the sources (gpipe's microbatches). None otherwise."""
+        if self._sources is None:
+            return None
+        names = {m: name for name, m in module.named_modules()}
+        named = [((names[o.module] + "." if names[o.module] else "")
+                  + o.attr, getattr(o.module, o.attr))
+                 for o in self._owners if o.module in names]
+        return PerUseCasts(self._sources, named)
 
     @contextlib.contextmanager
     def whole(self):

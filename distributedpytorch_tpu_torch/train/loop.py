@@ -143,7 +143,6 @@ from distributedpytorch_tpu_torch.data.dataset import (
     build_dataset,
 )
 from distributedpytorch_tpu_torch.data.loader import DataLoader, seeded_split
-from distributedpytorch_tpu_torch.dist import runtime
 from distributedpytorch_tpu_torch.evaluate import evaluate_sharded
 from distributedpytorch_tpu_torch.models import create_model
 from distributedpytorch_tpu_torch.ops.kernels import (
@@ -166,7 +165,6 @@ from distributedpytorch_tpu_torch.ops.schedule import ReduceLROnPlateau
 from distributedpytorch_tpu_torch.parallel.strategy import (
     Strategy,
     build_strategy,
-    check_card_graph,
     check_run_control,
 )
 from distributedpytorch_tpu_torch.train.steps import STACKS_CONFLICT
@@ -453,7 +451,6 @@ class Trainer:
         # device and group
         check_run_control(config, self.strategy.device,
                           self.strategy.backend)
-        check_card_graph(config, runtime.planned_world())
         self.device = self.strategy.device
         # the probe priors' rejections disengage their kernels here, before
         # the model and the steps are built

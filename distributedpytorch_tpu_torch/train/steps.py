@@ -286,12 +286,20 @@ class MultiStep:
     only, by the allocating stream's capture: a replica thread's on the
     capturing stream go there too); every other
     card's go to a ``torch.cuda.MemPool`` of its own for the capture,
-    from any thread (autograd runs each card's backward on a thread of
-    its own), and the pool lives as long as the graph. Otherwise blocks
-    the capture freed there would go back to the card's cache, eager
-    work (the tail's steps, eval) would take them, and the next replay
-    would write into them. A capture that fails raises: nothing falls
-    back to eager steps. The kernel wrappers count what they launch
+    from any thread (a DP replica's), and the pool lives as long as the
+    graph. Otherwise blocks the capture freed there would go back to the
+    card's cache, eager work (the tail's steps, eval) would take them,
+    and the next replay would write into them. The warm-up and the
+    capture run the backward on their own thread (``torch.autograd``'s
+    ``set_multithreading_enabled(False)``), where autograd would run
+    each card's part on a thread of that card: a thread that issued an
+    NCCL collective into the capture while another launched work into it
+    crashed the capture or hung it against the other ranks (milesial's
+    BatchNorm meetings across two cards a rank, ROADMAP.md Trap 14), and
+    the warm-up makes this thread's cuBLAS and cuDNN handles of every
+    card, which a capture cannot make; the steps outside the graph keep
+    a thread per card. A capture that fails raises: nothing falls back
+    to eager steps. The kernel wrappers count what they launch
     (``ops.kernels.LAUNCHES``): the warm-up's kernels, and the
     capture's, which go into the graph once; a replay runs the graph's
     kernels without a wrapper, and counts nothing (``chip_smoke.py``
@@ -345,6 +353,9 @@ class MultiStep:
             s.wait_stream(current[d])
         with contextlib.ExitStack() as stack:
             self._own_streams(stack)
+            # the capture's thread, which makes its handles here
+            stack.enter_context(torch.autograd.set_multithreading_enabled(
+                False))
             losses = self._run(stacked)
         for d, s in self._streams.items():
             current[d].wait_stream(s)
@@ -364,6 +375,9 @@ class MultiStep:
         capturing = self._streams[self.device]
         with contextlib.ExitStack() as stack:
             self._own_streams(stack)
+            # the backward on this thread (module docstring of MultiStep)
+            stack.enter_context(torch.autograd.set_multithreading_enabled(
+                False))
             stack.enter_context(torch.cuda.graph(
                 graph, stream=capturing, capture_error_mode="thread_local"))
             for d in others:
@@ -415,8 +429,8 @@ def _indexed(device) -> torch.device:
 @contextlib.contextmanager
 def _allocating_to(pool: "torch.cuda.MemPool", device: torch.device):
     """Every allocation on ``device``, from any thread, from ``pool``
-    (``torch.cuda.use_mem_pool`` routes the calling thread's only, and a
-    card's backward runs on autograd's thread for that card)."""
+    (``torch.cuda.use_mem_pool`` routes the calling thread's only, and
+    DP's replicas run on threads of their own)."""
     index = torch.device(device).index
     torch._C._cuda_beginAllocateToPool(index, pool.id)
     try:

@@ -5,7 +5,8 @@ engine's streams, masks and bucket graphs (replay against the eager
 forward, two replays of one bucket in flight, int8 bytes on the card,
 quantization on the card against the host), UNet and milesial train
 steps under both kernel policies, the DDP loss and step at world 1 under
-NCCL, the DDP_MP pipeline's seams at world 1, SP's K-step graph and
+NCCL, the DDP_MP pipeline's seams at world 1, the K-step graph's capture
+on one thread, SP's K-step graph and
 ``--remat`` on repeated devices, the kernel probes and a
 priors file's effect, the profiler window's trace of the loss kernels
 (eager and in a CUDA graph), and a ``.ckpt`` round trip resumed on the
@@ -920,6 +921,45 @@ def test_k_step_graph_equals_eager_steps_bitwise(cuda_device, monkeypatch):
     assert sum(bool(re.search(r"\bstats_bwd_kernel\b", n))
                for n in names) == 3
     assert kernels.LAUNCHES["loss_stats"] == 6
+
+
+def test_the_capture_runs_the_backward_on_its_own_thread(cuda_device):
+    """The K-step graph's warm-up and capture run the backward on the
+    calling thread: autograd's thread per card would issue a card's work
+    (NCCL collectives among it) beside another card's, which crashed or
+    hung the capture across ranks (ROADMAP.md, Trap 14), and the warm-up
+    makes the handles the capture then uses. A step outside the graph
+    runs its card's backward on autograd's thread for the card."""
+    from distributedpytorch_tpu_torch.train.steps import MultiStep
+
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            seen.append(threading.get_ident())
+            return grad
+
+    weight = torch.ones(4, device=cuda_device, requires_grad=True)
+
+    def step(batch):
+        loss = Probe.apply(weight * batch["image"]).sum()
+        loss.backward()
+        weight.grad = None
+        return loss.detach()
+
+    stack = {"image": torch.ones(2, 4, device=cuda_device)}
+    step({"image": stack["image"][0]})
+    assert len(seen) == 1 and seen[0] != threading.get_ident()
+    seen.clear()
+    multi = MultiStep(step, 2, cuda_device)
+    multi(stack)  # the eager warm-up
+    multi(stack)  # the capture, then a replay
+    assert seen == [threading.get_ident()] * 4
 
 
 def test_set_learning_rate_between_replays_changes_the_graphs_lr(

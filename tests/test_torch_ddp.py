@@ -264,9 +264,9 @@ def test_strategy_matches_the_jax_ddp(scaling):
     assert single.data_shard() == ShardSpec(0, 1)
     assert single.wrap_model(torch.nn.Linear(1, 1)).__class__ is (
         torch.nn.Linear)
-    with pytest.raises(ValueError, match="not ported yet.*ROADMAP.*1c″"):
+    with pytest.raises(ValueError, match="raise --microbatches instead"):
         port_strategy.build_strategy(
-            TrainConfig(train_method="2x2x2@fsdp", remat=True))
+            TrainConfig(train_method="2x2x2@fsdp", grad_accum=2))
 
 
 # -- the sharded loss ------------------------------------------------------------
@@ -572,19 +572,20 @@ def test_cli_trains_under_torchrun_and_resumes_at_another_world(tmp_path):
 
 
 def test_cli_still_refuses_dp_and_mp_and_a_missing_card(monkeypatch):
-    """What is still to port, the run control under in-stage sharding,
-    exits with the ROADMAP pointer (``-t DP``, ``-t MP``, ``-t DDP_MP``,
+    """What a pipeline refuses, ``--grad-accum`` under in-stage sharding,
+    exits in the JAX pipeline's words (``-t DP``, ``-t MP``, ``-t DDP_MP``,
     ``-t SP``, ``-t DDP_SP``, ``-t TP``, ``-t FSDP``, the flat specs,
     in-stage sharding and ZeRO over row shards train now:
     tests/test_torch_dp.py, tests/test_torch_pipeline.py,
     tests/test_torch_ddp_mp.py, tests/test_torch_spatial.py,
     tests/test_torch_ddp_sp.py, tests/test_torch_tp.py,
     tests/test_torch_fsdp.py, tests/test_torch_mesh.py,
-    tests/test_torch_in_stage.py, tests/test_torch_zero_spatial.py);
-    ``-t DDP`` without a card exits naming ``--device cpu``."""
+    tests/test_torch_in_stage.py, tests/test_torch_zero_spatial.py, and
+    their run control, tests/test_torch_in_stage_run_control.py among
+    them); ``-t DDP`` without a card exits naming ``--device cpu``."""
     for method in ("2x2x2@fsdp", "4x2x2@fsdp"):
-        with pytest.raises(SystemExit, match="not ported yet.*ROADMAP.*1c″"):
-            cli.main(["-t", method, "--device", "cpu", "--remat"])
+        with pytest.raises(SystemExit, match="raise --microbatches instead"):
+            cli.main(["-t", method, "--device", "cpu", "--grad-accum", "2"])
     if not torch.cuda.is_available():
         root = logging.getLogger()
         before = list(root.handlers)

@@ -9,6 +9,7 @@ group is joined. The data ranks (``2x2x2``, ``2x1x2@fsdp``,
 ``2x2x2@fsdp``) run in tests/test_torch_in_stage_dist.py."""
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,10 @@ from distributedpytorch_tpu_torch.ops.kernels import get_kernel_policy
 from distributedpytorch_tpu_torch.parallel import in_stage, mesh
 from distributedpytorch_tpu_torch.parallel import strategy as port_strategy
 from distributedpytorch_tpu_torch.parallel.zero import ZeroSharded
+from distributedpytorch_tpu_torch.train.steps import (
+    STACKS_CONFLICT,
+    STATEFUL_ACCUM,
+)
 from torch_parallel_parity import (
     CPU,
     H,
@@ -189,9 +194,9 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     """The class each in-stage point runs as, its name, mesh (the JAX
     axes in (data, model, stage) order) and whether its checkpoint is a
     collective; ``1x1x2@fsdp`` stays the flat pipeline (ZeRO over one
-    rank is nothing); ``2x1x2@fsdp`` under ``--remat`` is refused
-    naming item 1c″ and ``2x2x2@sp`` in JAX's words, neither joining a
-    group."""
+    rank is nothing); ``2x1x2@fsdp`` builds under ``--remat``, and
+    under ``--grad-accum`` is refused in the JAX pipeline's words, and
+    ``2x2x2@sp`` in JAX's words, none joining a group."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     info = runtime.RuntimeInfo(0, 2)
@@ -215,9 +220,14 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
     flat = port_strategy.build_strategy(
         port_config("unet", train_method="1x1x2@fsdp"), None, [CPU, CPU])
     assert type(flat).__mro__[2] is port_strategy.Pipeline
-    with pytest.raises(ValueError, match=r"not ported yet.*item 1c″"):
+    remat = port_strategy.build_strategy(
+        port_config("unet", train_method="2x1x2@fsdp", remat=True,
+                    batch_size=2), info, [CPU] * 2)
+    assert type(remat) is port_strategy.InStageHybridPipeline
+    with pytest.raises(ValueError,
+                       match="raise --microbatches instead of --grad-accum"):
         port_strategy.build_strategy(
-            port_config("unet", train_method="2x1x2@fsdp", remat=True),
+            port_config("unet", train_method="2x1x2@fsdp", grad_accum=2),
             info)
     with pytest.raises(ValueError, match="spatial.*not executable"):
         port_strategy.build_strategy(
@@ -227,26 +237,51 @@ def test_the_in_stage_specs_and_what_stays_refused(monkeypatch):
 
 @pytest.mark.parametrize("spec", ["1x2x2", "2x2x2", "2x1x2@fsdp",
                                   "2x2x2@fsdp"])
-@pytest.mark.parametrize("flag,kw", [
-    (["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2)),
-    (["--remat"], dict(remat=True)),
-    (["--grad-accum", "2"], dict(grad_accum=2)),
-    (["--dtype", "bf16_params"], dict(dtype="bf16_params"))])
-def test_the_run_control_of_in_stage_sharding_is_refused(spec, flag, kw,
-                                                         monkeypatch):
-    """Under in-stage sharding the K-step graph, ``--remat``,
-    ``--grad-accum`` and ``--dtype bf16_params`` are refused naming the
-    ROADMAP's item 1c″, in the strategy and at the CLI, before any group
-    is joined."""
+@pytest.mark.parametrize("flag,kw,beside,beside_kw,said", [
+    (["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2),
+     ["--grad-accum", "2"], dict(grad_accum=2), STACKS_CONFLICT),
+    (["--remat"], dict(remat=True),
+     ["--model", "milesial", "--grad-accum", "2"],
+     dict(model_arch="milesial", grad_accum=2), STATEFUL_ACCUM),
+    (["--grad-accum", "2"], dict(grad_accum=2), [], {},
+     port_strategy.PIPELINE_ACCUM),
+    (["--dtype", "bf16_params"], dict(dtype="bf16_params"),
+     ["--steps-per-dispatch", "2", "--grad-accum", "2"],
+     dict(steps_per_dispatch=2, grad_accum=2), STACKS_CONFLICT)])
+def test_the_run_control_of_in_stage_sharding_is_refused(
+        spec, flag, kw, beside, beside_kw, said, monkeypatch):
+    """Under in-stage sharding the K-step graph, ``--remat`` and ``--dtype
+    bf16_params`` build their point's class
+    (tests/test_torch_in_stage_run_control.py trains them); what stays
+    refused is refused in the JAX package's words, in the strategy and at
+    the CLI, before any group is joined: ``--grad-accum``, which every
+    pipeline refuses ("raise --microbatches"), and beside each lifted
+    flag what every method refuses (``--grad-accum`` with K > 1,
+    milesial's ``--grad-accum``); and over a gloo group on a card the
+    K-step graph."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
-    pattern = r"\(in-stage sharding\) is not ported yet.*item 1c″"
-    cfg = port_config("unet", train_method=spec, batch_size=2, **kw)
-    with pytest.raises(ValueError, match=pattern):
-        port_strategy.build_strategy(cfg, runtime.RuntimeInfo(0, 2),
-                                     [CPU] * 4)
-    with pytest.raises(SystemExit, match=pattern):
-        cli.main(["-t", spec, *CLI, *flag])
+    info = runtime.RuntimeInfo(0, 2) if spec.startswith("2") else None
+    if "grad_accum" not in kw:
+        strategy = port_strategy.build_strategy(
+            port_config("unet", train_method=spec, batch_size=2, **kw),
+            info, [CPU] * 4)
+        pattern = mesh.parse_mesh_spec(spec)
+        assert strategy.name == spec
+        assert strategy.step_devices == [CPU] * (pattern.model
+                                                 * pattern.stage)
+    cfg = port_config("unet", train_method=spec, batch_size=2,
+                      **{**kw, **beside_kw})
+    with pytest.raises(ValueError, match="^" + re.escape(said[:40])):
+        port_strategy.build_strategy(cfg, info, [CPU] * 4)
+    with pytest.raises(SystemExit, match=re.escape(said[:40])):
+        cli.main(["-t", spec, *CLI, *flag, *beside])
+    with pytest.raises(ValueError, match="over a gloo group on cuda:0"):
+        port_strategy.check_run_control(
+            port_config("unet", train_method=spec, steps_per_dispatch=2,
+                        **{k: v for k, v in kw.items()
+                           if k not in ("grad_accum", "steps_per_dispatch")}),
+            torch.device("cuda", 0), "gloo")
     assert not torch.distributed.is_initialized()
 
 

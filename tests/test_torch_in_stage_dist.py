@@ -202,7 +202,10 @@ def test_in_stage_step_is_bitwise_its_flat_twin(ranks, spec, schedule,
         assert list(new["mesh"].items()) == [
             ("data", 2), *((("model", 2),) if spec.startswith("2x2")
                            else ()), ("stage", 2)]
-        assert new["devices"] == twin["devices"] == ["cpu", "cpu"]
+        # the step's devices: the twin's stages, the point's every place
+        assert twin["devices"] == ["cpu", "cpu"]
+        assert new["devices"] == ["cpu"] * (4 if spec.startswith("2x2")
+                                            else 2)
         assert torch.equal(new["losses"], twin["losses"])
         assert list(new["grads"]) == list(twin["grads"])
         for name, g in twin["grads"].items():

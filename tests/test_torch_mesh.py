@@ -277,17 +277,22 @@ def test_the_pipeline_twin_takes_the_specs_batch_rule(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-#: what stays refused: the run control under in-stage sharding (item
-#: 1c″) and a spatial model axis inside a pipeline stage (JAX's refusal)
+#: what stays refused: under in-stage sharding ``--grad-accum`` (the JAX
+#: pipeline's words) and what every method refuses beside its lifted run
+#: control, and a spatial model axis inside a pipeline stage (JAX's
+#: refusal)
 STILL_REFUSED = [
-    ("2x2x2@fsdp", ["--steps-per-dispatch", "2"],
-     dict(steps_per_dispatch=2), r"ROADMAP\.md, Queue A, item 1c″"),
-    ("2x2x2@fsdp", ["--remat"], dict(remat=True),
-     r"ROADMAP\.md, Queue A, item 1c″"),
+    ("2x2x2@fsdp", ["--steps-per-dispatch", "2", "--grad-accum", "2"],
+     dict(steps_per_dispatch=2, grad_accum=2),
+     r"--steps-per-dispatch and --grad-accum both stack loader batches"),
+    ("2x2x2@fsdp", ["--remat", "--model", "milesial", "--grad-accum", "2"],
+     dict(remat=True, model_arch="milesial", grad_accum=2),
+     r"gradient accumulation supports stateless models only"),
     ("2x2x2@fsdp", ["--grad-accum", "2"], dict(grad_accum=2),
-     r"ROADMAP\.md, Queue A, item 1c″"),
-    ("2x2x2@fsdp", ["--dtype", "bf16_params"], dict(dtype="bf16_params"),
-     r"ROADMAP\.md, Queue A, item 1c″"),
+     r"raise --microbatches instead of --grad-accum"),
+    ("2x2x2@fsdp", ["--dtype", "bf16_params", "--grad-accum", "2"],
+     dict(dtype="bf16_params", grad_accum=2),
+     r"raise --microbatches instead of --grad-accum"),
     ("2x2x2@sp", [], {}, r"'spatial' model role inside a pipeline stage "
      r"is not executable.*the JAX package refuses it too")]
 
@@ -297,12 +302,14 @@ def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, flag, kw,
                                                          pattern,
                                                          monkeypatch):
     """Every spec the JAX package trains trains here too, with its run
-    control at every flat point (tests/test_torch_mesh_run_control.py);
-    what stays refused is refused by the strategy and by the CLI before
-    any group is joined: the K-step graph, ``--remat``, ``--grad-accum``
-    and ``--dtype bf16_params`` under in-stage sharding (``2x2x2@fsdp``)
-    naming the ROADMAP's item 1c″, and a spatial model axis inside a
-    pipeline stage in the JAX package's words."""
+    control (tests/test_torch_mesh_run_control.py,
+    tests/test_torch_in_stage_run_control.py); what stays refused is
+    refused by the strategy and by the CLI before any group is joined:
+    under in-stage sharding (``2x2x2@fsdp``) ``--grad-accum`` in the JAX
+    pipeline's words, alone and beside ``--dtype bf16_params``, and
+    beside the K-step graph and ``--remat`` what every method refuses;
+    and a spatial model axis inside a pipeline stage in the JAX
+    package's words."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     cfg = port_config("unet", train_method=spec, **kw)
@@ -322,21 +329,22 @@ def test_in_stage_sharding_is_refused_naming_the_roadmap(spec, flag, kw,
     ("milesial", ["--model", "milesial", "--grad-accum", "2"],
      dict(grad_accum=2), False,
      r"gradient accumulation supports stateless models only"),
-    ("unet", ["--remat"], dict(remat=True), True,
-     r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, Queue A, "
-     r"item 1c″"),
-    ("unet", ["--steps-per-dispatch", "2"], dict(steps_per_dispatch=2),
-     True, r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, Queue "
-     r"A, item 1c″")])
+    ("unet", ["--remat", "--grad-accum", "2"],
+     dict(remat=True, grad_accum=2), True,
+     r"raise --microbatches instead of --grad-accum"),
+    ("unet", ["--steps-per-dispatch", "2", "--grad-accum", "2"],
+     dict(steps_per_dispatch=2, grad_accum=2), True,
+     r"--steps-per-dispatch and --grad-accum both stack loader batches")])
 def test_the_run_control_of_the_new_geometries_is_refused(
         spec, arch, flag, kw, in_stage, pattern, monkeypatch):
     """The run control of ``DxMx1`` and ``DxMx1@fsdp`` with D, M > 1 trains
     (tests/test_torch_mesh_run_control.py); what stays refused there is
     what every method refuses, in the JAX package's words (``--grad-accum``
     with ``--steps-per-dispatch K > 1``, milesial's ``--grad-accum``), and
-    under their in-stage counterparts (``2x2x2``, ``2x2x2@fsdp``)
-    ``--remat`` and the K-step graph naming the ROADMAP's item 1c″, in
-    the strategy and at the CLI, before any group is joined; plain
+    under their in-stage counterparts (``2x2x2``, ``2x2x2@fsdp``), where
+    ``--remat`` and the K-step graph build, ``--grad-accum`` beside them
+    in the JAX pipeline's words or as every method refuses it with K > 1,
+    in the strategy and at the CLI, before any group is joined; plain
     ``--dtype bf16`` builds."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
@@ -351,6 +359,13 @@ def test_the_run_control_of_the_new_geometries_is_refused(
     port_strategy.build_strategy(
         port_config("unet", train_method=spec, dtype="bf16"),
         runtime.RuntimeInfo(0, 2), [CPU, CPU])
+    if in_stage:
+        # the lifted flag alone builds its in-stage class
+        lifted = {k: v for k, v in kw.items() if k != "grad_accum"}
+        strategy = port_strategy.build_strategy(
+            port_config(arch, train_method=method, **lifted),
+            runtime.RuntimeInfo(0, 2), [CPU] * 4)
+        assert type(strategy) is port_strategy.InStageHybridPipeline
 
 
 # -- the manifest -------------------------------------------------------------------

@@ -366,10 +366,11 @@ def test_cli_config_mapping_and_server_build(checkpoint):
 
 def test_training_entry_point_is_not_ported():
     """Training is the default entry point now and takes every spec the
-    JAX package trains; the run control under in-stage sharding is what
-    is not ported, and the exit says where to look."""
+    JAX package trains with its run control; what a pipeline refuses,
+    ``--grad-accum`` under in-stage sharding, exits before any group is
+    joined, and the exit says where to look."""
     from distributedpytorch_tpu_torch.__main__ import main
 
     for method in ("2x2x2@fsdp", "4x2x2@fsdp"):
-        with pytest.raises(SystemExit, match="not ported.*ROADMAP.*1c″"):
-            main(["-t", method, "--steps-per-dispatch", "2"])
+        with pytest.raises(SystemExit, match="raise --microbatches"):
+            main(["-t", method, "--grad-accum", "2"])

@@ -369,11 +369,11 @@ def test_cli_trains_on_the_cpu_and_writes_its_artifacts(tmp_path,
 
 
 def test_cli_refuses_what_it_does_not_run(capsys):
-    # a spatial model axis inside a pipeline stage (the JAX words), and
-    # the run control under in-stage sharding (ROADMAP item 1c″)
+    # a spatial model axis inside a pipeline stage, and --grad-accum under
+    # in-stage sharding (the JAX words)
     for argv, said in ((["-t", "2x2x2@sp"], "not executable.*ROADMAP"),
-                       (["-t", "4x2x2@fsdp", "--remat"],
-                        "not ported yet.*ROADMAP.*1c″")):
+                       (["-t", "4x2x2@fsdp", "--grad-accum", "2"],
+                        "raise --microbatches instead of --grad-accum")):
         with pytest.raises(SystemExit, match=said):
             cli.main(argv)
     with pytest.raises(SystemExit):

@@ -170,10 +170,11 @@ def test_each_rank_holds_the_predicted_bytes(arch, cut, kept, rank_bytes):
 def test_the_run_control_is_refused_naming_item_1c(flag, kw, monkeypatch):
     """Under ``4x2x1@sp+fsdp`` the K-step graph, ``--remat``,
     ``--grad-accum`` and ``--dtype bf16_params`` build ``ZeroSpatial``
-    now (tests/test_torch_mesh_run_control_dist.py trains them); under its
-    in-stage neighbour ``4x2x2@fsdp`` each is still refused naming the
-    ROADMAP's item 1c″, in the strategy and at the CLI, before any group
-    is joined."""
+    (tests/test_torch_mesh_run_control_dist.py trains them); under its
+    in-stage neighbour ``4x2x2@fsdp`` (item 1c″, closed) all but
+    ``--grad-accum`` build its in-stage class too, and ``--grad-accum``
+    is refused in the JAX pipeline's words, in the strategy and at the
+    CLI, before any group is joined."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     info = runtime.RuntimeInfo(0, 4)
@@ -182,11 +183,14 @@ def test_the_run_control_is_refused_naming_item_1c(flag, kw, monkeypatch):
         [CPU, CPU])
     assert type(strategy) is port_strategy.ZeroSpatial
     spec = "4x2x2@fsdp"
-    pattern = (r"\(in-stage sharding\) is not ported yet.*ROADMAP\.md, "
-               r"Queue A, item 1c″")
-    with pytest.raises(ValueError, match=pattern):
-        port_strategy.build_strategy(
-            port_config("unet", train_method=spec, **kw), info, [CPU] * 4)
-    with pytest.raises(SystemExit, match=pattern):
-        cli.main(["-t", spec, *CLI, *flag])
+    cfg = port_config("unet", train_method=spec, **kw)
+    if "grad_accum" not in kw:
+        strategy = port_strategy.build_strategy(cfg, info, [CPU] * 4)
+        assert type(strategy) is port_strategy.InStageHybridPipeline
+    else:
+        pattern = "raise --microbatches instead of --grad-accum"
+        with pytest.raises(ValueError, match=pattern):
+            port_strategy.build_strategy(cfg, info, [CPU] * 4)
+        with pytest.raises(SystemExit, match=pattern):
+            cli.main(["-t", spec, *CLI, *flag])
     assert not torch.distributed.is_initialized()
